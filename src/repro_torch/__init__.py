@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of the repro package, for NVIDIA Hopper (H100).
+
+It sits beside ``repro`` (the JAX reference) and imports nothing of it.
+Layout mirrors ``repro``: ``config``, ``configs``, ``data``, ``models``,
+``kernels`` (hand-written CUDA kernels from ``csrc/`` with their plain
+PyTorch versions), ``launch``, plus ``convert`` for JAX parameter trees.
+"""

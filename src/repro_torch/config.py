@@ -1,0 +1,163 @@
+"""Model configuration for the PyTorch port.
+
+A copy of the model half of ``repro.config`` (``ModelConfig``, ``MoEConfig``,
+``SSMConfig``), kept here so that the port imports nothing of the JAX
+package.  Fields, defaults and derived quantities are unchanged: a test holds
+``dataclasses.asdict`` of every registered config equal to the JAX one.
+Training and serving run configs arrive with the slices that use them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+ACTIVATIONS = ("silu", "gelu", "gelu_tanh", "relu")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration (token-choice top-k router)."""
+
+    num_experts: int = 0              # routed experts
+    top_k: int = 0
+    num_shared_experts: int = 0       # deepseek-moe style always-on experts
+    d_ff_expert: int = 0              # per-expert FFN hidden size
+    router_aux_coef: float = 0.01     # load-balance loss coefficient
+    router_jitter: float = 0.0
+    capacity_factor: float = 1.25     # GShard capacity factor (dropping)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block configuration."""
+
+    state_dim: int = 0                # N: per-head state size
+    head_dim: int = 64                # P: channels per SSD head
+    expand: int = 2                   # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk_size: int = 64              # SSD chunk length
+    ngroups: int = 1                  # B/C groups
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description.  ``arch_type`` selects the family module."""
+
+    name: str
+    arch_type: str                    # one of ARCH_TYPES
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // num_heads
+    act: str = "silu"
+    use_qk_norm: bool = False
+    rmsnorm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    sliding_window: int = 0           # 0 -> full attention; >0 -> SWA width
+    swa_every: int = 1                # apply SWA to every k-th layer (1 = all)
+    logit_softcap: float = 0.0        # gemma2-style final softcap (0 = off)
+    gated_mlp: bool = True            # SwiGLU/GeGLU vs plain 2-layer MLP
+    norm: str = "rmsnorm"             # rmsnorm | layernorm
+    use_rope: bool = True             # False -> learned absolute positions
+    embed_scale: bool = False         # gemma-style sqrt(d) embedding scaling
+    # --- MoE ---
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    moe_every: int = 1                # MoE on every k-th layer (1 = all)
+    # --- SSM / hybrid ---
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    attn_every: int = 0               # hybrid: shared attn block every k ssm layers
+    # --- encoder-decoder (whisper) ---
+    num_encoder_layers: int = 0
+    encoder_seq_len: int = 0          # frames after conv frontend (stubbed)
+    # --- vlm ---
+    num_patches: int = 0              # stubbed vision patch embeddings
+    # --- misc ---
+    max_seq_len: int = 8192
+    dtype: str = "bfloat16"           # activation/compute dtype
+    param_dtype: str = "float32"
+    source: str = ""                  # citation for the config
+
+    # ---- derived -----------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    def param_count(self) -> int:
+        """Analytic parameter count."""
+        d, hd = self.d_model, self.resolved_head_dim
+        nq, nkv = self.num_heads, self.num_kv_heads
+        emb = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+
+        def attn_params() -> int:
+            return d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
+
+        def mlp_params(ff: int) -> int:
+            # gated (SwiGLU/GeGLU): up+gate+down; plain: up+down
+            return (3 if self.gated_mlp else 2) * d * ff
+
+        def ssm_params() -> int:
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = d_in // s.head_dim
+            zx = d * (2 * d_in)                       # in_proj -> z, x
+            bc = d * (2 * s.ngroups * s.state_dim)    # B, C projections
+            dt = d * nheads                           # dt projection
+            conv = s.conv_width * (d_in + 2 * s.ngroups * s.state_dim)
+            out = d_in * d
+            extra = 2 * nheads                        # A_log, D
+            return zx + bc + dt + conv + out + extra
+
+        per_layer = 0
+        total = emb + head + d  # + final norm
+        if self.arch_type in ("dense", "vlm"):
+            per_layer = attn_params() + mlp_params(self.d_ff) + 2 * d
+            total += self.num_layers * per_layer
+            if self.arch_type == "vlm":
+                total += d * d  # projector stub
+        elif self.arch_type == "moe":
+            m = self.moe
+            experts = (m.num_experts + m.num_shared_experts) * 3 * d * m.d_ff_expert
+            router = d * m.num_experts
+            per_layer = attn_params() + experts + router + 2 * d
+            total += self.num_layers * per_layer
+        elif self.arch_type == "ssm":
+            total += self.num_layers * (ssm_params() + d)
+        elif self.arch_type == "hybrid":
+            total += self.num_layers * (ssm_params() + d)
+            total += attn_params() + mlp_params(self.d_ff) + 2 * d  # shared block
+        elif self.arch_type == "encdec":
+            enc_layer = attn_params() + mlp_params(self.d_ff) + 2 * d
+            dec_layer = 2 * attn_params() + mlp_params(self.d_ff) + 3 * d
+            total += self.num_encoder_layers * enc_layer
+            total += self.num_layers * dec_layer
+        return total
+
+    def replace(self, **kw: Any) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def validate(self) -> None:
+        assert self.arch_type in ARCH_TYPES, self.arch_type
+        assert self.act in ACTIVATIONS, self.act
+        if self.arch_type not in ("ssm",):
+            assert self.num_heads >= 1
+            assert self.num_heads % max(self.num_kv_heads, 1) == 0, (
+                "num_heads must be a multiple of num_kv_heads")
+        if self.arch_type == "moe":
+            assert self.moe.num_experts > 0 and self.moe.top_k > 0
+        if self.arch_type in ("ssm", "hybrid"):
+            assert self.ssm.state_dim > 0
+            d_in = self.ssm.expand * self.d_model
+            assert d_in % self.ssm.head_dim == 0
+        if self.arch_type == "encdec":
+            assert self.num_encoder_layers > 0 and self.encoder_seq_len > 0
+        if self.arch_type == "vlm":
+            assert self.num_patches > 0

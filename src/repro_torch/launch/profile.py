@@ -1,0 +1,123 @@
+"""Where the time of serving goes on the card, from ``torch.profiler``.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch paper-llama-1.5b \
+        --full --batch 8 --prompt-len 512 --decode-steps 8
+
+Builds the model and prompt as ``launch.serve`` does, warms up, then takes
+prefill and decode apart.  For each it prints one JSON line: the wall time
+(host clock around work that ends in a synchronize, without the profiler),
+the device busy time (the sum of the CUDA kernels' durations in a profiled
+run of the same work), the device's idle share ``1 - busy / wall``, the
+number of kernels launched, and the kernels that take the most device time.
+Decode numbers are per token step.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from collections import defaultdict
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import ARCHS, PAPER_MODELS, get_config, reduced
+from repro_torch.data.pipeline import SyntheticLM, batch_for
+from repro_torch.models.model import build_model
+
+
+def _wall_s(fn: Callable[[], None]) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _kernels(fn: Callable[[], None]) -> dict:
+    """{kernel name: [calls, device us]} of one profiled run of ``fn``."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name][0] += 1
+            out[e.name][1] += e.time_range.elapsed_us()
+    if not out:
+        raise RuntimeError("the profiler recorded no CUDA kernels")
+    return out
+
+
+def _report(phase: str, wall_s: float, kernels: dict, per: int,
+            **extra) -> None:
+    busy_ms = sum(us for _, us in kernels.values()) / 1e3 / per
+    wall_ms = wall_s * 1e3 / per
+    rows = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    print(json.dumps({
+        "phase": phase, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "kernel_launches": sum(n for n, _ in kernels.values()) / per,
+        "top": [{"name": name[:90], "calls": n / per, "ms": us / 1e3 / per}
+                for name, (n, us) in rows]}), flush=True)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="paper-llama-1.5b",
+                    choices=sorted(ARCHS) + sorted(PAPER_MODELS))
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--decode-steps", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs a CUDA device")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(args.seed))
+    raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
+        np.random.default_rng(args.seed), args.batch, args.prompt_len)
+    toks = torch.from_numpy(batch_for(cfg, raw)["tokens"]).cuda()
+    steps = args.decode_steps
+    capacity = args.prompt_len + 3 * steps + 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+    def prefill():
+        return model.prefill({"tokens": toks}, capacity)
+
+    state = {}
+
+    def decode():
+        logits, cache = state["logits"], state["cache"]
+        for _ in range(steps):
+            nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+            logits, cache = model.decode_step(cache, nxt)
+        state["logits"], state["cache"] = logits, cache
+
+    state["logits"], state["cache"] = prefill()       # warm-up, both phases
+    decode()
+    shape = dict(arch=cfg.name, batch=args.batch, prompt=args.prompt_len,
+                 card=card)
+    _report("prefill", _wall_s(prefill), _kernels(prefill), 1, **shape)
+    state["logits"], state["cache"] = prefill()
+    _report("decode", _wall_s(decode), _kernels(decode), steps, steps=steps,
+            **shape)
+
+
+if __name__ == "__main__":
+    main()

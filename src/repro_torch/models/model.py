@@ -1,0 +1,121 @@
+"""Model facade of the PyTorch port.
+
+``build_model(cfg, ...)`` returns a :class:`Model`, an ``nn.Module`` that owns
+the parameters and exposes init / apply / init_cache / prefill / decode_step
+with the JAX package's batch convention (``{"tokens": (B, S) int}``).  The
+parameters keep the JAX layout: the same nested keys, decoder blocks stacked
+on axis 0, so ``state_dict`` keys read ``tree.blocks.attn.wq`` and
+``repro_torch.convert`` carries JAX parameters across one to one.
+
+Only the dense family is ported; the others raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+Params = Dict[str, Any]
+Batch = Dict[str, torch.Tensor]
+
+_NOT_PORTED = {
+    "moe": "ROADMAP.md queue 1, item 11 (MoE family)",
+    "ssm": "ROADMAP.md queue 1, item 12 (SSM and hybrid)",
+    "hybrid": "ROADMAP.md queue 1, item 12 (SSM and hybrid)",
+    "encdec": "ROADMAP.md queue 1, item 13 (encoder-decoder and VLM)",
+    "vlm": "ROADMAP.md queue 1, item 13 (encoder-decoder and VLM)",
+}
+
+
+def _to_module(tree: Params) -> nn.Module:
+    m = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            m.add_module(k, _to_module(v))
+        else:
+            m.register_parameter(k, nn.Parameter(v, requires_grad=False))
+    return m
+
+
+def _to_tree(m: nn.Module) -> Params:
+    tree: Params = dict(m.named_parameters(recurse=False))
+    for k, child in m.named_children():
+        tree[k] = _to_tree(child)
+    return tree
+
+
+class Model(nn.Module):
+    """Owns the parameters of one dense decoder, in ``cfg.dtype``, on ``device``.
+
+    ``params`` is a nested dict of tensors (``T.init`` or
+    ``repro_torch.convert.params_from_numpy``); without it the parameters are
+    drawn from ``generator`` (seed 0 on ``device`` when none is given).  They
+    are cast to ``cfg.dtype`` once, here: the JAX code recasts its fp32
+    parameters on every call (``L.cast_tree``), which gives the same values.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Optional[Params] = None, *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cfg.validate()
+        if cfg.arch_type != "dense":
+            raise NotImplementedError(
+                f"{cfg.arch_type} models are not ported yet: "
+                f"{_NOT_PORTED[cfg.arch_type]}")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            params = self.init(generator)
+        params = L.cast_tree(params, cfg.dtype)
+        self.tree = _to_module(_move(params, self.device))
+
+    @property
+    def params(self) -> Params:
+        """The parameters as the nested dict the layer functions take."""
+        return _to_tree(self.tree)
+
+    def init(self, generator: torch.Generator) -> Params:
+        """A fresh parameter tree in ``cfg.param_dtype`` drawn from ``generator``."""
+        return T.init(generator, self.cfg, self.device)
+
+    @torch.no_grad()
+    def apply(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward -> (logits, aux_loss); aux is 0 for dense.
+
+        Named after the JAX ``Model.apply``; it shadows ``nn.Module.apply``.
+        """
+        logits = T.forward(self.params, self.cfg, batch["tokens"])
+        return logits, torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def init_cache(self, batch: int, capacity: int) -> Params:
+        return T.init_cache(self.cfg, batch, capacity, self.device)
+
+    @torch.no_grad()
+    def prefill(self, batch: Batch, capacity: int) -> Tuple[torch.Tensor, Params]:
+        return T.prefill(self.params, self.cfg, batch["tokens"], capacity)
+
+    @torch.no_grad()
+    def decode_step(self, cache: Params, tokens: torch.Tensor, *,
+                    window: int = 0) -> Tuple[torch.Tensor, Params]:
+        return T.decode_step(self.params, self.cfg, cache, tokens,
+                             window=window)
+
+
+def _move(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _move(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def build_model(cfg: ModelConfig, params: Optional[Params] = None, *,
+                device="cuda", generator: Optional[torch.Generator] = None,
+                ) -> Model:
+    return Model(cfg, params, device=device, generator=generator)

@@ -1,0 +1,194 @@
+"""Dense decoder-only transformer family, in PyTorch (llama / qwen3 / gemma /
+danube / deepseek-coder and the paper's LLaMa sizes).
+
+The counterpart of ``repro.models.transformer`` for ``arch_type == "dense"``.
+Blocks are stacked on axis 0 as in the JAX package; where JAX scans the
+stack with ``jax.lax.scan``, a Python loop indexes views of the stacked
+tensors (no copies).  Three entry points:
+
+* :func:`forward`      — full-sequence forward (causal).
+* :func:`prefill`      — full-sequence forward that also fills the KV cache.
+* :func:`decode_step`  — one-token decode against a (possibly ring) KV cache.
+
+Parameters arrive already in ``cfg.dtype``: ``models.model.Model`` casts them
+once when it is built, where the JAX code recasts on every call.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """Fresh parameters in ``cfg.param_dtype``, drawn from ``gen`` on ``device``."""
+    dtype = L.to_dtype(cfg.param_dtype)
+    n = cfg.num_layers
+    params: Params = {
+        "embed": {"table": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                        dtype, device)},
+        "blocks": {
+            "attn_norm": L.init_norm_cfg((n, cfg.d_model), dtype, device, cfg),
+            "attn": L.init_attention(gen, cfg, dtype, device, n),
+            "mlp_norm": L.init_norm_cfg((n, cfg.d_model), dtype, device, cfg),
+            "mlp": L.init_mlp_cfg(gen, cfg, dtype, device, n),
+        },
+        "final_norm": L.init_norm_cfg((cfg.d_model,), dtype, device, cfg),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                            dtype, device)}
+    if not cfg.use_rope:
+        params["pos_embed"] = {"table": L.embed_init(
+            gen, (cfg.max_seq_len, cfg.d_model), dtype, device)}
+    return params
+
+
+def swa_flags(cfg: ModelConfig) -> List[bool]:
+    """Which layers use sliding-window attention."""
+    if cfg.sliding_window > 0:
+        return [i % max(cfg.swa_every, 1) == 0 for i in range(cfg.num_layers)]
+    return [False] * cfg.num_layers
+
+
+def layer(tree: Any, i: int) -> Any:
+    """Views of layer ``i`` of a tree stacked on axis 0."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _mlp_or_moe(bp: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.arch_type == "moe":
+        raise NotImplementedError(
+            "MoE blocks are not ported yet (ROADMAP.md queue 1, item 11)")
+    return L.apply_mlp(bp["mlp"], h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    x = L.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    x = x.to(L.to_dtype(cfg.dtype))
+    if not cfg.use_rope:
+        x = x + params["pos_embed"]["table"][positions].to(x.dtype)
+    return x
+
+
+def logits_from_hidden(params: Params, cfg: ModelConfig,
+                       x: torch.Tensor) -> torch.Tensor:
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    if cfg.tie_embeddings:
+        return L.unembed(params["embed"], x, cfg.logit_softcap)
+    return L.unembed_w(params["head"], x, cfg.logit_softcap)
+
+
+def _block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig, window: int):
+    """One decoder block over a full sequence -> (x, (k, v))."""
+    h = L.apply_norm(bp["attn_norm"], x, cfg)
+    attn_out, kv = L.attention(bp["attn"], h, positions, cfg, window=window,
+                               return_kv=True)
+    x = x + attn_out
+    h = L.apply_norm(bp["mlp_norm"], x, cfg)
+    return x + _mlp_or_moe(bp, h, cfg), kv
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    b, s = tokens.shape
+    return torch.arange(s, device=tokens.device).expand(b, s)
+
+
+def forward(params: Params, cfg: ModelConfig,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V)."""
+    positions = _positions(tokens)
+    x = embed_tokens(params, cfg, tokens, positions)
+    for i, swa in enumerate(swa_flags(cfg)):
+        x, _ = _block(layer(params["blocks"], i), x, positions, cfg,
+                      cfg.sliding_window if swa else 0)
+    return logits_from_hidden(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,
+               dtype=None) -> Params:
+    dtype = L.to_dtype(dtype or cfg.dtype)
+    shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            capacity: int) -> Tuple[torch.Tensor, Params]:
+    """Causal forward over the prompt -> (last-token logits (B, 1, V), cache).
+
+    Each layer's K/V go straight into a fixed-capacity cache.  When the
+    capacity equals the sliding window and the prompt is longer, the cache is
+    a ring holding the last ``window`` positions, absolute position p at slot
+    p % window.
+    """
+    b, s = tokens.shape
+    window = cfg.sliding_window
+    ring = window > 0 and capacity == window and s > window
+    if not ring and capacity < s:
+        raise ValueError(f"prefill: prompt of {s} tokens does not fit a "
+                         f"cache of capacity {capacity}")
+    positions = _positions(tokens)
+    cache = init_cache(cfg, b, capacity, tokens.device)
+    if ring:
+        start = s - window
+        slots = torch.arange(start, s, device=tokens.device) % window
+    x = embed_tokens(params, cfg, tokens, positions)
+    for i, swa in enumerate(swa_flags(cfg)):
+        x, (k, v) = _block(layer(params["blocks"], i), x, positions, cfg,
+                           window if swa else 0)
+        if ring:
+            cache["k"][i][:, slots] = k[:, start:]
+            cache["v"][i][:, slots] = v[:, start:]
+        else:
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+    cache["pos"].fill_(s)
+    return logits_from_hidden(params, cfg, x[:, -1:, :]), cache
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Params,
+                tokens: torch.Tensor, *, window: int = 0,
+                ) -> Tuple[torch.Tensor, Params]:
+    """tokens: (B,) next input token -> (logits (B, 1, V), cache).
+
+    ``window``: 0 = full-cache attention; >0 = ring-buffer SWA with the cache
+    capacity equal to the window.  The cache's K/V are updated in place (the
+    returned cache shares them) and ``pos`` advances by one.  The caller
+    keeps ``pos`` below the capacity of a full cache.
+    """
+    pos = cache["pos"]                         # (B,) absolute position to write
+    x = embed_tokens(params, cfg, tokens[:, None], pos[:, None])
+    for i in range(cfg.num_layers):
+        bp = layer(params["blocks"], i)
+        h = L.apply_norm(bp["attn_norm"], x, cfg)
+        out, _, _ = L.attention_decode(bp["attn"], h, pos, cache["k"][i],
+                                       cache["v"][i], cfg, window=window)
+        x = x + out
+        h = L.apply_norm(bp["mlp_norm"], x, cfg)
+        x = x + _mlp_or_moe(bp, h, cfg)
+    logits = logits_from_hidden(params, cfg, x)
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
