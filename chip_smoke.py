@@ -9,11 +9,17 @@ result.  Phases:
 
 1. env     — card, power limit, torch/CUDA versions; TF32 off for fp32.
 2. build   — compiles every CUDA source under src/repro_torch/csrc.
-3. kernel  — the flash-attention kernel against its plain version over
-             dtypes, GQA groups, head dims, masks, ragged lengths and the
+3. kernel  — the flash-attention forward kernel against its plain version
+             over dtypes, GQA groups, head dims, masks, ragged lengths and the
              serving shape; then kernel, plain version and SDPA (as a
              yardstick only) timed at the serving shape with CUDA events
-             around back-to-back calls, beside the bound.
+             around back-to-back calls, beside the bound.  The same for the
+             two backward kernels (against ``flash_attention_bwd_ref`` and
+             PyTorch's autograd through the plain forward; timed at the
+             training shape, SDPA's backward as the yardstick) and for the
+             stage merge (against ``stage_merge_ref``; timed on one 4-layer
+             stage of paper-llama-1.5b, ``torch._foreach_lerp`` as the
+             yardstick).
 4. model   — paper-llama-1.5b at full width cut to 2 layers, fp32: prefill
              logits on the card (kernel) against the port on the CPU (plain).
 5. serve   — paper-llama-1.5b, all 24 layers, random weights from a seeded
@@ -23,12 +29,26 @@ result.  Phases:
              prefill with the kernel against the prefill with the plain
              version, and the kernel against the plain version on each
              layer's own attention inputs.
-6. kernels — one line for every kernel: launches, error, times, bound.
+6. train_model — the same 2-layer fp32 cut, two Adam steps of the Trainer on
+             the card (kernels) and on the CPU (plain versions) from the same
+             parameters: loss and parameters agree.
+7. train   — paper-llama-1.5b at full width and depth (24 layers, 6 stages,
+             bf16 compute, fp32 masters and moments), batch 8 x 512:
+             ``checkfree_plus`` for 6 steps under a forced schedule (a merge,
+             an edge twin copy, a consecutive run of two merges), then
+             ``checkfree`` for 4 steps with one merge.  Launch counts, the
+             failures, the step-2 merge against its plain version, zeroed
+             moments and the lr boost are asserted; the first two steps are
+             held against the same steps with the plain attention swapped
+             in, and the backward kernels are held against their plain
+             version on each layer's own inputs of one step.
+8. kernels — one line for every kernel: launches, error, times, bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -43,12 +63,20 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch import tree as TR  # noqa: E402
+from repro_torch.config import (OptimizerConfig, RecoveryConfig,  # noqa: E402
+                                TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.data.pipeline import SyntheticLM, batch_for  # noqa: E402
+from repro_torch.core.trainer import Trainer  # noqa: E402
+from repro_torch.data.pipeline import (SyntheticLM, batch_for,  # noqa: E402
+                                       make_batches)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import stage_merge as SM  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
 # H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak, fp32 peak
@@ -70,6 +98,34 @@ SERVE_LOGITS_TOL = 0.05
 MODEL_TOL = 1e-3
 SERVE = dict(arch="paper-llama-1.5b", batch=8, prompt=512, new_tokens=32)
 ATTN_SHAPE = dict(b=8, h=16, s=512, d=128)   # what serving gives the kernel
+# the backward kernels: tests/test_kernels.py's VJP tolerance for fp32; bf16
+# gradients are rounded once from fp32 sums taken in different orders by the
+# kernel and the plain version: 3e-2 * (1 + |w|) (tests/test_kernels.py:16-17)
+GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# the merge: fp32 1e-6 * (1 + |w|) (tests/test_recovery.py:118); bf16 one ulp
+# (2**-7 of |w|: 8 significant bits)
+MERGE_TOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -7}
+# the training shape: half of checkfree_plus's batch of 8 x 512 runs each
+# stage order, so the attention kernels see B 4
+TRAIN = dict(arch="paper-llama-1.5b", stages=6, batch=8, seq=512)
+TRAIN_ATTN = dict(b=4, h=16, s=512, d=128)
+# checkfree_plus: a merge, an edge twin copy, a consecutive run (two merges)
+PLUS_SCHEDULE = {2: [3], 4: [0], 5: [2, 3]}
+PLUS_STEPS, PLUS_MERGES = 6, 3
+CHECKFREE_SCHEDULE = {2: [2]}
+CHECKFREE_STEPS, CHECKFREE_MERGES = 4, 1
+# kernels vs plain attention over the first two (failure-free) training
+# steps, bf16 compute: both round attention outputs to bf16 from fp32 sums in
+# different orders, and one-ulp differences travel through 24 layers and the
+# first Adam update.  The loss is a mean over 4,096 tokens: 1%.  Each stage's
+# omega is a squared gradient norm, which squares the relative differences of
+# the gradients: 5%.
+TRAIN_LOSS_TOL = 0.01
+TRAIN_OMEGA_TOL = 0.05
+# 2 layers at full width, fp32, two Adam steps, card vs CPU: cuBLAS and the
+# CPU's BLAS sum in different orders, and Adam's first steps move each
+# parameter by about lr whatever the gradient's size
+TRAIN_MODEL_TOL = 1e-3
 
 
 def emit(phase: str, **kw) -> None:
@@ -235,6 +291,234 @@ def phase_kernel() -> dict:
     return row
 
 
+def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple:
+    """(all |got - want| <= tol * (1 + |want|) and finite, max |error|)."""
+    g, w = got.detach().float(), want.detach().float()
+    err = (g - w).abs()
+    ok = bool((err <= tol * (1 + w.abs())).all()) and bool(
+        torch.isfinite(g).all())
+    return ok, float(err.max())
+
+
+def bwd_cases():
+    """(dtype, b, hq, hkv, s, d, causal, window) of the backward sweep: the
+    forward's sweep, plus the training shape."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv in ((16, 16), (32, 8), (4, 1)):
+            for d in (64, 128):
+                for causal, window in ((True, 0), (True, 100), (False, 0)):
+                    for s in (128, 1000, 2048):
+                        yield (dtype, 1 if s == 2048 else 2, hq, hkv, s, d,
+                               causal, window)
+        b, h, s, d = (TRAIN_ATTN[x] for x in "bhsd")
+        yield (dtype, b, h, h, s, d, True, 0)
+
+
+def compare_bwd(q, k, v, do, *, causal: bool, window: int) -> tuple:
+    """dq, dk, dv of the kernels against ``flash_attention_bwd_ref`` and
+    against PyTorch's autograd through ``flash_attention_ref``, on the plain
+    forward's out and lse.  Returns (ok, max |error|)."""
+    tol = GRAD_TOL[q.dtype]
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                 window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o, _ = ref.flash_attention_ref(*leaves, causal=causal, window=window)
+    auto = torch.autograd.grad(o, leaves, do)
+    ok, worst = True, 0.0
+    for g, w, a in zip(got, want, auto):
+        for oracle in (w, a):
+            good, err = within(g, oracle, tol)
+            ok &= good and g.dtype == q.dtype
+            worst = max(worst, err)
+    return ok, worst
+
+
+def phase_kernel_bwd() -> list:
+    gen = torch.Generator("cuda").manual_seed(1)
+    cases = failures = 0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype, b, hq, hkv, s, d, causal, window in bwd_cases():
+        q, k, v = qkv(gen, b, hq, hkv, s, d, dtype)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        ok, err = compare_bwd(q, k, v, do, causal=causal, window=window)
+        name = str(dtype).split(".")[1]
+        worst[name] = max(worst[name], err)
+        cases += 1
+        if not ok:
+            failures += 1
+            print(f"MISMATCH bwd dtype={name} b={b} hq={hq} hkv={hkv} d={d} "
+                  f"causal={causal} window={window} s={s} err={err}",
+                  file=sys.stderr)
+    emit("kernel_check", kernel="flash_attention_bwd_dq+dkv", cases=cases,
+         failures=failures, max_abs_err=worst,
+         tol={"float32": GRAD_TOL[torch.float32],
+              "bfloat16": GRAD_TOL[torch.bfloat16]},
+         oracles=["flash_attention_bwd_ref",
+                  "autograd through flash_attention_ref"])
+    if failures:
+        raise AssertionError(f"the backward kernels disagree with their plain "
+                             f"versions in {failures} of {cases} cases")
+
+    # the training shape: bf16, causal, one layer of paper-llama-1.5b at the
+    # checkfree_plus half batch
+    b, h, s, d = (TRAIN_ATTN[x] for x in "bhsd")
+    q, k, v = qkv(gen, b, h, h, s, d, torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    ok, err = compare_bwd(q, k, v, do, causal=True, window=0)
+    if not ok:
+        raise AssertionError(f"training shape: backward error {err}")
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq_ms = time_ms(lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, delta))
+    dkv_ms = time_ms(lambda: FA.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                        delta))
+    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, True, 0), groups=11, per_group=5)
+    # the yardstick: SDPA's flash backward on its own forward's out and lse
+    # (timed here, never called by the port)
+    sdpa = torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, True, False)
+    s_out, s_lse, cq, ck, mq, mk, seed, offset = sdpa[:8]
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, s_out, s_lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+    lib_grads = library()
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True, 0)
+    library_ok = all(within(g, w, GRAD_TOL[torch.bfloat16])[0]
+                     for g, w in zip(lib_grads, want))
+    library_ms = time_ms(library)
+
+    pairs = b * h * visible_pairs(s, True, 0)
+    row_bytes = b * h * s * 4                       # one fp32 (B, H, S) row
+    rows = []
+    for name, products, outputs, ms in (("flash_attention_bwd_dq", 3, 1, dq_ms),
+                                        ("flash_attention_bwd_dkv", 4, 2,
+                                         dkv_ms)):
+        # q, k, v, dO, lse and delta read once; dq (or dk and dv) written once
+        nbytes = (4 + outputs) * q.numel() * q.element_size() + 2 * row_bytes
+        flops = 2 * products * d * pairs
+        tb = nbytes / MEM_BYTES_PER_S * 1e3
+        to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                     "replaces": ("src/repro/kernels/flash_attention.py:118"
+                                  if outputs == 1 else
+                                  "src/repro/kernels/flash_attention.py:165"),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(tb, to),
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "library_ms": library_ms})
+        emit("kernel_time", kernel=name,
+             shape=dict(TRAIN_ATTN, dtype="bfloat16", causal=True),
+             bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
+             **{k: rows[-1][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+             plain="flash_attention_bwd_ref: dq, dk and dv together",
+             library="aten._scaled_dot_product_flash_attention_backward: dq, "
+                     "dk and dv together, on SDPA's own out and lse",
+             library_agrees=library_ok,
+             timing="median of 21 groups of 20 back-to-back calls, CUDA "
+                    "events (plain: 11 groups of 5)")
+    return rows
+
+
+def merge_stage_shapes(cfg) -> list:
+    """The 9 leaves of one 4-layer stage of the dense tower, sorted by key
+    (the order of ``tree.leaves``)."""
+    n = cfg.num_layers // TRAIN["stages"]
+    d, ff = cfg.d_model, cfg.d_ff
+    hq = cfg.num_heads * cfg.resolved_head_dim
+    hkv = cfg.num_kv_heads * cfg.resolved_head_dim
+    stage = {"attn": {"wq": (n, d, hq), "wk": (n, d, hkv), "wv": (n, d, hkv),
+                      "wo": (n, hq, d)},
+             "attn_norm": {"scale": (n, d)},
+             "mlp": {"w_gate": (n, d, ff), "w_up": (n, d, ff),
+                     "w_down": (n, ff, d)},
+             "mlp_norm": {"scale": (n, d)}}
+    return TR.leaves(stage)
+
+
+def phase_kernel_merge() -> dict:
+    gen = torch.Generator("cuda").manual_seed(2)
+    shapes = [(5,), (8, 1024), (3, 65, 33), (8193,)]
+    cases = failures = 0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for ca, cb in ((1.0, 0.0), (0.0, 1.0), (0.5, 0.5)):
+            xs = [torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                  for sh in shapes]
+            ys = [torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                  for sh in shapes]
+            got = ops.stage_merge(xs, ys, ca, cb)
+            for x, y, g in zip(xs, ys, got):
+                want = ref.stage_merge_ref(x, y, ca, cb)
+                ok, err = within(g, want, MERGE_TOL[dtype])
+                worst[str(dtype).split(".")[1]] = max(
+                    worst[str(dtype).split(".")[1]], err)
+                cases += 1
+                failures += not ok
+    # one real stage of the tower: 9 leaves, merged in place into a third
+    cfg = get_config(TRAIN["arch"])
+    shapes = merge_stage_shapes(cfg)
+    numel = sum(math.prod(sh) for sh in shapes)
+    xs = [torch.randn(sh, generator=gen, device="cuda") for sh in shapes]
+    ys = [torch.randn(sh, generator=gen, device="cuda") for sh in shapes]
+    outs = [torch.empty_like(x) for x in xs]
+    w = torch.rand(2, generator=gen, device="cuda")
+    ca, cb = w[0] / w.sum(), w[1] / w.sum()
+    ops.stage_merge(xs, ys, ca, cb, out=outs)
+    stage_err = 0.0
+    for x, y, o in zip(xs, ys, outs):
+        ok, err = within(o, ref.stage_merge_ref(x, y, ca, cb),
+                         MERGE_TOL[torch.float32])
+        stage_err = max(stage_err, err)
+        cases += 1
+        failures += not ok
+    emit("kernel_check", kernel="stage_merge", cases=cases, failures=failures,
+         max_abs_err=dict(worst, stage=stage_err),
+         tol={"float32": MERGE_TOL[torch.float32],
+              "bfloat16": MERGE_TOL[torch.bfloat16]})
+    if failures:
+        raise AssertionError(f"the merge kernel disagrees with its plain "
+                             f"version in {failures} of {cases} cases")
+
+    kernel_ms = time_ms(lambda: ops.stage_merge(xs, ys, ca, cb, out=outs),
+                        groups=11, per_group=10)
+    plain_ms = time_ms(lambda: [o.copy_(ref.stage_merge_ref(x, y, ca, cb))
+                                for x, y, o in zip(xs, ys, outs)],
+                       groups=11, per_group=5)
+    # the yardstick: ca + cb == 1, so x + cb * (y - x) is the same function
+    weight = cb.item()
+    library_ms = time_ms(lambda: torch._foreach_lerp(xs, ys, weight),
+                         groups=11, per_group=10)
+    nbytes = 3 * numel * 4                   # x and y read, out written, fp32
+    flops = 3 * numel
+    tb = nbytes / MEM_BYTES_PER_S * 1e3
+    to = flops / PEAK_FLOP_PER_S[torch.float32] * 1e3
+    row = {"name": "stage_merge", "route": "cuda",
+           "source": "src/repro_torch/csrc/stage_merge.cu",
+           "replaces": "src/repro/kernels/stage_merge.py:23",
+           "max_abs_err": max(stage_err, *worst.values()), "ms": kernel_ms,
+           "plain_ms": plain_ms, "bound_ms": max(tb, to),
+           "bound_by": "bytes" if tb >= to else "operations",
+           "library_ms": library_ms}
+    emit("kernel_time", kernel="stage_merge",
+         shape={"arch": TRAIN["arch"], "stage_layers": 4, "leaves": len(shapes),
+                "elements": numel, "dtype": "float32"},
+         bytes=nbytes, flops=flops,
+         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+         library="torch._foreach_lerp over the stage's leaves",
+         timing="median of 11 groups of 10 back-to-back calls, CUDA events "
+                "(plain: 11 groups of 5)")
+    return row
+
+
 def phase_model() -> None:
     cfg = get_config(SERVE["arch"]).replace(num_layers=2, dtype="float32")
     params = Model(cfg, device="cpu",
@@ -349,6 +633,325 @@ def phase_serve() -> tuple:
     return launches, attn_err
 
 
+class Forced:
+    """A failure schedule of fixed events: ``{wall_step: [stages]}``."""
+
+    def __init__(self, events: dict):
+        self.events = events
+
+    def at(self, step: int) -> list:
+        return list(self.events.get(step, []))
+
+
+class PlainAttention:
+    """Stands in for ``FA.FlashAttention`` so that the model runs the plain
+    attention (autograd through ``ref.flash_attention_ref``) on the card."""
+
+    @staticmethod
+    def apply(q, k, v, causal, window):
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)[0]
+
+
+def train_config(strategy: str, steps: int, *, stages: int, batch: int,
+                 seq: int) -> TrainConfig:
+    return TrainConfig(
+        global_batch=batch, microbatch=batch, seq_len=seq, steps=steps,
+        eval_every=steps, fuse_window=1, seed=0,
+        optimizer=OptimizerConfig(total_steps=steps),
+        recovery=RecoveryConfig(strategy=strategy, num_stages=stages,
+                                protect_edge_stages=False))
+
+
+def counts() -> dict:
+    return {"flash_attention_fwd": FA.launches,
+            "flash_attention_bwd_dq": FA.launches_dq,
+            "flash_attention_bwd_dkv": FA.launches_dkv,
+            "stage_merge": SM.launches}
+
+
+def zero_counts() -> None:
+    FA.launches = FA.launches_dq = FA.launches_dkv = SM.launches = 0
+
+
+def phase_train_model() -> None:
+    """Two Adam steps of 2 full-width fp32 layers on the card and the CPU."""
+    cfg = get_config(TRAIN["arch"]).replace(num_layers=2, dtype="float32")
+    params = T.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    tcfg = train_config("checkfree", 2, stages=2, batch=1, seq=128)
+    result = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(Model(cfg, device=device, weights=False), tcfg)
+        state, hist = trainer.run(make_batches(cfg, batch=1, seq=128, seed=0),
+                                  params=TR.clone(params))
+        result[device] = (hist.loss, TR.map(lambda t: t.detach().cpu(),
+                                            state.params))
+        del trainer, state
+    (card_loss, card_p), (cpu_loss, cpu_p) = result["cuda"], result["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(card_loss, cpu_loss))
+    ok = all(math.isfinite(x) for x in card_loss) and all(
+        abs(a - b) <= TRAIN_MODEL_TOL * (1 + abs(b))
+        for a, b in zip(card_loss, cpu_loss))
+    param_err = 0.0
+    for a, b in zip(TR.leaves(card_p), TR.leaves(cpu_p)):
+        good, err = within(a, b, TRAIN_MODEL_TOL)
+        ok &= good
+        param_err = max(param_err, err)
+    emit("train_model", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, batch=1, seq=128, steps=2,
+         loss_card=card_loss, loss_cpu=cpu_loss, loss_max_abs_err=loss_err,
+         params_max_abs_err=param_err, tol=TRAIN_MODEL_TOL)
+    if not ok:
+        raise AssertionError(f"training on the card vs the CPU: loss "
+                             f"{loss_err}, parameters {param_err}")
+
+
+def instrument(trainer: Trainer, record: dict) -> None:
+    """Time each step (host clock ending in a synchronize) and keep its loss
+    and omegas; time each recovery."""
+    step = trainer.step
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        record["omegas"].append(state.omegas.cpu())
+        return state, loss, metrics
+
+    trainer.step = timed_step
+    for name in ("handle_failure", "handle_consecutive"):
+        handle = getattr(trainer.strategy, name)
+
+        def timed(*args, _handle=handle, _name=name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _handle(*args)
+            torch.cuda.synchronize()
+            record["recovery_ms"].append(
+                (_name, args[-1].wall_step, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        setattr(trainer.strategy, name, timed)
+
+
+def check_first_merge(trainer: Trainer, wall_step: int, stage: int,
+                      record: dict) -> None:
+    """Around the merge at ``wall_step``: the recovered stage must equal
+    ``stage_merge_ref`` of its neighbours taken before it, with the omega
+    weights, its Adam moments must be zero and the lr scale boosted."""
+    handle = trainer.strategy.handle_failure
+    part = trainer.part
+
+    def checked(state, event):
+        if event.wall_step != wall_step or event.stage != stage:
+            return handle(state, event)
+        prev = TR.clone(part.get_stage(state.params, stage - 1))
+        nxt = TR.clone(part.get_stage(state.params, stage + 1))
+        wa = state.omegas[stage - 1].float()
+        wb = state.omegas[stage + 1].float()
+        denom = wa + wb + 1e-30
+        ca, cb = wa / denom, wb / denom
+        lr_before = state.lr_scale
+        state = handle(state, event)
+        err, ok = 0.0, True
+        for x, y, got in zip(TR.leaves(prev), TR.leaves(nxt),
+                             TR.leaves(part.get_stage(state.params, stage))):
+            good, e = within(got, ref.stage_merge_ref(x, y, ca, cb),
+                             MERGE_TOL[torch.float32])
+            ok &= good
+            err = max(err, e)
+        moments = max(float(leaf.abs().max()) for tree in
+                      (state.opt_state.m, state.opt_state.v)
+                      for leaf in TR.leaves(part.get_stage(tree, stage)))
+        record["merge_check"] = {
+            "wall_step": wall_step, "stage": stage, "max_abs_err": err,
+            "ca": float(ca), "cb": float(cb), "moments_max_abs": moments,
+            "lr_scale_before": lr_before, "lr_scale": state.lr_scale}
+        if not ok or moments != 0.0 or abs(state.lr_scale - 1.1) > 1e-6:
+            raise AssertionError(f"step-{wall_step} recovery of stage {stage}: "
+                                 f"{record['merge_check']}")
+        return state
+
+    trainer.strategy.handle_failure = checked
+
+
+def train_run(strategy: str, steps: int, schedule, *, check_merge=None,
+              plain: bool = False) -> tuple:
+    """One full-size run -> (hist, launch counts, record, peak GiB)."""
+    cfg = get_config(TRAIN["arch"])
+    model = Model(cfg, device="cuda", weights=False)
+    trainer = Trainer(model, train_config(strategy, steps,
+                                          stages=TRAIN["stages"],
+                                          batch=TRAIN["batch"],
+                                          seq=TRAIN["seq"]),
+                      schedule=schedule)
+    record = {"step_ms": [], "omegas": [], "recovery_ms": []}
+    instrument(trainer, record)
+    if check_merge is not None:
+        check_first_merge(trainer, *check_merge, record)
+    params = trainer.init_params()
+    batches = make_batches(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"], seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel = FA.FlashAttention
+    if plain:
+        FA.FlashAttention = PlainAttention
+    try:
+        zero_counts()
+        state, hist = trainer.run(batches, params=params)
+        torch.cuda.synchronize()
+        launched = counts()
+    finally:
+        FA.FlashAttention = kernel
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer, state, params
+    gc.collect()                     # the instrumented trainer holds a cycle
+    torch.cuda.empty_cache()
+    return hist, launched, record, peak
+
+
+def check_run(name: str, hist, launched: dict, *, steps: int, halves: int,
+              merges: int, schedule: dict) -> None:
+    cfg = get_config(TRAIN["arch"])
+    per_kernel = cfg.num_layers * halves * steps
+    want = {"flash_attention_fwd": per_kernel,
+            "flash_attention_bwd_dq": per_kernel,
+            "flash_attention_bwd_dkv": per_kernel, "stage_merge": merges}
+    failures = [(s, st) for s in sorted(schedule) for st in schedule[s]]
+    problems = []
+    if len(hist.loss) != steps or not all(math.isfinite(x) for x in hist.loss):
+        problems.append(f"losses {hist.loss}")
+    if launched != want:
+        problems.append(f"launches {launched}, want {want}")
+    if [tuple(f) for f in hist.failures] != failures:
+        problems.append(f"failures {hist.failures}, want {failures}")
+    if len(hist.recovery_errors) != len(failures) or not all(
+            math.isfinite(e) for _, e in hist.recovery_errors):
+        problems.append(f"recovery errors {hist.recovery_errors}")
+    if problems:
+        raise AssertionError(f"{name}: " + "; ".join(problems))
+
+
+def check_backward_on_path() -> None:
+    """The backward kernels against their plain version on the inputs that
+    one full-size ``checkfree_plus`` step gives them: each layer's q, k, v,
+    out, lse and dO in both stage orders (48 calls), as the serve phase
+    checks the forward on the prefill's own inputs."""
+    cfg = get_config(TRAIN["arch"])
+    trainer = Trainer(Model(cfg, device="cuda", weights=False),
+                      train_config("checkfree_plus", 1, stages=TRAIN["stages"],
+                                   batch=TRAIN["batch"], seq=TRAIN["seq"]))
+    seen = []
+    kernel = FA.flash_attention_bwd
+
+    def recording(q, k, v, out, lse, do, *, causal, window):
+        got = kernel(q, k, v, out, lse, do, causal=causal, window=window)
+        seen.append(((q, k, v, out, lse, do, causal, window), got))
+        return got
+
+    FA.flash_attention_bwd = recording
+    try:
+        batch = next(make_batches(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                                  seed=0))
+        trainer.step(trainer.init_state(), trainer.device_batch(batch))
+        torch.cuda.synchronize()
+    finally:
+        FA.flash_attention_bwd = kernel
+    failures, worst = 0, 0.0
+    for (q, k, v, out, lse, do, causal, window), got in seen:
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                           window)
+        for g, w in zip(got, want):
+            ok, err = within(g, w, GRAD_TOL[q.dtype])
+            failures += not ok
+            worst = max(worst, err)
+    calls = len(seen)
+    emit("train_backward_inputs", calls=calls, failures=failures,
+         max_abs_err=worst, tol=GRAD_TOL[torch.bfloat16])
+    del trainer, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    if calls != 2 * cfg.num_layers or failures:
+        raise AssertionError(f"the backward kernels on {calls} training-path "
+                             f"inputs: {failures} outputs disagree with the "
+                             "plain version")
+
+
+def phase_train() -> dict:
+    cfg = get_config(TRAIN["arch"])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+
+    hist, launched, record, peak = train_run(
+        "checkfree_plus", PLUS_STEPS, Forced(PLUS_SCHEDULE),
+        check_merge=(2, 3))
+    check_run("checkfree_plus", hist, launched, steps=PLUS_STEPS, halves=2,
+              merges=PLUS_MERGES, schedule=PLUS_SCHEDULE)
+    free = [i for i in range(PLUS_STEPS) if i not in PLUS_SCHEDULE]
+    step_ms = float(np.median([record["step_ms"][i] for i in free]))
+    merge_ms = [ms for name, step, ms in record["recovery_ms"] if step == 2]
+    emit("train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         stages=TRAIN["stages"], params=cfg.param_count(), dtype=cfg.dtype,
+         masters="float32", strategy="checkfree_plus", batch=TRAIN["batch"],
+         seq=TRAIN["seq"], steps=PLUS_STEPS, schedule=PLUS_SCHEDULE,
+         loss=hist.loss, failures=hist.failures,
+         recovery_errors=hist.recovery_errors, launches=launched,
+         merge_check=record["merge_check"], step_ms=record["step_ms"],
+         step_ms_median_failure_free=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3,
+         recovery_ms=record["recovery_ms"], merge_recovery_ms=merge_ms[0],
+         peak_memory_gib=peak,
+         timing="host clock around Trainer.step ending in "
+                "torch.cuda.synchronize(); median over the failure-free "
+                f"steps {free}; recovery_ms: the strategy's handler, "
+                "same clock")
+    kernel_losses = hist.loss[:2]
+    kernel_omegas = record["omegas"][:2]
+    total = dict(launched)
+
+    # the first two (failure-free) steps again, with the plain attention
+    plain_hist, plain_launched, plain_record, _ = train_run(
+        "checkfree_plus", 2, None, plain=True)
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(kernel_losses,
+                                                    plain_hist.loss)]
+    omega_err = [float(((a - b).abs() / b.abs()).max())
+                 for a, b in zip(kernel_omegas, plain_record["omegas"])]
+    emit("train_vs_plain", steps=2, loss_kernel=kernel_losses,
+         loss_plain=plain_hist.loss, loss_rel_err=loss_err,
+         omegas_kernel=[o.tolist() for o in kernel_omegas],
+         omegas_plain=[o.tolist() for o in plain_record["omegas"]],
+         omega_rel_err=omega_err, loss_tol=TRAIN_LOSS_TOL,
+         omega_tol=TRAIN_OMEGA_TOL, plain_launches=plain_launched)
+    if plain_launched["flash_attention_fwd"] or \
+            plain_launched["flash_attention_bwd_dq"]:
+        raise AssertionError(f"the plain run launched kernels: "
+                             f"{plain_launched}")
+    if max(loss_err) > TRAIN_LOSS_TOL or max(omega_err) > TRAIN_OMEGA_TOL:
+        raise AssertionError(f"kernels vs plain attention: loss {loss_err}, "
+                             f"omegas {omega_err}")
+
+    check_backward_on_path()
+
+    hist, launched, record, peak = train_run(
+        "checkfree", CHECKFREE_STEPS, Forced(CHECKFREE_SCHEDULE))
+    check_run("checkfree", hist, launched, steps=CHECKFREE_STEPS, halves=1,
+              merges=CHECKFREE_MERGES, schedule=CHECKFREE_SCHEDULE)
+    free = [i for i in range(CHECKFREE_STEPS) if i not in CHECKFREE_SCHEDULE]
+    step_ms = float(np.median([record["step_ms"][i] for i in free]))
+    emit("train", arch=cfg.name, layers=cfg.num_layers, stages=TRAIN["stages"],
+         strategy="checkfree", batch=TRAIN["batch"], seq=TRAIN["seq"],
+         steps=CHECKFREE_STEPS, schedule=CHECKFREE_SCHEDULE, loss=hist.loss,
+         failures=hist.failures, recovery_errors=hist.recovery_errors,
+         launches=launched, step_ms=record["step_ms"],
+         step_ms_median_failure_free=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3,
+         recovery_ms=record["recovery_ms"], peak_memory_gib=peak)
+    for k, n in launched.items():
+        total[k] += n
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs the "
@@ -356,12 +959,26 @@ def main() -> int:
         return 1
     card = phase_env()
     phase_build()
-    row = phase_kernel()
+    fwd = phase_kernel()
+    dq, dkv = phase_kernel_bwd()
+    merge = phase_kernel_merge()
     phase_model()
-    row["launches"], serve_err = phase_serve()
-    row["max_abs_err"] = max(row["max_abs_err"], serve_err)
+    serve_launches, serve_err = phase_serve()
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], serve_err)
+    torch.cuda.empty_cache()
+    phase_train_model()
+    train_launches = phase_train()
+    fwd["launches"] = train_launches["flash_attention_fwd"]
+    fwd["launches_by_path"] = {"serve": serve_launches,
+                               "train": train_launches["flash_attention_fwd"]}
+    for row in (dq, dkv, merge):
+        row["launches"] = train_launches[row["name"]]
+    rows = [fwd, dq, dkv, merge]
+    if any(row["launches"] <= 0 for row in rows):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{[(r['name'], r['launches']) for r in rows]}")
     print(card)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,18 @@
 """Model configuration for the PyTorch port.
 
-A copy of the model half of ``repro.config`` (``ModelConfig``, ``MoEConfig``,
-``SSMConfig``), kept here so that the port imports nothing of the JAX
-package.  Fields, defaults and derived quantities are unchanged: a test holds
-``dataclasses.asdict`` of every registered config equal to the JAX one.
-Training and serving run configs arrive with the slices that use them.
+A copy of ``repro.config``'s model configs (``ModelConfig``, ``MoEConfig``,
+``SSMConfig``) and training configs (``OptimizerConfig``, ``RecoveryConfig``,
+``TrainConfig``), kept here so that the port imports nothing of the JAX
+package.  Fields, defaults and derived quantities are unchanged: tests hold
+``dataclasses.asdict`` of every registered config, and every default of the
+training configs, equal to the JAX ones.  The serving run config arrives
+with the slice that uses it.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Tuple
 
 ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 ACTIVATIONS = ("silu", "gelu", "gelu_tanh", "relu")
@@ -161,3 +163,82 @@ class ModelConfig:
             assert self.num_encoder_layers > 0 and self.encoder_seq_len > 0
         if self.arch_type == "vlm":
             assert self.num_patches > 0
+
+
+# ---------------------------------------------------------------------------
+# Training / recovery configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adam"
+    lr: float = 3e-4
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0        # paper: no weight decay
+    grad_clip: float = 1.0
+    warmup_steps: int = 20
+    schedule: str = "cosine"          # cosine | constant | linear
+    total_steps: int = 1000
+    min_lr_ratio: float = 0.1
+
+
+@dataclass(frozen=True)
+class RecoveryConfig:
+    """CheckFree / CheckFree+ configuration (the paper's contribution).
+
+    Field for field the JAX ``RecoveryConfig``; the statestore and adaptive
+    fields are carried for the strategies that come later.
+    """
+
+    strategy: str = "checkfree"       # a name in repro_torch.recovery's registry
+    num_stages: int = 4               # transformer stages (excl. embed stage S0)
+    lr_boost: float = 1.1             # Alg.1 line 4
+    lr_boost_decay: float = 0.995     # per-step decay of the boost back to 1.0
+                                      # (1.0 = strictly persistent, as Alg.1)
+    lr_boost_cap: float = 2.0         # safety cap under extreme churn
+    weighting: str = "grad_norm"      # grad_norm | uniform | copy_prev | random
+    swap_fraction: float = 0.5        # CheckFree+ OOO fraction of microbatches
+    checkpoint_every: int = 100       # checkpointing baseline frequency (iters)
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    failure_rate_per_hour: float = 0.10   # per-stage failure probability / hour
+    iteration_time_s: float = 91.3        # paper Table 2 medium-model iteration
+    scenario: str = ""                # simulated-cluster environment (not
+                                      # ported yet: the trainer refuses it)
+    seed: int = 0
+    protect_edge_stages: bool = True  # CheckFree (not +) cannot lose S_first/S_last
+    # --- statestore (strategy="tiered_ckpt" / "neighbor"): tiered state ---
+    store_dir: str = "/tmp/repro_statestore"  # disk/remote tier directories
+    hot_every: int = 1                # memory-tier snapshot interval (iters)
+    cold_every: int = 0               # disk-tier interval; 0 -> checkpoint_every
+    remote_every: int = 0             # remote-tier interval; 0 -> 10x cold
+    keep_hot: int = 2                 # snapshots kept per shard in memory
+    keep_cold: int = 3                # snapshots kept per shard on disk/remote
+    neighbor_cold: bool = True        # neighbor keeps a disk safety net
+    # --- adaptive (strategy="adaptive"): Chameleon-style policy switching ---
+    adaptive_low: str = "checkfree"   # active while the observed rate is calm
+    adaptive_high: str = "checkpoint" # active above the threshold
+    adaptive_window: int = 32         # sliding window length (wall iterations)
+    adaptive_threshold: float = 0.05  # failures/iteration that trips to high
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 8
+    microbatch: int = 2
+    seq_len: int = 128
+    steps: int = 100
+    log_every: int = 10
+    eval_every: int = 50
+    eval_batches: int = 4
+    fuse_window: int = 8      # max iterations fused into one window in the
+                              # JAX trainer; the port's trainer is eager
+                              # (every window is 1 step) and ignores it
+    seed: int = 0
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
+
+    @property
+    def num_microbatches(self) -> int:
+        assert self.global_batch % self.microbatch == 0
+        return self.global_batch // self.microbatch

@@ -3,11 +3,13 @@
 A copy of ``SyntheticLM`` and ``batch_for`` from ``repro.data.pipeline``: the
 same seed gives the same token stream in both packages, so a prompt drawn
 here is the prompt that ``repro.launch.serve`` would serve.
-``WindowPrefetcher`` and ``make_batches`` arrive with the training slice.
+``make_batches`` is the same infinite batch stream, so both trainers see the
+same numpy batches.  ``WindowPrefetcher`` waits for fused windows: the
+port's eager trainer takes one batch a step.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -67,3 +69,14 @@ def batch_for(cfg: ModelConfig, raw: np.ndarray,
         batch["patches"] = rng.standard_normal(
             (b, cfg.num_patches, D_PATCH)).astype(np.float32)
     return batch
+
+
+def make_batches(cfg: ModelConfig, *, batch: int, seq: int, seed: int = 0,
+                 source: Optional[object] = None,
+                 ) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite deterministic batch stream for ``cfg``."""
+    src = source or SyntheticLM(cfg.vocab_size, seed=1234)
+    rng = np.random.default_rng(seed)
+    while True:
+        raw = src.sample(rng, batch, seq)
+        yield batch_for(cfg, raw, rng)

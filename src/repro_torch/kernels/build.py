@@ -61,33 +61,44 @@ def library_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the named sources (default: all) that are not built yet.
 
-    Returns ``{name: {"seconds", "log", "built"}}``; raises RuntimeError with
-    the compiler's output when a source does not compile.
+    One ``nvcc`` per source, all started together.  Returns
+    ``{name: {"seconds", "log", "built"}}``; raises RuntimeError with the
+    compiler's output when a source does not compile, after every compile
+    has ended.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     result = {}
-    for name in (sources() if names is None else names):
-        target = library_path(name)
-        if target.is_file():
-            result[name] = {"seconds": 0.0, "log": "", "built": False}
-            continue
-        fd, tmp = tempfile.mkstemp(prefix=f".{name}-", suffix=".so",
-                                   dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
+    running = {}                       # name -> (process, temporary, start)
+    try:
+        for name in (sources() if names is None else names):
+            if library_path(name).is_file():
+                result[name] = {"seconds": 0.0, "log": "", "built": False}
+                continue
+            fd, tmp = tempfile.mkstemp(prefix=f".{name}-", suffix=".so",
+                                       dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                timeout=NVCC_TIMEOUT_S)
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            running[name] = (proc, tmp, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, t0) in running.items():
+            log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
             if proc.returncode != 0:
-                raise RuntimeError(f"CUDA build of {name} failed (nvcc exit "
-                                   f"{proc.returncode}):\n{proc.stdout}")
-            os.replace(tmp, target)
-        finally:
+                failed.append(f"CUDA build of {name} failed (nvcc exit "
+                              f"{proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, library_path(name))
+            result[name] = {"seconds": time.perf_counter() - t0, "log": log,
+                            "built": True}
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for proc, tmp, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             Path(tmp).unlink(missing_ok=True)
-        result[name] = {"seconds": time.perf_counter() - t0,
-                        "log": proc.stdout, "built": True}
     return result
 
 

@@ -1,14 +1,19 @@
-"""Flash-attention forward on the H100: the wrapper of
-``csrc/flash_attention_fwd.cu``.
+"""Flash attention on the H100: the wrappers of ``csrc/flash_attention_fwd.cu``
+and ``csrc/flash_attention_bwd.cu``, and the autograd Function over them.
 
-The kernel replaces the TPU kernel ``_flash_kernel`` of
-``repro/kernels/flash_attention.py`` (forward only; the two backward kernels
-come with the training slice).  This module takes tensors that lie on a CUDA
-device and nothing else: the plain version for CPU tensors is
-``kernels.ref.flash_attention_ref``, and ``kernels.ops`` picks between them by
-the tensor's device.
+The kernels replace the TPU kernels of ``repro/kernels/flash_attention.py``:
+``_flash_kernel`` (forward), ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
+(backward).  This module takes tensors that lie on a CUDA device and nothing
+else: the plain versions for CPU tensors are in ``kernels.ref``, and
+``kernels.ops`` picks between them by the tensor's device.
 
-``launches`` counts the kernel's launches in this process.
+:class:`FlashAttention` is the counterpart of the JAX ``custom_vjp``: its
+forward launches the forward kernel and saves ``(q, k, v, out, lse)``; its
+backward computes ``delta = rowsum(dO * O)`` in fp32 outside the kernels, as
+the JAX code does, and launches the dq and dkv kernels.
+
+``launches``, ``launches_dq`` and ``launches_dkv`` count each kernel's
+launches in this process.
 """
 from __future__ import annotations
 
@@ -24,56 +29,89 @@ SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+launches_dq = 0
+launches_dkv = 0
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# without argtypes ctypes passes each pointer as a 32-bit int and cuts it
+_ARGTYPES = {
+    "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P],
+    "flash_attention_bwd_dq": [_P] * 7 + [_I] * 6 + [_LL] * 15 + [_I, _I, _F, _P],
+    "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_LL] * 18 + [_I, _I, _F, _P],
+}
 
 
-def _entry():
-    lib = build.load("flash_attention_fwd")
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:            # without them ctypes cuts pointers to 32 bits
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p] * 5 + [i] * 6 + [ll] * 12 +
-                       [i, i, ctypes.c_float, p])
+def _entry(library: str, name: str):
+    lib = build.load(library)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _aligned(t: torch.Tensor) -> bool:
+    """A contiguous last axis and rows that start on 16-byte boundaries."""
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
+        st * t.element_size() % 16 for st in t.stride()[:3])
+
+
+def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int, **more: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.device.type != "cuda":
             raise ValueError(
-                f"flash_attention_fwd: {name} is on {t.device}; the kernel "
-                "takes CUDA tensors (CPU tensors go to kernels.ref through "
-                "kernels.ops)")
+                f"{what}: {name} is on {t.device}; the kernel takes CUDA "
+                "tensors (CPU tensors go to kernels.ref through kernels.ops)")
         if t.device != q.device:
-            raise ValueError(f"flash_attention_fwd: {name} is on {t.device}, "
-                             f"q on {q.device}")
+            raise ValueError(f"{what}: {name} is on {t.device}, q on "
+                             f"{q.device}")
         if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
-            raise TypeError(f"flash_attention_fwd: {name} is {t.dtype}; q, k "
-                            "and v must all be float32 or all bfloat16")
+            raise TypeError(f"{what}: {name} is {t.dtype}; q, k, v (and dO) "
+                            "must all be float32 or all bfloat16")
         if t.dim() != 4:
-            raise ValueError(f"flash_attention_fwd: {name} must be "
-                             f"(B, H, S, D), got {tuple(t.shape)}")
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
-                st * t.element_size() % 16 for st in t.stride()[:3]):
+            raise ValueError(f"{what}: {name} must be (B, H, S, D), got "
+                             f"{tuple(t.shape)}")
+        if not _aligned(t):
             raise ValueError(
-                f"flash_attention_fwd: {name} needs a contiguous last axis "
-                "and rows that start on 16-byte boundaries, got strides "
-                f"{t.stride()}")
+                f"{what}: {name} needs a contiguous last axis and rows that "
+                f"start on 16-byte boundaries, got strides {t.stride()}")
     b, hq, s, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d):
-        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
     if k.shape[1] == 0 or hq % k.shape[1]:
-        raise ValueError(f"flash_attention_fwd: {hq} query heads are not a "
-                         f"multiple of {k.shape[1]} kv heads")
+        raise ValueError(f"{what}: {hq} query heads are not a multiple of "
+                         f"{k.shape[1]} kv heads")
+    for name, t in more.items():
+        if t.shape != q.shape:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} is not shaped "
+                             f"like q {tuple(q.shape)}")
     if d not in SUPPORTED_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention_fwd: head dim {d} is not built (supported: "
+            f"{what}: head dim {d} is not built (supported: "
             f"{SUPPORTED_HEAD_DIMS}); other head dims are an open item of "
             "ROADMAP.md (queue 2, flash attention)")
     if s == 0 or window < 0:
-        raise ValueError(f"flash_attention_fwd: S={s}, window={window}")
+        raise ValueError(f"{what}: S={s}, window={window}")
+
+
+def _like(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor in t's memory layout when it has a contiguous last axis."""
+    out = torch.empty_like(t)
+    if out.stride(-1) != 1:
+        out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    return out
+
+
+def _rows(t: torch.Tensor, name: str, like: torch.Tensor) -> torch.Tensor:
+    """lse / delta: contiguous fp32 (B, Hq, S) on q's device."""
+    if (t.dtype != torch.float32 or t.shape != like.shape[:3]
+            or t.device != like.device):
+        raise ValueError(f"{name} must be fp32 {tuple(like.shape[:3])} on "
+                         f"{like.device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.contiguous()
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -84,16 +122,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Any strides with a contiguous last axis: ``out`` takes q's memory layout,
     so a transposed view of the model's (B, S, H, D) tensors goes in and
     comes out without a copy.  Launches on the current stream and does not
-    synchronise.
+    synchronise.  No autograd: :class:`FlashAttention` carries the gradient.
     """
     global launches
-    _check(q, k, v, window)
+    _check("flash_attention_fwd", q, k, v, window)
     b, hq, s, d = q.shape
-    out = torch.empty_like(q)
-    if out.stride(-1) != 1:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = _like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib, fn = _entry()
+    lib, fn = _entry("flash_attention_fwd", "flash_attention_fwd")
     with torch.cuda.device(q.device):      # the C side launches on the current device
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), _DTYPE_CODES[q.dtype], b, hq, k.shape[1], s, d,
@@ -104,3 +140,84 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     build.check(lib, err, "flash_attention_fwd")
     launches += 1
     return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                           window: int = 0) -> torch.Tensor:
+    """dQ (like q) from q, k, v, dO and the fp32 (B, Hq, S) lse and delta."""
+    global launches_dq
+    _check("flash_attention_bwd_dq", q, k, v, window, do=do)
+    b, hq, s, d = q.shape
+    lse, delta = _rows(lse, "lse", q), _rows(delta, "delta", q)
+    dq = _like(q)
+    lib, fn = _entry("flash_attention_bwd", "flash_attention_bwd_dq")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 _DTYPE_CODES[q.dtype], b, hq, k.shape[1], s, d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *do.stride()[:3], *dq.stride()[:3], int(causal), int(window),
+                 1.0 / math.sqrt(d),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "flash_attention_bwd_dq")
+    launches_dq += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                            window: int = 0,
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK like k, dV like v), each summed over its GQA group of query heads."""
+    global launches_dkv
+    _check("flash_attention_bwd_dkv", q, k, v, window, do=do)
+    b, hq, s, d = q.shape
+    lse, delta = _rows(lse, "lse", q), _rows(delta, "delta", q)
+    dk, dv = _like(k), _like(v)
+    lib, fn = _entry("flash_attention_bwd", "flash_attention_bwd_dkv")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 _DTYPE_CODES[q.dtype], b, hq, k.shape[1], s, d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+                 int(causal), int(window), 1.0 / math.sqrt(d),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "flash_attention_bwd_dkv")
+    launches_dkv += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
+                        window: int = 0,
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): ``delta = rowsum(dO * O)`` in fp32, then both kernels.
+
+    ``dO`` from autograd may be non-contiguous or misaligned for the
+    kernels' 16-byte rows; it is made contiguous here, never in a kernel.
+    """
+    if not _aligned(do):
+        do = do.contiguous()
+    delta = (do.float() * out.float()).sum(-1)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                window=window)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
+                                     window=window)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Kernel layout: q (B, Hq, S, D), k/v (B, Hkv, S, D) -> out like q."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None

@@ -1,15 +1,23 @@
-"""Where the time of serving goes on the card, from ``torch.profiler``.
+"""Where the time of serving or training goes on the card, from
+``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch paper-llama-1.5b \
         --full --batch 8 --prompt-len 512 --decode-steps 8
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch paper-llama-1.5b \
+        --full --batch 8 --prompt-len 512 --train-steps 3
 
-Builds the model and prompt as ``launch.serve`` does, warms up, then takes
-prefill and decode apart.  For each it prints one JSON line: the wall time
-(host clock around work that ends in a synchronize, without the profiler),
-the device busy time (the sum of the CUDA kernels' durations in a profiled
-run of the same work), the device's idle share ``1 - busy / wall``, the
-number of kernels launched, and the kernels that take the most device time.
-Decode numbers are per token step.  Needs a CUDA device.
+Serving: builds the model and prompt as ``launch.serve`` does, warms up,
+then takes prefill and decode apart.  Training (``--train-steps``): builds
+the eager Trainer (``--strategy``, the config's stage count), warms up one
+step, then profiles that many steps of ``Trainer.step`` on batches of
+``--batch`` x ``--prompt-len`` made on the device beforehand.  Each phase
+prints one JSON line: the wall time (host clock around work that ends in a
+synchronize, without the profiler), the device busy time (the sum of the
+CUDA kernels' durations in a profiled run of the same work), the device's
+idle share ``1 - busy / wall``, the number of kernels launched, the device
+time by family (the port's kernels, cuBLAS matrix products, everything
+else) and the kernels that take the most device time.  Decode and training
+numbers are per step.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -25,9 +33,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import ARCHS, PAPER_MODELS, get_config, reduced
-from repro_torch.data.pipeline import SyntheticLM, batch_for
+from repro_torch.config import RecoveryConfig, TrainConfig
+from repro_torch.configs import (ARCHS, PAPER_MODELS, get_config, get_stages,
+                                 reduced)
+from repro_torch.core.trainer import Trainer
+from repro_torch.data.pipeline import SyntheticLM, batch_for, make_batches
 from repro_torch.models.model import build_model
+from repro_torch.recovery import available_strategies
 
 
 def _wall_s(fn: Callable[[], None]) -> float:
@@ -55,15 +67,36 @@ def _kernels(fn: Callable[[], None]) -> dict:
     return out
 
 
-def _report(phase: str, wall_s: float, kernels: dict, per: int,
+# kernel families by name: the port's own kernels, cuBLAS's matrix products
+# (nvjet / gemm / cutlass kernels), and everything else (PyTorch's
+# element-wise, reduction and copy kernels)
+_FAMILIES = (("flash_attention", ("flash_fwd", "flash_bwd")),
+             ("stage_merge", ("stage_merge",)),
+             ("matmul", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
+
+
+def _family(name: str) -> str:
+    for family, keys in _FAMILIES:
+        if any(k in name for k in keys):
+            return family
+    return "other"
+
+
+def _report(phase: str, wall_s: float, kernels: dict, per: int, top: int = 8,
             **extra) -> None:
     busy_ms = sum(us for _, us in kernels.values()) / 1e3 / per
     wall_ms = wall_s * 1e3 / per
-    rows = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    rows = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    families = defaultdict(lambda: [0, 0.0])
+    for name, (n, us) in kernels.items():
+        families[_family(name)][0] += n
+        families[_family(name)][1] += us
     print(json.dumps({
         "phase": phase, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches": sum(n for n, _ in kernels.values()) / per,
+        "families": {f: {"calls": n / per, "ms": us / 1e3 / per}
+                     for f, (n, us) in sorted(families.items())},
         "top": [{"name": name[:90], "calls": n / per, "ms": us / 1e3 / per}
                 for name, (n, us) in rows]}), flush=True)
 
@@ -78,6 +111,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="profile this many training steps instead of "
+                         "serving (0 = serve)")
+    ap.add_argument("--strategy", default="checkfree_plus",
+                    choices=available_strategies())
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
@@ -86,6 +124,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    if args.train_steps:
+        _profile_train(cfg, args, card)
+        return
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(args.seed))
     raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
@@ -93,9 +137,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     toks = torch.from_numpy(batch_for(cfg, raw)["tokens"]).cuda()
     steps = args.decode_steps
     capacity = args.prompt_len + 3 * steps + 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
 
     def prefill():
         return model.prefill({"tokens": toks}, capacity)
@@ -117,6 +158,32 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     state["logits"], state["cache"] = prefill()
     _report("decode", _wall_s(decode), _kernels(decode), steps, steps=steps,
             **shape)
+
+
+def _profile_train(cfg, args, card: str) -> None:
+    stages = min(get_stages(args.arch), cfg.num_layers)
+    tcfg = TrainConfig(global_batch=args.batch, microbatch=args.batch,
+                       seq_len=args.prompt_len, steps=args.train_steps + 1,
+                       fuse_window=1, seed=args.seed,
+                       recovery=RecoveryConfig(strategy=args.strategy,
+                                               num_stages=stages))
+    trainer = Trainer(build_model(cfg, device="cuda", weights=False), tcfg)
+    stream = make_batches(cfg, batch=args.batch, seq=args.prompt_len,
+                          seed=args.seed)
+    # made before the clock starts, as chip_smoke times Trainer.step alone
+    batches = [trainer.device_batch(next(stream))
+               for _ in range(args.train_steps + 1)]
+    state = {"state": trainer.init_state()}
+
+    def steps(n: int) -> None:
+        for batch in batches[:n]:
+            state["state"], _, _ = trainer.step(state["state"], batch)
+
+    steps(1)                                           # warm-up
+    n = args.train_steps
+    _report("train_step", _wall_s(lambda: steps(n)), _kernels(lambda: steps(n)),
+            n, top=12, arch=cfg.name, strategy=args.strategy, stages=stages,
+            batch=args.batch, seq=args.prompt_len, card=card)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,159 @@
+"""End-to-end training driver of the port, with CheckFree recovery.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch paper-llama-124m --strategy checkfree_plus \
+        --steps 300 --rate 0.10 [--reduced] [--seq 512 --batch 8] \
+        [--device cpu] [--out history.json]
+
+The counterpart of ``repro.launch.train`` for the flags this slice supports:
+config -> model -> data -> failure schedule -> eager Trainer (recovery
+strategy), then the History.  ``--device`` defaults to ``cuda`` and raises
+where there is none.  Flags of the JAX driver that need parts not ported yet
+are refused by name: ``--backend spmd``, ``--scenario``, ``--fuse-window``
+above 1, ``--depart-prob``, ``--regrow-h``, ``--telemetry-dir`` and
+``--trace``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.config import OptimizerConfig, RecoveryConfig, TrainConfig
+from repro_torch.configs import ARCHS, PAPER_MODELS, get_config, get_stages, reduced
+from repro_torch.core.failures import FailureSchedule
+from repro_torch.core.state import History
+from repro_torch.core.trainer import Trainer
+from repro_torch.core.walltime import WallClockModel
+from repro_torch.data.pipeline import SyntheticLM, batch_for, make_batches
+from repro_torch.models.model import build_model
+from repro_torch.recovery import available_strategies, default_protect_edges
+from repro_torch.telemetry import log
+
+
+def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
+    unported = {
+        "--backend spmd": args.backend == "spmd",
+        "--scenario": bool(args.scenario),
+        "--fuse-window > 1": args.fuse_window > 1,
+        "--depart-prob": args.depart_prob is not None,
+        "--regrow-h": args.regrow_h is not None,
+        "--telemetry-dir": bool(args.telemetry_dir),
+        "--trace": args.trace,
+    }
+    named = [flag for flag, used in unported.items() if used]
+    if named:
+        ap.error(f"{', '.join(named)}: not ported yet (the port trains "
+                 "eagerly on the host backend; see ROADMAP.md queue 1)")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> History:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="paper-llama-124m",
+                    choices=sorted(ARCHS) + sorted(PAPER_MODELS))
+    ap.add_argument("--strategy", default="checkfree",
+                    choices=available_strategies())
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--rate", type=float, default=0.10,
+                    help="hourly per-stage failure probability")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=0,
+                    help="0 -> the config's max_seq_len (capped at 512)")
+    ap.add_argument("--lr", type=float, default=0.0, help="0 -> 3e-4")
+    ap.add_argument("--stages", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reduced", action="store_true",
+                    help="CPU-sized variant of the same family")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="override the config's transformer layer count "
+                         "(0 = keep)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the kernels' plain versions)")
+    ap.add_argument("--out", default="", help="write History JSON here")
+    ap.add_argument("--quiet", action="store_true")
+    # flags of the JAX driver that are refused by name
+    ap.add_argument("--fuse-window", type=int, default=1)
+    ap.add_argument("--backend", default="host", choices=["host", "spmd"])
+    ap.add_argument("--scenario", default="")
+    ap.add_argument("--depart-prob", type=float, default=None)
+    ap.add_argument("--regrow-h", type=float, default=None)
+    ap.add_argument("--telemetry-dir", default="")
+    ap.add_argument("--trace", action="store_true")
+    args = ap.parse_args(argv)
+    _refuse_unported(ap, args)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("launch.train: no CUDA device; pass --device cpu "
+                           "to train on the CPU with the kernels' plain "
+                           "versions")
+    cfg = get_config(args.arch)
+    stages = args.stages or get_stages(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+        stages = min(stages, 2)
+    if args.layers > 0:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        stages = args.stages or stages
+    stages = min(max(stages, 1), cfg.num_layers)
+    seq = args.seq or min(cfg.max_seq_len, 512)
+    lr = args.lr or 3e-4
+
+    protect = default_protect_edges(args.strategy)
+    rcfg = RecoveryConfig(
+        strategy=args.strategy, num_stages=stages,
+        failure_rate_per_hour=args.rate, seed=args.seed,
+        protect_edge_stages=protect)
+    tcfg = TrainConfig(
+        global_batch=args.batch, microbatch=args.batch, seq_len=seq,
+        steps=args.steps, eval_every=max(args.steps // 10, 1),
+        fuse_window=1, seed=args.seed,
+        optimizer=OptimizerConfig(lr=lr, total_steps=args.steps),
+        recovery=rcfg)
+
+    model = build_model(cfg, device=device, weights=False)
+    n = cfg.param_count()
+    log(f"arch={cfg.name} ({n / 1e6:.0f}M params) strategy={args.strategy} "
+        f"device={device} stages={stages} steps={args.steps} "
+        f"rate={args.rate:.0%}/h seq={seq} batch={args.batch}")
+
+    wall = WallClockModel(model_bytes=4 * n * 2)
+    schedule = None
+    if args.rate > 0 and args.strategy != "none":
+        schedule = FailureSchedule(
+            rate_per_hour=args.rate, iteration_time_s=rcfg.iteration_time_s,
+            num_stages=stages, steps=args.steps * 10, seed=args.seed,
+            protect_edges=rcfg.protect_edge_stages)
+        log(schedule.summary())
+
+    src = SyntheticLM(cfg.vocab_size, seed=1234)
+    batches = make_batches(cfg, batch=args.batch, seq=seq, seed=args.seed,
+                           source=src)
+    rng = np.random.default_rng(999)
+    evals = [batch_for(cfg, src.sample(rng, args.batch, seq), rng)
+             for _ in range(2)]
+
+    trainer = Trainer(model, tcfg, wall=wall, schedule=schedule)
+    state, hist = trainer.run(batches, evals, verbose=not args.quiet)
+
+    log(f"\ndone: {state.effective_step} effective steps over "
+        f"{hist.wall_iters} wall iterations, "
+        f"{len(hist.failures)} stage failures, final loss "
+        f"{hist.loss[-1]:.4f}, modelled wall "
+        f"{hist.wall_time[-1] / 3600:.1f}h", level=0)
+    for (step, err) in hist.recovery_errors:
+        log(f"  recovery @ wall-iter {step}: error term {err:.3e}")
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(hist.to_json())
+        log(f"history -> {args.out}")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

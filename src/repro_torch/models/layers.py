@@ -6,12 +6,13 @@ function on tensors.  Full-sequence attention runs through
 ``kernels.ops.flash_attention`` (the CUDA kernel on the card) where the JAX
 code runs ``_sdpa`` with a causal or sliding-window mask; single-token decode
 attention stays plain PyTorch, as the JAX package computes it outside any
-kernel.
+kernel.  ``cross_entropy`` is plain PyTorch with a memory-lean backward, as
+the JAX package computes it outside any kernel.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -303,3 +304,45 @@ def unembed_w(p: Params, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+class _TokenNLL(torch.autograd.Function):
+    """Per-token NLL with a memory-lean backward (``_token_nll`` of
+    ``repro/models/layers.py``).
+
+    Autograd of a fp32 logsumexp would save an fp32 (B, S, V) softmax.  This
+    keeps the logits in their compute dtype and recomputes the softmax in
+    the backward, with ``p`` cast to the logits' dtype before the gradient
+    is formed in that dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, logits: torch.Tensor, labels: torch.Tensor):
+        idx = labels.long()[..., None]
+        logz = torch.logsumexp(logits.float(), dim=-1)
+        gold = logits.gather(-1, idx)[..., 0]
+        ctx.save_for_backward(logits, idx, logz)
+        return logz - gold.float()
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        logits, idx, logz = ctx.saved_tensors
+        p = torch.exp(logits.float() - logz[..., None]).to(logits.dtype)
+        # p - onehot(labels), without building the one-hot: subtracting 1 at
+        # the label rounds as the dense subtraction does
+        p.scatter_add_(-1, idx, torch.full(idx.shape, -1.0, dtype=p.dtype,
+                                           device=p.device))
+        return p * g[..., None].to(logits.dtype), None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy (fp32 accumulation). labels: int (B, S)."""
+    nll = _TokenNLL.apply(logits, labels)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

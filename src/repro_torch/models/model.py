@@ -1,10 +1,13 @@
 """Model facade of the PyTorch port.
 
 ``build_model(cfg, ...)`` returns a :class:`Model`, an ``nn.Module`` that owns
-the parameters and exposes init / apply / init_cache / prefill / decode_step
-with the JAX package's batch convention (``{"tokens": (B, S) int}``).  The
-parameters keep the JAX layout: the same nested keys, decoder blocks stacked
-on axis 0, so ``state_dict`` keys read ``tree.blocks.attn.wq`` and
+the serving parameters and exposes init / apply / loss / init_cache /
+prefill / decode_step with the JAX package's batch convention
+(``{"tokens": (B, S) int, "labels": (B, S) int}``).  ``loss`` takes an
+explicit tree of fp32 master parameters (training); a trainer builds the
+facade with ``weights=False`` so that no second copy of the weights is made.
+The parameters keep the JAX layout: the same nested keys, decoder blocks
+stacked on axis 0, so ``state_dict`` keys read ``tree.blocks.attn.wq`` and
 ``repro_torch.convert`` carries JAX parameters across one to one.
 
 Only the dense family is ported; the others raise ``NotImplementedError``
@@ -12,7 +15,7 @@ naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -58,10 +61,13 @@ class Model(nn.Module):
     drawn from ``generator`` (seed 0 on ``device`` when none is given).  They
     are cast to ``cfg.dtype`` once, here: the JAX code recasts its fp32
     parameters on every call (``L.cast_tree``), which gives the same values.
+    With ``weights=False`` the model holds no parameters: ``init`` and
+    ``loss`` work, the serving methods need weights.
     """
 
     def __init__(self, cfg: ModelConfig, params: Optional[Params] = None, *,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 weights: bool = True):
         super().__init__()
         cfg.validate()
         if cfg.arch_type != "dense":
@@ -70,6 +76,11 @@ class Model(nn.Module):
                 f"{_NOT_PORTED[cfg.arch_type]}")
         self.cfg = cfg
         self.device = torch.device(device)
+        if not weights:
+            if params is not None:
+                raise ValueError("weights=False takes no params")
+            self.tree = nn.Module()
+            return
         if params is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
@@ -80,11 +91,34 @@ class Model(nn.Module):
     @property
     def params(self) -> Params:
         """The parameters as the nested dict the layer functions take."""
-        return _to_tree(self.tree)
+        tree = _to_tree(self.tree)
+        if not tree:
+            raise RuntimeError("this Model was built with weights=False: "
+                               "pass parameters to loss(), or build it with "
+                               "weights to serve")
+        return tree
 
     def init(self, generator: torch.Generator) -> Params:
         """A fresh parameter tree in ``cfg.param_dtype`` drawn from ``generator``."""
         return T.init(generator, self.cfg, self.device)
+
+    def loss(self, params: Params, batch: Batch, *,
+             order: Optional[Sequence[int]] = None,
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean token cross-entropy of ``batch`` -> (loss, {"ce", "aux"}).
+
+        ``params`` is an explicit tree, normally the fp32 masters: they are
+        cast to ``cfg.dtype`` inside the graph (as ``repro.models.transformer
+        .forward`` does), so their gradients land in fp32.  Runs with
+        autograd.  ``order`` runs the tower's layers in that order
+        (CheckFree+'s swapped stages).  aux is 0 for the dense family.
+        """
+        cfg = self.cfg
+        logits = T.forward(L.cast_tree(params, cfg.dtype), cfg,
+                           batch["tokens"], order=order)
+        ce = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + cfg.moe.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def apply(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -117,5 +151,6 @@ def _move(tree: Any, device: torch.device) -> Any:
 
 def build_model(cfg: ModelConfig, params: Optional[Params] = None, *,
                 device="cuda", generator: Optional[torch.Generator] = None,
-                ) -> Model:
-    return Model(cfg, params, device=device, generator=generator)
+                weights: bool = True) -> Model:
+    return Model(cfg, params, device=device, generator=generator,
+                 weights=weights)

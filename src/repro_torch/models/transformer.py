@@ -3,19 +3,21 @@ danube / deepseek-coder and the paper's LLaMa sizes).
 
 The counterpart of ``repro.models.transformer`` for ``arch_type == "dense"``.
 Blocks are stacked on axis 0 as in the JAX package; where JAX scans the
-stack with ``jax.lax.scan``, a Python loop indexes views of the stacked
+stack with ``jax.lax.scan``, a Python loop walks views of the stacked
 tensors (no copies).  Three entry points:
 
-* :func:`forward`      — full-sequence forward (causal).
+* :func:`forward`      — full-sequence forward (causal), in an optional
+                         layer order (CheckFree+'s swapped stages).
 * :func:`prefill`      — full-sequence forward that also fills the KV cache.
 * :func:`decode_step`  — one-token decode against a (possibly ring) KV cache.
 
-Parameters arrive already in ``cfg.dtype``: ``models.model.Model`` casts them
-once when it is built, where the JAX code recasts on every call.
+Parameters arrive already in ``cfg.dtype``: ``models.model.Model`` casts its
+serving weights once when it is built, and ``Model.loss`` casts the fp32
+training masters inside the graph on every call, as the JAX code does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,11 +62,17 @@ def swa_flags(cfg: ModelConfig) -> List[bool]:
     return [False] * cfg.num_layers
 
 
-def layer(tree: Any, i: int) -> Any:
-    """Views of layer ``i`` of a tree stacked on axis 0."""
+def unstack(tree: Any, n: int) -> List[Any]:
+    """The ``n`` layers of a tree stacked on axis 0, as views.
+
+    One ``unbind`` per leaf: under autograd its backward stacks the layers'
+    gradients in one operation, where indexing each layer would build a
+    full-size gradient per layer.
+    """
     if isinstance(tree, dict):
-        return {k: layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _mlp_or_moe(bp: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -111,13 +119,26 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=tokens.device).expand(b, s)
 
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V)."""
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            order: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V).
+
+    ``order`` runs the tower's layers in that order (a permutation of
+    ``range(num_layers)``); position i keeps its own sliding-window flag.
+    It is the counterpart of gathering a permuted tower
+    (``repro/core/trainer.py:_permute_tower``): the same values without
+    copying the tower, and autograd sums each layer's gradients into its own
+    slice whichever position ran it.
+    """
     positions = _positions(tokens)
     x = embed_tokens(params, cfg, tokens, positions)
-    for i, swa in enumerate(swa_flags(cfg)):
-        x, _ = _block(layer(params["blocks"], i), x, positions, cfg,
+    blocks = unstack(params["blocks"], cfg.num_layers)
+    order = range(cfg.num_layers) if order is None else list(order)
+    if sorted(order) != list(range(cfg.num_layers)):
+        raise ValueError(f"order {order} is no permutation of the "
+                         f"{cfg.num_layers} layers")
+    for i, swa in zip(order, swa_flags(cfg)):
+        x, _ = _block(blocks[i], x, positions, cfg,
                       cfg.sliding_window if swa else 0)
     return logits_from_hidden(params, cfg, x)
 
@@ -157,8 +178,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         start = s - window
         slots = torch.arange(start, s, device=tokens.device) % window
     x = embed_tokens(params, cfg, tokens, positions)
+    blocks = unstack(params["blocks"], cfg.num_layers)
     for i, swa in enumerate(swa_flags(cfg)):
-        x, (k, v) = _block(layer(params["blocks"], i), x, positions, cfg,
+        x, (k, v) = _block(blocks[i], x, positions, cfg,
                            window if swa else 0)
         if ring:
             cache["k"][i][:, slots] = k[:, start:]
@@ -182,8 +204,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     """
     pos = cache["pos"]                         # (B,) absolute position to write
     x = embed_tokens(params, cfg, tokens[:, None], pos[:, None])
-    for i in range(cfg.num_layers):
-        bp = layer(params["blocks"], i)
+    for i, bp in enumerate(unstack(params["blocks"], cfg.num_layers)):
         h = L.apply_norm(bp["attn_norm"], x, cfg)
         out, _, _ = L.attention_decode(bp["attn"], h, pos, cache["k"][i],
                                        cache["v"][i], cfg, window=window)

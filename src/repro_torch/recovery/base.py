@@ -1,0 +1,129 @@
+"""The :class:`RecoveryStrategy` contract: recovery policies as objects.
+
+The counterpart of ``repro.recovery.base``, for the eager host trainer of
+this slice.  A strategy owns the policy surface the trainer consults:
+
+lifecycle hooks (called by the trainer)
+  ``on_failure(state, event)``      — one stage died at an iteration boundary
+  ``on_consecutive(state, run, event)`` — a run of adjacent stages died
+                                      together (only if ``handles_consecutive``)
+  ``after_step(state, hist)``       — bookkeeping after every wall iteration
+  ``on_run_end()``                  — loop exit (even on error)
+  ``observe_environment(rate)``     — the schedule's observed failure rate,
+                                      once per wall iteration when available
+
+wall-clock model
+  ``iteration_cost()`` / ``failure_cost()`` — modelled seconds per wall
+  iteration and per failure event; ``consume_restore_bytes()`` — bytes a
+  replacement node had to receive for the event just handled (None: the
+  schedule's own estimate)
+
+capability flags (the trainer never looks at names)
+  ``handles_edge_stages``  — recovers S_first/S_last; when False the strategy
+                             degrades edge failures itself
+  ``handles_consecutive``  — recovers a run of adjacent failed stages jointly
+  ``uses_swap_schedule``   — the train step runs CheckFree+'s swapped stage
+                             order on half the batch
+  ``recover_by_repartition`` — wants the layout shrunk on a permanent
+                             departure (elastic; the port's trainer refuses
+                             such strategies until it is ported)
+
+The fused-window horizons, the from-scratch init of the checkpoint
+strategy, the in-mesh recovery of the pipeline backend and the
+departure/re-layout hooks come with the parts of the port that use them.
+Strategies are made through the registry
+(:func:`repro_torch.recovery.registry.make_strategy`).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import ClassVar, List, Optional, TYPE_CHECKING
+
+import torch
+
+if TYPE_CHECKING:  # pragma: no cover — typing only, no import cycles
+    from repro_torch.config import RecoveryConfig
+    from repro_torch.core.stages import StagePartition
+    from repro_torch.core.state import History, TrainState
+    from repro_torch.core.walltime import WallClockModel
+
+@dataclass
+class FailureContext:
+    """Everything a strategy may consult when reacting to a failure event."""
+
+    stage: int                   # 0-based failed stage (run[0] for runs)
+    wall_step: int               # wall-iteration index of the event
+    generator: torch.Generator   # random draws (random reinit ablation)
+    hist: "History"              # strategies append recovery_errors here
+
+
+class RecoveryStrategy:
+    """Base class: a no-op policy (registered as ``none``)."""
+
+    name: ClassVar[str] = "none"           # set by @register_strategy
+    handles_edge_stages: ClassVar[bool] = True
+    handles_consecutive: ClassVar[bool] = False
+    uses_swap_schedule: ClassVar[bool] = False
+    recover_by_repartition: ClassVar[bool] = False
+
+    def __init__(self, rcfg: "RecoveryConfig", wall: "WallClockModel"):
+        self.rcfg = rcfg
+        self.wall = wall
+        self.part: Optional["StagePartition"] = None
+
+    # ---- trainer wiring ----------------------------------------------
+    def bind(self, part: "StagePartition") -> "RecoveryStrategy":
+        """Attach the stage partition.  Called once by the trainer."""
+        self.part = part
+        return self
+
+    # ---- entry points (what the trainer calls) -----------------------
+    def handle_failure(self, state: "TrainState",
+                       event: FailureContext) -> "TrainState":
+        """:meth:`on_failure`; the trainer routes failures through here so
+        that instrumentation wraps every policy alike (telemetry events come
+        later in the port)."""
+        return self.on_failure(state, event)
+
+    def handle_consecutive(self, state: "TrainState", run: List[int],
+                           event: FailureContext) -> "TrainState":
+        """:meth:`on_consecutive`, as :meth:`handle_failure`."""
+        return self.on_consecutive(state, run, event)
+
+    # ---- lifecycle ---------------------------------------------------
+    def on_failure(self, state: "TrainState",
+                   event: FailureContext) -> "TrainState":
+        return state
+
+    def on_consecutive(self, state: "TrainState", run: List[int],
+                       event: FailureContext) -> "TrainState":
+        """Default: recover each stage of the run independently."""
+        for stage in run:
+            state = self.on_failure(state, replace(event, stage=stage))
+        return state
+
+    def after_step(self, state: "TrainState", hist: "History") -> None:
+        pass
+
+    def on_run_end(self) -> None:
+        """Called once when the trainer's loop exits (even on error)."""
+
+    def observe_environment(self, rate: float) -> None:
+        """The schedule's observed failure rate (failures per wall
+        iteration); ignored by default."""
+
+    # ---- wall-clock model --------------------------------------------
+    def iteration_cost(self) -> float:
+        return self.wall.iter_time_s
+
+    def failure_cost(self) -> float:
+        return 0.0
+
+    def consume_restore_bytes(self) -> Optional[float]:
+        """Serialized bytes that had to reach the replacement node for the
+        failure event just handled, or ``None`` for the schedule's default
+        estimate."""
+        return None
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}(name={self.name!r})"

@@ -1,7 +1,7 @@
 """Progress output of the port's command-line tools behind a verbosity knob.
 
 The port's own counterpart of ``repro.telemetry.log`` (printing only; the
-event stream, metrics and trace spans arrive with the training slice).
+event stream, metrics and trace spans come later in the port).
 Levels: 0 = always (final results), 1 = progress (default), 2 = detail.
 The knob is the ``REPRO_VERBOSITY`` environment variable, read per call.
 """

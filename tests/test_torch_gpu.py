@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and model on the card (tests marked ``gpu``).
+"""The port's CUDA kernels, model and trainer on the card (tests marked ``gpu``).
 
 Each test skips where ``torch.cuda.is_available()`` is false.  This file
 imports no JAX, so it runs on a machine that has only PyTorch and the CUDA
@@ -6,10 +6,11 @@ toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The kernel is held against its plain version on the same inputs at the
-tolerances of tests/test_kernels.py (fp32 2e-5, bf16 3e-2; lse 1e-4), and
-the model on the card against the same model on the CPU at 1e-4 (fp32, with
-TF32 off; cuBLAS and the CPU sum in different orders).
+Each kernel is held against its plain version on the same inputs at the
+tolerances of tests/test_kernels.py (forward fp32 2e-5, bf16 3e-2, lse 1e-4;
+backward fp32 2e-4, bf16 3e-2; the merge fp32 1e-6 and one bf16 ulp), and
+the model and the Trainer on the card against the same on the CPU at 1e-4
+(fp32, with TF32 off; cuBLAS and the CPU sum in different orders).
 """
 import numpy as np
 import pytest
@@ -101,3 +102,200 @@ def test_model_on_card_matches_cpu(arch, s):
     logits, _ = card.decode_step(cache, nxt.cuda())
     want, _ = cpu.decode_step(want_cache, nxt)
     torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels, the autograd Function and the stage merge (training slice)
+# ---------------------------------------------------------------------------
+
+# fp32: tests/test_kernels.py's VJP tolerance; bf16: kernel and plain version
+# both round an fp32 sum once, in different orders: 3e-2 * (1 + |w|)
+GRAD_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),
+            torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 32), (8, 2, 64), (4, 1, 128)])
+@pytest.mark.parametrize("s,causal,window", [(128, True, 0), (200, True, 100),
+                                             (77, False, 0), (1, True, 0),
+                                             (96, False, 40)])
+def test_backward_kernels_match_plain(dtype, hq, hkv, d, s, causal, window):
+    q, k, v = qkv(4, 2, hq, hkv, s, d, dtype)
+    do = qkv(5, 2, hq, hq, s, d, dtype)[0]
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    before = (FA.launches_dq, FA.launches_dkv)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert (FA.launches_dq, FA.launches_dkv) == (before[0] + 1, before[1] + 1)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[dtype],
+                                   msg=lambda m: f"{name}: {m}")
+    # and against PyTorch's autograd through the plain forward
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o, _ = ref.flash_attention_ref(*leaves, causal=causal, window=window)
+    auto = torch.autograd.grad(o, leaves, do)
+    for g, w, name in zip(got, auto, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[dtype],
+                                   msg=lambda m: f"{name} (autograd): {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_flash_attention_keeps_the_graph_on_the_card(dtype):
+    """The cut-gradient fault: on CUDA, ops.flash_attention must carry a
+    grad_fn and give q, k and v the plain version's gradients."""
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in qkv(6, 2, 4, 2, 80, 64, dtype))
+    w = torch.randn(q.shape, device="cuda").to(dtype)
+    card = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*card, causal=True, window=0)
+    assert out.requires_grad and out.grad_fn is not None
+    (out.float() * w.float()).sum().backward()
+    plain = [t.detach().cpu().float().requires_grad_() for t in (q, k, v)]
+    want = ops.flash_attention(*plain, causal=True, window=0)
+    (want * w.cpu().float()).sum().backward()
+    for a, b in zip(card, plain):
+        assert a.grad is not None
+        torch.testing.assert_close(a.grad.cpu().float(), b.grad,
+                                   **GRAD_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_one_layer_attention_gives_wq_its_gradient():
+    """A one-layer attention loss on the card: wq, wk and wv get gradients
+    that match the same loss on the CPU (fp32, TF32 off)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = reduced(get_config("qwen3-4b")).replace(dtype="float32")
+    p = T.unstack(L.init_attention(torch.Generator().manual_seed(0), cfg,
+                                   torch.float32, "cpu", 1), 1)[0]
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 48, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(48).expand(2, 48)
+    grads = {}
+    for device in ("cpu", "cuda"):
+        leaves = {k_: ({"scale": v_["scale"].to(device)} if isinstance(v_, dict)
+                       else v_.detach().to(device).requires_grad_())
+                  for k_, v_ in p.items()}
+        out = L.attention(leaves, x.to(device), pos.to(device), cfg)
+        out.square().mean().backward()
+        grads[device] = {k_: leaves[k_].grad for k_ in ("wq", "wk", "wv")}
+    for name, g in grads["cuda"].items():
+        assert g is not None, name
+        torch.testing.assert_close(g.cpu(), grads["cpu"][name], atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ca,cb", [(1.0, 0.0), (0.0, 1.0), (0.5, 0.5),
+                                   (0.25, 0.75)])
+def test_stage_merge_kernel_matches_plain(dtype, ca, cb):
+    from repro_torch.kernels import stage_merge as SM
+    rng = np.random.default_rng(8)
+    shapes = [(5,), (8, 1024), (3, 65, 33), (8193,), (2, 4, 8, 16)]
+    xs, ys = ([torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(device="cuda", dtype=dtype) for sh in shapes]
+              for _ in range(2))
+    before = SM.launches
+    got = ops.stage_merge(xs, ys, ca, cb)
+    torch.cuda.synchronize()
+    assert SM.launches == before + 1          # every leaf in one launch
+    for x, y, g in zip(xs, ys, got):
+        want = ref.stage_merge_ref(x, y, ca, cb)
+        assert g.dtype == dtype and g.shape == x.shape
+        # fp32: 1e-6 * (1 + |w|) (tests/test_recovery.py:118); bf16: one ulp
+        tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+        assert bool(((g.float() - want.float()).abs()
+                     <= tol * (1 + want.float().abs())).all())
+
+
+@pytest.mark.gpu
+def test_stage_merge_kernel_in_place_on_tower_slices():
+    """The recovery path: slices of one stacked leaf, merged into a third
+    slice, with a misaligned leaf taking the scalar loop."""
+    tower = torch.randn(6, 33, 17, device="cuda")
+    flat = torch.randn(1001, device="cuda")
+    xs = [tower[0:2], flat[1:334]]
+    ys = [tower[4:6], flat[334:667]]
+    outs = [tower[2:4], flat[667:1000]]
+    want = [ref.stage_merge_ref(x, y, 0.3, 0.7) for x, y in zip(xs, ys)]
+    ops.stage_merge(xs, ys, torch.tensor(0.3, device="cuda"),
+                    torch.tensor(0.7, device="cuda"), out=outs)
+    for o, w in zip(outs, want):
+        torch.testing.assert_close(o, w, atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="overlaps"):
+        ops.stage_merge([tower[0:2]], [tower[4:6]], 0.5, 0.5, out=[tower[1:3]])
+
+
+@pytest.mark.gpu
+def test_one_layer_model_loss_gives_wq_its_gradient():
+    """Model.loss of a one-layer model on the card: every attention weight
+    gets a gradient, equal to the CPU's (fp32, TF32 off)."""
+    from repro_torch import tree as TR
+    cfg = reduced(get_config("paper-llama-124m")).replace(num_layers=1,
+                                                          dtype="float32")
+    params = Model(cfg, device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, size=(2, 41))
+    grads = {}
+    for device in ("cpu", "cuda"):
+        leaves = TR.map(lambda t: t.detach().to(device).requires_grad_(),
+                        params)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(device),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(device)}
+        loss, _ = Model(cfg, device=device, weights=False).loss(leaves, batch)
+        assert loss.grad_fn is not None
+        loss.backward()
+        grads[device] = leaves["blocks"]["attn"]
+    for name in ("wq", "wk", "wv", "wo"):
+        assert grads["cuda"][name].grad is not None, name
+        torch.testing.assert_close(grads["cuda"][name].grad.cpu(),
+                                   grads["cpu"][name].grad, atol=1e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["checkfree", "checkfree_plus"])
+def test_trainer_on_card_matches_cpu(strategy):
+    """8 reduced layers, 4 stages, fp32: the Trainer on the card (kernels)
+    against the CPU (plain versions) through merges, an edge stage and a
+    consecutive run; every merge launches the merge kernel once."""
+    from repro_torch.config import OptimizerConfig, RecoveryConfig, TrainConfig
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.kernels import stage_merge as SM
+
+    class Forced:
+        def at(self, step):
+            return {3: [2], 5: [0], 7: [1, 2]}.get(step, [])
+
+    cfg = get_config("paper-llama-124m").replace(
+        num_layers=8, d_model=128, num_heads=4, num_kv_heads=4, d_ff=344,
+        vocab_size=512, max_seq_len=64, dtype="float32")
+    tcfg = TrainConfig(global_batch=8, microbatch=8, seq_len=64, steps=10,
+                       fuse_window=1, optimizer=OptimizerConfig(
+                           lr=6e-4, total_steps=10),
+                       recovery=RecoveryConfig(strategy=strategy,
+                                               num_stages=4))
+    params = Model(cfg, device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+    hists = {}
+    for device in ("cuda", "cpu"):
+        before = SM.launches
+        trainer = Trainer(Model(cfg, device=device, weights=False), tcfg,
+                          schedule=Forced())
+        _, hists[device] = trainer.run(make_batches(cfg, batch=8, seq=64),
+                                       params=params)
+        if device == "cuda":
+            assert SM.launches - before == 3      # steps 3 and 7 (two)
+    assert hists["cuda"].failures == hists["cpu"].failures
+    np.testing.assert_allclose(hists["cuda"].loss, hists["cpu"].loss,
+                               rtol=1e-4)
+    np.testing.assert_allclose([e for _, e in hists["cuda"].recovery_errors],
+                               [e for _, e in hists["cpu"].recovery_errors],
+                               rtol=1e-3)

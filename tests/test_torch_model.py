@@ -35,6 +35,16 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small shapes: one intra-op thread, so that test workers running in
+    parallel do not oversubscribe the cores with spinning threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def pair(arch, **kw):
     """(port model, JAX model, JAX params) on the same weights, on the CPU."""
     jcfg = JC.reduced(JC.get_config(arch)).replace(**kw)
@@ -247,7 +257,10 @@ def test_package_imports_no_jax_and_nothing_of_repro():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.launch.serve' in sys.modules\n"
+        "for m in ('launch.serve', 'launch.train', 'core.trainer', "
+        "'core.recovery', 'core.stages', 'core.failures', 'core.walltime', "
+        "'recovery.strategies', 'optim.adam', 'kernels.stage_merge'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

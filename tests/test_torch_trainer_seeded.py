@@ -1,0 +1,58 @@
+"""The port's eager Trainer against the JAX Trainer under the seeded failure
+schedule, and the port's training driver.
+
+The same 16-step runs as tests/test_torch_trainer.py (and its tolerances,
+stated there), under ``FailureSchedule(seed=42)`` as in
+examples/train_with_failures.py:44-47, each package with its own copy of the
+schedule.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core.failures import FailureSchedule as JFailureSchedule
+from repro_torch.core.failures import FailureSchedule
+from repro_torch.core.state import History
+from repro_torch.core.trainer import Trainer
+from repro_torch.config import TrainConfig
+from repro_torch.configs import get_config
+from repro_torch.launch import train
+from repro_torch.models.model import Model
+
+from test_torch_trainer import (check_same_run, one_torch_thread,  # noqa: F401
+                                run_both, seeded)
+
+
+@pytest.mark.parametrize("strategy", ["checkfree", "checkfree_plus"])
+def test_trainer_matches_jax_under_the_seeded_schedule(strategy):
+    jhist, hist = run_both(strategy, seeded(strategy, JFailureSchedule),
+                           seeded(strategy, FailureSchedule))
+    check_same_run(jhist, hist)
+
+
+def test_train_cli_on_cpu(tmp_path):
+    out = tmp_path / "history.json"
+    hist = train.main(["--reduced", "--device", "cpu", "--strategy",
+                       "checkfree_plus", "--steps", "4", "--seq", "32",
+                       "--batch", "4", "--quiet", "--out", str(out)])
+    assert len(hist.loss) == 4 and all(np.isfinite(hist.loss))
+    assert History.from_json(out.read_text()) == hist
+
+
+@pytest.mark.parametrize("flags", [["--backend", "spmd"],
+                                   ["--scenario", "spot_diurnal"],
+                                   ["--fuse-window", "8"],
+                                   ["--telemetry-dir", "x"]])
+def test_train_cli_refuses_unported_flags_by_name(flags, capsys):
+    with pytest.raises(SystemExit):
+        train.main(["--reduced", "--device", "cpu", *flags])
+    assert flags[0] in capsys.readouterr().err
+
+
+def test_training_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1"])
+    cfg = get_config("paper-llama-124m")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(Model(cfg, weights=False), TrainConfig())
