@@ -19,16 +19,27 @@ result.  Phases:
              training shape, SDPA's backward as the yardstick) and for the
              stage merge (against ``stage_merge_ref``; timed on one 4-layer
              stage of paper-llama-1.5b, ``torch._foreach_lerp`` as the
-             yardstick).
-4. model   — paper-llama-1.5b at full width cut to 2 layers, fp32: prefill
-             logits on the card (kernel) against the port on the CPU (plain).
+             yardstick).  The forward sweep and timing include head dim 80
+             (zamba2-2.7b's shared attention).  The SSD scan against its two
+             plain versions (chunked and token by token) over
+             tests/test_kernels.py's sweep, ragged lengths, wider P and N,
+             starting states and the real decay range, a state-carry check,
+             and both models' serving shapes; timed there beside its bound
+             and the chunked plain version (no PyTorch call computes it).
+4. model   — paper-llama-1.5b, mamba2-1.3b and zamba2-2.7b at full width cut
+             to 2 layers, fp32: prefill logits (and cache) on the card
+             (kernels) against the port on the CPU (plain versions).
 5. serve   — paper-llama-1.5b, all 24 layers, random weights from a seeded
              generator on the card: batch 8, prompt 512, 32 new tokens
              through ``launch.serve.generate``; the kernel must launch once
              per layer in the prefill.  Then, outside the counted run, the
              prefill with the kernel against the prefill with the plain
              version, and the kernel against the plain version on each
-             layer's own attention inputs.
+             layer's own attention inputs.  The same for mamba2-1.3b (48 SSD
+             launches a prefill) and zamba2-2.7b (54 SSD launches and 6
+             flash-forward launches at head dim 80), the SSD kernel held
+             against the chunked plain version on every layer's inputs and
+             against the token-by-token one on the first and last.
 6. train_model — the same 2-layer fp32 cut, two Adam steps of the Trainer on
              the card (kernels) and on the CPU (plain versions) from the same
              parameters: loss and parameters agree.
@@ -74,6 +85,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels import stage_merge as SM  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -97,6 +109,9 @@ SERVE_LOGITS_TOL = 0.05
 # BLAS sum d=2048 and d_ff=5504 products in different orders
 MODEL_TOL = 1e-3
 SERVE = dict(arch="paper-llama-1.5b", batch=8, prompt=512, new_tokens=32)
+# the 2-layer cuts held card vs CPU: (arch, prompt, config changes)
+MODEL_CHECKS = (("paper-llama-1.5b", 256, {}), ("mamba2-1.3b", 128, {}),
+                ("zamba2-2.7b", 128, {"attn_every": 1}))
 ATTN_SHAPE = dict(b=8, h=16, s=512, d=128)   # what serving gives the kernel
 # the backward kernels: tests/test_kernels.py's VJP tolerance for fp32; bf16
 # gradients are rounded once from fp32 sums taken in different orders by the
@@ -126,6 +141,22 @@ TRAIN_OMEGA_TOL = 0.05
 # CPU's BLAS sum in different orders, and Adam's first steps move each
 # parameter by about lr whatever the gradient's size
 TRAIN_MODEL_TOL = 1e-3
+# the SSD scan: tests/test_kernels.py's tolerances for y (fp32 1e-4, bf16
+# 3e-2), and 1e-4 * (1 + |w|) for the fp32 final state in both dtypes (kernel
+# and plain versions sum the same fp32 products in different orders)
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SSD_STATE_TOL = 1e-4
+# what one layer's prefill gives the SSD kernel: B 8 x T 512, one group, bf16
+SSD_SERVE = {"mamba2-1.3b": dict(b=8, t=512, h=64, p=64, g=1, n=128),
+             "zamba2-2.7b": dict(b=8, t=512, h=80, p=64, g=1, n=64)}
+SSD_CHUNK = 64
+SERVE_SSM = dict(arch="mamba2-1.3b", batch=8, prompt=512, new_tokens=32)
+SERVE_HYBRID = dict(arch="zamba2-2.7b", batch=8, prompt=512, new_tokens=32)
+# of the prefill's SSD inputs, these layers are also held against the
+# token-by-token definition (the chunked plain version checks every layer)
+SSD_TOKEN_LAYERS = (0, -1)
+# zamba2-2.7b's shared attention at the serving shape: 32 heads of 80
+ATTN_SHAPE_D80 = dict(b=8, h=32, s=512, d=80)
 
 
 def emit(phase: str, **kw) -> None:
@@ -223,14 +254,48 @@ def sweep_cases():
     b, h, s, d = (ATTN_SHAPE[x] for x in "bhsd")
     for dtype in (torch.float32, torch.bfloat16):
         for hq, hkv in ((16, 16), (32, 8), (4, 1)):
-            for dd in (64, 128):
+            for dd in (64, 80, 128):
                 for causal, window in ((True, 0), (True, 100), (False, 0)):
                     for ss in (128, 1000, 2048):
                         yield (dtype, 1 if ss == 2048 else 2, hq, hkv, ss, dd,
                                causal, window, TOL[dtype])
-        # the serving shape, where bf16 is held to one ulp
-        yield (dtype, b, h, h, s, d, True, 0,
-               TOL[dtype] if dtype == torch.float32 else SERVE_TOL)
+        # the serving shapes (paper-llama-1.5b, zamba2-2.7b's shared block),
+        # where bf16 is held to one ulp
+        for shape in (ATTN_SHAPE, ATTN_SHAPE_D80):
+            yield (dtype, shape["b"], shape["h"], shape["h"], shape["s"],
+                   shape["d"], True, 0,
+                   TOL[dtype] if dtype == torch.float32 else SERVE_TOL)
+
+
+def time_fwd(shape: dict, gen) -> dict:
+    """The forward kernel, its plain version and SDPA at a bf16 causal
+    serving shape, beside the bound."""
+    b, h, s, d = (shape[x] for x in "bhsd")
+    q, k, v = qkv(gen, b, h, h, s, d, torch.bfloat16)
+    ok, err, lse_err = compare(q, k, v, causal=True, window=0, tol=SERVE_TOL)
+    if not ok:
+        raise AssertionError(f"serving shape {shape}: out error {err}, lse "
+                             f"error {lse_err}")
+    kernel_ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    # q, k, v read once; out (like q) and the fp32 lse written once
+    nbytes = (2 * q.numel() * q.element_size() + k.numel() * k.element_size()
+              + v.numel() * v.element_size() + b * h * s * 4)
+    flops = 4 * b * h * d * visible_pairs(s, True, 0)
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
+    row = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": library_ms}
+    emit("kernel_time", kernel="flash_attention_fwd",
+         shape=dict(shape, dtype="bfloat16", causal=True), bytes=nbytes,
+         flops=flops, **row, lse_err=lse_err, tol=SERVE_TOL,
+         library="scaled_dot_product_attention",
+         timing="median of 21 groups of 20 back-to-back calls, CUDA events")
+    return row
 
 
 def phase_kernel() -> dict:
@@ -258,36 +323,13 @@ def phase_kernel() -> dict:
         raise AssertionError(f"flash_attention_fwd disagrees with its plain "
                              f"version in {failures} of {cases} cases")
 
-    # the serving shape: bf16, causal, one layer of paper-llama-1.5b
-    b, h, s, d = (ATTN_SHAPE[x] for x in "bhsd")
-    q, k, v = qkv(gen, b, h, h, s, d, torch.bfloat16)
-    ok, err, lse_err = compare(q, k, v, causal=True, window=0, tol=SERVE_TOL)
-    if not ok:
-        raise AssertionError(f"serving shape: out error {err}, lse error "
-                             f"{lse_err}")
-    kernel_ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
-    # q, k, v read once; out (like q) and the fp32 lse written once
-    nbytes = (2 * q.numel() * q.element_size() + k.numel() * k.element_size()
-              + v.numel() * v.element_size() + b * h * s * 4)
-    flops = 4 * b * h * d * visible_pairs(s, True, 0)
-    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
+    # the serving shapes: bf16, causal, one layer of paper-llama-1.5b (the
+    # row's numbers) and zamba2-2.7b's shared block at head dim 80
     row = {"name": "flash_attention_fwd", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:39",
-           "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms}
-    emit("kernel_time", shape=dict(ATTN_SHAPE, dtype="bfloat16", causal=True),
-         bytes=nbytes, flops=flops, **{k: row[k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}, lse_err=lse_err, tol=SERVE_TOL,
-         library="scaled_dot_product_attention",
-         timing="median of 21 groups of 20 back-to-back calls, CUDA events")
+           **time_fwd(ATTN_SHAPE, gen)}
+    row["d80"] = time_fwd(ATTN_SHAPE_D80, gen)
     return row
 
 
@@ -519,118 +561,367 @@ def phase_kernel_merge() -> dict:
     return row
 
 
+def ssd_inputs(gen, b, t, h, p, g, n, dtype, *, real: bool,
+               init: bool = False, strided: bool = False) -> tuple:
+    """(xb, a, bmat, cmat, init_state) for the SSD scan, model layout.
+
+    ``real``: as a mamba2 layer makes them from ``init_mamba_block``'s
+    parameters: dt = softplus(N(0, 1) + dt_bias) with softplus(dt_bias)
+    log-uniform in [1e-3, 1e-1], A = -exp(a_log) = -linspace(1, 16, H),
+    a = dt A (down to about -1.6 a token, so exp(cs_i - cs_j) above the
+    diagonal overflows), xb = x dt.  Otherwise tests/test_kernels.py's draws:
+    x 0.5 N(0, 1), a = -0.1 |N(0, 1)|, B and C 0.4 N(0, 1).  ``strided``: B
+    and C are views of one (B, T, H P + 2 G N) tensor, as the model's xBC.
+    """
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    if real:
+        u = torch.rand(h, generator=gen, device="cuda")
+        dt0 = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+        dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+        dt = F.softplus(randn(b, t, h) + dt_bias)
+        a = dt * -torch.linspace(1.0, 16.0, h, device="cuda")
+        xb = (randn(b, t, h, p) * dt[..., None]).to(dtype)
+        scale = 1.0
+    else:
+        a = -randn(b, t, h).abs() * 0.1
+        xb = randn(b, t, h, p, scale=0.5).to(dtype)
+        scale = 0.4
+    if strided:
+        xbc = randn(b, t, h * p + 2 * g * n, scale=scale).to(dtype)
+        bmat = xbc[..., h * p:h * p + g * n].reshape(b, t, g, n)
+        cmat = xbc[..., h * p + g * n:].reshape(b, t, g, n)
+    else:
+        bmat = randn(b, t, g, n, scale=scale).to(dtype)
+        cmat = randn(b, t, g, n, scale=scale).to(dtype)
+    init_state = randn(b, h, p, n, scale=0.5) if init else None
+    return xb, a, bmat, cmat, init_state
+
+
+def compare_ssd(xb, a, bmat, cmat, init_state, chunk: int, *,
+                token: bool = True, got=None) -> tuple:
+    """The SSD kernel (or ``got``, its result) against the chunked plain
+    version at the same chunk and, with ``token``, the token-by-token one:
+    y within SSD_TOL * (1 + |w|), the final state within
+    SSD_STATE_TOL * (1 + |w|), all finite.  Returns (ok, max |y error|,
+    max |state error|)."""
+    if got is None:
+        got = SSD.ssd_scan(xb, a, bmat, cmat, chunk=chunk,
+                           init_state=init_state)
+    y, state = got
+    wants = [ref.ssd_chunked(xb, a, bmat, cmat, chunk, init_state)]
+    if token:
+        wy, ws = ref.ssd_scan_ref(*(v.transpose(1, 2) for v in
+                                    (xb, a, bmat, cmat)), init_state)
+        wants.append((wy.transpose(1, 2), ws))
+    ok, y_err, s_err = y.dtype == xb.dtype, 0.0, 0.0
+    for wy, ws in wants:
+        good, err = within(y, wy, SSD_TOL[xb.dtype])
+        ok &= good
+        y_err = max(y_err, err)
+        good, err = within(state, ws, SSD_STATE_TOL)
+        ok &= good
+        s_err = max(s_err, err)
+    return ok, y_err, s_err
+
+
+def ssd_cases():
+    """(dtype, shape, chunk, real, init) of the SSD sweep."""
+    for dtype in (torch.float32, torch.bfloat16):
+        # tests/test_kernels.py's sweep: B 2, P 16, N 8
+        for t in (64, 128):
+            for chunk in (16, 32, 64):
+                for h, g in ((2, 1), (4, 2)):
+                    yield (dtype, dict(b=2, t=t, h=h, p=16, g=g, n=8), chunk,
+                           False, False)
+        # ragged T, a prime prompt's chunk of 1, wider P and N, a starting
+        # state, and the real decay range
+        for t, chunk in ((509, 64), (1000, 64), (509, 1), (100, 48)):
+            for p, n in ((32, 16), (64, 64), (64, 128)):
+                for init in (False, True):
+                    yield (dtype, dict(b=2, t=t, h=4, p=p, g=2, n=n), chunk,
+                           True, init)
+
+
+def ssd_bound(b, t, h, p, g, n, chunk: int) -> tuple:
+    """(bytes, flops) of one call at a serving shape: bf16 x and y, fp32 a,
+    bf16 B and C, the fp32 final state written; per (batch, head, chunk)
+    the products C B^T, att x, C S^T and the state update."""
+    nbytes = 2 * b * t * h * p * 2 + b * t * h * 4 + 2 * b * t * g * n * 2 \
+        + b * h * p * n * 4
+    per_chunk = 2 * chunk * chunk * n + 2 * chunk * chunk * p \
+        + 2 * 2 * chunk * n * p
+    return nbytes, b * h * (t // chunk) * per_chunk
+
+
+def phase_kernel_ssd() -> dict:
+    gen = torch.Generator("cuda").manual_seed(3)
+    cases = failures = 0
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    for dtype, shp, chunk, real, init in ssd_cases():
+        inputs = ssd_inputs(gen, **shp, dtype=dtype, real=real, init=init,
+                            strided=real)
+        ok, y_err, s_err = compare_ssd(*inputs, chunk)
+        name = str(dtype).split(".")[1]
+        worst[name][0] = max(worst[name][0], y_err)
+        worst[name][1] = max(worst[name][1], s_err)
+        cases += 1
+        if not ok:
+            failures += 1
+            print(f"MISMATCH ssd dtype={name} {shp} chunk={chunk} real={real} "
+                  f"init={init} y={y_err} state={s_err}", file=sys.stderr)
+
+    # the carried state matters (tests/test_kernels.py:220): independent
+    # scans of each chunk must differ from the full scan; two halves chained
+    # through init_state must equal it
+    x, a, bm, cm, _ = ssd_inputs(gen, 1, 64, 1, 8, 1, 4, torch.float32,
+                                 real=False)
+    full, full_state = SSD.ssd_scan(x, a, bm, cm, chunk=16)
+    chopped = torch.cat([SSD.ssd_scan(x[:, i:i + 16], a[:, i:i + 16],
+                                      bm[:, i:i + 16], cm[:, i:i + 16],
+                                      chunk=16)[0] for i in range(0, 64, 16)],
+                        dim=1)
+    carry_gap = float((full - chopped).abs().max())
+    y1, s1 = SSD.ssd_scan(x[:, :32], a[:, :32], bm[:, :32], cm[:, :32],
+                          chunk=16)
+    y2, s2 = SSD.ssd_scan(x[:, 32:], a[:, 32:], bm[:, 32:], cm[:, 32:],
+                          chunk=16, init_state=s1)
+    chained_ok, chained_err = within(torch.cat([y1, y2], dim=1), full,
+                                     SSD_TOL[torch.float32])
+    chained_ok &= within(s2, full_state, SSD_STATE_TOL)[0]
+    cases += 2
+    failures += (carry_gap <= 1e-3) + (not chained_ok)
+    emit("kernel_check", kernel="ssd_scan", cases=cases, failures=failures,
+         max_abs_err={k: {"y": v[0], "state": v[1]} for k, v in worst.items()},
+         state_carry_gap=carry_gap, chained_halves_err=chained_err,
+         tol={"float32": SSD_TOL[torch.float32],
+              "bfloat16": SSD_TOL[torch.bfloat16], "state": SSD_STATE_TOL},
+         oracles=["ref.ssd_chunked", "ref.ssd_scan_ref (token by token)"])
+    if failures:
+        raise AssertionError(f"the SSD kernel disagrees with its plain "
+                             f"versions in {failures} of {cases} cases")
+
+    # the serving shapes: one layer's prefill of each model, real decay,
+    # B and C strided views of xBC
+    shapes = {}
+    for arch, shp in SSD_SERVE.items():
+        xb, a, bm, cm, _ = ssd_inputs(gen, **shp, dtype=torch.bfloat16,
+                                      real=True, strided=True)
+        ok, y_err, s_err = compare_ssd(xb, a, bm, cm, None, SSD_CHUNK)
+        if not ok:
+            raise AssertionError(f"{arch} serving shape: y error {y_err}, "
+                                 f"state error {s_err}")
+        kernel_ms = time_ms(lambda: SSD.ssd_scan(xb, a, bm, cm,
+                                                 chunk=SSD_CHUNK))
+        plain_ms = time_ms(lambda: ref.ssd_chunked(xb, a, bm, cm, SSD_CHUNK),
+                           groups=11, per_group=5)
+        nbytes, flops = ssd_bound(**shp, chunk=SSD_CHUNK)
+        tb = nbytes / MEM_BYTES_PER_S * 1e3
+        to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
+        shapes[arch] = {"max_abs_err": y_err, "state_max_abs_err": s_err,
+                        "ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": max(tb, to),
+                        "bound_by": "bytes" if tb >= to else "operations",
+                        "library_ms": None}
+        emit("kernel_time", kernel="ssd_scan",
+             shape=dict(shp, arch=arch, chunk=SSD_CHUNK, dtype="bfloat16"),
+             bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
+             **shapes[arch], library="none: no single PyTorch call computes "
+             "the SSD scan", timing="median of 21 groups of 20 back-to-back "
+             "calls, CUDA events (plain: 11 groups of 5)")
+    main_shape = shapes["mamba2-1.3b"]
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:22",
+            **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "max_abs_err": max(v[0] for v in worst.values()),
+            "shapes": shapes}
+
+
+def path_launches(cfg) -> dict:
+    """The flash-forward and SSD launches that one prefill of ``cfg`` makes:
+    one flash forward a dense layer or a hybrid's shared-block application,
+    one SSD scan an SSM layer."""
+    attention = {"dense": cfg.num_layers,
+                 "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}
+    return {"flash_attention_fwd": attention.get(cfg.arch_type, 0),
+            "ssd_scan": cfg.num_layers if cfg.arch_type in ("ssm", "hybrid")
+            else 0}
+
+
 def phase_model() -> None:
-    cfg = get_config(SERVE["arch"]).replace(num_layers=2, dtype="float32")
-    params = Model(cfg, device="cpu",
-                   generator=torch.Generator().manual_seed(0)).params
-    cpu = Model(cfg, params, device="cpu")
-    card = Model(cfg, params, device="cuda")
-    raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
-        np.random.default_rng(1), 1, 256)
-    toks = torch.from_numpy(batch_for(cfg, raw)["tokens"])
-    before = FA.launches
-    logits, cache = card.prefill({"tokens": toks.cuda()}, 256)
-    torch.cuda.synchronize()
-    launched = FA.launches - before
-    want, want_cache = cpu.prefill({"tokens": toks}, 256)
-    err = float((logits.cpu() - want).abs().max())
-    cache_err = float((cache["k"].cpu() - want_cache["k"]).abs().max())
-    scale = float(want.abs().max())
-    emit("model", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         dtype=cfg.dtype, batch=1, prompt=256, kernel_launches=launched,
-         logits_max_abs_err=err, logits_max_abs=scale,
-         cache_k_max_abs_err=cache_err, tol=MODEL_TOL)
-    if launched != cfg.num_layers:
-        raise AssertionError(f"{launched} kernel launches for "
-                             f"{cfg.num_layers} layers")
-    if not (math.isfinite(err) and err <= MODEL_TOL * (1 + scale)
-            and cache_err <= MODEL_TOL):
-        raise AssertionError(f"card vs CPU: logits {err}, cache {cache_err}")
-    del cpu, card, params, cache, want_cache
+    """Each family at full width cut to 2 layers (zamba2: the shared block
+    after each), fp32: prefill logits and the whole cache on the card
+    (kernels) against the port on the CPU (plain versions)."""
+    for arch, prompt, kw in MODEL_CHECKS:
+        cfg = get_config(arch).replace(num_layers=2, dtype="float32", **kw)
+        params = Model(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0)).params
+        cpu = Model(cfg, params, device="cpu")
+        card = Model(cfg, params, device="cuda")
+        raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
+            np.random.default_rng(1), 1, prompt)
+        toks = torch.from_numpy(batch_for(cfg, raw)["tokens"])
+        zero_counts()
+        logits, cache = card.prefill({"tokens": toks.cuda()}, prompt)
+        torch.cuda.synchronize()
+        launched = counts()
+        want, want_cache = cpu.prefill({"tokens": toks}, prompt)
+        err = float((logits.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        cache_err = max(float((cache[k].cpu().float()
+                               - want_cache[k].float()).abs().max())
+                        for k in want_cache if k != "pos")
+        want_launches = {**dict.fromkeys(launched, 0), **path_launches(cfg)}
+        emit("model", arch=cfg.name, layers=cfg.num_layers,
+             d_model=cfg.d_model, dtype=cfg.dtype, batch=1, prompt=prompt,
+             kernel_launches=launched, logits_max_abs_err=err,
+             logits_max_abs=scale, cache_max_abs_err=cache_err, tol=MODEL_TOL)
+        if launched != want_launches:
+            raise AssertionError(f"{arch}: launches {launched}, want "
+                                 f"{want_launches}")
+        if not (math.isfinite(err) and err <= MODEL_TOL * (1 + scale)
+                and cache_err <= MODEL_TOL):
+            raise AssertionError(f"{arch} card vs CPU: logits {err}, cache "
+                                 f"{cache_err}")
+        del cpu, card, params, cache, want_cache
 
 
-def phase_serve() -> tuple:
-    cfg = get_config(SERVE["arch"])
+def phase_serve(spec: dict, phase: str) -> dict:
+    """Serve ``spec["arch"]`` at full width and depth: the counted run
+    through ``generate`` (every kernel of the path must launch as often as
+    ``path_launches`` says, no other kernel at all), then the prefill with
+    the kernels against the prefill with the plain versions, and each kernel
+    against its plain versions on the inputs the path gave it.  Returns the
+    launch counts of the counted run and the largest errors."""
+    cfg = get_config(spec["arch"])
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda",
                   generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
-        np.random.default_rng(0), SERVE["batch"], SERVE["prompt"])
+        np.random.default_rng(0), spec["batch"], spec["prompt"])
     toks = torch.from_numpy(batch_for(cfg, raw)["tokens"]).cuda()
     generate(model, toks, new_tokens=2)                  # warm-up
     torch.cuda.reset_peak_memory_stats()
 
-    FA.launches = 0
-    res = generate(model, toks, new_tokens=SERVE["new_tokens"])
-    launches = FA.launches
+    zero_counts()
+    res = generate(model, toks, new_tokens=spec["new_tokens"])
+    launched = counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    # comparison runs, after the counted one: the same prefill with the
-    # kernel and with the plain version, recording the attention inputs that
-    # the serving path gives the kernel
-    capacity = SERVE["prompt"] + SERVE["new_tokens"]
-    logits, _ = model.prefill({"tokens": toks}, capacity)
-    seen = []
+    # comparison runs, after the counted one: the prefill with the kernels,
+    # recording what the path gives them, then with the plain versions
+    capacity = spec["prompt"] + spec["new_tokens"]
+    ssd_seen, attn_seen = [], []
+    ssd_kernel, fwd_kernel = SSD.ssd_scan, FA.flash_attention_fwd
 
-    def plain(q, k, v, *, causal, window):
-        seen.append((q, k, v, causal, window))
+    def ssd_recording(xb, a, bmat, cmat, *, chunk, init_state=None):
+        got = ssd_kernel(xb, a, bmat, cmat, chunk=chunk, init_state=init_state)
+        ssd_seen.append(((xb, a, bmat, cmat, init_state, chunk), got))
+        return got
+
+    def ssd_plain(xb, a, bmat, cmat, *, chunk, init_state=None):
+        return ref.ssd_chunked(xb, a, bmat, cmat, chunk, init_state)
+
+    def fwd_recording(q, k, v, *, causal, window):
+        attn_seen.append((q, k, v, causal, window))
+        return fwd_kernel(q, k, v, causal=causal, window=window)
+
+    def fwd_plain(q, k, v, *, causal, window):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
-    kernel, FA.flash_attention_fwd = FA.flash_attention_fwd, plain
     try:
+        SSD.ssd_scan, FA.flash_attention_fwd = ssd_recording, fwd_recording
+        logits, _ = model.prefill({"tokens": toks}, capacity)
+        SSD.ssd_scan, FA.flash_attention_fwd = ssd_plain, fwd_plain
         want, _ = model.prefill({"tokens": toks}, capacity)
     finally:
-        FA.flash_attention_fwd = kernel
+        SSD.ssd_scan, FA.flash_attention_fwd = ssd_kernel, fwd_kernel
     logits, want = logits.float(), want.float()
     logits_err = float((logits - want).abs().max())
     logits_scale = float(want.abs().max())
     first_ok = bool((logits[:, -1].argmax(-1).cpu().numpy()
                      == res.tokens[:, 0]).all())
-    attn_fail, attn_err, attn_lse_err = 0, 0.0, 0.0
-    for q, k, v, causal, window in seen:
+    ssd_checked, ssd_fail, ssd_err, ssd_state_err = len(ssd_seen), 0, 0.0, 0.0
+    token_layers = sorted({i % ssd_checked for i in SSD_TOKEN_LAYERS}) \
+        if ssd_checked else []
+    for i, ((xb, a, bmat, cmat, init_state, chunk), got) in enumerate(ssd_seen):
+        ok, y_err, s_err = compare_ssd(xb, a, bmat, cmat, init_state, chunk,
+                                       token=i in token_layers, got=got)
+        ssd_fail += not ok
+        ssd_err, ssd_state_err = max(ssd_err, y_err), max(ssd_state_err, s_err)
+    ssd_seen.clear()
+    attn_checked, attn_fail, attn_err, attn_lse_err = len(attn_seen), 0, 0.0, 0.0
+    head_dims = sorted({q.shape[-1] for q, *_ in attn_seen})
+    for q, k, v, causal, window in attn_seen:
         ok, err, lse_err = compare(q, k, v, causal=causal, window=window,
                                    tol=SERVE_TOL)
         attn_fail += not ok
         attn_err, attn_lse_err = max(attn_err, err), max(attn_lse_err, lse_err)
+    attn_seen.clear()
 
-    steps = SERVE["new_tokens"] - 1
-    new = SERVE["batch"] * SERVE["new_tokens"]
-    emit("serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         heads=cfg.num_heads, head_dim=cfg.resolved_head_dim,
-         vocab=cfg.vocab_size, dtype=cfg.dtype,
+    want_launches = {**dict.fromkeys(launched, 0), **path_launches(cfg)}
+    shape = {}
+    if want_launches["flash_attention_fwd"]:
+        shape.update(heads=cfg.num_heads, head_dim=cfg.resolved_head_dim)
+    if want_launches["ssd_scan"]:
+        shape.update(ssm_heads=cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim,
+                     ssm_head_dim=cfg.ssm.head_dim,
+                     state_dim=cfg.ssm.state_dim)
+    steps = spec["new_tokens"] - 1
+    new = spec["batch"] * spec["new_tokens"]
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         **shape, vocab=cfg.vocab_size, dtype=cfg.dtype,
          params=sum(p.numel() for p in model.parameters()),
-         batch=SERVE["batch"], prompt=SERVE["prompt"],
-         new_tokens=SERVE["new_tokens"], init_s=init_s,
+         batch=spec["batch"], prompt=spec["prompt"],
+         new_tokens=spec["new_tokens"], init_s=init_s,
          prefill_ms=res.prefill_s * 1e3,
          decode_ms_per_token=res.decode_s / steps * 1e3,
-         decode_tokens_per_s=SERVE["batch"] * steps / res.decode_s,
+         decode_tokens_per_s=spec["batch"] * steps / res.decode_s,
          tokens_per_s=new / (res.prefill_s + res.decode_s),
-         peak_memory_gib=peak_gib, flash_launches=launches,
+         peak_memory_gib=peak_gib, launches=launched,
          first_tokens=res.tokens[0, :8].tolist(),
          first_token_is_prefill_argmax=first_ok,
          logits_vs_plain_max_abs_err=logits_err, logits_max_abs=logits_scale,
-         logits_tol=SERVE_LOGITS_TOL, attention_inputs_checked=len(seen),
+         logits_tol=SERVE_LOGITS_TOL, ssd_inputs_checked=ssd_checked,
+         ssd_token_by_token_layers=token_layers, ssd_failures=ssd_fail,
+         ssd_max_abs_err=ssd_err, ssd_state_max_abs_err=ssd_state_err,
+         ssd_tol={"y": SSD_TOL[torch.bfloat16], "state": SSD_STATE_TOL},
+         attention_inputs_checked=attn_checked, attention_head_dims=head_dims,
          attention_failures=attn_fail, attention_max_abs_err=attn_err,
          attention_lse_max_abs_err=attn_lse_err, attention_tol=SERVE_TOL)
-    if launches != cfg.num_layers:
-        raise AssertionError(f"prefill launched the flash kernel {launches} "
-                             f"times for {cfg.num_layers} layers")
-    if res.tokens.shape != (SERVE["batch"], SERVE["new_tokens"]) or not (
+    problems = []
+    if launched != want_launches:
+        problems.append(f"launches {launched}, want {want_launches}")
+    if attn_checked != want_launches["flash_attention_fwd"] or (
+            attn_checked and head_dims != [cfg.resolved_head_dim]):
+        problems.append(f"{attn_checked} attention inputs, head dims "
+                        f"{head_dims}")
+    if ssd_checked != want_launches["ssd_scan"]:
+        problems.append(f"{ssd_checked} SSD inputs")
+    if res.tokens.shape != (spec["batch"], spec["new_tokens"]) or not (
             (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
-        raise AssertionError(f"bad generation {res.tokens.shape}")
+        problems.append(f"bad generation {res.tokens.shape}")
     if not first_ok:
-        raise AssertionError("the first generated tokens are not the argmax "
-                             "of the prefill logits")
+        problems.append("the first generated tokens are not the argmax of "
+                        "the prefill logits")
     if not (math.isfinite(logits_err)
             and logits_err <= SERVE_LOGITS_TOL * logits_scale):
-        raise AssertionError(f"prefill with the kernel vs the plain version: "
-                             f"logits {logits_err} of {logits_scale}")
-    if len(seen) != cfg.num_layers or attn_fail:
-        raise AssertionError(f"the kernel disagrees with its plain version on "
-                             f"{attn_fail} of {len(seen)} serving-path inputs")
-    return launches, attn_err
+        problems.append(f"prefill with the kernels vs the plain versions: "
+                        f"logits {logits_err} of {logits_scale}")
+    if ssd_fail or attn_fail:
+        problems.append(f"kernels vs plain versions on the path's inputs: "
+                        f"{ssd_fail} SSD, {attn_fail} attention failures")
+    del model, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"{phase}: " + "; ".join(problems))
+    return {"launches": launched, "ssd_err": ssd_err, "attn_err": attn_err}
 
 
 class Forced:
@@ -667,11 +958,12 @@ def counts() -> dict:
     return {"flash_attention_fwd": FA.launches,
             "flash_attention_bwd_dq": FA.launches_dq,
             "flash_attention_bwd_dkv": FA.launches_dkv,
-            "stage_merge": SM.launches}
+            "stage_merge": SM.launches, "ssd_scan": SSD.launches}
 
 
 def zero_counts() -> None:
     FA.launches = FA.launches_dq = FA.launches_dkv = SM.launches = 0
+    SSD.launches = 0
 
 
 def phase_train_model() -> None:
@@ -818,7 +1110,8 @@ def check_run(name: str, hist, launched: dict, *, steps: int, halves: int,
     per_kernel = cfg.num_layers * halves * steps
     want = {"flash_attention_fwd": per_kernel,
             "flash_attention_bwd_dq": per_kernel,
-            "flash_attention_bwd_dkv": per_kernel, "stage_merge": merges}
+            "flash_attention_bwd_dkv": per_kernel, "stage_merge": merges,
+            "ssd_scan": 0}
     failures = [(s, st) for s in sorted(schedule) for st in schedule[s]]
     problems = []
     if len(hist.loss) != steps or not all(math.isfinite(x) for x in hist.loss):
@@ -962,18 +1255,28 @@ def main() -> int:
     fwd = phase_kernel()
     dq, dkv = phase_kernel_bwd()
     merge = phase_kernel_merge()
+    ssd = phase_kernel_ssd()
     phase_model()
-    serve_launches, serve_err = phase_serve()
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], serve_err)
-    torch.cuda.empty_cache()
+    serve = phase_serve(SERVE, "serve")
+    ssm = phase_serve(SERVE_SSM, "serve_ssm")
+    hybrid = phase_serve(SERVE_HYBRID, "serve_hybrid")
+    ssd["max_abs_err"] = max(ssd["max_abs_err"], ssm["ssd_err"],
+                             hybrid["ssd_err"])
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], serve["attn_err"],
+                             hybrid["attn_err"])
     phase_train_model()
     train_launches = phase_train()
     fwd["launches"] = train_launches["flash_attention_fwd"]
-    fwd["launches_by_path"] = {"serve": serve_launches,
-                               "train": train_launches["flash_attention_fwd"]}
+    fwd["launches_by_path"] = {
+        "serve": serve["launches"]["flash_attention_fwd"],
+        "serve_hybrid": hybrid["launches"]["flash_attention_fwd"],
+        "train": train_launches["flash_attention_fwd"]}
     for row in (dq, dkv, merge):
         row["launches"] = train_launches[row["name"]]
-    rows = [fwd, dq, dkv, merge]
+    ssd["launches_by_path"] = {"serve_ssm": ssm["launches"]["ssd_scan"],
+                               "serve_hybrid": hybrid["launches"]["ssd_scan"]}
+    ssd["launches"] = sum(ssd["launches_by_path"].values())
+    rows = [fwd, dq, dkv, merge, ssd]
     if any(row["launches"] <= 0 for row in rows):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{[(r['name'], r['launches']) for r in rows]}")

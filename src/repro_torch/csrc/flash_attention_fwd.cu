@@ -21,7 +21,8 @@
 // Layout: one block of 256 threads per (query tile of 64 rows, q head, batch).
 // Each of the 8 warps owns 8 query rows.  For the Q.K^T tile a lane computes
 // the logits of its 8 rows against keys `lane` and `lane + 32`; for P.V a
-// lane owns the output columns `lane + 32 c`.  Q, K and V tiles are staged in
+// lane owns the output columns `lane + 32 c` that are below D (at D = 80,
+// zamba2's head dim, lanes 0-15 own a third column and lanes 16-31 do not).  Q, K and V tiles are staged in
 // shared memory as fp32 (Q pre-scaled); after the logits are taken, the K
 // tile's space holds the probabilities P.  Rows and keys past S (a ragged
 // prompt) are loaded as zeros and masked.  The running max, sum and output
@@ -143,7 +144,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2)   // two blocks per SM
 flash_fwd_kernel(const Params p) {
   constexpr int LDK = D + 4;           // padded: conflict-free 16-byte reads
-  constexpr int DPL = D / 32;          // output columns per lane
+  constexpr int DPL = (D + 31) / 32;   // output columns per lane, at most
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -254,7 +255,8 @@ flash_fwd_kernel(const Params p) {
       for (int jj = 0; jj < 4; ++jj) {
         float vv[DPL];
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) vv[c] = Vs[(j + jj) * D + lane + 32 * c];
+        for (int c = 0; c < DPL; ++c)
+          vv[c] = lane + 32 * c < D ? Vs[(j + jj) * D + lane + 32 * c] : 0.f;
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const float pj = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y
@@ -276,7 +278,8 @@ flash_fwd_kernel(const Params p) {
     const float denom = l[r] + 1e-30f;
 #pragma unroll
     for (int c = 0; c < DPL; ++c)
-      og[row * p.o_ss + lane + 32 * c] = Chunk<T>::from_float(acc[r][c] / denom);
+      if (lane + 32 * c < D)
+        og[row * p.o_ss + lane + 32 * c] = Chunk<T>::from_float(acc[r][c] / denom);
     if (lane == 0) lg[row] = m[r] + logf(denom);
   }
 }
@@ -308,6 +311,7 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
   switch (D) {
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
+    case 80: return launch<T, 80>(p, stream);
     case 128: return launch<T, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }

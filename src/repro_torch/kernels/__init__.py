@@ -6,6 +6,8 @@
   ``_bwd_dkv_kernel``, and the autograd Function over them.
 * ``stage_merge``     — CheckFree's stage merge (``csrc/stage_merge.cu``),
   counterpart of the TPU ``_merge_kernel``, every leaf of a stage at once.
+* ``ssd_scan``        — the Mamba2 SSD chunked scan (``csrc/ssd_scan.cu``),
+  counterpart of the TPU ``_ssd_kernel``, with a starting and a final state.
 * ``ref``             — the plain versions (CPU path and on-card oracle).
 * ``ops``             — dispatch by device: CPU -> plain, CUDA -> kernel.
 * ``build``           — ``nvcc`` at first use, loaded with ``ctypes``.

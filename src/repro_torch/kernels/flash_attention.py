@@ -25,7 +25,9 @@ import torch
 
 from repro_torch.kernels import build
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+# head dims each direction is built for: the forward also takes zamba2's 80
+FWD_HEAD_DIMS = (32, 64, 80, 128)
+BWD_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -57,7 +59,14 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int, **more: torch.Tensor) -> None:
+           window: int, dims=FWD_HEAD_DIMS, **more: torch.Tensor) -> None:
+    """Refuse what the kernel named ``what`` was not built for; the head dim
+    first, against ``dims``, the head dims of that direction."""
+    if q.shape[-1] not in dims:
+        raise NotImplementedError(
+            f"{what}: head dim {q.shape[-1]} is not built (supported: "
+            f"{dims}); other head dims are an open item of ROADMAP.md "
+            "(queue 2, flash attention)")
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.device.type != "cuda":
             raise ValueError(
@@ -87,11 +96,6 @@ def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.shape != q.shape:
             raise ValueError(f"{what}: {name} {tuple(t.shape)} is not shaped "
                              f"like q {tuple(q.shape)}")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{what}: head dim {d} is not built (supported: "
-            f"{SUPPORTED_HEAD_DIMS}); other head dims are an open item of "
-            "ROADMAP.md (queue 2, flash attention)")
     if s == 0 or window < 0:
         raise ValueError(f"{what}: S={s}, window={window}")
 
@@ -146,7 +150,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                            window: int = 0) -> torch.Tensor:
     """dQ (like q) from q, k, v, dO and the fp32 (B, Hq, S) lse and delta."""
     global launches_dq
-    _check("flash_attention_bwd_dq", q, k, v, window, do=do)
+    _check("flash_attention_bwd_dq", q, k, v, window, BWD_HEAD_DIMS, do=do)
     b, hq, s, d = q.shape
     lse, delta = _rows(lse, "lse", q), _rows(delta, "delta", q)
     dq = _like(q)
@@ -169,7 +173,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK like k, dV like v), each summed over its GQA group of query heads."""
     global launches_dkv
-    _check("flash_attention_bwd_dkv", q, k, v, window, do=do)
+    _check("flash_attention_bwd_dkv", q, k, v, window, BWD_HEAD_DIMS, do=do)
     b, hq, s, d = q.shape
     lse, delta = _rows(lse, "lse", q), _rows(delta, "delta", q)
     dk, dv = _like(k), _like(v)

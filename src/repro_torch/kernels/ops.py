@@ -4,17 +4,22 @@ A CPU tensor takes the plain PyTorch version (``kernels.ref``); a CUDA tensor
 takes the hand-written kernel, which launches or raises.  Any other device
 raises: there is no silent fallback.  ``flash_attention`` also adapts the
 model layout (B, S, H, D) to the kernel layout (B, H, S, D) as strided views,
-so no copy is made on the way in or out.
+so no copy is made on the way in or out.  ``ssd_scan`` has no backward on
+the card (nor has the TPU kernel): it refuses inputs that require a gradient
+there rather than return a result cut from the graph.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.kernels import stage_merge as SM
+
+SSM_TRAINING = "ROADMAP.md queue 1, item 18 (training the SSM and hybrid families)"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -63,3 +68,32 @@ def stage_merge(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor], ca, cb,
         raise ValueError(f"stage_merge: no kernel and no plain version for "
                          f"tensors on {device}")
     return out
+
+
+def ssd_scan(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+             cmat: torch.Tensor, *, chunk: int,
+             init_state: Optional[torch.Tensor] = None,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan, model layout -> (y like xb, final state fp32).
+
+    xb (B, T, H, P) dt-weighted inputs, a (B, T, H) fp32 log decay,
+    bmat/cmat (B, T, G, N), init_state optional (B, H, P, N).  On the CPU the
+    plain ``ref.ssd_chunked`` (differentiable by PyTorch's autograd); on CUDA
+    the kernel, which has no backward: with grad mode on, an input that
+    requires a gradient raises instead of leaving a result with no
+    ``grad_fn``.
+    """
+    if xb.device.type == "cpu":
+        return ref.ssd_chunked(xb, a, bmat, cmat, chunk, init_state)
+    if xb.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel and no plain version for "
+                         f"tensors on {xb.device}")
+    inputs = (xb, a, bmat, cmat, init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            "ssd_scan: the CUDA kernel is forward-only and an input requires "
+            f"a gradient; training through the SSD scan is {SSM_TRAINING}")
+    if init_state is not None:
+        init_state = init_state.float().contiguous()
+    return SSD.ssd_scan(xb, a, bmat, cmat, chunk=chunk, init_state=init_state)

@@ -6,7 +6,7 @@ card hold each CUDA kernel against them on the same inputs.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -86,3 +86,98 @@ def stage_merge_ref(x: torch.Tensor, y: torch.Tensor, ca, cb) -> torch.Tensor:
     ca = torch.as_tensor(ca, dtype=torch.float32, device=x.device)
     cb = torch.as_tensor(cb, dtype=torch.float32, device=x.device)
     return (ca * x.float() + cb * y.float()).to(x.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                 cmat: torch.Tensor, init_state: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD recurrence token by token (its definition), kernel layout.
+
+    x: (B, H, T, P); a: (B, H, T) log decay; bmat/cmat: (B, G, T, N), head h
+    reading group h // (H / G); init_state: optional (B, H, P, N).  Returns
+    (y (B, H, T, P) in x's dtype, final state (B, H, P, N) fp32): the function
+    of ``repro.kernels.ref.ssd_scan_ref``, plus the state it starts from and
+    the state it ends in.
+    """
+    b, h, t, p = x.shape
+    r = h // bmat.shape[1]
+    bh = bmat.float().repeat_interleave(r, dim=1)
+    ch = cmat.float().repeat_interleave(r, dim=1)
+    state = (torch.zeros((b, h, p, bmat.shape[3]), dtype=torch.float32,
+                         device=x.device)
+             if init_state is None else init_state.float())
+    da = torch.exp(a.float())
+    xf = x.float()
+    ys = []
+    for i in range(t):
+        state = (state * da[:, :, i, None, None]
+                 + xf[:, :, i, :, None] * bh[:, :, i, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, :, i]))
+    return torch.stack(ys, dim=2).to(x.dtype), state
+
+
+def ssd_chunked(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                cmat: torch.Tensor, chunk: int,
+                init_state: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan of ``repro.models.ssm.ssd_chunked``, model layout.
+
+    xb: (B, T, H, P) dt-weighted inputs; a: (B, T, H) log decay (dt * A);
+    bmat/cmat: (B, T, G, N); init_state: optional (B, H, P, N).  Returns
+    (y (B, T, H, P) in xb's dtype, final state (B, H, P, N) fp32).  Where the
+    JAX code asserts T % chunk == 0, a ragged last chunk is padded here with
+    tokens that carry nothing (x = B = C = 0, a = 0), as the kernel masks
+    it; the padded rows of y are dropped.  The decay is exponentiated only
+    where j <= i: the masked entries' exponents can overflow to inf, which
+    ``torch.where`` would discard in the forward but not in a gradient.
+    """
+    b, t, h, p = xb.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    r = h // g
+    if chunk < 1:
+        raise ValueError(f"ssd_chunked: chunk {chunk}")
+    pad = -t % chunk
+    xf, af, bf, cf = xb.float(), a.float(), bmat.float(), cmat.float()
+    if pad:
+        xf, bf, cf = (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+                      for v in (xf, bf, cf))
+        af = torch.nn.functional.pad(af, (0, 0, 0, pad))
+    nc = (t + pad) // chunk
+    xc = xf.reshape(b, nc, chunk, h, p)
+    ac = af.reshape(b, nc, chunk, h)
+    bc = bf.reshape(b, nc, chunk, g, n)
+    cc = cf.reshape(b, nc, chunk, g, n)
+
+    cs = torch.cumsum(ac, dim=2)                                 # (b,nc,q,h)
+    # intra-chunk quadratic term
+    cb = torch.einsum("bcqgn,bckgn->bcgqk", cc, bc)
+    cbh = cb.repeat_interleave(r, dim=2)                         # (b,nc,h,q,k)
+    csh = cs.movedim(3, 2)                                       # (b,nc,h,q)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xb.device))
+    expo = csh[..., :, None] - csh[..., None, :]
+    decay = torch.exp(torch.where(mask, expo, 0.0))
+    att = torch.where(mask, cbh * decay, 0.0)
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", att, xc)
+
+    # per-chunk states
+    w_end = torch.exp(cs[:, :, -1:, :] - cs)                     # (b,nc,q,h)
+    bh = bc.repeat_interleave(r, dim=3)                          # (b,nc,q,h,n)
+    s_chunk = torch.einsum("bcqhn,bcqhp,bcqh->bchpn", bh, xc, w_end)
+    d_tot = torch.exp(cs[:, :, -1, :])                           # (b,nc,h)
+
+    # inter-chunk recurrence
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xb.device)
+             if init_state is None else init_state.float())
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * d_tot[:, c, :, None, None] + s_chunk[:, c]
+    prev_states = torch.stack(prev, dim=1)                       # (b,nc,h,p,n)
+
+    # inter-chunk output
+    ch = cc.repeat_interleave(r, dim=3)                          # (b,nc,q,h,n)
+    y_inter = torch.einsum("bcqhn,bchpn->bcqhp", ch, prev_states)
+    y_inter = y_inter * torch.exp(cs)[..., None]
+    y = (y_intra + y_inter).reshape(b, nc * chunk, h, p)[:, :t]
+    return y.to(xb.dtype), state

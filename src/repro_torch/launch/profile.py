@@ -5,6 +5,7 @@
         --full --batch 8 --prompt-len 512 --decode-steps 8
     PYTHONPATH=src python -m repro_torch.launch.profile --arch paper-llama-1.5b \
         --full --batch 8 --prompt-len 512 --train-steps 3
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch mamba2-1.3b --full
 
 Serving: builds the model and prompt as ``launch.serve`` does, warms up,
 then takes prefill and decode apart.  Training (``--train-steps``): builds
@@ -15,8 +16,8 @@ prints one JSON line: the wall time (host clock around work that ends in a
 synchronize, without the profiler), the device busy time (the sum of the
 CUDA kernels' durations in a profiled run of the same work), the device's
 idle share ``1 - busy / wall``, the number of kernels launched, the device
-time by family (the port's kernels, cuBLAS matrix products, everything
-else) and the kernels that take the most device time.  Decode and training
+time by family (the port's kernels: flash attention, the stage merge, the
+SSD scan; cuBLAS matrix products; everything else) and the kernels that take the most device time.  Decode and training
 numbers are per step.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -72,6 +73,7 @@ def _kernels(fn: Callable[[], None]) -> dict:
 # element-wise, reduction and copy kernels)
 _FAMILIES = (("flash_attention", ("flash_fwd", "flash_bwd")),
              ("stage_merge", ("stage_merge",)),
+             ("ssd_scan", ("ssd_scan",)),
              ("matmul", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
 
 

@@ -3,9 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-llama-1.5b \
         --full --batch 8 --prompt-len 512 --new-tokens 32
 
-The PyTorch counterpart of ``repro.launch.serve``.  It runs on the card
-(``--device cuda``, the default), where prefill goes through the
-flash-attention kernel; ``--device cpu`` runs the plain versions.
+The PyTorch counterpart of ``repro.launch.serve``, for the dense, ssm and
+hybrid families.  It runs on the card (``--device cuda``, the default),
+where prefill goes through the flash-attention kernel and, for the ssm and
+hybrid families, the SSD scan kernel; ``--device cpu`` runs the plain
+versions.
 Parameters are drawn from a ``torch.Generator`` seeded with ``--seed`` on the
 device, and prompts come from the same synthetic source as
 ``repro.launch.serve``'s.

@@ -1,1 +1,2 @@
-"""Model families of the port (dense decoder so far)."""
+"""Model families of the port: the dense decoder, the mamba2 SSM tower and
+the zamba2-style hybrid."""

@@ -135,20 +135,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # attention (GQA / MQA, optional qk-norm, optional sliding window)
 # ---------------------------------------------------------------------------
 
+def _lead(layers: Optional[int]) -> Tuple[int, ...]:
+    return () if layers is None else (layers,)
+
+
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device,
-                   layers: int) -> Params:
-    """Attention weights of ``layers`` blocks, stacked on axis 0."""
+                   layers: Optional[int]) -> Params:
+    """Attention weights of ``layers`` blocks stacked on axis 0, or of one
+    block with no layer axis when ``layers`` is None."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    n = _lead(layers)
     p: Params = {
-        "wq": dense_init(gen, (layers, d, nq * hd), dtype, device),
-        "wk": dense_init(gen, (layers, d, nkv * hd), dtype, device),
-        "wv": dense_init(gen, (layers, d, nkv * hd), dtype, device),
-        "wo": dense_init(gen, (layers, nq * hd, d), dtype, device),
+        "wq": dense_init(gen, (*n, d, nq * hd), dtype, device),
+        "wk": dense_init(gen, (*n, d, nkv * hd), dtype, device),
+        "wv": dense_init(gen, (*n, d, nkv * hd), dtype, device),
+        "wo": dense_init(gen, (*n, nq * hd, d), dtype, device),
     }
     if cfg.use_qk_norm:
-        p["q_norm"] = init_rmsnorm((layers, hd), dtype, device)
-        p["k_norm"] = init_rmsnorm((layers, hd), dtype, device)
+        p["q_norm"] = init_rmsnorm((*n, hd), dtype, device)
+        p["k_norm"] = init_rmsnorm((*n, hd), dtype, device)
     return p
 
 
@@ -244,14 +250,16 @@ def attention_decode(p: Params, x: torch.Tensor, pos: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_mlp_cfg(gen: torch.Generator, cfg: ModelConfig, dtype, device,
-                 layers: int) -> Params:
+                 layers: Optional[int]) -> Params:
+    """MLP weights, stacked on axis 0 as ``init_attention``'s."""
     d, ff = cfg.d_model, cfg.d_ff
+    n = _lead(layers)
     if cfg.gated_mlp:
-        return {"w_gate": dense_init(gen, (layers, d, ff), dtype, device),
-                "w_up": dense_init(gen, (layers, d, ff), dtype, device),
-                "w_down": dense_init(gen, (layers, ff, d), dtype, device)}
-    return {"w_up": dense_init(gen, (layers, d, ff), dtype, device),
-            "w_down": dense_init(gen, (layers, ff, d), dtype, device)}
+        return {"w_gate": dense_init(gen, (*n, d, ff), dtype, device),
+                "w_up": dense_init(gen, (*n, d, ff), dtype, device),
+                "w_down": dense_init(gen, (*n, ff, d), dtype, device)}
+    return {"w_up": dense_init(gen, (*n, d, ff), dtype, device),
+            "w_down": dense_init(gen, (*n, ff, d), dtype, device)}
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,10 @@ The parameters keep the JAX layout: the same nested keys, decoder blocks
 stacked on axis 0, so ``state_dict`` keys read ``tree.blocks.attn.wq`` and
 ``repro_torch.convert`` carries JAX parameters across one to one.
 
-Only the dense family is ported; the others raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+The dense, ssm and hybrid families are ported; the others raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.  The ssm and
+hybrid families serve but do not train yet: ``loss`` and
+``weights=False`` refuse them the same way.
 """
 from __future__ import annotations
 
@@ -21,7 +23,10 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.ops import SSM_TRAINING
+from repro_torch.models import hybrid as H
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 
 Params = Dict[str, Any]
@@ -29,11 +34,11 @@ Batch = Dict[str, torch.Tensor]
 
 _NOT_PORTED = {
     "moe": "ROADMAP.md queue 1, item 11 (MoE family)",
-    "ssm": "ROADMAP.md queue 1, item 12 (SSM and hybrid)",
-    "hybrid": "ROADMAP.md queue 1, item 12 (SSM and hybrid)",
     "encdec": "ROADMAP.md queue 1, item 13 (encoder-decoder and VLM)",
     "vlm": "ROADMAP.md queue 1, item 13 (encoder-decoder and VLM)",
 }
+# the family modules: init, forward, init_cache, prefill, decode_step
+_FAMILIES = {"dense": T, "ssm": S, "hybrid": H}
 
 
 def _to_module(tree: Params) -> nn.Module:
@@ -54,9 +59,9 @@ def _to_tree(m: nn.Module) -> Params:
 
 
 class Model(nn.Module):
-    """Owns the parameters of one dense decoder, in ``cfg.dtype``, on ``device``.
+    """Owns the parameters of one model, in ``cfg.dtype``, on ``device``.
 
-    ``params`` is a nested dict of tensors (``T.init`` or
+    ``params`` is a nested dict of tensors (the family's ``init`` or
     ``repro_torch.convert.params_from_numpy``); without it the parameters are
     drawn from ``generator`` (seed 0 on ``device`` when none is given).  They
     are cast to ``cfg.dtype`` once, here: the JAX code recasts its fp32
@@ -70,13 +75,15 @@ class Model(nn.Module):
                  weights: bool = True):
         super().__init__()
         cfg.validate()
-        if cfg.arch_type != "dense":
+        if cfg.arch_type not in _FAMILIES:
             raise NotImplementedError(
                 f"{cfg.arch_type} models are not ported yet: "
                 f"{_NOT_PORTED[cfg.arch_type]}")
         self.cfg = cfg
+        self.family = _FAMILIES[cfg.arch_type]
         self.device = torch.device(device)
         if not weights:
+            self._refuse_training()
             if params is not None:
                 raise ValueError("weights=False takes no params")
             self.tree = nn.Module()
@@ -100,7 +107,13 @@ class Model(nn.Module):
 
     def init(self, generator: torch.Generator) -> Params:
         """A fresh parameter tree in ``cfg.param_dtype`` drawn from ``generator``."""
-        return T.init(generator, self.cfg, self.device)
+        return self.family.init(generator, self.cfg, self.device)
+
+    def _refuse_training(self) -> None:
+        if self.cfg.arch_type != "dense":
+            raise NotImplementedError(
+                f"{self.cfg.arch_type} models serve but do not train yet: "
+                f"{SSM_TRAINING}")
 
     def loss(self, params: Params, batch: Batch, *,
              order: Optional[Sequence[int]] = None,
@@ -113,6 +126,7 @@ class Model(nn.Module):
         autograd.  ``order`` runs the tower's layers in that order
         (CheckFree+'s swapped stages).  aux is 0 for the dense family.
         """
+        self._refuse_training()
         cfg = self.cfg
         logits = T.forward(L.cast_tree(params, cfg.dtype), cfg,
                            batch["tokens"], order=order)
@@ -122,25 +136,27 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def apply(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward -> (logits, aux_loss); aux is 0 for dense.
+        """Full-sequence forward -> (logits, aux_loss); aux is 0 for the
+        ported families.
 
         Named after the JAX ``Model.apply``; it shadows ``nn.Module.apply``.
         """
-        logits = T.forward(self.params, self.cfg, batch["tokens"])
+        logits = self.family.forward(self.params, self.cfg, batch["tokens"])
         return logits, torch.zeros((), dtype=torch.float32, device=self.device)
 
     def init_cache(self, batch: int, capacity: int) -> Params:
-        return T.init_cache(self.cfg, batch, capacity, self.device)
+        return self.family.init_cache(self.cfg, batch, capacity, self.device)
 
     @torch.no_grad()
     def prefill(self, batch: Batch, capacity: int) -> Tuple[torch.Tensor, Params]:
-        return T.prefill(self.params, self.cfg, batch["tokens"], capacity)
+        return self.family.prefill(self.params, self.cfg, batch["tokens"],
+                                   capacity)
 
     @torch.no_grad()
     def decode_step(self, cache: Params, tokens: torch.Tensor, *,
                     window: int = 0) -> Tuple[torch.Tensor, Params]:
-        return T.decode_step(self.params, self.cfg, cache, tokens,
-                             window=window)
+        return self.family.decode_step(self.params, self.cfg, cache, tokens,
+                                       window=window)
 
 
 def _move(tree: Any, device: torch.device) -> Any:

@@ -31,19 +31,26 @@ Params = Dict[str, Any]
 # init
 # ---------------------------------------------------------------------------
 
+def init_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+               layers: Optional[int] = None) -> Params:
+    """A decoder block's parameters: ``layers`` blocks stacked on axis 0, or
+    one block with no layer axis (the hybrid family's shared block)."""
+    n = () if layers is None else (layers,)
+    return {
+        "attn_norm": L.init_norm_cfg((*n, cfg.d_model), dtype, device, cfg),
+        "attn": L.init_attention(gen, cfg, dtype, device, layers),
+        "mlp_norm": L.init_norm_cfg((*n, cfg.d_model), dtype, device, cfg),
+        "mlp": L.init_mlp_cfg(gen, cfg, dtype, device, layers),
+    }
+
+
 def init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     """Fresh parameters in ``cfg.param_dtype``, drawn from ``gen`` on ``device``."""
     dtype = L.to_dtype(cfg.param_dtype)
-    n = cfg.num_layers
     params: Params = {
         "embed": {"table": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                         dtype, device)},
-        "blocks": {
-            "attn_norm": L.init_norm_cfg((n, cfg.d_model), dtype, device, cfg),
-            "attn": L.init_attention(gen, cfg, dtype, device, n),
-            "mlp_norm": L.init_norm_cfg((n, cfg.d_model), dtype, device, cfg),
-            "mlp": L.init_mlp_cfg(gen, cfg, dtype, device, n),
-        },
+        "blocks": init_block(gen, cfg, dtype, device, cfg.num_layers),
         "final_norm": L.init_norm_cfg((cfg.d_model,), dtype, device, cfg),
     }
     if not cfg.tie_embeddings:
@@ -114,7 +121,8 @@ def _block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
     return x + _mlp_or_moe(bp, h, cfg), kv
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
+def token_positions(tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions 0..S-1 of a prompt batch."""
     b, s = tokens.shape
     return torch.arange(s, device=tokens.device).expand(b, s)
 
@@ -130,7 +138,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     copying the tower, and autograd sums each layer's gradients into its own
     slice whichever position ran it.
     """
-    positions = _positions(tokens)
+    positions = token_positions(tokens)
     x = embed_tokens(params, cfg, tokens, positions)
     blocks = unstack(params["blocks"], cfg.num_layers)
     order = range(cfg.num_layers) if order is None else list(order)
@@ -157,6 +165,31 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+def kv_slots(s: int, capacity: int, window: int,
+             device) -> Optional[torch.Tensor]:
+    """Where a prompt of ``s`` tokens puts its K/V in a cache of
+    ``capacity`` slots: None for slots 0..s-1; when the capacity equals the
+    sliding window and the prompt is longer, the ring slots p % window of
+    the last ``window`` positions p."""
+    if window > 0 and capacity == window and s > window:
+        return torch.arange(s - window, s, device=device) % window
+    if capacity < s:
+        raise ValueError(f"prefill: prompt of {s} tokens does not fit a "
+                         f"cache of capacity {capacity}")
+    return None
+
+
+def store_kv(cache: Params, i: int, k: torch.Tensor, v: torch.Tensor,
+             slots: Optional[torch.Tensor]) -> None:
+    """Layer (or segment) ``i``'s prompt K/V (B, S, nkv, D) into the cache."""
+    if slots is None:
+        cache["k"][i, :, :k.shape[1]] = k
+        cache["v"][i, :, :v.shape[1]] = v
+    else:
+        cache["k"][i][:, slots] = k[:, -slots.numel():]
+        cache["v"][i][:, slots] = v[:, -slots.numel():]
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             capacity: int) -> Tuple[torch.Tensor, Params]:
     """Causal forward over the prompt -> (last-token logits (B, 1, V), cache).
@@ -168,26 +201,15 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """
     b, s = tokens.shape
     window = cfg.sliding_window
-    ring = window > 0 and capacity == window and s > window
-    if not ring and capacity < s:
-        raise ValueError(f"prefill: prompt of {s} tokens does not fit a "
-                         f"cache of capacity {capacity}")
-    positions = _positions(tokens)
+    slots = kv_slots(s, capacity, window, tokens.device)
+    positions = token_positions(tokens)
     cache = init_cache(cfg, b, capacity, tokens.device)
-    if ring:
-        start = s - window
-        slots = torch.arange(start, s, device=tokens.device) % window
     x = embed_tokens(params, cfg, tokens, positions)
     blocks = unstack(params["blocks"], cfg.num_layers)
     for i, swa in enumerate(swa_flags(cfg)):
         x, (k, v) = _block(blocks[i], x, positions, cfg,
                            window if swa else 0)
-        if ring:
-            cache["k"][i][:, slots] = k[:, start:]
-            cache["v"][i][:, slots] = v[:, start:]
-        else:
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+        store_kv(cache, i, k, v, slots)
     cache["pos"].fill_(s)
     return logits_from_hidden(params, cfg, x[:, -1:, :]), cache
 

@@ -8,9 +8,10 @@ toolkit:
 
 Each kernel is held against its plain version on the same inputs at the
 tolerances of tests/test_kernels.py (forward fp32 2e-5, bf16 3e-2, lse 1e-4;
-backward fp32 2e-4, bf16 3e-2; the merge fp32 1e-6 and one bf16 ulp), and
-the model and the Trainer on the card against the same on the CPU at 1e-4
-(fp32, with TF32 off; cuBLAS and the CPU sum in different orders).
+backward fp32 2e-4, bf16 3e-2; the merge fp32 1e-6 and one bf16 ulp; the
+SSD scan fp32 1e-4, bf16 3e-2, its fp32 final state 1e-4), and the models
+and the Trainer on the card against the same on the CPU at 1e-4 (fp32, with
+TF32 off; cuBLAS and the CPU sum in different orders).
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.models.model import Model
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
@@ -299,3 +301,158 @@ def test_trainer_on_card_matches_cpu(strategy):
     np.testing.assert_allclose([e for _, e in hists["cuda"].recovery_errors],
                                [e for _, e in hists["cpu"].recovery_errors],
                                rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan, head dim 80 and the ssm / hybrid models (serving slice)
+# ---------------------------------------------------------------------------
+
+SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+STATE_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def ssd_inputs(seed, b, t, h, p, g, n, dtype, *, real, init=False):
+    """Model layout, drawn with numpy.  ``real``: the decay of a mamba2
+    layer, a = dt * A with dt = softplus(N(0, 1) + dt_bias) and A down to
+    -16 (a reaches about -1.6 a token), and B and C strided views of one
+    xBC tensor; otherwise tests/test_kernels.py's draws."""
+    rng = np.random.default_rng(seed)
+
+    def cuda(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+
+    if real:
+        dt0 = np.exp(rng.random(h) * (np.log(1e-1) - np.log(1e-3))
+                     + np.log(1e-3))
+        dt_bias = dt0 + np.log(-np.expm1(-dt0))
+        dt = np.log1p(np.exp(rng.standard_normal((b, t, h)) + dt_bias))
+        a = cuda(dt * -np.linspace(1.0, 16.0, h))
+        xb = cuda(rng.standard_normal((b, t, h, p)) * dt[..., None], dtype)
+        xbc = cuda(rng.standard_normal((b, t, 2 * g * n + 8)), dtype)
+        bm = xbc[..., 8:8 + g * n].reshape(b, t, g, n)
+        cm = xbc[..., 8 + g * n:].reshape(b, t, g, n)
+    else:
+        a = cuda(-0.1 * np.abs(rng.standard_normal((b, t, h))))
+        xb = cuda(0.5 * rng.standard_normal((b, t, h, p)), dtype)
+        bm = cuda(0.4 * rng.standard_normal((b, t, g, n)), dtype)
+        cm = cuda(0.4 * rng.standard_normal((b, t, g, n)), dtype)
+    init_state = cuda(0.5 * rng.standard_normal((b, h, p, n))) if init \
+        else None
+    return xb, a, bm, cm, init_state
+
+
+def check_ssd(xb, a, bm, cm, init_state, chunk):
+    before = SSD.launches
+    y, state = SSD.ssd_scan(xb, a, bm, cm, chunk=chunk, init_state=init_state)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    assert y.dtype == xb.dtype and state.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    wy, ws = ref.ssd_chunked(xb, a, bm, cm, chunk, init_state)
+    ty, ts = ref.ssd_scan_ref(*(v.transpose(1, 2) for v in (xb, a, bm, cm)),
+                              init_state)
+    for want_y, want_state in ((wy, ws), (ty.transpose(1, 2), ts)):
+        torch.testing.assert_close(y.float(), want_y.float(),
+                                   **SSD_TOL[xb.dtype])
+        torch.testing.assert_close(state, want_state, **STATE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,chunk", [(64, 16), (128, 32), (128, 64)])
+@pytest.mark.parametrize("h,g", [(2, 1), (4, 2)])
+def test_ssd_kernel_matches_plain_sweep(dtype, t, chunk, h, g):
+    check_ssd(*ssd_inputs(0, 2, t, h, 16, g, 8, dtype, real=False), chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,chunk", [(509, 64), (37, 1), (100, 48)])
+@pytest.mark.parametrize("p,n", [(32, 16), (64, 128)])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_kernel_ragged_wide_real_decay(dtype, t, chunk, p, n, init):
+    """Ragged last chunks, a prime prompt's chunk of 1, a starting state and
+    the real decay range, where exp(cs_i - cs_j) above the diagonal is inf."""
+    check_ssd(*ssd_inputs(1, 2, t, 4, p, 2, n, dtype, real=True, init=init),
+              chunk)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_carries_its_state():
+    xb, a, bm, cm, _ = ssd_inputs(2, 1, 64, 1, 8, 1, 4, torch.float32,
+                                  real=False)
+    full, state = SSD.ssd_scan(xb, a, bm, cm, chunk=16)
+    parts = [SSD.ssd_scan(xb[:, i:i + 16], a[:, i:i + 16], bm[:, i:i + 16],
+                          cm[:, i:i + 16], chunk=16)[0] for i in range(0, 64, 16)]
+    assert float((full - torch.cat(parts, dim=1)).abs().max()) > 1e-3
+    y1, s1 = SSD.ssd_scan(xb[:, :32], a[:, :32], bm[:, :32], cm[:, :32],
+                          chunk=16)
+    y2, s2 = SSD.ssd_scan(xb[:, 32:], a[:, 32:], bm[:, 32:], cm[:, 32:],
+                          chunk=16, init_state=s1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), full,
+                               **SSD_TOL[torch.float32])
+    torch.testing.assert_close(s2, state, **STATE_TOL)
+
+
+@pytest.mark.gpu
+def test_ops_ssd_scan_refuses_a_gradient_on_the_card():
+    xb, a, bm, cm, _ = ssd_inputs(3, 1, 32, 2, 8, 1, 4, torch.float32,
+                                  real=False)
+    xb.requires_grad_()
+    with pytest.raises(RuntimeError, match="ROADMAP.md"):
+        ops.ssd_scan(xb, a, bm, cm, chunk=16)
+    with torch.no_grad():
+        y, _ = ops.ssd_scan(xb, a, bm, cm, chunk=16)
+    want, _ = ref.ssd_chunked(xb.detach(), a, bm, cm, 16)
+    torch.testing.assert_close(y, want, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("s,causal,window", [(128, True, 0), (77, False, 0),
+                                             (200, True, 100)])
+def test_flash_forward_at_head_dim_80(dtype, hq, hkv, s, causal, window):
+    """zamba2-2.7b's head dim: every one of the 80 output columns is
+    written (D / 32 is not whole); the backward refuses 80."""
+    q, k, v = qkv(4, 2, hq, hkv, s, 80, dtype)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    delta = torch.zeros_like(lse)
+    with pytest.raises(NotImplementedError, match="head dim 80"):
+        FA.flash_attention_bwd_dq(q, k, v, q, lse, delta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kw", [("mamba2-1.3b", {}),
+                                     ("zamba2-2.7b", dict(num_layers=4,
+                                                          attn_every=2))])
+@pytest.mark.parametrize("s", [37, 64])
+def test_ssm_models_on_card_match_cpu(arch, kw, s):
+    cfg = reduced(get_config(arch)).replace(dtype="float32", **kw)
+    params = Model(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(0)).params
+    cpu = Model(cfg, params, device="cpu")
+    card = Model(cfg, params, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(2, s)).astype(np.int32))
+    ssd_before, fa_before = SSD.launches, FA.launches
+    logits, cache = card.prefill({"tokens": toks.cuda()}, s + 4)
+    assert SSD.launches == ssd_before + cfg.num_layers
+    segments = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    assert FA.launches == fa_before + segments
+    want, want_cache = cpu.prefill({"tokens": toks}, s + 4)
+    torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+    for key in want_cache:
+        torch.testing.assert_close(cache[key].cpu(), want_cache[key],
+                                   atol=1e-4, rtol=1e-4)
+    nxt = want[:, -1].argmax(-1).to(torch.int32)
+    for _ in range(2):
+        logits, cache = card.decode_step(cache, nxt.cuda())
+        want, want_cache = cpu.decode_step(want_cache, nxt)
+        torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+        nxt = want[:, -1].argmax(-1).to(torch.int32)

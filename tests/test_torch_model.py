@@ -259,7 +259,8 @@ def test_package_imports_no_jax_and_nothing_of_repro():
         "assert not bad, bad\n"
         "for m in ('launch.serve', 'launch.train', 'core.trainer', "
         "'core.recovery', 'core.stages', 'core.failures', 'core.walltime', "
-        "'recovery.strategies', 'optim.adam', 'kernels.stage_merge'):\n"
+        "'recovery.strategies', 'optim.adam', 'kernels.stage_merge', "
+        "'models.ssm', 'models.hybrid', 'kernels.ssd_scan'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
