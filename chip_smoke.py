@@ -9,26 +9,32 @@ result.  Phases:
 
 1. env     — card, power limit, torch/CUDA versions; TF32 off for fp32.
 2. build   — compiles every CUDA source under src/repro_torch/csrc.
-3. kernel  — the flash-attention forward kernel against its plain version
-             over dtypes, GQA groups, head dims, masks, ragged lengths and the
-             serving shape; then kernel, plain version and SDPA (as a
-             yardstick only) timed at the serving shape with CUDA events
-             around back-to-back calls, beside the bound.  The same for the
-             two backward kernels (against ``flash_attention_bwd_ref`` and
-             PyTorch's autograd through the plain forward; timed at the
-             training shape, SDPA's backward as the yardstick) and for the
-             stage merge (against ``stage_merge_ref``; timed on one 4-layer
-             stage of paper-llama-1.5b, ``torch._foreach_lerp`` as the
-             yardstick).  The forward sweep and timing include head dim 80
-             (zamba2-2.7b's shared attention).  The SSD scan against its two
-             plain versions (chunked and token by token) over
-             tests/test_kernels.py's sweep, ragged lengths, wider P and N,
-             starting states and the real decay range, a state-carry check,
-             and both models' serving shapes; timed there beside its bound
-             and the chunked plain version (no PyTorch call computes it).
-4. model   — paper-llama-1.5b, mamba2-1.3b and zamba2-2.7b at full width cut
-             to 2 layers, fp32: prefill logits (and cache) on the card
-             (kernels) against the port on the CPU (plain versions).
+3. kernel  — the flash-attention forward kernel (bf16 on the tensor cores,
+             fp32 on the CUDA cores) against its plain version over dtypes,
+             MHA/GQA/MQA groups, every head dim it is built for (32, 64, 80,
+             120, 128, 256), masks (causal, a window of 100, full, the 4096
+             window at S 512), lengths shorter than one tile, ragged and long,
+             and the four serving shapes (paper-llama-1.5b 16 x 128,
+             zamba2-2.7b's shared attention 32 x 80, h2o-danube-3-4b 32/8 x
+             120 with its 4096 window, gemma-2b 8/1 x 256); then kernel,
+             plain version and SDPA (as a yardstick only) timed at the
+             serving shapes with CUDA events around back-to-back calls,
+             beside the bound.  The same for the two backward kernels
+             (against ``flash_attention_bwd_ref`` and PyTorch's autograd
+             through the plain forward; timed at the training shape, SDPA's
+             backward as the yardstick) and for the stage merge (against
+             ``stage_merge_ref``; timed on one 4-layer stage of
+             paper-llama-1.5b, ``torch._foreach_lerp`` as the yardstick).
+             The SSD scan against its two plain versions (chunked and token
+             by token) over tests/test_kernels.py's sweep, ragged lengths,
+             wider P and N, starting states and the real decay range, a
+             state-carry check, and both models' serving shapes; timed there
+             beside its bound and the chunked plain version (no PyTorch call
+             computes it).
+4. model   — paper-llama-1.5b, mamba2-1.3b, zamba2-2.7b, gemma-2b and
+             h2o-danube-3-4b at full width cut to 2 layers, fp32: prefill
+             logits (and cache) on the card (kernels) against the port on the
+             CPU (plain versions).
 5. serve   — paper-llama-1.5b, all 24 layers, random weights from a seeded
              generator on the card: batch 8, prompt 512, 32 new tokens
              through ``launch.serve.generate``; the kernel must launch once
@@ -39,7 +45,10 @@ result.  Phases:
              launches a prefill) and zamba2-2.7b (54 SSD launches and 6
              flash-forward launches at head dim 80), the SSD kernel held
              against the chunked plain version on every layer's inputs and
-             against the token-by-token one on the first and last.
+             against the token-by-token one on the first and last; and
+             gemma-2b (18 flash-forward launches a prefill at head dim 256)
+             and h2o-danube-3-4b (24 at head dim 120, window 4096), all
+             layers, as paper-llama-1.5b.
 6. train_model — the same 2-layer fp32 cut, two Adam steps of the Trainer on
              the card (kernels) and on the CPU (plain versions) from the same
              parameters: loss and parameters agree.
@@ -110,9 +119,10 @@ SERVE_LOGITS_TOL = 0.05
 MODEL_TOL = 1e-3
 SERVE = dict(arch="paper-llama-1.5b", batch=8, prompt=512, new_tokens=32)
 # the 2-layer cuts held card vs CPU: (arch, prompt, config changes)
+# (gemma-2b and h2o-danube-3-4b: the fp32 kernel at head dims 256 and 120)
 MODEL_CHECKS = (("paper-llama-1.5b", 256, {}), ("mamba2-1.3b", 128, {}),
-                ("zamba2-2.7b", 128, {"attn_every": 1}))
-ATTN_SHAPE = dict(b=8, h=16, s=512, d=128)   # what serving gives the kernel
+                ("zamba2-2.7b", 128, {"attn_every": 1}), ("gemma-2b", 200, {}),
+                ("h2o-danube-3-4b", 200, {}))
 # the backward kernels: tests/test_kernels.py's VJP tolerance for fp32; bf16
 # gradients are rounded once from fp32 sums taken in different orders by the
 # kernel and the plain version: 3e-2 * (1 + |w|) (tests/test_kernels.py:16-17)
@@ -155,8 +165,17 @@ SERVE_HYBRID = dict(arch="zamba2-2.7b", batch=8, prompt=512, new_tokens=32)
 # of the prefill's SSD inputs, these layers are also held against the
 # token-by-token definition (the chunked plain version checks every layer)
 SSD_TOKEN_LAYERS = (0, -1)
-# zamba2-2.7b's shared attention at the serving shape: 32 heads of 80
-ATTN_SHAPE_D80 = dict(b=8, h=32, s=512, d=80)
+# what one layer of a prefill gives the flash forward, batch 8 x 512:
+# paper-llama-1.5b (16 heads of 128), zamba2-2.7b's shared attention (32 of
+# 80), h2o-danube-3-4b (32 query heads on 8 kv heads of 120, window 4096),
+# gemma-2b (8 query heads on one kv head of 256)
+ATTN_SHAPES = {"d128": dict(b=8, h=16, hkv=16, s=512, d=128, window=0),
+               "d80": dict(b=8, h=32, hkv=32, s=512, d=80, window=0),
+               "d120": dict(b=8, h=32, hkv=8, s=512, d=120, window=4096),
+               "d256": dict(b=8, h=8, hkv=1, s=512, d=256, window=0)}
+SERVE_GEMMA = dict(arch="gemma-2b", batch=8, prompt=512, new_tokens=32)
+SERVE_DANUBE = dict(arch="h2o-danube-3-4b", batch=8, prompt=512,
+                    new_tokens=32)
 
 
 def emit(phase: str, **kw) -> None:
@@ -244,46 +263,55 @@ def phase_build() -> None:
     info = build.build()
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in r["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln]
              for name, r in info.items()}
     emit("build", seconds=seconds, sources=sorted(info), ptxas=ptxas)
 
 
 def sweep_cases():
     """(dtype, b, hq, hkv, s, d, causal, window, tol) of the kernel sweep."""
-    b, h, s, d = (ATTN_SHAPE[x] for x in "bhsd")
     for dtype in (torch.float32, torch.bfloat16):
-        for hq, hkv in ((16, 16), (32, 8), (4, 1)):
-            for dd in (64, 80, 128):
+        for hq, hkv in ((16, 16), (32, 8), (4, 1), (8, 1)):
+            for dd in FA.FWD_HEAD_DIMS:
                 for causal, window in ((True, 0), (True, 100), (False, 0)):
-                    for ss in (128, 1000, 2048):
+                    # shorter than one tile, ragged, long
+                    for ss in (1, 37, 63, 128, 1000, 2048):
                         yield (dtype, 1 if ss == 2048 else 2, hq, hkv, ss, dd,
                                causal, window, TOL[dtype])
-        # the serving shapes (paper-llama-1.5b, zamba2-2.7b's shared block),
-        # where bf16 is held to one ulp
-        for shape in (ATTN_SHAPE, ATTN_SHAPE_D80):
-            yield (dtype, shape["b"], shape["h"], shape["h"], shape["s"],
-                   shape["d"], True, 0,
+                # h2o-danube's window, longer than the prompt
+                yield (dtype, 2, hq, hkv, 512, dd, True, 4096, TOL[dtype])
+        # the serving shapes, where bf16 is held to one ulp
+        for shape in ATTN_SHAPES.values():
+            yield (dtype, shape["b"], shape["h"], shape["hkv"], shape["s"],
+                   shape["d"], True, shape["window"],
                    TOL[dtype] if dtype == torch.float32 else SERVE_TOL)
 
 
 def time_fwd(shape: dict, gen) -> dict:
     """The forward kernel, its plain version and SDPA at a bf16 causal
     serving shape, beside the bound."""
-    b, h, s, d = (shape[x] for x in "bhsd")
-    q, k, v = qkv(gen, b, h, h, s, d, torch.bfloat16)
-    ok, err, lse_err = compare(q, k, v, causal=True, window=0, tol=SERVE_TOL)
+    b, h, hkv, s, d, window = (shape[x] for x in
+                               ("b", "h", "hkv", "s", "d", "window"))
+    q, k, v = qkv(gen, b, h, hkv, s, d, torch.bfloat16)
+    ok, err, lse_err = compare(q, k, v, causal=True, window=window,
+                               tol=SERVE_TOL)
     if not ok:
         raise AssertionError(f"serving shape {shape}: out error {err}, lse "
                              f"error {lse_err}")
-    kernel_ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True))
+    kernel_ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=True,
+                                                       window=window))
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                       window=window))
+    # the yardstick computes the same function only where the window does
+    # not cut the prompt
+    assert window == 0 or window >= s, shape
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
+        q, k, v, is_causal=True, enable_gqa=hkv != h))
     # q, k, v read once; out (like q) and the fp32 lse written once
     nbytes = (2 * q.numel() * q.element_size() + k.numel() * k.element_size()
               + v.numel() * v.element_size() + b * h * s * 4)
-    flops = 4 * b * h * d * visible_pairs(s, True, 0)
+    flops = 4 * b * h * d * visible_pairs(s, True, window)
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
     row = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -324,12 +352,14 @@ def phase_kernel() -> dict:
                              f"version in {failures} of {cases} cases")
 
     # the serving shapes: bf16, causal, one layer of paper-llama-1.5b (the
-    # row's numbers) and zamba2-2.7b's shared block at head dim 80
+    # row's numbers), zamba2-2.7b's shared block at head dim 80,
+    # h2o-danube-3-4b at 120 and gemma-2b at 256
     row = {"name": "flash_attention_fwd", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:39",
-           **time_fwd(ATTN_SHAPE, gen)}
-    row["d80"] = time_fwd(ATTN_SHAPE_D80, gen)
+           **time_fwd(ATTN_SHAPES["d128"], gen)}
+    for name in ("d80", "d120", "d256"):
+        row[name] = time_fwd(ATTN_SHAPES[name], gen)
     return row
 
 
@@ -1260,16 +1290,21 @@ def main() -> int:
     serve = phase_serve(SERVE, "serve")
     ssm = phase_serve(SERVE_SSM, "serve_ssm")
     hybrid = phase_serve(SERVE_HYBRID, "serve_hybrid")
+    gemma = phase_serve(SERVE_GEMMA, "serve_gemma")
+    danube = phase_serve(SERVE_DANUBE, "serve_danube")
     ssd["max_abs_err"] = max(ssd["max_abs_err"], ssm["ssd_err"],
                              hybrid["ssd_err"])
     fwd["max_abs_err"] = max(fwd["max_abs_err"], serve["attn_err"],
-                             hybrid["attn_err"])
+                             hybrid["attn_err"], gemma["attn_err"],
+                             danube["attn_err"])
     phase_train_model()
     train_launches = phase_train()
     fwd["launches"] = train_launches["flash_attention_fwd"]
     fwd["launches_by_path"] = {
         "serve": serve["launches"]["flash_attention_fwd"],
         "serve_hybrid": hybrid["launches"]["flash_attention_fwd"],
+        "serve_gemma": gemma["launches"]["flash_attention_fwd"],
+        "serve_danube": danube["launches"]["flash_attention_fwd"],
         "train": train_launches["flash_attention_fwd"]}
     for row in (dq, dkv, merge):
         row["launches"] = train_launches[row["name"]]

@@ -3,9 +3,11 @@ and ``csrc/flash_attention_bwd.cu``, and the autograd Function over them.
 
 The kernels replace the TPU kernels of ``repro/kernels/flash_attention.py``:
 ``_flash_kernel`` (forward), ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
-(backward).  This module takes tensors that lie on a CUDA device and nothing
-else: the plain versions for CPU tensors are in ``kernels.ref``, and
-``kernels.ops`` picks between them by the tensor's device.
+(backward).  The forward runs bf16 on the tensor cores and fp32 on the CUDA
+cores (an fp32 tensor-core product would be TF32).  This module takes
+tensors that lie on a CUDA device and nothing else: the plain versions for
+CPU tensors are in ``kernels.ref``, and ``kernels.ops`` picks between them by
+the tensor's device.
 
 :class:`FlashAttention` is the counterpart of the JAX ``custom_vjp``: its
 forward launches the forward kernel and saves ``(q, k, v, out, lse)``; its
@@ -25,8 +27,9 @@ import torch
 
 from repro_torch.kernels import build
 
-# head dims each direction is built for: the forward also takes zamba2's 80
-FWD_HEAD_DIMS = (32, 64, 80, 128)
+# head dims each direction is built for: the forward also takes zamba2's 80,
+# h2o-danube-3-4b's 120 and gemma-2b's 256
+FWD_HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 BWD_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -45,12 +45,16 @@ def qkv(seed, b, hq, hkv, s, d, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", FA.FWD_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 32), (8, 2, 64), (4, 1, 128)])
-@pytest.mark.parametrize("s,causal,window", [(128, True, 0), (200, True, 100),
-                                             (77, False, 0), (1, True, 0)])
-def test_kernel_matches_plain(dtype, hq, hkv, d, s, causal, window):
-    q, k, v = qkv(0, 2, hq, hkv, s, d, dtype)
+@pytest.mark.parametrize("hq,hkv", [(16, 16), (8, 2), (8, 1)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100), (False, 0)])
+@pytest.mark.parametrize("s", [1, 63, 64, 200, 1000])
+def test_kernel_matches_plain(d, dtype, hq, hkv, causal, window, s):
+    """Every head dim the forward is built for (bf16 on the tensor cores,
+    fp32 on the CUDA cores), MHA, GQA and MQA, lengths shorter than one tile,
+    one tile, ragged and long: every output column below D is written."""
+    q, k, v = qkv(0, 2 if s < 1000 else 1, hq, hkv, s, d, dtype)
     before = FA.launches
     out, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -81,12 +85,24 @@ def test_kernel_refuses_what_it_was_not_built_for():
     q, k, v = qkv(2, 1, 2, 2, 64, 64, torch.float16)
     with pytest.raises(TypeError):
         FA.flash_attention_fwd(q, k, v)
+    # the backward is built for 32, 64 and 128 only
+    for d in (80, 120, 256):
+        q, k, v = qkv(2, 1, 2, 2, 64, d, torch.bfloat16)
+        lse = delta = torch.zeros((1, 2, 64), device="cuda")
+        with pytest.raises(NotImplementedError, match=f"head dim {d}"):
+            FA.flash_attention_bwd_dq(q, k, v, q, lse, delta)
+        with pytest.raises(NotImplementedError, match=f"head dim {d}"):
+            FA.flash_attention_bwd_dkv(q, k, v, q, lse, delta)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch,s", [("qwen3-4b", 37), ("paper-llama-124m", 64)])
+@pytest.mark.parametrize("arch,s", [("qwen3-4b", 37), ("paper-llama-124m", 64),
+                                    ("gemma-2b", 37), ("h2o-danube-3-4b", 64)])
 def test_model_on_card_matches_cpu(arch, s):
+    """gemma-2b and h2o-danube-3-4b keep their real head dims, 256 and 120."""
     cfg = reduced(get_config(arch)).replace(dtype="float32")
+    if arch in ("gemma-2b", "h2o-danube-3-4b"):
+        cfg = cfg.replace(head_dim=get_config(arch).head_dim)
     params = Model(cfg, device="cpu",
                    generator=torch.Generator().manual_seed(0)).params
     cpu = Model(cfg, params, device="cpu")
@@ -304,7 +320,7 @@ def test_trainer_on_card_matches_cpu(strategy):
 
 
 # ---------------------------------------------------------------------------
-# the SSD scan, head dim 80 and the ssm / hybrid models (serving slice)
+# the SSD scan and the ssm / hybrid models (serving slice)
 # ---------------------------------------------------------------------------
 
 SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
@@ -406,25 +422,6 @@ def test_ops_ssd_scan_refuses_a_gradient_on_the_card():
         y, _ = ops.ssd_scan(xb, a, bm, cm, chunk=16)
     want, _ = ref.ssd_chunked(xb.detach(), a, bm, cm, 16)
     torch.testing.assert_close(y, want, **SSD_TOL[torch.float32])
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
-@pytest.mark.parametrize("s,causal,window", [(128, True, 0), (77, False, 0),
-                                             (200, True, 100)])
-def test_flash_forward_at_head_dim_80(dtype, hq, hkv, s, causal, window):
-    """zamba2-2.7b's head dim: every one of the 80 output columns is
-    written (D / 32 is not whole); the backward refuses 80."""
-    q, k, v = qkv(4, 2, hq, hkv, s, 80, dtype)
-    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
-    want, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
-                                             window=window)
-    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
-    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
-    delta = torch.zeros_like(lse)
-    with pytest.raises(NotImplementedError, match="head dim 80"):
-        FA.flash_attention_bwd_dq(q, k, v, q, lse, delta)
 
 
 @pytest.mark.gpu

@@ -3,8 +3,8 @@
 On the CPU the port runs the plain version (``repro_torch.kernels.ref``): it
 is held against the Pallas forward kernel in interpret mode (``_fwd_call``,
 out and lse) and against ``repro.kernels.ref.flash_attention_ref``, over the
-sweep of ``tests/test_kernels.py``.  Tolerances are that file's: fp32 2e-5,
-bf16 3e-2; lse 1e-4.  The CUDA kernel itself is held against the plain
+sweep of ``tests/test_kernels.py`` and at head dims 120 and 256 with MQA.
+Tolerances are that file's: fp32 2e-5, bf16 3e-2; lse 1e-4.  The CUDA kernel itself is held against the plain
 version on the card in tests/test_torch_gpu.py.
 """
 import jax
@@ -106,6 +106,31 @@ def test_plain_ragged_length(causal, window):
                                                       causal=causal,
                                                       window=window),
                                **LSE_TOL)
+
+
+@pytest.mark.parametrize("d", [120, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16), (False, 0)])
+def test_plain_at_head_dims_120_and_256(d, dtype, causal, window):
+    """h2o-danube-3-4b's and gemma-2b's head dims, MQA (4 query heads on one
+    kv head), against the Pallas kernel in interpret mode and the JAX
+    reference."""
+    arrs = make_qkv(10, 1, 4, 1, 64, d)
+    check_plain_against_jax(arrs, dtype, causal=causal, window=window, blk=32)
+
+
+def test_head_dims_each_direction_is_built_for():
+    """The forward takes 120 and 256 (a CPU tensor is then refused for its
+    device, not its head dim); the backward refuses them by head dim."""
+    assert FA.FWD_HEAD_DIMS == (32, 64, 80, 120, 128, 256)
+    assert FA.BWD_HEAD_DIMS == (32, 64, 128)
+    for d in (120, 256):
+        q = torch.zeros((1, 2, 16, d))
+        with pytest.raises(ValueError, match="CUDA"):
+            FA._check("flash_attention_fwd", q, q, q, 0)
+        for what in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            with pytest.raises(NotImplementedError, match=f"head dim {d}"):
+                FA._check(what, q, q, q, 0, FA.BWD_HEAD_DIMS, do=q)
 
 
 def test_ops_takes_model_layout_on_cpu():

@@ -1,7 +1,9 @@
 """The serving slice of the port against the JAX package, end to end.
 
-Reduced paper-llama-124m (MHA) and reduced qwen3-4b (GQA 4/2, qk-norm,
-rope theta 1e6) in fp32: JAX parameters go through the converter, prompts are
+Reduced paper-llama-124m (MHA), reduced qwen3-4b (GQA 4/2, qk-norm, rope
+theta 1e6), and reduced gemma-2b (MQA, GeGLU, tied and scaled embeddings)
+and h2o-danube-3-4b (GQA, sliding window 4096) at their real head dims 256
+and 120, in fp32: JAX parameters go through the converter, prompts are
 drawn with numpy, and prefill (logits and the whole KV cache), four decode
 steps teacher-forced with JAX's tokens, full greedy generation and the full
 forward are held to the JAX model.  Tolerance 1e-4: both frameworks compute
@@ -45,8 +47,16 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+# the families whose reduced configs keep their real head dim, which
+# ``reduced`` would set to 64
+REAL_HEAD_DIM = ("gemma-2b", "h2o-danube-3-4b")
+PARITY_ARCHS = ["paper-llama-124m", "qwen3-4b", *REAL_HEAD_DIM]
+
+
 def pair(arch, **kw):
     """(port model, JAX model, JAX params) on the same weights, on the CPU."""
+    if arch in REAL_HEAD_DIM:
+        kw = dict(head_dim=C.get_config(arch).head_dim, **kw)
     jcfg = JC.reduced(JC.get_config(arch)).replace(**kw)
     cfg = C.reduced(C.get_config(arch)).replace(**kw)
     jmodel = jax_build_model(jcfg)
@@ -120,7 +130,7 @@ def test_synthetic_source_matches_jax():
 # the slice against JAX
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["paper-llama-124m", "qwen3-4b"])
+@pytest.mark.parametrize("arch", PARITY_ARCHS)
 def test_prefill_and_teacher_forced_decode_match_jax(arch):
     model, jmodel, jparams = pair(arch, dtype="float32")
     toks = prompt(model.cfg, 2, 12)
@@ -138,7 +148,7 @@ def test_prefill_and_teacher_forced_decode_match_jax(arch):
         close_cache(cache, jcache)
 
 
-@pytest.mark.parametrize("arch", ["paper-llama-124m", "qwen3-4b"])
+@pytest.mark.parametrize("arch", PARITY_ARCHS)
 def test_greedy_generation_matches_jax(arch):
     model, jmodel, jparams = pair(arch, dtype="float32")
     toks = prompt(model.cfg, 3, 10, seed=1)
@@ -148,7 +158,7 @@ def test_greedy_generation_matches_jax(arch):
                                   jax_greedy(jmodel, jparams, toks, 8))
 
 
-@pytest.mark.parametrize("arch", ["paper-llama-124m", "qwen3-4b"])
+@pytest.mark.parametrize("arch", PARITY_ARCHS)
 def test_forward_matches_jax(arch):
     model, jmodel, jparams = pair(arch, dtype="float32")
     toks = prompt(model.cfg, 2, 16, seed=2)
