@@ -20,9 +20,15 @@ result.  Phases:
              plain version and SDPA (as a yardstick only) timed at the
              serving shapes with CUDA events around back-to-back calls,
              beside the bound.  The same for the two backward kernels
-             (against ``flash_attention_bwd_ref`` and PyTorch's autograd
-             through the plain forward; timed at the training shape, SDPA's
-             backward as the yardstick) and for the stage merge (against
+             (bf16 on the tensor cores, fp32 on the CUDA cores; against
+             ``flash_attention_bwd_ref`` and PyTorch's autograd through the
+             plain forward over every head dim, MHA/GQA/MQA, masks, S 128,
+             1000 and 2048, gemma-2b's 8/1 group at D 256 and
+             h2o-danube-3-4b's 32/8 group with its 4096 window at D 120;
+             timed at four training shapes, B 4 x 512: paper-llama-1.5b
+             16 x 128, gemma-2b 8/1 x 256, h2o-danube-3-4b 32/8 x 120 and
+             zamba2-2.7b's attention 32 x 80, with SDPA's flash backward as
+             the yardstick) and for the stage merge (against
              ``stage_merge_ref``; timed on one 4-layer stage of
              paper-llama-1.5b, ``torch._foreach_lerp`` as the yardstick).
              The SSD scan against its two plain versions (chunked and token
@@ -62,7 +68,14 @@ result.  Phases:
              held against the same steps with the plain attention swapped
              in, and the backward kernels are held against their plain
              version on each layer's own inputs of one step.
-8. kernels — one line for every kernel: launches, error, times, bound.
+8. train_gemma, train_danube — the same checks for ``checkfree`` (4 steps,
+             a merge of stage 2 at step 2) at full width, batch 4 x 512:
+             gemma-2b at full depth (18 layers, 6 stages; MQA at head dim
+             256) and h2o-danube-3-4b cut to 12 of its 24 layers (6 stages;
+             GQA at head dim 120, window 4096), the backward kernels
+             running at those head dims.
+9. kernels — one line for every kernel: launches (the three training paths,
+             and by path), error, times, bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -133,12 +146,30 @@ MERGE_TOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -7}
 # the training shape: half of checkfree_plus's batch of 8 x 512 runs each
 # stage order, so the attention kernels see B 4
 TRAIN = dict(arch="paper-llama-1.5b", stages=6, batch=8, seq=512)
-TRAIN_ATTN = dict(b=4, h=16, s=512, d=128)
+# what one layer of a training step gives the backward kernels, batch 4 x
+# 512: paper-llama-1.5b (checkfree_plus's half batch), gemma-2b and
+# h2o-danube-3-4b (checkfree, batch 4), and zamba2-2.7b's shared attention
+# (no training path yet: its head dim 80, timed at the same batch)
+TRAIN_ATTN_SHAPES = {
+    "d128": dict(b=4, h=16, hkv=16, s=512, d=128, window=0),
+    "d256": dict(b=4, h=8, hkv=1, s=512, d=256, window=0),
+    "d120": dict(b=4, h=32, hkv=8, s=512, d=120, window=4096),
+    "d80": dict(b=4, h=32, hkv=32, s=512, d=80, window=0)}
 # checkfree_plus: a merge, an edge twin copy, a consecutive run (two merges)
 PLUS_SCHEDULE = {2: [3], 4: [0], 5: [2, 3]}
 PLUS_STEPS, PLUS_MERGES = 6, 3
 CHECKFREE_SCHEDULE = {2: [2]}
 CHECKFREE_STEPS, CHECKFREE_MERGES = 4, 1
+# the two dense models whose backward runs at head dims no other path runs:
+# gemma-2b at full depth (18 layers, 3 a stage; MQA at head dim 256) and
+# h2o-danube-3-4b (GQA at head dim 120, window 4096) cut to 12 of its 24
+# layers, 2 a stage: at full depth its fp32 masters, Adam moments and
+# gradients alone (3.97 B parameters x 16 B = 63.5 GB) and its bf16 weights
+# and activations would not fit the card's 80 GB.  Both: batch 4 x 512,
+# ``checkfree`` under CHECKFREE_SCHEDULE (stage 2 merged at step 2).
+TRAIN_GEMMA = dict(arch="gemma-2b", stages=6, batch=4, seq=512)
+TRAIN_DANUBE = dict(arch="h2o-danube-3-4b", stages=6, batch=4, seq=512,
+                    layers=12)
 # kernels vs plain attention over the first two (failure-free) training
 # steps, bf16 compute: both round attention outputs to bf16 from fp32 sums in
 # different orders, and one-ulp differences travel through 24 layers and the
@@ -373,17 +404,24 @@ def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple:
 
 
 def bwd_cases():
-    """(dtype, b, hq, hkv, s, d, causal, window) of the backward sweep: the
-    forward's sweep, plus the training shape."""
+    """(dtype, b, hq, hkv, s, d, causal, window) of the backward sweep: every
+    head dim it is built for, MHA, GQA and MQA, masks and lengths; gemma-2b's
+    MQA group at D 256 and h2o-danube-3-4b's group and 4096 window at D 120;
+    the four training shapes."""
     for dtype in (torch.float32, torch.bfloat16):
         for hq, hkv in ((16, 16), (32, 8), (4, 1)):
-            for d in (64, 128):
+            for d in FA.BWD_HEAD_DIMS:
                 for causal, window in ((True, 0), (True, 100), (False, 0)):
                     for s in (128, 1000, 2048):
                         yield (dtype, 1 if s == 2048 else 2, hq, hkv, s, d,
                                causal, window)
-        b, h, s, d = (TRAIN_ATTN[x] for x in "bhsd")
-        yield (dtype, b, h, h, s, d, True, 0)
+        for s in (128, 1000, 2048):
+            b = 1 if s == 2048 else 2
+            yield (dtype, b, 8, 1, s, 256, True, 0)
+            yield (dtype, b, 32, 8, s, 120, True, 4096)
+        for shape in TRAIN_ATTN_SHAPES.values():
+            yield (dtype, shape["b"], shape["h"], shape["hkv"], shape["s"],
+                   shape["d"], True, shape["window"])
 
 
 def compare_bwd(q, k, v, do, *, causal: bool, window: int) -> tuple:
@@ -433,66 +471,102 @@ def phase_kernel_bwd() -> list:
         raise AssertionError(f"the backward kernels disagree with their plain "
                              f"versions in {failures} of {cases} cases")
 
-    # the training shape: bf16, causal, one layer of paper-llama-1.5b at the
-    # checkfree_plus half batch
-    b, h, s, d = (TRAIN_ATTN[x] for x in "bhsd")
-    q, k, v = qkv(gen, b, h, h, s, d, torch.bfloat16)
+    rows = time_bwd(TRAIN_ATTN_SHAPES["d128"], gen)
+    for name in ("d256", "d120", "d80"):
+        for row, sub in zip(rows, time_bwd(TRAIN_ATTN_SHAPES[name], gen)):
+            row[name] = {k: sub[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")}
+    return rows
+
+
+def sdpa_backward(q, k, v, do, hkv: int):
+    """The yardstick: SDPA's flash backend (GQA and MQA through
+    ``enable_gqa``, no copy of k and v) run forward once, then its backward
+    under ``torch.autograd.grad``: dq, dk and dv together.  Timed here, never
+    called by the port.  Where the flash backend refuses the shape, PyTorch's
+    own choice of backend.  Returns (call, grads of one call, backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    gqa = hkv != q.shape[1]
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 enable_gqa=gqa)
+        backend = "flash"
+    except RuntimeError:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=gqa)
+        backend = "default (flash refused the shape)"
+
+    def call():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    return call, call(), backend
+
+
+def time_bwd(shape: dict, gen) -> list:
+    """Both backward kernels at a bf16 causal training shape: checked against
+    the plain version, then timed beside their bounds, the plain version and
+    SDPA's backward.  Returns the dq and dkv rows."""
+    b, h, hkv, s, d, window = (shape[x] for x in
+                               ("b", "h", "hkv", "s", "d", "window"))
+    q, k, v = qkv(gen, b, h, hkv, s, d, torch.bfloat16)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    ok, err = compare_bwd(q, k, v, do, causal=True, window=0)
+    ok, err = compare_bwd(q, k, v, do, causal=True, window=window)
     if not ok:
-        raise AssertionError(f"training shape: backward error {err}")
-    out, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+        raise AssertionError(f"training shape {shape}: backward error {err}")
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=True, window=window)
     delta = (do.float() * out.float()).sum(-1)
-    dq_ms = time_ms(lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, delta))
+    dq_ms = time_ms(lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                      window=window))
     dkv_ms = time_ms(lambda: FA.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                        delta))
+                                                        delta, window=window))
     plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, out, lse, do, True, 0), groups=11, per_group=5)
-    # the yardstick: SDPA's flash backward on its own forward's out and lse
-    # (timed here, never called by the port)
-    sdpa = torch.ops.aten._scaled_dot_product_flash_attention(
-        q, k, v, 0.0, True, False)
-    s_out, s_lse, cq, ck, mq, mk, seed, offset = sdpa[:8]
-
-    def library():
-        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            do, q, k, v, s_out, s_lse, cq, ck, mq, mk, 0.0, True, seed, offset)
-
-    lib_grads = library()
-    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True, 0)
+        q, k, v, out, lse, do, True, window), groups=11, per_group=5)
+    # the yardstick computes the same function only where the window does
+    # not cut the sequence
+    assert window == 0 or window >= s, shape
+    library, lib_grads, backend = sdpa_backward(q, k, v, do, hkv)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True, window)
     library_ok = all(within(g, w, GRAD_TOL[torch.bfloat16])[0]
                      for g, w in zip(lib_grads, want))
     library_ms = time_ms(library)
 
-    pairs = b * h * visible_pairs(s, True, 0)
-    row_bytes = b * h * s * 4                       # one fp32 (B, H, S) row
+    pairs = h * b * visible_pairs(s, True, window)
+    row_bytes = b * h * s * 4                       # one fp32 (B, Hq, S) row
+    qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
     rows = []
-    for name, products, outputs, ms in (("flash_attention_bwd_dq", 3, 1, dq_ms),
-                                        ("flash_attention_bwd_dkv", 4, 2,
-                                         dkv_ms)):
-        # q, k, v, dO, lse and delta read once; dq (or dk and dv) written once
-        nbytes = (4 + outputs) * q.numel() * q.element_size() + 2 * row_bytes
+    for name, products, nbytes, ms in (
+            # q, k, v, dO, lse and delta read once; dq written once
+            ("flash_attention_bwd_dq", 3, 3 * qb + 2 * kb + 2 * row_bytes,
+             dq_ms),
+            # the same read once; dk and dv written once
+            ("flash_attention_bwd_dkv", 4, 2 * qb + 4 * kb + 2 * row_bytes,
+             dkv_ms)):
         flops = 2 * products * d * pairs
         tb = nbytes / MEM_BYTES_PER_S * 1e3
         to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
                      "replaces": ("src/repro/kernels/flash_attention.py:118"
-                                  if outputs == 1 else
+                                  if products == 3 else
                                   "src/repro/kernels/flash_attention.py:165"),
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": max(tb, to),
                      "bound_by": "bytes" if tb >= to else "operations",
                      "library_ms": library_ms})
         emit("kernel_time", kernel=name,
-             shape=dict(TRAIN_ATTN, dtype="bfloat16", causal=True),
+             shape=dict(shape, dtype="bfloat16", causal=True),
              bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
              **{k: rows[-1][k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")},
              plain="flash_attention_bwd_ref: dq, dk and dv together",
-             library="aten._scaled_dot_product_flash_attention_backward: dq, "
-                     "dk and dv together, on SDPA's own out and lse",
+             library="scaled_dot_product_attention"
+                     f"{' (enable_gqa)' if hkv != h else ''}, backend "
+                     f"{backend}, backward under torch.autograd.grad: dq, dk "
+                     "and dv together",
              library_agrees=library_ok,
              timing="median of 21 groups of 20 back-to-back calls, CUDA "
                     "events (plain: 11 groups of 5)")
@@ -1099,22 +1173,28 @@ def check_first_merge(trainer: Trainer, wall_step: int, stage: int,
     trainer.strategy.handle_failure = checked
 
 
-def train_run(strategy: str, steps: int, schedule, *, check_merge=None,
-              plain: bool = False) -> tuple:
-    """One full-size run -> (hist, launch counts, record, peak GiB)."""
-    cfg = get_config(TRAIN["arch"])
+def train_model_config(spec: dict):
+    """The model config of a training spec, cut to ``spec["layers"]``."""
+    cfg = get_config(spec["arch"])
+    return cfg.replace(num_layers=spec["layers"]) if "layers" in spec else cfg
+
+
+def train_run(strategy: str, steps: int, schedule, *, spec: dict = TRAIN,
+              check_merge=None, plain: bool = False) -> tuple:
+    """One full-width run -> (hist, launch counts, record, peak GiB)."""
+    cfg = train_model_config(spec)
     model = Model(cfg, device="cuda", weights=False)
     trainer = Trainer(model, train_config(strategy, steps,
-                                          stages=TRAIN["stages"],
-                                          batch=TRAIN["batch"],
-                                          seq=TRAIN["seq"]),
+                                          stages=spec["stages"],
+                                          batch=spec["batch"],
+                                          seq=spec["seq"]),
                       schedule=schedule)
     record = {"step_ms": [], "omegas": [], "recovery_ms": []}
     instrument(trainer, record)
     if check_merge is not None:
         check_first_merge(trainer, *check_merge, record)
     params = trainer.init_params()
-    batches = make_batches(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"], seed=0)
+    batches = make_batches(cfg, batch=spec["batch"], seq=spec["seq"], seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel = FA.FlashAttention
@@ -1135,8 +1215,8 @@ def train_run(strategy: str, steps: int, schedule, *, check_merge=None,
 
 
 def check_run(name: str, hist, launched: dict, *, steps: int, halves: int,
-              merges: int, schedule: dict) -> None:
-    cfg = get_config(TRAIN["arch"])
+              merges: int, schedule: dict, spec: dict = TRAIN) -> None:
+    cfg = train_model_config(spec)
     per_kernel = cfg.num_layers * halves * steps
     want = {"flash_attention_fwd": per_kernel,
             "flash_attention_bwd_dq": per_kernel,
@@ -1157,15 +1237,16 @@ def check_run(name: str, hist, launched: dict, *, steps: int, halves: int,
         raise AssertionError(f"{name}: " + "; ".join(problems))
 
 
-def check_backward_on_path() -> None:
+def check_backward_on_path(spec: dict = TRAIN,
+                           strategy: str = "checkfree_plus") -> None:
     """The backward kernels against their plain version on the inputs that
-    one full-size ``checkfree_plus`` step gives them: each layer's q, k, v,
-    out, lse and dO in both stage orders (48 calls), as the serve phase
-    checks the forward on the prefill's own inputs."""
-    cfg = get_config(TRAIN["arch"])
+    one full-width ``strategy`` step gives them: each layer's q, k, v, out,
+    lse and dO (``checkfree_plus``: in both stage orders), as the serve
+    phases check the forward on the prefill's own inputs."""
+    cfg = train_model_config(spec)
     trainer = Trainer(Model(cfg, device="cuda", weights=False),
-                      train_config("checkfree_plus", 1, stages=TRAIN["stages"],
-                                   batch=TRAIN["batch"], seq=TRAIN["seq"]))
+                      train_config(strategy, 1, stages=spec["stages"],
+                                   batch=spec["batch"], seq=spec["seq"]))
     seen = []
     kernel = FA.flash_attention_bwd
 
@@ -1176,7 +1257,7 @@ def check_backward_on_path() -> None:
 
     FA.flash_attention_bwd = recording
     try:
-        batch = next(make_batches(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"],
+        batch = next(make_batches(cfg, batch=spec["batch"], seq=spec["seq"],
                                   seed=0))
         trainer.step(trainer.init_state(), trainer.device_batch(batch))
         torch.cuda.synchronize()
@@ -1191,15 +1272,45 @@ def check_backward_on_path() -> None:
             failures += not ok
             worst = max(worst, err)
     calls = len(seen)
-    emit("train_backward_inputs", calls=calls, failures=failures,
+    head_dims = sorted({q.shape[-1] for (q, *_), _ in seen})
+    emit("train_backward_inputs", arch=cfg.name, strategy=strategy,
+         calls=calls, head_dims=head_dims, failures=failures,
          max_abs_err=worst, tol=GRAD_TOL[torch.bfloat16])
     del trainer, seen
     gc.collect()
     torch.cuda.empty_cache()
-    if calls != 2 * cfg.num_layers or failures:
+    halves = 2 if strategy == "checkfree_plus" else 1
+    if calls != halves * cfg.num_layers or failures or head_dims != [
+            cfg.resolved_head_dim]:
         raise AssertionError(f"the backward kernels on {calls} training-path "
-                             f"inputs: {failures} outputs disagree with the "
-                             "plain version")
+                             f"inputs at head dims {head_dims}: {failures} "
+                             "outputs disagree with the plain version")
+
+
+def train_vs_plain(spec: dict, strategy: str, kernel_losses: list,
+                   kernel_omegas: list) -> None:
+    """The first two (failure-free) steps again with the plain attention,
+    against the same steps with the kernels."""
+    plain_hist, plain_launched, plain_record, _ = train_run(
+        strategy, 2, None, spec=spec, plain=True)
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(kernel_losses,
+                                                    plain_hist.loss)]
+    omega_err = [float(((a - b).abs() / b.abs()).max())
+                 for a, b in zip(kernel_omegas, plain_record["omegas"])]
+    emit("train_vs_plain", arch=spec["arch"], strategy=strategy, steps=2,
+         loss_kernel=kernel_losses, loss_plain=plain_hist.loss,
+         loss_rel_err=loss_err,
+         omegas_kernel=[o.tolist() for o in kernel_omegas],
+         omegas_plain=[o.tolist() for o in plain_record["omegas"]],
+         omega_rel_err=omega_err, loss_tol=TRAIN_LOSS_TOL,
+         omega_tol=TRAIN_OMEGA_TOL, plain_launches=plain_launched)
+    if plain_launched["flash_attention_fwd"] or \
+            plain_launched["flash_attention_bwd_dq"]:
+        raise AssertionError(f"the plain run launched kernels: "
+                             f"{plain_launched}")
+    if max(loss_err) > TRAIN_LOSS_TOL or max(omega_err) > TRAIN_OMEGA_TOL:
+        raise AssertionError(f"{spec['arch']}: kernels vs plain attention: "
+                             f"loss {loss_err}, omegas {omega_err}")
 
 
 def phase_train() -> dict:
@@ -1229,31 +1340,9 @@ def phase_train() -> dict:
                 "torch.cuda.synchronize(); median over the failure-free "
                 f"steps {free}; recovery_ms: the strategy's handler, "
                 "same clock")
-    kernel_losses = hist.loss[:2]
-    kernel_omegas = record["omegas"][:2]
     total = dict(launched)
-
-    # the first two (failure-free) steps again, with the plain attention
-    plain_hist, plain_launched, plain_record, _ = train_run(
-        "checkfree_plus", 2, None, plain=True)
-    loss_err = [abs(a - b) / abs(b) for a, b in zip(kernel_losses,
-                                                    plain_hist.loss)]
-    omega_err = [float(((a - b).abs() / b.abs()).max())
-                 for a, b in zip(kernel_omegas, plain_record["omegas"])]
-    emit("train_vs_plain", steps=2, loss_kernel=kernel_losses,
-         loss_plain=plain_hist.loss, loss_rel_err=loss_err,
-         omegas_kernel=[o.tolist() for o in kernel_omegas],
-         omegas_plain=[o.tolist() for o in plain_record["omegas"]],
-         omega_rel_err=omega_err, loss_tol=TRAIN_LOSS_TOL,
-         omega_tol=TRAIN_OMEGA_TOL, plain_launches=plain_launched)
-    if plain_launched["flash_attention_fwd"] or \
-            plain_launched["flash_attention_bwd_dq"]:
-        raise AssertionError(f"the plain run launched kernels: "
-                             f"{plain_launched}")
-    if max(loss_err) > TRAIN_LOSS_TOL or max(omega_err) > TRAIN_OMEGA_TOL:
-        raise AssertionError(f"kernels vs plain attention: loss {loss_err}, "
-                             f"omegas {omega_err}")
-
+    train_vs_plain(TRAIN, "checkfree_plus", hist.loss[:2],
+                   record["omegas"][:2])
     check_backward_on_path()
 
     hist, launched, record, peak = train_run(
@@ -1273,6 +1362,45 @@ def phase_train() -> dict:
     for k, n in launched.items():
         total[k] += n
     return total
+
+
+def phase_train_dense(spec: dict, phase: str) -> dict:
+    """``checkfree`` at full width on a model whose backward runs at a head
+    dim no other path runs: launch counts, the failure, the step-2 merge
+    against its plain version, the first two steps against plain attention
+    and the backward kernels on one step's own inputs.  Returns the launch
+    counts of the counted run."""
+    cfg = train_model_config(spec)
+    hist, launched, record, peak = train_run(
+        "checkfree", CHECKFREE_STEPS, Forced(CHECKFREE_SCHEDULE), spec=spec,
+        check_merge=(2, CHECKFREE_SCHEDULE[2][0]))
+    check_run(phase, hist, launched, steps=CHECKFREE_STEPS, halves=1,
+              merges=CHECKFREE_MERGES, schedule=CHECKFREE_SCHEDULE, spec=spec)
+    free = [i for i in range(CHECKFREE_STEPS) if i not in CHECKFREE_SCHEDULE]
+    step_ms = float(np.median([record["step_ms"][i] for i in free]))
+    merge_ms = [ms for name, step, ms in record["recovery_ms"] if step == 2]
+    tokens = spec["batch"] * spec["seq"]
+    emit(phase, arch=cfg.name, layers=cfg.num_layers,
+         layers_published=get_config(spec["arch"]).num_layers,
+         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.resolved_head_dim, window=cfg.sliding_window,
+         stages=spec["stages"], params=cfg.param_count(), dtype=cfg.dtype,
+         masters="float32", strategy="checkfree", batch=spec["batch"],
+         seq=spec["seq"], steps=CHECKFREE_STEPS, schedule=CHECKFREE_SCHEDULE,
+         loss=hist.loss, failures=hist.failures,
+         recovery_errors=hist.recovery_errors, launches=launched,
+         merge_check=record["merge_check"], step_ms=record["step_ms"],
+         step_ms_median_failure_free=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3,
+         recovery_ms=record["recovery_ms"], merge_recovery_ms=merge_ms[0],
+         peak_memory_gib=peak,
+         timing="host clock around Trainer.step ending in "
+                "torch.cuda.synchronize(); median over the failure-free "
+                f"steps {free}; recovery_ms: the strategy's handler, "
+                "same clock")
+    train_vs_plain(spec, "checkfree", hist.loss[:2], record["omegas"][:2])
+    check_backward_on_path(spec, "checkfree")
+    return launched
 
 
 def main() -> int:
@@ -1298,16 +1426,21 @@ def main() -> int:
                              hybrid["attn_err"], gemma["attn_err"],
                              danube["attn_err"])
     phase_train_model()
-    train_launches = phase_train()
-    fwd["launches"] = train_launches["flash_attention_fwd"]
+    trained = {"train": phase_train(),
+               "train_gemma": phase_train_dense(TRAIN_GEMMA, "train_gemma"),
+               "train_danube": phase_train_dense(TRAIN_DANUBE,
+                                                 "train_danube")}
+    # launches: the three training paths; by path: every path that ran it
+    for row in (fwd, dq, dkv, merge):
+        by_path = {path: n[row["name"]] for path, n in trained.items()}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     fwd["launches_by_path"] = {
         "serve": serve["launches"]["flash_attention_fwd"],
         "serve_hybrid": hybrid["launches"]["flash_attention_fwd"],
         "serve_gemma": gemma["launches"]["flash_attention_fwd"],
         "serve_danube": danube["launches"]["flash_attention_fwd"],
-        "train": train_launches["flash_attention_fwd"]}
-    for row in (dq, dkv, merge):
-        row["launches"] = train_launches[row["name"]]
+        **fwd["launches_by_path"]}
     ssd["launches_by_path"] = {"serve_ssm": ssm["launches"]["ssd_scan"],
                                "serve_hybrid": hybrid["launches"]["ssd_scan"]}
     ssd["launches"] = sum(ssd["launches_by_path"].values())

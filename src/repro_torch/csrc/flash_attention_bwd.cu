@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a), CUDA C++ on the CUDA cores.
+// Flash-attention backward for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel` of
 // src/repro/kernels/flash_attention.py (launched by `_bwd_call`).  They are
@@ -9,44 +9,94 @@
 //     dV_j = sum_i P_ij dO_i             dS_ij = P_ij (dO_i . V_j - delta_i)
 //     dQ_i = scale sum_j dS_ij K_j       dK_j  = scale sum_i dS_ij Q_i
 //
-// Two kernels, as on the TPU: `dq` owns a query tile and walks the K/V tiles
-// in its causal/window horizon; `dkv` owns a key tile of one kv head and walks
-// the query tiles of every query head of its GQA group.  Each output element
-// is written by exactly one block, so no atomics are needed and the result is
-// deterministic.  Sums run in fp32 registers and are rounded once at the write.
+// Two kernels, as on the TPU: `dq` owns a query tile of one head and walks
+// the K/V tiles in its causal/window horizon (the TPU kernel's [lo, hi));
+// `dkv` owns a key tile of one kv head and walks the query tiles of every
+// query head of its GQA group inside [lo, hi).  Each output element is
+// written by exactly one block, so no atomics are needed and the result is
+// deterministic.  Sums run in fp32 registers and are rounded once at the
+// write.  The entry points pick the kernel by dtype:
 //
-// What bounds them on the H100: at the training shape (B 4, S 512, 16 heads of
-// 128, bf16, causal) dq does 3 and dkv 4 products of the forward's size,
-// ~6.5 and ~8.7 us at the bf16 tensor-core peak, against 42 MB (dq) and 51 MB
-// (dkv) of inputs and outputs, 12.6 and 15.1 us at 3.35 TB/s: bound by memory
-// with tensor cores.  This first version, like the forward, runs the products
-// on the CUDA cores in fp32, so it is bound by operations and shared-memory
-// traffic instead.  What the design keeps: every tile is read from device
-// memory once per visit and staged in shared memory as fp32, the S x S
-// matrices never leave the block, and only the tiles inside the horizon are
-// visited (the TPU kernels' [lo, hi) bounds).  Tensor cores (mma.sync or
-// wgmma), TMA and pipelined tiles come later.
+// * bf16 (every training path): `flash_bwd_dq_bf16_kernel` and
+//   `flash_bwd_dkv_bf16_kernel`, every product on the tensor cores
+//   (mma.sync m16n8k16, fp32 accumulators, helpers of mma_sm90.cuh).
+// * fp32 (the card-vs-CPU checks only): `flash_bwd_*_f32_kernel`, the
+//   products on the CUDA cores in fp32.  An fp32 tensor-core product would
+//   be TF32, which keeps about three decimal digits.
 //
-// Layout: one block of 256 threads (8 warps).  In `dq` each warp owns 8 query
-// rows and a lane the logits of its rows against keys `lane` and `lane + 32`,
-// then output columns `lane + 32 c` of dQ.  In `dkv` each warp owns 8 keys and
-// a lane their logits against queries `lane` and `lane + 32`, then columns
-// `lane + 32 c` of dK and dV.  Rows and keys past S (a ragged sequence) load as
-// zeros and are masked.  Strides are in elements for the batch, head and
-// sequence axes (the last axis is contiguous); every row starts on a 16-byte
-// boundary, which the Python wrapper checks.
+// What bounds them on the H100: at the training shape (B 4, S 512, 16 heads
+// of 128, bf16, causal) dq does 3 and dkv 4 products of the forward's size,
+// 6.5 and 8.6 GFLOP, ~6.5 and ~8.7 us at the bf16 tensor-core peak, against
+// 42 MB (dq) and 51 MB (dkv) of inputs and outputs, 12.6 and 15.1 us at
+// 3.35 TB/s: memory bounds both.  What the bf16 design does about it: each
+// block reads its resident tiles once and each streamed tile of its horizon
+// once, in 16-byte `cp.async` copies through a two-stage ring, so the next
+// tile is in flight while this one is multiplied; tiles stay bf16 in
+// shared memory with the XOR swizzle of mma_sm90.cuh; the S x S scores,
+// probabilities and their gradients never leave registers.
+//
+// bf16 dq: one block of 4 warps per (q head, batch, 64-row query tile),
+// each warp owning 16 query rows; the query tile is the slowest grid axis,
+// walked from the last tile down, so the longest causal rows start first.
+// Q and dO are loaded once; K/V tiles of 64 keys (32 at D 256, where the
+// 16 x 256 fp32 dQ accumulator already takes 128 registers a thread) stream
+// through the ring.  S = Q K^T and dP = dO V^T come out as C fragments;
+// P = exp2(S scale log2(e) - lse log2(e)) and dS = P (dP - delta) are taken
+// in place, masked entries set to 0 only on tiles that cross an edge (the
+// diagonal, the window's low edge, the ragged end); dS packed to bf16x2 is
+// the A fragment of dQ += dS K, with K the B operand through
+// ldmatrix.trans.  dQ is scaled, rounded once and staged through the
+// warp's own rows of the Q tile for 16-byte stores.
+//
+// bf16 dkv: one block of 4 warps per (kv head, batch, key tile); the key
+// tile is the slowest grid axis, walked upwards, so under causal masking
+// the tiles with the longest query walks start first.  K and V stay
+// resident; Q, dO, lse and delta of each query tile of each query head of
+// the group stream through the ring.  S^T = K Q^T and dP^T = V dO^T have
+// the keys as rows, so P^T and dS^T land in C fragments whose rows are
+// keys and feed dV += P^T dO and dK += dS^T Q directly as A fragments (no
+// shared-memory round trip), with dO and Q the B operands through
+// ldmatrix.trans.  The register budget: two fp32 accumulators of
+// (16 keys x D) are D registers a thread, so at D >= 120 the streamed
+// query tile is 32 rows (S^T and dP^T take 32 registers, not 64), and at
+// D 256 two warps share 16 keys, each accumulating half of D's columns
+// (both compute the same S^T and dP^T, so the key tile is 32).
+//
+// Head dims: the products over D (Q K^T, dO V^T, K Q^T, V dO^T) run over D
+// rounded up to 16: at D 120 columns 120-127 of every tile are zero-filled
+// by the copy, so those k16 steps add exact zeros; the products into D
+// (dS K, P^T dO, dS^T Q) cover D / 8 n8 tiles (15 at D 120, the last one
+// through ldmatrix.x2.trans) and only columns below D are written.  A
+// swizzled row holds whole groups of 8 chunks, so rows of D 32 and 80 are
+// stored 64 and 128 columns wide.  P and dS are rounded to bf16 before the
+// second products (as SDPA's backward does); the sums stay fp32.
+//
+// fp32 layout: one block of 256 threads (8 warps) per tile of T rows
+// (T = 64, or 32 at D 256, where 64-row fp32 tiles would need 281 KB of
+// shared memory); D is padded with zero columns to a multiple of 32 in
+// shared memory (96 at D 80, 128 at D 120).  In `dq` each warp owns T / 8
+// query rows and a lane the logits of its rows against keys `lane` (and
+// `lane + 32`), then output columns `lane + 32 c` of dQ; in `dkv` each warp
+// owns T / 8 keys, a lane their logits against queries `lane` (and
+// `lane + 32`), then columns `lane + 32 c` of dK and dV.  Only columns below
+// D are written.
+//
+// Rows and keys past S (a ragged sequence) load as zeros and are masked.
+// Strides are in elements for the batch, head and sequence axes (the last
+// axis is contiguous); every row starts on a 16-byte boundary, which the
+// Python wrapper checks.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int BQ = 64;                 // query rows per tile
-constexpr int BK = 64;                 // keys per tile
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS = 8;                // rows (queries or keys) per warp
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -69,56 +119,458 @@ struct Params {
   float scale;
 };
 
-// 16 bytes of a row -> fp32 in shared memory (times `scale`).
-template <typename T> struct Chunk;
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
 
-template <> struct Chunk<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* g, float* s, float scale) {
-    float4 a = *reinterpret_cast<const float4*>(g);
-    a.x *= scale; a.y *= scale; a.z *= scale; a.w *= scale;
-    *reinterpret_cast<float4*>(s) = a;
-  }
-  __device__ static float from_float(float x) { return x; }
+__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
+  return qpos < p.S && kpos < p.S && (!p.causal || kpos <= qpos) &&
+         (p.window <= 0 || kpos > qpos - p.window);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WARPS = 4;
+constexpr int TC_THREADS = TC_WARPS * 32;
+constexpr int STAGES = 2;              // depth of the streamed-tile ring
+
+template <int D>
+struct Dims {
+  static_assert(D % 8 == 0 && D <= 256, "head dim: a multiple of 8, at most 256");
+  static constexpr int DK = (D + 15) / 16 * 16;          // depth of products over D
+  static constexpr int KSTEPS = DK / 16;
+  static constexpr int NT = D / 8;                       // n8 tiles of a D-wide output
+  static constexpr int COPY = DK / 8;                    // chunks copied a row
+  static constexpr int CHUNKS = (COPY + 7) / 8 * 8;      // chunks stored a row
 };
 
-template <> struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* g, float* s, float scale) {
-    uint4 raw = *reinterpret_cast<const uint4*>(g);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    float2 f0 = __bfloat1622float2(h[0]);
-    float2 f1 = __bfloat1622float2(h[1]);
-    float2 f2 = __bfloat1622float2(h[2]);
-    float2 f3 = __bfloat1622float2(h[3]);
-    *reinterpret_cast<float4*>(s) =
-        make_float4(f0.x * scale, f0.y * scale, f1.x * scale, f1.y * scale);
-    *reinterpret_cast<float4*>(s + 4) =
-        make_float4(f2.x * scale, f2.y * scale, f3.x * scale, f3.y * scale);
-  }
-  __device__ static __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
+template <int D>
+struct DqTile : Dims<D> {
+  static constexpr int BQ = 16 * TC_WARPS;               // query rows a block
+  static constexpr int BK = D > 128 ? 32 : 64;           // keys a K/V tile
+  static constexpr int SN = BK / 8;                      // n8 tiles of scores
+  static constexpr int SMEM = (2 * BQ + 2 * STAGES * BK) * Dims<D>::CHUNKS * 16;
 };
 
-// Stage rows [row0, row0 + 64) of one head into shared memory with leading
-// dimension LD; rows at or past S become zeros.
-template <typename T, int D, int LD>
-__device__ void load_tile(float* smem, const T* base, long long row_stride,
-                          int row0, int S, float scale) {
-  constexpr int N = Chunk<T>::N;
-  constexpr int CPR = D / N;           // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * CPR; i += THREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * N;
-    float* dst = smem + r * LD + c;
-    if (row0 + r < S) {
-      Chunk<T>::load(base + (long long)(row0 + r) * row_stride + c, dst, scale);
-    } else {
+template <int D>
+struct DkvTile : Dims<D> {
+  static constexpr int SPLIT = D > 128 ? 2 : 1;          // warps sharing 16 keys
+  static constexpr int KGROUPS = TC_WARPS / SPLIT;       // 16-key groups a block
+  static constexpr int BK = 16 * KGROUPS;                // keys a block
+  static constexpr int NTW = Dims<D>::NT / SPLIT;        // n8 tiles of dK/dV a warp
+  static constexpr int BQ = D >= 120 ? 32 : 64;          // queries a streamed tile
+  static constexpr int SN = BQ / 8;
+  static constexpr int SMEM = (2 * BK + 2 * STAGES * BQ) * Dims<D>::CHUNKS * 16 +
+                              2 * STAGES * BQ * (int)sizeof(float);
+  static_assert(Dims<D>::NT % SPLIT == 0, "each warp of a pair takes whole n8 tiles");
+};
+
+// rows [row0, row0 + rows) of one head, `chunks` 16-byte chunks a row, into
+// a swizzled tile; chunks at or past `valid_chunks` and rows at or past S
+// are written as zeros
+template <int CHUNKS>
+__device__ __forceinline__ void copy_tile(uint4* tile, const __nv_bfloat16* base,
+                                          long long row_stride, int row0,
+                                          int rows, int chunks,
+                                          int valid_chunks, int S) {
+  for (int i = threadIdx.x; i < rows * chunks; i += TC_THREADS) {
+    const int r = i / chunks;
+    const int c = i % chunks;
+    const bool ok = row0 + r < S && c < valid_chunks;
+    const __nv_bfloat16* src =
+        ok ? base + (long long)(row0 + r) * row_stride + c * 8 : base;
+    sm90::cp_async_16(sm90::smem_addr(tile + sm90::swizzle<CHUNKS>(r, c)), src,
+                      ok);
+  }
+}
+
+// the four bf16x2 registers of an A fragment from two n8 C fragments
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = sm90::pack_bf16x2(c0[0], c0[1]);
+  a[1] = sm90::pack_bf16x2(c0[2], c0[3]);
+  a[2] = sm90::pack_bf16x2(c1[0], c1[1]);
+  a[3] = sm90::pack_bf16x2(c1[2], c1[3]);
+}
+
+// acc[n] += a * B for the n8 tiles [c0, c0 + N) of a tile whose rows are
+// the k16 step's 16 rows starting at `row16`: B (k = tile row, n = column)
+// through ldmatrix.trans
+template <int N, int CH>
+__device__ __forceinline__ void mma_rows_trans(float (&acc)[N][4],
+                                               const uint32_t (&a)[4],
+                                               const uint4* tile, int row16,
+                                               int c0, int lane) {
+  const int row = row16 + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
-      for (int e = 0; e < N; e += 4)
-        *reinterpret_cast<float4*>(dst + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int n = 0; n + 1 < N; n += 2) {
+    uint32_t b[4];
+    sm90::ldmatrix_x4_trans(b, sm90::smem_addr(
+        tile + sm90::swizzle<CH>(row, c0 + n + (lane >> 4))));
+    sm90::mma_bf16_16816(acc[n], a, b[0], b[1]);
+    sm90::mma_bf16_16816(acc[n + 1], a, b[2], b[3]);
+  }
+  if constexpr (N % 2 == 1) {
+    uint32_t b[2];
+    sm90::ldmatrix_x2_trans(b, sm90::smem_addr(
+        tile + sm90::swizzle<CH>(row, c0 + N - 1)));
+    sm90::mma_bf16_16816(acc[N - 1], a, b[0], b[1]);
+  }
+}
+
+// x += A1 B1^T and y += A2 B2^T over the depth of DK columns, for the 16
+// rows of A1/A2 starting at `arow` and the SN * 8 rows of B1/B2 from 0:
+// both A operands through ldmatrix, both B operands (rows are the n axis)
+// through ldmatrix without transposition
+template <int KSTEPS, int SN, int CH>
+__device__ __forceinline__ void mma_pair_nt(float (&x)[SN][4], float (&y)[SN][4],
+                                            const uint4* a1, const uint4* a2,
+                                            int arow, const uint4* b1,
+                                            const uint4* b2, int lane) {
+#pragma unroll
+  for (int n = 0; n < SN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = y[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t fa1[4], fa2[4];
+    const int ac = sm90::swizzle<CH>(arow + (lane & 15), 2 * kk + (lane >> 4));
+    sm90::ldmatrix_x4(fa1, sm90::smem_addr(a1 + ac));
+    sm90::ldmatrix_x4(fa2, sm90::smem_addr(a2 + ac));
+#pragma unroll
+    for (int n = 0; n < SN; n += 2) {
+      const int bc = sm90::swizzle<CH>(n * 8 + (lane & 7) + ((lane >> 4) << 3),
+                                       2 * kk + ((lane >> 3) & 1));
+      uint32_t fb[4];
+      sm90::ldmatrix_x4(fb, sm90::smem_addr(b1 + bc));
+      sm90::mma_bf16_16816(x[n], fa1, fb[0], fb[1]);
+      sm90::mma_bf16_16816(x[n + 1], fa1, fb[2], fb[3]);
+      sm90::ldmatrix_x4(fb, sm90::smem_addr(b2 + bc));
+      sm90::mma_bf16_16816(y[n], fa2, fb[0], fb[1]);
+      sm90::mma_bf16_16816(y[n + 1], fa2, fb[2], fb[3]);
     }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dq_bf16_kernel(const Params p) {
+  using Tl = DqTile<D>;
+  constexpr int BQ = Tl::BQ, BK = Tl::BK, CH = Tl::CHUNKS, NT = Tl::NT,
+                SN = Tl::SN;
+
+  extern __shared__ uint4 smem[];
+  uint4* Qs = smem;                              // BQ rows
+  uint4* dOs = Qs + BQ * CH;                     // BQ rows
+  uint4* Ks = dOs + BQ * CH;                     // STAGES x BK rows
+  uint4* Vs = Ks + STAGES * BK * CH;             // STAGES x BK rows
+
+  const int qt = (int)(gridDim.z - 1 - blockIdx.z);   // longest causal rows first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wr = warp * 16;                   // this warp's rows of the tile
+  const int row_a = q0 + wr + g;              // the two query rows of a lane
+  const int row_b = row_a + 8;
+
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  // the TPU kernel's tile range [lo, hi) (flash_attention.py:133-140)
+  const int nkb = (p.S + BK - 1) / BK;
+  const int hi = p.causal ? min((q0 + BQ + BK - 1) / BK, nkb) : nkb;
+  const int lo = p.window > 0 ? max(floor_div(q0 - p.window + 1, BK), 0) : 0;
+
+  auto load_kv = [&](int kt, int stage) {
+    copy_tile<CH>(Ks + stage * BK * CH, kg, p.k_ss, kt * BK, BK, Tl::COPY, NT,
+                  p.S);
+    copy_tile<CH>(Vs + stage * BK * CH, vg, p.v_ss, kt * BK, BK, Tl::COPY, NT,
+                  p.S);
+  };
+
+  // group 0: Q, dO and the first K/V tile
+  copy_tile<CH>(Qs, qg, p.q_ss, q0, BQ, Tl::COPY, NT, p.S);
+  copy_tile<CH>(dOs, og, p.o_ss, q0, BQ, Tl::COPY, NT, p.S);
+  load_kv(lo, 0);
+  sm90::cp_async_commit();
+
+  // lse (in log2 units) and delta of the lane's two rows
+  const long long row_base = ((long long)b * p.Hq + h) * p.S;
+  float lse2[2], dl[2];
+  lse2[0] = row_a < p.S ? p.lse[row_base + row_a] * LOG2E : 0.f;
+  lse2[1] = row_b < p.S ? p.lse[row_base + row_b] * LOG2E : 0.f;
+  dl[0] = row_a < p.S ? p.delta[row_base + row_a] : 0.f;
+  dl[1] = row_b < p.S ? p.delta[row_base + row_b] : 0.f;
+  const float sl2 = p.scale * LOG2E;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = lo, it = 0; kt < hi; ++kt, ++it) {
+    const int stage = it % STAGES;
+    if (kt + 1 < hi) load_kv(kt + 1, (it + 1) % STAGES);
+    sm90::cp_async_commit();          // maybe empty: one group an iteration
+    sm90::cp_async_wait<1>();         // tile kt (and Q, dO) have landed
+    __syncthreads();
+    const uint4* ks = Ks + stage * BK * CH;
+    const uint4* vs = Vs + stage * BK * CH;
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows and BK keys
+    float s[SN][4], dp[SN][4];
+    mma_pair_nt<Tl::KSTEPS, SN, CH>(s, dp, Qs, dOs, wr, ks, vs, lane);
+
+    // P and dS in place; the mask only on tiles that cross an edge for
+    // this warp's rows
+    const int k0 = kt * BK;
+    const int w0 = q0 + wr;
+    const bool edge = k0 + BK > p.S || (p.causal && k0 + BK - 1 > w0) ||
+                      (p.window > 0 && k0 <= w0 + 15 - p.window);
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pe = exp2f(fmaf(s[n][e], sl2, -lse2[e >> 1]));
+        if (edge && !visible(p, e < 2 ? row_a : row_b,
+                             k0 + n * 8 + 2 * t + (e & 1)))
+          pe = 0.f;                    // masked: probability 0
+        dp[n][e] = pe * (dp[n][e] - dl[e >> 1]);
+      }
+
+    // dQ += dS K: two n8 tiles of dS, packed to bf16, are one k16 A fragment
+#pragma unroll
+    for (int kk = 0; kk < SN / 2; ++kk) {
+      uint32_t a[4];
+      pack_a(a, dp[2 * kk], dp[2 * kk + 1]);
+      mma_rows_trans<NT, CH>(acc, a, ks, 16 * kk, 0, lane);
+    }
+    __syncthreads();                  // this stage is refilled next iteration
+  }
+  sm90::cp_async_wait<0>();
+
+  // dQ = scale * acc, staged through this warp's own rows of the Q tile (no
+  // other warp reads them), then stored 16 bytes a lane
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    uint32_t* ra = reinterpret_cast<uint32_t*>(Qs + sm90::swizzle<CH>(wr + g, n));
+    uint32_t* rb = reinterpret_cast<uint32_t*>(Qs + sm90::swizzle<CH>(wr + g + 8, n));
+    ra[t] = sm90::pack_bf16x2(acc[n][0] * p.scale, acc[n][1] * p.scale);
+    rb[t] = sm90::pack_bf16x2(acc[n][2] * p.scale, acc[n][3] * p.scale);
+  }
+  __syncwarp();
+  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.a_sb + h * p.a_sh;
+  for (int i = lane; i < 16 * NT; i += 32) {
+    const int r = i / NT;
+    const int c = i % NT;
+    const int row = q0 + wr + r;
+    if (row < p.S)
+      *reinterpret_cast<uint4*>(dqg + (long long)row * p.a_ss + c * 8) =
+          Qs[sm90::swizzle<CH>(wr + r, c)];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dkv_bf16_kernel(const Params p) {
+  using Tl = DkvTile<D>;
+  constexpr int BK = Tl::BK, BQ = Tl::BQ, CH = Tl::CHUNKS, NT = Tl::NT,
+                NTW = Tl::NTW, SN = Tl::SN;
+
+  extern __shared__ uint4 smem[];
+  uint4* Ks = smem;                              // BK rows
+  uint4* Vs = Ks + BK * CH;                      // BK rows
+  uint4* Qs = Vs + BK * CH;                      // STAGES x BQ rows
+  uint4* dOs = Qs + STAGES * BQ * CH;            // STAGES x BQ rows
+  float* Ls = reinterpret_cast<float*>(dOs + STAGES * BQ * CH);  // STAGES x BQ
+  float* Dl = Ls + STAGES * BQ;                  // STAGES x BQ
+
+  const int kt = blockIdx.z;          // causal: the longest query walks first
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int group = p.Hq / p.Hkv;
+  const int k0 = kt * BK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int kr = (warp % Tl::KGROUPS) * 16;     // this warp's 16 keys of the tile
+  const int c0 = (warp / Tl::KGROUPS) * NTW;    // its first n8 tile of dK / dV
+  const int key_a = k0 + kr + g;                // the two keys of a lane
+  const int key_b = key_a + 8;
+
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  // the TPU kernel's query-tile range [lo, hi) (flash_attention.py:176-186),
+  // walked for each query head of the group in turn
+  const int nqb = (p.S + BQ - 1) / BQ;
+  const int lo = p.causal ? k0 / BQ : 0;
+  const int hi = p.window > 0 ? min((k0 + BK + p.window - 2) / BQ + 1, nqb)
+                              : nqb;
+  const int per_head = max(hi - lo, 0);
+  const int total = group * per_head;
+
+  auto load_q = [&](int j, int stage) {
+    const int h = hk * group + j / per_head;
+    const int q0 = (lo + j % per_head) * BQ;
+    const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+    copy_tile<CH>(Qs + stage * BQ * CH, qg, p.q_ss, q0, BQ, Tl::COPY, NT, p.S);
+    copy_tile<CH>(dOs + stage * BQ * CH, og, p.o_ss, q0, BQ, Tl::COPY, NT,
+                  p.S);
+    const long long row_base = ((long long)b * p.Hq + h) * p.S;
+    for (int i = threadIdx.x; i < 2 * BQ; i += TC_THREADS) {
+      const int r = i % BQ;
+      const bool ok = q0 + r < p.S;
+      const float* src = (i < BQ ? p.lse : p.delta) + (ok ? row_base + q0 + r : 0);
+      sm90::cp_async_4(sm90::smem_addr((i < BQ ? Ls : Dl) + stage * BQ + r),
+                       src, ok);
+    }
+  };
+
+  // group 0: K, V and the first query tile
+  copy_tile<CH>(Ks, kg, p.k_ss, k0, BK, Tl::COPY, NT, p.S);
+  copy_tile<CH>(Vs, vg, p.v_ss, k0, BK, Tl::COPY, NT, p.S);
+  if (total > 0) load_q(0, 0);
+  sm90::cp_async_commit();
+
+  float dk[NTW][4], dv[NTW][4];
+#pragma unroll
+  for (int n = 0; n < NTW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+
+  for (int j = 0; j < total; ++j) {
+    const int stage = j % STAGES;
+    if (j + 1 < total) load_q(j + 1, (j + 1) % STAGES);
+    sm90::cp_async_commit();          // maybe empty: one group an iteration
+    sm90::cp_async_wait<1>();         // tile j (and K, V) have landed
+    __syncthreads();
+    const uint4* qs = Qs + stage * BQ * CH;
+    const uint4* dos = dOs + stage * BQ * CH;
+    const float* ls = Ls + stage * BQ;
+    const float* dls = Dl + stage * BQ;
+    const int q0 = (lo + j % per_head) * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys and BQ queries
+    float s[SN][4], dp[SN][4];
+    mma_pair_nt<Tl::KSTEPS, SN, CH>(s, dp, Ks, Vs, kr, qs, dos, lane);
+
+    // P^T and dS^T in place: rows are keys, columns queries
+    const int kw0 = k0 + kr;
+    const bool edge = q0 + BQ > p.S || kw0 + 16 > p.S ||
+                      (p.causal && kw0 + 15 > q0) ||
+                      (p.window > 0 && kw0 <= q0 + BQ - 1 - p.window);
+#pragma unroll
+    for (int n = 0; n < SN; ++n) {
+      const float2 l = *reinterpret_cast<const float2*>(ls + n * 8 + 2 * t);
+      const float2 d = *reinterpret_cast<const float2*>(dls + n * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lq = (e & 1) ? l.y : l.x;
+        const float dlt = (e & 1) ? d.y : d.x;
+        float pe = exp2f(fmaf(s[n][e], sl2, -lq * LOG2E));
+        if (edge && !visible(p, q0 + n * 8 + 2 * t + (e & 1),
+                             e < 2 ? key_a : key_b))
+          pe = 0.f;                    // masked: probability 0
+        s[n][e] = pe;
+        dp[n][e] = pe * (dp[n][e] - dlt);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: two n8 tiles, packed to bf16, are one
+    // k16 A fragment; dO and Q are the B operands through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < SN / 2; ++kk) {
+      uint32_t pa[4], da[4];
+      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+      pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
+      mma_rows_trans<NTW, CH>(dv, pa, dos, 16 * kk, c0, lane);
+      mma_rows_trans<NTW, CH>(dk, da, qs, 16 * kk, c0, lane);
+    }
+    __syncthreads();                  // this stage is refilled next iteration
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();                    // every warp is done with K and V
+
+  // dK = scale * acc and dV, staged through the K and V tiles, then stored
+  // 16 bytes a thread
+#pragma unroll
+  for (int n = 0; n < NTW; ++n) {
+    const int ca = sm90::swizzle<CH>(kr + g, c0 + n);
+    const int cb = sm90::swizzle<CH>(kr + g + 8, c0 + n);
+    reinterpret_cast<uint32_t*>(Ks + ca)[t] =
+        sm90::pack_bf16x2(dk[n][0] * p.scale, dk[n][1] * p.scale);
+    reinterpret_cast<uint32_t*>(Ks + cb)[t] =
+        sm90::pack_bf16x2(dk[n][2] * p.scale, dk[n][3] * p.scale);
+    reinterpret_cast<uint32_t*>(Vs + ca)[t] = sm90::pack_bf16x2(dv[n][0], dv[n][1]);
+    reinterpret_cast<uint32_t*>(Vs + cb)[t] = sm90::pack_bf16x2(dv[n][2], dv[n][3]);
+  }
+  __syncthreads();
+  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.a_sb + hk * p.a_sh;
+  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.c_sb + hk * p.c_sh;
+  for (int i = threadIdx.x; i < BK * NT; i += TC_THREADS) {
+    const int r = i / NT;
+    const int c = i % NT;
+    const int row = k0 + r;
+    if (row < p.S) {
+      *reinterpret_cast<uint4*>(dkg + (long long)row * p.a_ss + c * 8) =
+          Ks[sm90::swizzle<CH>(r, c)];
+      *reinterpret_cast<uint4*>(dvg + (long long)row * p.c_ss + c * 8) =
+          Vs[sm90::swizzle<CH>(r, c)];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+
+template <int D>
+struct F32 {
+  static constexpr int DP = (D + 31) / 32 * 32;   // D padded with zero columns
+  static constexpr int T = D > 128 ? 32 : 64;     // rows and keys a tile
+  static constexpr int ROWS = T / WARPS;          // rows (queries or keys) a warp
+  static constexpr int KPL = T / 32;              // logits a lane for each row
+  static constexpr int DPL = DP / 32;             // output columns a lane
+  static constexpr int LD = DP + 4;               // padded: conflict-free 16-byte reads
+  // dq: Q (scaled) and dO [T][DP]; K and V [T][LD]; dS [T][T]
+  static constexpr int DQ_SMEM = (2 * T * DP + 2 * T * LD + T * T) * (int)sizeof(float);
+  // dkv: K and V [T][DP]; Q (scaled) and dO [T][LD]; P^T and dS^T [T][T];
+  // lse and delta of the query tile [T] each
+  static constexpr int DKV_SMEM =
+      (2 * T * DP + 2 * T * LD + 2 * T * T + 2 * T) * (int)sizeof(float);
+};
+
+// Stage rows [row0, row0 + rows) of one head into shared memory with leading
+// dimension LD, times `scale`; columns D..DP-1 and rows at or past S become
+// zeros.
+template <int D, int DP, int LD>
+__device__ void load_tile(float* smem, const float* base, long long row_stride,
+                          int row0, int rows, int S, float scale) {
+  constexpr int CPR = DP / 4;          // 16-byte chunks a stored row
+  for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < S && c < D) {
+      a = *reinterpret_cast<const float4*>(base + (long long)(row0 + r) * row_stride + c);
+      a.x *= scale; a.y *= scale; a.z *= scale; a.w *= scale;
+    }
+    *reinterpret_cast<float4*>(smem + r * LD + c) = a;
   }
 }
 
@@ -133,56 +585,38 @@ __device__ __forceinline__ float comp(float4 a, int i) {
   return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
 }
 
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
-  return qpos < p.S && kpos < p.S && (!p.causal || kpos <= qpos) &&
-         (p.window <= 0 || kpos > qpos - p.window);
-}
-
-// ---------------------------------------------------------------------------
-// dQ: one block per (query tile, q head, batch)
-// ---------------------------------------------------------------------------
-
+// dQ: one block per (q head, batch, query tile)
 template <int D>
-constexpr int dq_smem_bytes() {
-  // Q (scaled) and dO: [64][D]; K and V: [64][D + 4]; dS: [64][64]
-  return (2 * BQ * D + 2 * BK * (D + 4) + BQ * BK) * (int)sizeof(float);
-}
-
-template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_kernel(const Params p) {
-  constexpr int LDK = D + 4;           // padded: conflict-free 16-byte reads
-  constexpr int DPL = D / 32;          // output columns per lane
+flash_bwd_dq_f32_kernel(const Params p) {
+  using F = F32<D>;
+  constexpr int T = F::T, DP = F::DP, LD = F::LD, ROWS = F::ROWS,
+                KPL = F::KPL, DPL = F::DPL;
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + BQ * D;
-  float* Ks = dOs + BQ * D;
-  float* Vs = Ks + BK * LDK;
-  float* dSs = Vs + BK * LDK;
+  float* dOs = Qs + T * DP;
+  float* Ks = dOs + T * DP;
+  float* Vs = Ks + T * LD;
+  float* dSs = Vs + T * LD;
 
-  const int nqt = (p.S + BQ - 1) / BQ;
-  const int qt = nqt - 1 - (int)blockIdx.x;   // longest causal rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int qt = (int)(gridDim.z - 1 - blockIdx.z);   // longest causal rows first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int hk = h / (p.Hq / p.Hkv);
-  const int q0 = qt * BQ;
+  const int q0 = qt * T;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r0 = warp * ROWS;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* og = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* og = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   const long long row_base = ((long long)b * p.Hq + h) * p.S;
 
-  load_tile<T, D, D>(Qs, qg, p.q_ss, q0, p.S, p.scale);
-  load_tile<T, D, D>(dOs, og, p.o_ss, q0, p.S, 1.f);
+  load_tile<D, DP, DP>(Qs, qg, p.q_ss, q0, T, p.S, p.scale);
+  load_tile<D, DP, DP>(dOs, og, p.o_ss, q0, T, p.S, 1.f);
 
   float lse[ROWS], delta[ROWS], acc[ROWS][DPL];
 #pragma unroll
@@ -195,36 +629,41 @@ flash_bwd_dq_kernel(const Params p) {
   }
 
   // the TPU kernel's tile range [lo, hi) (flash_attention.py:133-140)
-  const int nkb = (p.S + BK - 1) / BK;
-  const int hi = p.causal ? min((q0 + BQ + BK - 1) / BK, nkb) : nkb;
-  const int lo = p.window > 0 ? max(floor_div(q0 - p.window + 1, BK), 0) : 0;
+  const int nkb = (p.S + T - 1) / T;
+  const int hi = p.causal ? min((q0 + 2 * T - 1) / T, nkb) : nkb;
+  const int lo = p.window > 0 ? max(floor_div(q0 - p.window + 1, T), 0) : 0;
 
   for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * T;
     __syncthreads();                   // every warp is done with the last K, V
-    load_tile<T, D, LDK>(Ks, kg, p.k_ss, k0, p.S, 1.f);
-    load_tile<T, D, LDK>(Vs, vg, p.v_ss, k0, p.S, 1.f);
+    load_tile<D, DP, LD>(Ks, kg, p.k_ss, k0, T, p.S, 1.f);
+    load_tile<D, DP, LD>(Vs, vg, p.v_ss, k0, T, p.S, 1.f);
     __syncthreads();
 
     // s = (scale Q) K^T and dp = dO V^T for this warp's rows against keys
-    // lane and lane + 32
-    float s[ROWS][2], dp[ROWS][2];
+    // lane + 32 c
+    float s[ROWS][KPL], dp[ROWS][KPL];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < KPL; ++c) s[r][c] = dp[r][c] = 0.f;
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(Ks + lane * LDK + d);
-      const float4 kb = *reinterpret_cast<const float4*>(Ks + (lane + 32) * LDK + d);
-      const float4 va = *reinterpret_cast<const float4*>(Vs + lane * LDK + d);
-      const float4 vb = *reinterpret_cast<const float4*>(Vs + (lane + 32) * LDK + d);
+    for (int d = 0; d < DP; d += 4) {
+      float4 ka[KPL], va[KPL];
+#pragma unroll
+      for (int c = 0; c < KPL; ++c) {
+        ka[c] = *reinterpret_cast<const float4*>(Ks + (lane + 32 * c) * LD + d);
+        va[c] = *reinterpret_cast<const float4*>(Vs + (lane + 32 * c) * LD + d);
+      }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + (r0 + r) * D + d);
-        const float4 ov = *reinterpret_cast<const float4*>(dOs + (r0 + r) * D + d);
-        s[r][0] = dot4(qv, ka, s[r][0]);
-        s[r][1] = dot4(qv, kb, s[r][1]);
-        dp[r][0] = dot4(ov, va, dp[r][0]);
-        dp[r][1] = dot4(ov, vb, dp[r][1]);
+        const float4 qv = *reinterpret_cast<const float4*>(Qs + (r0 + r) * DP + d);
+        const float4 ov = *reinterpret_cast<const float4*>(dOs + (r0 + r) * DP + d);
+#pragma unroll
+        for (int c = 0; c < KPL; ++c) {
+          s[r][c] = dot4(qv, ka[c], s[r][c]);
+          dp[r][c] = dot4(ov, va[c], dp[r][c]);
+        }
       }
     }
 
@@ -233,26 +672,26 @@ flash_bwd_dq_kernel(const Params p) {
     for (int r = 0; r < ROWS; ++r) {
       const int qpos = q0 + r0 + r;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
+      for (int c = 0; c < KPL; ++c) {
         const int kpos = k0 + lane + 32 * c;
         const float pr = visible(p, qpos, kpos) ? expf(s[r][c] - lse[r]) : 0.f;
-        dSs[(r0 + r) * BK + lane + 32 * c] = pr * (dp[r][c] - delta[r]);
+        dSs[(r0 + r) * T + lane + 32 * c] = pr * (dp[r][c] - delta[r]);
       }
     }
     __syncwarp();
 
     // acc += dS K
 #pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
+    for (int j = 0; j < T; j += 4) {
       float4 ds[ROWS];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
-        ds[r] = *reinterpret_cast<const float4*>(dSs + (r0 + r) * BK + j);
+        ds[r] = *reinterpret_cast<const float4*>(dSs + (r0 + r) * T + j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         float kk[DPL];
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) kk[c] = Ks[(j + jj) * LDK + lane + 32 * c];
+        for (int c = 0; c < DPL; ++c) kk[c] = Ks[(j + jj) * LD + lane + 32 * c];
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const float w = comp(ds[r], jj);
@@ -264,58 +703,49 @@ flash_bwd_dq_kernel(const Params p) {
     __syncwarp();                      // dS rows are rewritten next tile
   }
 
-  T* dqg = static_cast<T*>(p.dq) + b * p.a_sb + h * p.a_sh;
+  float* dqg = static_cast<float*>(p.dq) + b * p.a_sb + h * p.a_sh;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int row = q0 + r0 + r;
     if (row >= p.S) continue;
 #pragma unroll
     for (int c = 0; c < DPL; ++c)
-      dqg[row * p.a_ss + lane + 32 * c] = Chunk<T>::from_float(acc[r][c] * p.scale);
+      if (lane + 32 * c < D)
+        dqg[row * p.a_ss + lane + 32 * c] = acc[r][c] * p.scale;
   }
 }
 
-// ---------------------------------------------------------------------------
-// dK, dV: one block per (key tile, kv head, batch), summed over the GQA group
-// ---------------------------------------------------------------------------
-
+// dK, dV: one block per (kv head, batch, key tile), summed over the GQA group
 template <int D>
-constexpr int dkv_smem_bytes() {
-  // K and V: [64][D]; Q (scaled) and dO: [64][D + 4]; P^T and dS^T: [64][64];
-  // lse and delta of the query tile: [64] each
-  return (2 * BK * D + 2 * BQ * (D + 4) + 2 * BK * BQ + 2 * BQ) *
-         (int)sizeof(float);
-}
-
-template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkv_kernel(const Params p) {
-  constexpr int LDQ = D + 4;
-  constexpr int DPL = D / 32;
+flash_bwd_dkv_f32_kernel(const Params p) {
+  using F = F32<D>;
+  constexpr int T = F::T, DP = F::DP, LD = F::LD, ROWS = F::ROWS,
+                KPL = F::KPL, DPL = F::DPL;
 
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BK * D;
-  float* Qs = Vs + BK * D;
-  float* dOs = Qs + BQ * LDQ;
-  float* Pt = dOs + BQ * LDQ;
-  float* dSt = Pt + BK * BQ;
-  float* Ls = dSt + BK * BQ;
-  float* Dl = Ls + BQ;
+  float* Vs = Ks + T * DP;
+  float* Qs = Vs + T * DP;
+  float* dOs = Qs + T * LD;
+  float* Pt = dOs + T * LD;
+  float* dSt = Pt + T * T;
+  float* Ls = dSt + T * T;
+  float* Dl = Ls + T;
 
-  const int kt = blockIdx.x;           // causal: the longest query walks first
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  const int kt = blockIdx.z;           // causal: the longest query walks first
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
   const int group = p.Hq / p.Hkv;
-  const int k0 = kt * BK;
+  const int k0 = kt * T;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r0 = warp * ROWS;
 
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile<T, D, D>(Ks, kg, p.k_ss, k0, p.S, 1.f);
-  load_tile<T, D, D>(Vs, vg, p.v_ss, k0, p.S, 1.f);
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  load_tile<D, DP, DP>(Ks, kg, p.k_ss, k0, T, p.S, 1.f);
+  load_tile<D, DP, DP>(Vs, vg, p.v_ss, k0, T, p.S, 1.f);
 
   float dk[ROWS][DPL], dv[ROWS][DPL];
 #pragma unroll
@@ -325,22 +755,22 @@ flash_bwd_dkv_kernel(const Params p) {
   }
 
   // the TPU kernel's query-tile range [lo, hi) (flash_attention.py:176-186)
-  const int nqb = (p.S + BQ - 1) / BQ;
-  const int lo = p.causal ? k0 / BQ : 0;
-  const int hi = p.window > 0 ? min((k0 + BK + p.window - 2) / BQ + 1, nqb)
+  const int nqb = (p.S + T - 1) / T;
+  const int lo = p.causal ? k0 / T : 0;
+  const int hi = p.window > 0 ? min((k0 + T + p.window - 2) / T + 1, nqb)
                               : nqb;
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
-    const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* og = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+    const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const float* og = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
     const long long row_base = ((long long)b * p.Hq + h) * p.S;
     for (int it = lo; it < hi; ++it) {
-      const int q0 = it * BQ;
+      const int q0 = it * T;
       __syncthreads();                 // every warp is done with the last tile
-      load_tile<T, D, LDQ>(Qs, qg, p.q_ss, q0, p.S, p.scale);
-      load_tile<T, D, LDQ>(dOs, og, p.o_ss, q0, p.S, 1.f);
-      if (threadIdx.x < BQ) {
+      load_tile<D, DP, LD>(Qs, qg, p.q_ss, q0, T, p.S, p.scale);
+      load_tile<D, DP, LD>(dOs, og, p.o_ss, q0, T, p.S, 1.f);
+      if (threadIdx.x < T) {
         const int row = q0 + threadIdx.x;
         Ls[threadIdx.x] = row < p.S ? p.lse[row_base + row] : 0.f;
         Dl[threadIdx.x] = row < p.S ? p.delta[row_base + row] : 0.f;
@@ -348,29 +778,34 @@ flash_bwd_dkv_kernel(const Params p) {
       __syncthreads();
 
       // s^T = K (scale Q)^T and dp^T = V dO^T for this warp's keys against
-      // queries lane and lane + 32
-      float s[ROWS][2], dp[ROWS][2];
+      // queries lane + 32 c
+      float s[ROWS][KPL], dp[ROWS][KPL];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int c = 0; c < KPL; ++c) s[r][c] = dp[r][c] = 0.f;
 #pragma unroll 2
-      for (int d = 0; d < D; d += 4) {
-        const float4 qa = *reinterpret_cast<const float4*>(Qs + lane * LDQ + d);
-        const float4 qb = *reinterpret_cast<const float4*>(Qs + (lane + 32) * LDQ + d);
-        const float4 oa = *reinterpret_cast<const float4*>(dOs + lane * LDQ + d);
-        const float4 ob = *reinterpret_cast<const float4*>(dOs + (lane + 32) * LDQ + d);
+      for (int d = 0; d < DP; d += 4) {
+        float4 qa[KPL], oa[KPL];
+#pragma unroll
+        for (int c = 0; c < KPL; ++c) {
+          qa[c] = *reinterpret_cast<const float4*>(Qs + (lane + 32 * c) * LD + d);
+          oa[c] = *reinterpret_cast<const float4*>(dOs + (lane + 32 * c) * LD + d);
+        }
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
-          const float4 kv = *reinterpret_cast<const float4*>(Ks + (r0 + r) * D + d);
-          const float4 vv = *reinterpret_cast<const float4*>(Vs + (r0 + r) * D + d);
-          s[r][0] = dot4(kv, qa, s[r][0]);
-          s[r][1] = dot4(kv, qb, s[r][1]);
-          dp[r][0] = dot4(vv, oa, dp[r][0]);
-          dp[r][1] = dot4(vv, ob, dp[r][1]);
+          const float4 kv = *reinterpret_cast<const float4*>(Ks + (r0 + r) * DP + d);
+          const float4 vv = *reinterpret_cast<const float4*>(Vs + (r0 + r) * DP + d);
+#pragma unroll
+          for (int c = 0; c < KPL; ++c) {
+            s[r][c] = dot4(kv, qa[c], s[r][c]);
+            dp[r][c] = dot4(vv, oa[c], dp[r][c]);
+          }
         }
       }
 
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
+      for (int c = 0; c < KPL; ++c) {
         const int qi = lane + 32 * c;
         const float l = Ls[qi];
         const float dl = Dl[qi];
@@ -378,28 +813,28 @@ flash_bwd_dkv_kernel(const Params p) {
         for (int r = 0; r < ROWS; ++r) {
           const int kpos = k0 + r0 + r;
           const float pr = visible(p, q0 + qi, kpos) ? expf(s[r][c] - l) : 0.f;
-          Pt[(r0 + r) * BQ + qi] = pr;
-          dSt[(r0 + r) * BQ + qi] = pr * (dp[r][c] - dl);
+          Pt[(r0 + r) * T + qi] = pr;
+          dSt[(r0 + r) * T + qi] = pr * (dp[r][c] - dl);
         }
       }
       __syncwarp();
 
       // dV += P^T dO and dK += dS^T (scale Q)
 #pragma unroll 1
-      for (int j = 0; j < BQ; j += 4) {
+      for (int j = 0; j < T; j += 4) {
         float4 pr[ROWS], ds[ROWS];
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
-          pr[r] = *reinterpret_cast<const float4*>(Pt + (r0 + r) * BQ + j);
-          ds[r] = *reinterpret_cast<const float4*>(dSt + (r0 + r) * BQ + j);
+          pr[r] = *reinterpret_cast<const float4*>(Pt + (r0 + r) * T + j);
+          ds[r] = *reinterpret_cast<const float4*>(dSt + (r0 + r) * T + j);
         }
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           float oo[DPL], qq[DPL];
 #pragma unroll
           for (int c = 0; c < DPL; ++c) {
-            oo[c] = dOs[(j + jj) * LDQ + lane + 32 * c];
-            qq[c] = Qs[(j + jj) * LDQ + lane + 32 * c];
+            oo[c] = dOs[(j + jj) * LD + lane + 32 * c];
+            qq[c] = Qs[(j + jj) * LD + lane + 32 * c];
           }
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
@@ -416,19 +851,25 @@ flash_bwd_dkv_kernel(const Params p) {
     }
   }
 
-  T* dkg = static_cast<T*>(p.dk) + b * p.a_sb + hk * p.a_sh;
-  T* dvg = static_cast<T*>(p.dv) + b * p.c_sb + hk * p.c_sh;
+  float* dkg = static_cast<float*>(p.dk) + b * p.a_sb + hk * p.a_sh;
+  float* dvg = static_cast<float*>(p.dv) + b * p.c_sb + hk * p.c_sh;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int row = k0 + r0 + r;
     if (row >= p.S) continue;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
-      dkg[row * p.a_ss + lane + 32 * c] = Chunk<T>::from_float(dk[r][c]);
-      dvg[row * p.c_ss + lane + 32 * c] = Chunk<T>::from_float(dv[r][c]);
+      if (lane + 32 * c < D) {
+        dkg[row * p.a_ss + lane + 32 * c] = dk[r][c];
+        dvg[row * p.c_ss + lane + 32 * c] = dv[r][c];
+      }
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
 constexpr int MAX_DEVICES = 64;
 
@@ -451,23 +892,35 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
 
 template <typename T, int D>
 cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = dq_smem_bytes<D>();
+  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int bytes = tc ? DqTile<D>::SMEM : F32<D>::DQ_SMEM;
+  constexpr int threads = tc ? TC_THREADS : THREADS;
+  constexpr int rows = tc ? DqTile<D>::BQ : F32<D>::T;
+  void (*kernel)(const Params) =
+      tc ? &flash_bwd_dq_bf16_kernel<D> : &flash_bwd_dq_f32_kernel<D>;
   static bool smem_set[MAX_DEVICES] = {};
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D>, bytes, smem_set);
+  cudaError_t err = allow_smem(kernel, bytes, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + BQ - 1) / BQ, p.Hq, p.B);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
+  // the query tile is the slowest grid axis (see the kernels)
+  const dim3 grid(p.Hq, p.B, (p.S + rows - 1) / rows);
+  kernel<<<grid, threads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = dkv_smem_bytes<D>();
+  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int bytes = tc ? DkvTile<D>::SMEM : F32<D>::DKV_SMEM;
+  constexpr int threads = tc ? TC_THREADS : THREADS;
+  constexpr int keys = tc ? DkvTile<D>::BK : F32<D>::T;
+  void (*kernel)(const Params) =
+      tc ? &flash_bwd_dkv_bf16_kernel<D> : &flash_bwd_dkv_f32_kernel<D>;
   static bool smem_set[MAX_DEVICES] = {};
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D>, bytes, smem_set);
+  cudaError_t err = allow_smem(kernel, bytes, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + BK - 1) / BK, p.Hkv, p.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
+  // the key tile is the slowest grid axis (see the kernels)
+  const dim3 grid(p.Hkv, p.B, (p.S + keys - 1) / keys);
+  kernel<<<grid, threads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -476,14 +929,18 @@ cudaError_t dispatch(const Params& p, int D, bool dkv, cudaStream_t stream) {
   switch (D) {
     case 32: return dkv ? launch_dkv<T, 32>(p, stream) : launch_dq<T, 32>(p, stream);
     case 64: return dkv ? launch_dkv<T, 64>(p, stream) : launch_dq<T, 64>(p, stream);
+    case 80: return dkv ? launch_dkv<T, 80>(p, stream) : launch_dq<T, 80>(p, stream);
+    case 120: return dkv ? launch_dkv<T, 120>(p, stream) : launch_dq<T, 120>(p, stream);
     case 128: return dkv ? launch_dkv<T, 128>(p, stream) : launch_dq<T, 128>(p, stream);
+    case 256: return dkv ? launch_dkv<T, 256>(p, stream) : launch_dq<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int run(const Params& p, int dtype, int D, bool dkv, void* stream) {
+  // the smallest tile is 32 rows: its count is the grid's z extent
   if (p.B <= 0 || p.Hq <= 0 || p.Hkv <= 0 || p.S <= 0 || p.Hq % p.Hkv != 0 ||
-      p.B > 65535 || p.Hq > 65535)
+      p.B > 65535 || (p.S + 31) / 32 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -495,9 +952,9 @@ int run(const Params& p, int dtype, int D, bool dkv, void* stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; lse and delta
-// are contiguous (B, Hq, S) fp32.  Each returns the cudaError_t of its launch
-// (0 on success); nothing is synchronised.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  Strides are
+// in elements; lse and delta are contiguous (B, Hq, S) fp32.  Each returns
+// the cudaError_t of its launch (0 on success); nothing is synchronised.
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq,

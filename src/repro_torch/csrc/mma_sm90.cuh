@@ -1,6 +1,7 @@
 // Small inline wrappers for warp-level tensor-core kernels on Hopper (sm_90a):
-// asynchronous global-to-shared copies, ldmatrix, the bf16 m16n8k16 MMA and
-// the XOR swizzle that keeps ldmatrix free of bank conflicts.
+// asynchronous global-to-shared copies (16 and 4 bytes), ldmatrix, the bf16
+// m16n8k16 MMA and the XOR swizzle that keeps ldmatrix free of bank
+// conflicts.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 registers of bf16x2:
@@ -36,6 +37,15 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             bool valid) {
   const int src_bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes global -> shared (cached in L1 and L2), zero-filled when `valid`
+// is false; for fp32 rows that need not start on a 16-byte boundary
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int src_bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 

@@ -3,7 +3,7 @@ and ``csrc/flash_attention_bwd.cu``, and the autograd Function over them.
 
 The kernels replace the TPU kernels of ``repro/kernels/flash_attention.py``:
 ``_flash_kernel`` (forward), ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
-(backward).  The forward runs bf16 on the tensor cores and fp32 on the CUDA
+(backward).  All three run bf16 on the tensor cores and fp32 on the CUDA
 cores (an fp32 tensor-core product would be TF32).  This module takes
 tensors that lie on a CUDA device and nothing else: the plain versions for
 CPU tensors are in ``kernels.ref``, and ``kernels.ops`` picks between them by
@@ -27,10 +27,10 @@ import torch
 
 from repro_torch.kernels import build
 
-# head dims each direction is built for: the forward also takes zamba2's 80,
-# h2o-danube-3-4b's 120 and gemma-2b's 256
+# head dims each direction is built for, both the same: zamba2's 80,
+# h2o-danube-3-4b's 120 and gemma-2b's 256 beside 32, 64 and 128
 FWD_HEAD_DIMS = (32, 64, 80, 120, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 128)
+BWD_HEAD_DIMS = FWD_HEAD_DIMS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0

@@ -5,25 +5,31 @@
         --full --batch 8 --prompt-len 512 --decode-steps 8
     PYTHONPATH=src python -m repro_torch.launch.profile --arch paper-llama-1.5b \
         --full --batch 8 --prompt-len 512 --train-steps 3
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch h2o-danube-3-4b \
+        --full --layers 12 --batch 4 --train-steps 3 --strategy checkfree
     PYTHONPATH=src python -m repro_torch.launch.profile --arch mamba2-1.3b --full
 
 Serving: builds the model and prompt as ``launch.serve`` does, warms up,
 then takes prefill and decode apart.  Training (``--train-steps``): builds
 the eager Trainer (``--strategy``, the config's stage count), warms up one
 step, then profiles that many steps of ``Trainer.step`` on batches of
-``--batch`` x ``--prompt-len`` made on the device beforehand.  Each phase
+``--batch`` x ``--prompt-len`` made on the device beforehand (``--layers``
+cuts the depth).  Each phase
 prints one JSON line: the wall time (host clock around work that ends in a
 synchronize, without the profiler), the device busy time (the sum of the
 CUDA kernels' durations in a profiled run of the same work), the device's
 idle share ``1 - busy / wall``, the number of kernels launched, the device
 time by family (the port's kernels: flash attention, the stage merge, the
-SSD scan; cuBLAS matrix products; everything else) and the kernels that take the most device time.  Decode and training
+SSD scan; cuBLAS matrix products; everything else), the device time of each
+of the port's kernels by name, and the kernels that take the most device
+time.  Decode and training
 numbers are per step.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 from collections import defaultdict
@@ -77,6 +83,10 @@ _FAMILIES = (("flash_attention", ("flash_fwd", "flash_bwd")),
              ("matmul", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
 
 
+# the port's kernel names within the profiler's demangled signatures
+_OURS = re.compile(r"(flash_\w+|stage_merge\w*|ssd_scan\w*)(<[^>]*>)?")
+
+
 def _family(name: str) -> str:
     for family, keys in _FAMILIES:
         if any(k in name for k in keys):
@@ -90,15 +100,24 @@ def _report(phase: str, wall_s: float, kernels: dict, per: int, top: int = 8,
     wall_ms = wall_s * 1e3 / per
     rows = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
     families = defaultdict(lambda: [0, 0.0])
+    ours = defaultdict(lambda: [0, 0.0])
     for name, (n, us) in kernels.items():
-        families[_family(name)][0] += n
-        families[_family(name)][1] += us
+        family = _family(name)
+        families[family][0] += n
+        families[family][1] += us
+        if family not in ("matmul", "other"):
+            short = _OURS.search(name)
+            key = short.group(0) if short else name
+            ours[key][0] += n
+            ours[key][1] += us
     print(json.dumps({
         "phase": phase, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches": sum(n for n, _ in kernels.values()) / per,
         "families": {f: {"calls": n / per, "ms": us / 1e3 / per}
                      for f, (n, us) in sorted(families.items())},
+        "ours": {k: {"calls": n / per, "ms": us / 1e3 / per}
+                 for k, (n, us) in sorted(ours.items())},
         "top": [{"name": name[:90], "calls": n / per, "ms": us / 1e3 / per}
                 for name, (n, us) in rows]}), flush=True)
 
@@ -118,6 +137,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "serving (0 = serve)")
     ap.add_argument("--strategy", default="checkfree_plus",
                     choices=available_strategies())
+    ap.add_argument("--layers", type=int, default=0,
+                    help="override the config's layer count (0 = keep)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
@@ -126,6 +147,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.layers > 0:
+        cfg = cfg.replace(num_layers=args.layers)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
@@ -184,7 +207,8 @@ def _profile_train(cfg, args, card: str) -> None:
     steps(1)                                           # warm-up
     n = args.train_steps
     _report("train_step", _wall_s(lambda: steps(n)), _kernels(lambda: steps(n)),
-            n, top=12, arch=cfg.name, strategy=args.strategy, stages=stages,
+            n, top=12, arch=cfg.name, layers=cfg.num_layers,
+            strategy=args.strategy, stages=stages,
             batch=args.batch, seq=args.prompt_len, card=card)
 
 

@@ -70,6 +70,16 @@ def test_backward_bf16_keeps_bf16_grads():
     check(make(13, 1, 2, 2, 64, 32), "bfloat16", causal=True, window=0, blk=32)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,d,window", [(4, 4, 80, 0), (4, 2, 120, 48),
+                                             (4, 1, 256, 0)])
+def test_backward_at_head_dims_80_120_256(dtype, hq, hkv, d, window):
+    """zamba2's head dim 80, h2o-danube-3-4b's 120 (GQA, a window) and
+    gemma-2b's 256 (MQA), which the backward kernels are built for too."""
+    check(make(17, 1, hq, hkv, 64, d), dtype, causal=True, window=window,
+          blk=32)
+
+
 def test_backward_ragged_length_matches_autograd():
     """S = 37 is no multiple of a tile (the Pallas wrapper refuses it)."""
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in make(14, 2, 4, 2, 37, 32))

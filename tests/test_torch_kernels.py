@@ -120,17 +120,25 @@ def test_plain_at_head_dims_120_and_256(d, dtype, causal, window):
 
 
 def test_head_dims_each_direction_is_built_for():
-    """The forward takes 120 and 256 (a CPU tensor is then refused for its
-    device, not its head dim); the backward refuses them by head dim."""
+    """Both directions take 120 and 256 (a CPU tensor is then refused for its
+    device, not its head dim); a head dim neither is built for, 48, is
+    refused by head dim in both."""
     assert FA.FWD_HEAD_DIMS == (32, 64, 80, 120, 128, 256)
-    assert FA.BWD_HEAD_DIMS == (32, 64, 128)
+    assert FA.BWD_HEAD_DIMS == FA.FWD_HEAD_DIMS
+    whats = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     for d in (120, 256):
         q = torch.zeros((1, 2, 16, d))
         with pytest.raises(ValueError, match="CUDA"):
             FA._check("flash_attention_fwd", q, q, q, 0)
-        for what in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-            with pytest.raises(NotImplementedError, match=f"head dim {d}"):
+        for what in whats:
+            with pytest.raises(ValueError, match="CUDA"):
                 FA._check(what, q, q, q, 0, FA.BWD_HEAD_DIMS, do=q)
+    q = torch.zeros((1, 2, 16, 48))
+    with pytest.raises(NotImplementedError, match="head dim 48"):
+        FA._check("flash_attention_fwd", q, q, q, 0)
+    for what in whats:
+        with pytest.raises(NotImplementedError, match="head dim 48"):
+            FA._check(what, q, q, q, 0, FA.BWD_HEAD_DIMS, do=q)
 
 
 def test_ops_takes_model_layout_on_cpu():

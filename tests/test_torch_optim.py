@@ -4,10 +4,11 @@ Numpy inputs go through both packages on the CPU in fp32.  Adam: one update
 of params, m and v for each schedule, with clipping and the CheckFree lr
 boost, at 1e-6 (the same fp32 arithmetic in both; only the order of the
 norm's sum differs).  Loss and gradients of the reduced paper-LLaMA of
-examples/train_with_failures.py, from JAX's initial parameters, at 1e-5
-relative for the loss and 1e-4 for the gradients: the frameworks sum the
-matrix products in different orders, and the differences grow backwards
-through 8 layers.
+examples/train_with_failures.py, and of 2-layer gemma-2b and
+h2o-danube-3-4b at their real head dims (256 and 120), from JAX's initial
+parameters, at 1e-5 relative for the loss and 1e-4 for the gradients: the
+frameworks sum the matrix products in different orders, and the
+differences grow backwards through 8 layers.
 """
 import dataclasses
 
@@ -19,6 +20,7 @@ import torch
 
 from repro import config as JC
 from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
 from repro.core.stages import StagePartition as JPart
 from repro.core.trainer import _make_loss_fn as jax_loss_fn
 from repro.models import layers as JL
@@ -26,7 +28,7 @@ from repro.models.model import build_model as jax_build_model
 from repro.optim import adam as JA
 from repro_torch import config as C
 from repro_torch import tree as TR
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.stages import StagePartition
 from repro_torch.core.trainer import make_loss_fn
@@ -196,9 +198,26 @@ def test_cross_entropy_bf16_keeps_bf16_grads():
     close(x.grad, jg, atol=2e-3, rtol=3e-2)
 
 
-def mini_pair():
-    jcfg = jax_get_config("paper-llama-124m").replace(**MINI)
-    cfg = get_config("paper-llama-124m").replace(**MINI)
+# 2-layer reductions that keep each family's head dim (gemma-2b 256 with
+# MQA, h2o-danube-3-4b 120 with GQA), as tests/test_torch_model.py does for
+# serving; danube's window is cut to 16 so that it masks keys at S 32
+REAL_HEAD_DIM = {"gemma-2b": {},
+                 "h2o-danube-3-4b": {"sliding_window": 16}}
+
+
+def configs(arch="paper-llama-124m-mini"):
+    """(JAX config, port config) of the mini paper-LLaMA or a reduction."""
+    if arch == "paper-llama-124m-mini":
+        return (jax_get_config("paper-llama-124m").replace(**MINI),
+                get_config("paper-llama-124m").replace(**MINI))
+    kw = dict(head_dim=get_config(arch).head_dim, dtype="float32",
+              **REAL_HEAD_DIM[arch])
+    return (jax_reduced(jax_get_config(arch)).replace(**kw),
+            reduced(get_config(arch)).replace(**kw))
+
+
+def mini_pair(arch="paper-llama-124m-mini"):
+    jcfg, cfg = configs(arch)
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     tparams = TR.map(lambda t: t.requires_grad_(), params_from_numpy(
@@ -223,8 +242,9 @@ def grads_close(tparams, jgrads, rtol=1e-4):
         assert err <= rtol * scale, (path, err, scale)
 
 
-def test_model_loss_and_grads_match_jax():
-    model, tparams, jmodel, jparams, batch = mini_pair()
+@pytest.mark.parametrize("arch", ["paper-llama-124m-mini", *REAL_HEAD_DIM])
+def test_model_loss_and_grads_match_jax(arch):
+    model, tparams, jmodel, jparams, batch = mini_pair(arch)
     (jl, jm), jg = jax.value_and_grad(jmodel.loss, has_aux=True)(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     loss, metrics = model.loss(tparams, {k: torch.from_numpy(v)

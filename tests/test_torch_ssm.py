@@ -474,12 +474,14 @@ def test_flash_forward_plain_at_head_dim_80_matches_jax():
 
 
 def test_flash_head_dim_80_is_built_forward_only():
-    """The forward kernel takes head dim 80; the backward kernels were never
-    built for it, and their check refuses it before anything else."""
+    """Head dim 80 (zamba2's shared attention) was built for the forward
+    only until the backward kernels were redesigned; now both directions
+    take it: a CPU tensor gets past the head-dim check in each and is
+    refused for its device."""
     q = torch.zeros((1, 2, 16, 80))
     with pytest.raises(ValueError, match="CUDA"):     # past the head-dim check
         FA._check("flash_attention_fwd", q, q, q, 0)
     for what in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        with pytest.raises(NotImplementedError, match="head dim 80"):
+        with pytest.raises(ValueError, match="CUDA"):
             FA._check(what, q, q, q, 0, FA.BWD_HEAD_DIMS, do=q)
-    assert 80 in FA.FWD_HEAD_DIMS and 80 not in FA.BWD_HEAD_DIMS
+    assert 80 in FA.FWD_HEAD_DIMS and 80 in FA.BWD_HEAD_DIMS
