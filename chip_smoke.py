@@ -31,12 +31,16 @@ result.  Phases:
              the yardstick) and for the stage merge (against
              ``stage_merge_ref``; timed on one 4-layer stage of
              paper-llama-1.5b, ``torch._foreach_lerp`` as the yardstick).
-             The SSD scan against its two plain versions (chunked and token
-             by token) over tests/test_kernels.py's sweep, ragged lengths,
-             wider P and N, starting states and the real decay range, a
-             state-carry check, and both models' serving shapes; timed there
-             beside its bound and the chunked plain version (no PyTorch call
-             computes it).
+             The SSD scan (bf16 on the tensor cores, fp32 on the CUDA cores)
+             against its two plain versions (chunked and token by token)
+             over tests/test_kernels.py's sweep, ragged lengths, wider P and
+             N, starting states and the real decay range, then the bf16
+             kernel at both serving widths cut in batch and heads, P 48, 20
+             and 4 and N 36 and 4 (padded inside the block), chunks of 1 and
+             48 with ragged ends, and B and C rows 8, 4 and 2 bytes off a
+             16-byte boundary; a state-carry check, and both models' serving
+             shapes, timed there beside its bound and the chunked plain
+             version (no PyTorch call computes it).
 4. model   — paper-llama-1.5b, mamba2-1.3b, zamba2-2.7b, gemma-2b and
              h2o-danube-3-4b at full width cut to 2 layers, fp32: prefill
              logits (and cache) on the card (kernels) against the port on the
@@ -85,6 +89,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -289,13 +294,29 @@ def phase_env() -> str:
     return card
 
 
+def demangled(lines: list) -> list:
+    """``lines`` with each quoted mangled C++ name (``'_Z...'``) replaced by
+    its demangled form, so that the instantiations read as
+    ``ssd_scan_bf16_kernel<128>(Params)``; unchanged without c++filt."""
+    names = sorted({m for ln in lines for m in re.findall(r"'(_Z\w+)'", ln)})
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return lines
+    plain = dict(zip(names, out))
+    return [re.sub(r"'(_Z\w+)'", lambda m: f"'{plain.get(m[1], m[1])}'", ln)
+            for ln in lines]
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     info = build.build()
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in r["log"].splitlines()
-                    if "entry function" in ln or "registers" in ln
-                    or "spill" in ln]
+    ptxas = {name: demangled([ln.strip() for ln in r["log"].splitlines()
+                              if "entry function" in ln or "registers" in ln
+                              or "spill" in ln])
              for name, r in info.items()}
     emit("build", seconds=seconds, sources=sorted(info), ptxas=ptxas)
 
@@ -666,7 +687,8 @@ def phase_kernel_merge() -> dict:
 
 
 def ssd_inputs(gen, b, t, h, p, g, n, dtype, *, real: bool,
-               init: bool = False, strided: bool = False) -> tuple:
+               init: bool = False, strided: bool = False,
+               offset: int = 0) -> tuple:
     """(xb, a, bmat, cmat, init_state) for the SSD scan, model layout.
 
     ``real``: as a mamba2 layer makes them from ``init_mamba_block``'s
@@ -675,7 +697,10 @@ def ssd_inputs(gen, b, t, h, p, g, n, dtype, *, real: bool,
     a = dt A (down to about -1.6 a token, so exp(cs_i - cs_j) above the
     diagonal overflows), xb = x dt.  Otherwise tests/test_kernels.py's draws:
     x 0.5 N(0, 1), a = -0.1 |N(0, 1)|, B and C 0.4 N(0, 1).  ``strided``: B
-    and C are views of one (B, T, H P + 2 G N) tensor, as the model's xBC.
+    and C are views of one (B, T, H P + offset + 2 G N) tensor, as the
+    model's xBC, starting ``offset`` elements after x's columns (an offset
+    that is not a multiple of 8 leaves their bf16 rows off 16-byte
+    boundaries).
     """
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
@@ -693,9 +718,10 @@ def ssd_inputs(gen, b, t, h, p, g, n, dtype, *, real: bool,
         xb = randn(b, t, h, p, scale=0.5).to(dtype)
         scale = 0.4
     if strided:
-        xbc = randn(b, t, h * p + 2 * g * n, scale=scale).to(dtype)
-        bmat = xbc[..., h * p:h * p + g * n].reshape(b, t, g, n)
-        cmat = xbc[..., h * p + g * n:].reshape(b, t, g, n)
+        o = h * p + offset
+        xbc = randn(b, t, o + 2 * g * n, scale=scale).to(dtype)
+        bmat = xbc[..., o:o + g * n].reshape(b, t, g, n)
+        cmat = xbc[..., o + g * n:].reshape(b, t, g, n)
     else:
         bmat = randn(b, t, g, n, scale=scale).to(dtype)
         cmat = randn(b, t, g, n, scale=scale).to(dtype)
@@ -731,21 +757,40 @@ def compare_ssd(xb, a, bmat, cmat, init_state, chunk: int, *,
 
 
 def ssd_cases():
-    """(dtype, shape, chunk, real, init) of the SSD sweep."""
+    """(dtype, shape, chunk, real, init, offset) of the SSD sweep; the
+    offset is that of B and C in the xBC rows."""
     for dtype in (torch.float32, torch.bfloat16):
         # tests/test_kernels.py's sweep: B 2, P 16, N 8
         for t in (64, 128):
             for chunk in (16, 32, 64):
                 for h, g in ((2, 1), (4, 2)):
                     yield (dtype, dict(b=2, t=t, h=h, p=16, g=g, n=8), chunk,
-                           False, False)
+                           False, False, 0)
         # ragged T, a prime prompt's chunk of 1, wider P and N, a starting
         # state, and the real decay range
         for t, chunk in ((509, 64), (1000, 64), (509, 1), (100, 48)):
             for p, n in ((32, 16), (64, 64), (64, 128)):
                 for init in (False, True):
                     yield (dtype, dict(b=2, t=t, h=4, p=p, g=2, n=n), chunk,
-                           True, init)
+                           True, init, 0)
+    # the bf16 tensor-core kernel: both serving widths cut in batch and
+    # heads, P not a multiple of the block height, N not a multiple of the
+    # tile, chunks of 1 and 48 with ragged ends, and B and C rows 8, 4 and 2
+    # bytes off a 16-byte boundary
+    bf16 = torch.bfloat16
+    for n in (128, 64):
+        for init in (False, True):
+            yield (bf16, dict(b=2, t=512, h=8, p=64, g=1, n=n), 64, True,
+                   init, 0)
+    for p, n in ((48, 64), (20, 128), (32, 36), (4, 4)):
+        yield (bf16, dict(b=2, t=200, h=4, p=p, g=2, n=n), 64, True, True, 0)
+    for t, chunk in ((37, 1), (301, 48), (130, 48)):
+        yield (bf16, dict(b=2, t=t, h=4, p=64, g=1, n=128), chunk, True,
+               True, 0)
+    for offset in (4, 2, 1):
+        for n in (128, 36):
+            yield (bf16, dict(b=2, t=150, h=4, p=64, g=1, n=n), 64, True,
+                   False, offset)
 
 
 def ssd_bound(b, t, h, p, g, n, chunk: int) -> tuple:
@@ -763,9 +808,9 @@ def phase_kernel_ssd() -> dict:
     gen = torch.Generator("cuda").manual_seed(3)
     cases = failures = 0
     worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
-    for dtype, shp, chunk, real, init in ssd_cases():
+    for dtype, shp, chunk, real, init, offset in ssd_cases():
         inputs = ssd_inputs(gen, **shp, dtype=dtype, real=real, init=init,
-                            strided=real)
+                            strided=real, offset=offset)
         ok, y_err, s_err = compare_ssd(*inputs, chunk)
         name = str(dtype).split(".")[1]
         worst[name][0] = max(worst[name][0], y_err)
@@ -774,7 +819,8 @@ def phase_kernel_ssd() -> dict:
         if not ok:
             failures += 1
             print(f"MISMATCH ssd dtype={name} {shp} chunk={chunk} real={real} "
-                  f"init={init} y={y_err} state={s_err}", file=sys.stderr)
+                  f"init={init} offset={offset} y={y_err} state={s_err}",
+                  file=sys.stderr)
 
     # the carried state matters (tests/test_kernels.py:220): independent
     # scans of each chunk must differ from the full scan; two halves chained
@@ -816,8 +862,8 @@ def phase_kernel_ssd() -> dict:
         if not ok:
             raise AssertionError(f"{arch} serving shape: y error {y_err}, "
                                  f"state error {s_err}")
-        kernel_ms = time_ms(lambda: SSD.ssd_scan(xb, a, bm, cm,
-                                                 chunk=SSD_CHUNK))
+        kernel_ms = time_ms(
+            lambda: SSD.ssd_scan(xb, a, bm, cm, chunk=SSD_CHUNK))
         plain_ms = time_ms(lambda: ref.ssd_chunked(xb, a, bm, cm, SSD_CHUNK),
                            groups=11, per_group=5)
         nbytes, flops = ssd_bound(**shp, chunk=SSD_CHUNK)

@@ -24,7 +24,7 @@ loop prices iterations and recoveries with them, and when it exposes
 ``observed_rate`` the strategy receives the failure rate each wall
 iteration, as in the JAX trainer.
 
-Not ported yet: fused windows and CUDA graphs (ROADMAP.md queue 1, item 8),
+Not ported yet: fused windows and CUDA graphs (ROADMAP.md queue 1, item 3),
 the SPMD pipeline backend, simulated-cluster scenarios, elastic
 repartitioning and telemetry events.
 """

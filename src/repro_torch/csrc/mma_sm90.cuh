@@ -1,5 +1,5 @@
 // Small inline wrappers for warp-level tensor-core kernels on Hopper (sm_90a):
-// asynchronous global-to-shared copies (16 and 4 bytes), ldmatrix, the bf16
+// asynchronous global-to-shared copies (16, 8 and 4 bytes), ldmatrix, the bf16
 // m16n8k16 MMA and the XOR swizzle that keeps ldmatrix free of bank
 // conflicts.
 //
@@ -18,7 +18,10 @@
 // Shared-memory tiles hold rows of CHUNKS 16-byte chunks (8 bf16 each); chunk
 // c of row r is stored at chunk c ^ (r % 8) of that row.  An 8 x 8 ldmatrix
 // reads one chunk of 8 consecutive rows: after the swizzle they fall in 8
-// different 16-byte bank groups, so each phase is free of conflicts.
+// different 16-byte bank groups, so each phase is free of conflicts.  A row
+// of 4 chunks (64 bytes) shares a 128-byte line with the next; there chunk c
+// of row r is stored at c ^ ((r / 2) % 4), which again puts 8 consecutive
+// rows in 8 different bank groups.
 
 #pragma once
 
@@ -46,6 +49,15 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
                                            bool valid) {
   const int src_bytes = valid ? 4 : 0;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 8 bytes global -> shared (cached in L1 and L2), zero-filled when `valid`
+// is false; for bf16 rows that start on an 8-byte boundary only
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int src_bytes = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 
@@ -105,8 +117,12 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // of CHUNKS chunks a row
 template <int CHUNKS>
 __device__ __forceinline__ int swizzle(int row, int chunk) {
-  static_assert(CHUNKS % 8 == 0, "a swizzled row holds whole groups of 8 chunks");
-  return row * CHUNKS + (chunk ^ (row & 7));
+  static_assert(CHUNKS % 8 == 0 || CHUNKS == 4,
+                "a swizzled row holds 4 or whole groups of 8 chunks");
+  if constexpr (CHUNKS % 8 == 0)
+    return row * CHUNKS + (chunk ^ (row & 7));
+  else
+    return row * CHUNKS + (chunk ^ ((row >> 1) & 3));
 }
 
 }  // namespace sm90

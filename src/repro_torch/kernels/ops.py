@@ -19,7 +19,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.kernels import stage_merge as SM
 
-SSM_TRAINING = "ROADMAP.md queue 1, item 18 (training the SSM and hybrid families)"
+SSM_TRAINING = "ROADMAP.md queue 1, item 8 (training the SSM and hybrid families)"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -5,7 +5,9 @@ The kernel replaces the TPU kernel ``_ssd_kernel`` of
 ``repro.models.ssm.ssd_chunked``: it starts from an optional state and
 returns the final one.  It works in the model layout, xb (B, T, H, P),
 a (B, T, H), bmat/cmat (B, T, G, N), and takes strided views (B and C are
-slices of the model's xBC tensor) without a copy.  It takes tensors that lie
+slices of the model's xBC tensor) without a copy.  bf16 runs on the tensor
+cores, one block per 32 state rows of a head; fp32 (the card-vs-CPU
+checks) on the CUDA cores.  It takes tensors that lie
 on a CUDA device and nothing else: the plain versions for CPU tensors are in
 ``kernels.ref``, and ``kernels.ops`` picks between them by the tensor's
 device.  Forward only, as the TPU kernel: ``kernels.ops.ssd_scan`` refuses

@@ -375,11 +375,12 @@ SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
 STATE_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def ssd_inputs(seed, b, t, h, p, g, n, dtype, *, real, init=False):
+def ssd_inputs(seed, b, t, h, p, g, n, dtype, *, real, init=False, offset=8):
     """Model layout, drawn with numpy.  ``real``: the decay of a mamba2
     layer, a = dt * A with dt = softplus(N(0, 1) + dt_bias) and A down to
     -16 (a reaches about -1.6 a token), and B and C strided views of one
-    xBC tensor; otherwise tests/test_kernels.py's draws."""
+    xBC tensor, starting ``offset`` elements into each row; otherwise
+    tests/test_kernels.py's draws."""
     rng = np.random.default_rng(seed)
 
     def cuda(a, dt=torch.float32):
@@ -392,9 +393,9 @@ def ssd_inputs(seed, b, t, h, p, g, n, dtype, *, real, init=False):
         dt = np.log1p(np.exp(rng.standard_normal((b, t, h)) + dt_bias))
         a = cuda(dt * -np.linspace(1.0, 16.0, h))
         xb = cuda(rng.standard_normal((b, t, h, p)) * dt[..., None], dtype)
-        xbc = cuda(rng.standard_normal((b, t, 2 * g * n + 8)), dtype)
-        bm = xbc[..., 8:8 + g * n].reshape(b, t, g, n)
-        cm = xbc[..., 8 + g * n:].reshape(b, t, g, n)
+        xbc = cuda(rng.standard_normal((b, t, 2 * g * n + offset)), dtype)
+        bm = xbc[..., offset:offset + g * n].reshape(b, t, g, n)
+        cm = xbc[..., offset + g * n:].reshape(b, t, g, n)
     else:
         a = cuda(-0.1 * np.abs(rng.standard_normal((b, t, h))))
         xb = cuda(0.5 * rng.standard_normal((b, t, h, p)), dtype)
@@ -439,6 +440,75 @@ def test_ssd_kernel_ragged_wide_real_decay(dtype, t, chunk, p, n, init):
     the real decay range, where exp(cs_i - cs_j) above the diagonal is inf."""
     check_ssd(*ssd_inputs(1, 2, t, 4, p, 2, n, dtype, real=True, init=init),
               chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [128, 64])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_kernel_bf16_serving_widths(n, init):
+    """mamba2-1.3b's (N 128) and zamba2-2.7b's (N 64) layer cut in batch and
+    heads: P 64, chunk 64, T 512, the real decay, B and C strided views of
+    xBC; with and without a starting state."""
+    check_ssd(*ssd_inputs(4, 2, 512, 4, 64, 1, n, torch.bfloat16, real=True,
+                          init=init), 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,n", [(48, 64), (20, 128), (32, 36)])
+def test_ssd_kernel_bf16_padded_p_and_n(p, n):
+    """P not a multiple of the block height of 32 (48, 20) and N not a
+    multiple of the tile (36): the block pads them with zeros and writes only
+    what is there."""
+    check_ssd(*ssd_inputs(5, 2, 200, 4, p, 2, n, torch.bfloat16, real=True,
+                          init=True), 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,chunk", [(37, 1), (301, 48), (130, 48)])
+def test_ssd_kernel_small_and_ragged_chunks(dtype, t, chunk):
+    """A chunk of 1 (a prime prompt) and of 48, with a ragged last chunk."""
+    check_ssd(*ssd_inputs(6, 2, t, 4, 64, 1, 128, dtype, real=True,
+                          init=True), chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [4, 2, 1])
+@pytest.mark.parametrize("n", [128, 36])
+def test_ssd_kernel_bf16_unaligned_views(offset, n):
+    """B and C rows that do not start on a 16-byte boundary (8, 4 and 2
+    bytes in): the block copies them in narrower pieces, the wrapper copies
+    nothing."""
+    xb, a, bm, cm, init = ssd_inputs(7, 2, 150, 4, 64, 1, n, torch.bfloat16,
+                                     real=True, offset=offset)
+    assert bm.data_ptr() % 16 and cm.stride(1) == 2 * n + offset
+    check_ssd(xb, a, bm, cm, init, 64)
+
+
+@pytest.mark.gpu
+def test_ssd_bf16_prefill_launches_once_a_layer():
+    """A reduced mamba2 prefill in bf16: one SSD launch a layer, and logits
+    within 5% of the largest |logit| of the same prefill with the chunked
+    plain version in the kernel's place (tests/test_smoke_archs.py's bf16
+    limit)."""
+    cfg = reduced(get_config("mamba2-1.3b")).replace(dtype="bfloat16")
+    model = Model(cfg, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, size=(2, 128)).astype(np.int32)).cuda()
+    before = SSD.launches
+    logits, _ = model.prefill({"tokens": toks}, 132)
+    assert SSD.launches == before + cfg.num_layers
+    kernel = SSD.ssd_scan
+    try:
+        SSD.ssd_scan = lambda xb, a, bm, cm, *, chunk, init_state=None: \
+            ref.ssd_chunked(xb, a, bm, cm, chunk, init_state)
+        want, _ = model.prefill({"tokens": toks}, 132)
+    finally:
+        SSD.ssd_scan = kernel
+    logits, want = logits.float(), want.float()
+    assert torch.isfinite(logits).all()
+    assert float((logits - want).abs().max()) <= 0.05 * float(want.abs().max())
 
 
 @pytest.mark.gpu

@@ -201,6 +201,115 @@ def test_ssd_kernel_wrapper_refuses_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 tensor-core kernel's numeric design (csrc/ssd_scan.cu), emulated
+# ---------------------------------------------------------------------------
+
+def _bf16(v):
+    return v.to(torch.bfloat16).float()
+
+
+SPLIT = ("att", "state", "xw")
+
+
+def _product(lhs, rhs, split):
+    """lhs @ rhs, fp32 accumulation, rhs bf16 already; lhs rounded to bf16
+    once or, with ``split``, split into a bf16 high part and the bf16
+    rounding of what it leaves, two products."""
+    hi = _bf16(lhs)
+    return hi @ rhs + _bf16(lhs - hi) @ rhs if split else hi @ rhs
+
+
+def ssd_bf16_emulated(xb, a, bmat, cmat, chunk, init_state=None, *,
+                      split=SPLIT):
+    """The chunked scan rounded where the bf16 kernel rounds, model layout.
+
+    x, B and C are bf16; every product accumulates in fp32 and the state
+    stays fp32.  The three operands the kernel forms in fp32 are the decayed
+    C B^T (``att``), the state copy read by the inter-chunk term (``state``)
+    and x w, w_j = exp(cs_last - cs_j), of the state update (``xw``): those
+    named in ``split`` are split into bf16 hi + lo, as the kernel splits all
+    three; the others are rounded to bf16 once.  y is rounded to bf16.
+    """
+    b, t, h, p = xb.shape
+    r = h // bmat.shape[2]
+    x = xb.float().transpose(1, 2)                                # b h t p
+    bm = bmat.float().repeat_interleave(r, 2).transpose(1, 2)     # b h t n
+    cm = cmat.float().repeat_interleave(r, 2).transpose(1, 2)
+    af = a.float().transpose(1, 2)                                # b h t
+    state = (torch.zeros((b, h, p, bmat.shape[3])) if init_state is None
+             else init_state.float())
+    ys = []
+    for t0 in range(0, t, chunk):
+        sl = slice(t0, min(t0 + chunk, t))
+        xc, bc, cc = x[:, :, sl], bm[:, :, sl], cm[:, :, sl]
+        cs = torch.cumsum(af[:, :, sl], -1)
+        q = cs.shape[-1]
+        mask = torch.tril(torch.ones((q, q), dtype=torch.bool))
+        expo = torch.where(mask, cs[..., :, None] - cs[..., None, :], 0.0)
+        att = torch.where(mask, (cc @ bc.transpose(-1, -2)) * torch.exp(expo),
+                          0.0)
+        # C S^T as (S C^T)^T, so that the state is the split operand
+        inter = _product(state, cc.transpose(-1, -2), "state" in split)
+        ys.append(_product(att, xc, "att" in split)
+                  + torch.exp(cs)[..., None] * inter.transpose(-1, -2))
+        xw = xc * torch.exp(cs[..., -1:] - cs)[..., None]
+        state = torch.exp(cs[..., -1])[..., None, None] * state \
+            + _product(xw.transpose(-1, -2), bc, "xw" in split)
+    y = torch.cat(ys, dim=2).transpose(1, 2)
+    return y.to(xb.dtype), state
+
+
+def real_decay_arrays(seed, b, t, h, p, n, init=False):
+    """Model layout, numpy: mamba2's decay a = dt A (dt = softplus(N(0, 1)
+    + dt_bias), A = -linspace(1, 16, H), down to about -1.6 a token), xb =
+    N(0, 1) dt and B, C N(0, 1) rounded to bf16 (one group), and a starting
+    state 0.5 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    dt0 = np.exp(rng.random(h) * (np.log(1e-1) - np.log(1e-3)) + np.log(1e-3))
+    dt_bias = dt0 + np.log(-np.expm1(-dt0))
+    dt = np.log1p(np.exp(rng.standard_normal((b, t, h)) + dt_bias))
+    a = (dt * -np.linspace(1.0, 16.0, h)).astype(np.float32)
+    bf = lambda v: torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+    xb = bf(rng.standard_normal((b, t, h, p)) * dt[..., None])
+    bm = bf(rng.standard_normal((b, t, 1, n)))
+    cm = bf(rng.standard_normal((b, t, 1, n)))
+    init_state = (0.5 * rng.standard_normal((b, h, p, n))).astype(np.float32) \
+        if init else None
+    return xb, torch.from_numpy(a), bm, cm, init_state
+
+
+def emulated_vs_jax(seed, b, t, h, p, n, init, split=SPLIT):
+    """(max |y error| / (1 + |y|), the same for the state) of the emulation
+    against JAX ``ssd_chunked`` at chunk 64."""
+    xb, a, bm, cm, init_state = real_decay_arrays(seed, b, t, h, p, n, init)
+    j = lambda v: jnp.asarray(v.float().numpy()).astype(jnp.bfloat16)
+    jy, js = JS.ssd_chunked(j(xb), jnp.asarray(a.numpy()), j(bm), j(cm), 64,
+                            None if init_state is None
+                            else jnp.asarray(init_state))
+    y, state = ssd_bf16_emulated(
+        xb, a, bm, cm, 64,
+        None if init_state is None else torch.from_numpy(init_state),
+        split=split)
+    jy = torch.from_numpy(np.array(jy.astype(jnp.float32)))
+    js = torch.from_numpy(np.array(js))
+    rel = lambda got, want: float(((got.float() - want).abs()
+                                   / (1 + want.abs())).max())
+    return rel(y, jy), rel(state, js)
+
+
+@pytest.mark.parametrize("b,n", [(1, 128), (2, 64), (2, 128)])
+@pytest.mark.parametrize("init", [False, True])
+def test_bf16_kernel_rounding_points_match_jax(b, n, init):
+    """The tensor-core kernel's rounding points (att, the state copy and x w
+    split into bf16 hi + lo, fp32 accumulators, y rounded to bf16) at
+    mamba2's decay, T 512, P 64, chunk 64, against JAX ``ssd_chunked`` at the
+    kernel's tolerances: y 3e-2 (1 + |w|), the final state 1e-4 (1 + |w|)."""
+    y_err, state_err = emulated_vs_jax(17, b, 512, 4, 64, n, init)
+    assert y_err <= 3e-2
+    assert state_err <= 1e-4
+
+
+# ---------------------------------------------------------------------------
 # modules against JAX (fp32)
 # ---------------------------------------------------------------------------
 
@@ -485,3 +594,18 @@ def test_flash_head_dim_80_is_built_forward_only():
         with pytest.raises(ValueError, match="CUDA"):
             FA._check(what, q, q, q, 0, FA.BWD_HEAD_DIMS, do=q)
     assert 80 in FA.FWD_HEAD_DIMS and 80 in FA.BWD_HEAD_DIMS
+
+
+if __name__ == "__main__":
+    # The rounding study behind csrc/ssd_scan.cu's split products: the
+    # emulated kernel against JAX at T 512, P 64, chunk 64, seed 0, with all
+    # three operands split (the kernel), att and the state copy rounded once,
+    # and x w rounded once.
+    #   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_ssm.py
+    for b, h, n, init in ((2, 8, 128, False), (2, 8, 64, False),
+                          (2, 32, 128, False), (2, 16, 128, True)):
+        for split in (SPLIT, ("xw",), ("att", "state")):
+            y_err, state_err = emulated_vs_jax(0, b, 512, h, 64, n, init,
+                                               split)
+            print(f"B {b} H {h} N {n} init {init} split {'+'.join(split)}: "
+                  f"y {y_err:.3e} state {state_err:.3e}")
