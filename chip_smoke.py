@@ -78,8 +78,26 @@ result.  Phases:
              256) and h2o-danube-3-4b cut to 12 of its 24 layers (6 stages;
              GQA at head dim 120, window 4096), the backward kernels
              running at those head dims.
-9. kernels — one line for every kernel: launches (the three training paths,
-             and by path), error, times, bound.
+9. train_ckpt — the checkpoint baseline at TRAIN's full width and depth
+             (cut to 12 layers, and said so, if the host cannot hold the
+             state in half its free memory, or two saves in half the free
+             space of the temporary directory): ``checkpoint`` every 3
+             steps for 6 steps, wall 1 failing before the first save
+             (restart from the initial parameters at step 0) and wall 5
+             rolling back from step 4 to 3.  The effective-step trace, the
+             replayed steps' losses against their first run, the restored
+             parameters and moments bit-equal to the initial ones and to the
+             checkpoint read back; save, device-to-host, rollback and step
+             times beside ``torch.save`` of the same state to the same disk
+             (a yardstick only).  About 32 GB on disk under the temporary
+             directory, removed at the end.
+10. train_neighbor — ``neighbor`` without its disk tier, 4 steps: six
+             stage shards snapshotted to host memory every step, stage 3
+             failing at wall 2 and served from the memory tier, bit-equal to
+             the shard saved at step 2; snapshot time a step beside its
+             bound over the host link.
+11. kernels — one line for every kernel: launches (the training paths, and
+             by path), error, times, bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -90,8 +108,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -102,6 +122,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import tree as TR  # noqa: E402
+from repro_torch.ckpt.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.config import (OptimizerConfig, RecoveryConfig,  # noqa: E402
                                 TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
@@ -117,6 +138,9 @@ from repro_torch.kernels import stage_merge as SM  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.statestore import codec as ss_codec  # noqa: E402
+from repro_torch.statestore import store as store_mod  # noqa: E402
+from repro_torch.statestore import strategies as ss_strategies  # noqa: E402
 
 # H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak, fp32 peak
 MEM_BYTES_PER_S = 3.35e12
@@ -210,6 +234,24 @@ ATTN_SHAPES = {"d128": dict(b=8, h=16, hkv=16, s=512, d=128, window=0),
                "d120": dict(b=8, h=32, hkv=8, s=512, d=120, window=4096),
                "d256": dict(b=8, h=8, hkv=1, s=512, d=256, window=0)}
 SERVE_GEMMA = dict(arch="gemma-2b", batch=8, prompt=512, new_tokens=32)
+# the checkpoint baseline at TRAIN's shape: no save before wall 1 (restart
+# from the initial parameters at step 0), saves at steps 3 and 6, wall 5
+# rolls back from step 4 to 3; each replayed step repeats its first run's
+# arithmetic on the same inputs, so its loss may differ only by the
+# card's nondeterminism: 1e-6 relative
+CKPT_EVERY, CKPT_STEPS = 3, 6
+CKPT_SCHEDULE = {1: [2], 5: [4]}
+CKPT_TRACE = [1, 1, 2, 3, 4, 4, 5, 6]
+CKPT_REPLAY_TOL = 1e-6
+# neighbour replication without a disk tier: stage 3 fails at wall 2 and is
+# served by its replica on host 4 from the memory tier, saved at step 2
+NEIGHBOR_STEPS = 4
+NEIGHBOR_SCHEDULE = {2: [3]}
+NEIGHBOR_RESTORE = (2, 3, 2, "mem")
+# the depth both phases fall back to when the host cannot hold their state
+CKPT_CUT_LAYERS = 12
+# the card's host link, each way: PCIe 5.0 x16 (H100 SXM data sheet)
+HOST_LINK_BYTES_PER_S = 64e9
 SERVE_DANUBE = dict(arch="h2o-danube-3-4b", batch=8, prompt=512,
                     new_tokens=32)
 
@@ -1095,13 +1137,13 @@ class PlainAttention:
 
 
 def train_config(strategy: str, steps: int, *, stages: int, batch: int,
-                 seq: int) -> TrainConfig:
+                 seq: int, **rcfg) -> TrainConfig:
     return TrainConfig(
         global_batch=batch, microbatch=batch, seq_len=seq, steps=steps,
         eval_every=steps, fuse_window=1, seed=0,
         optimizer=OptimizerConfig(total_steps=steps),
         recovery=RecoveryConfig(strategy=strategy, num_stages=stages,
-                                protect_edge_stages=False))
+                                protect_edge_stages=False, **rcfg))
 
 
 def counts() -> dict:
@@ -1226,20 +1268,24 @@ def train_model_config(spec: dict):
 
 
 def train_run(strategy: str, steps: int, schedule, *, spec: dict = TRAIN,
-              check_merge=None, plain: bool = False) -> tuple:
-    """One full-width run -> (hist, launch counts, record, peak GiB)."""
+              check_merge=None, plain: bool = False, rcfg=None,
+              setup=None) -> tuple:
+    """One full-width run from the trainer's seeded initial parameters ->
+    (hist, launch counts, record, peak GiB).  ``rcfg``: more recovery
+    settings; ``setup(trainer, record)`` installs a phase's own checks."""
     cfg = train_model_config(spec)
     model = Model(cfg, device="cuda", weights=False)
     trainer = Trainer(model, train_config(strategy, steps,
                                           stages=spec["stages"],
                                           batch=spec["batch"],
-                                          seq=spec["seq"]),
+                                          seq=spec["seq"], **(rcfg or {})),
                       schedule=schedule)
     record = {"step_ms": [], "omegas": [], "recovery_ms": []}
     instrument(trainer, record)
     if check_merge is not None:
         check_first_merge(trainer, *check_merge, record)
-    params = trainer.init_params()
+    if setup is not None:
+        setup(trainer, record)
     batches = make_batches(cfg, batch=spec["batch"], seq=spec["seq"], seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1248,13 +1294,13 @@ def train_run(strategy: str, steps: int, schedule, *, spec: dict = TRAIN,
         FA.FlashAttention = PlainAttention
     try:
         zero_counts()
-        state, hist = trainer.run(batches, params=params)
+        state, hist = trainer.run(batches)
         torch.cuda.synchronize()
         launched = counts()
     finally:
         FA.FlashAttention = kernel
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    del trainer, state, params
+    del trainer, state
     gc.collect()                     # the instrumented trainer holds a cycle
     torch.cuda.empty_cache()
     return hist, launched, record, peak
@@ -1449,6 +1495,377 @@ def phase_train_dense(spec: dict, phase: str) -> dict:
     return launched
 
 
+def host_report(phase: str, directory: str, need: dict) -> dict:
+    """The card, the host's free memory and the free space of ``directory``
+    before a phase that keeps the training state on the host or the disk;
+    ``need`` is the phase's need in bytes ("ram", "disk")."""
+    with open("/proc/meminfo") as f:
+        meminfo = dict(line.split(":", 1) for line in f)
+    ram = int(meminfo["MemAvailable"].split()[0]) * 1024
+    disk = shutil.disk_usage(directory).free
+    fits = need.get("ram", 0) <= ram / 2 and need.get("disk", 0) <= disk / 2
+    report = dict(nvidia_smi=smi(), mem_available_gb=ram / 1e9,
+                  dir=directory, disk_free_gb=disk / 1e9,
+                  need_gb={k: v / 1e9 for k, v in need.items()},
+                  fits_in_half=fits)
+    emit(phase + "_host", **report)
+    return report
+
+
+def pinned_stats() -> dict:
+    """The pinned host allocator's bytes (blocks rounded to powers of two,
+    active + cached), allocations and microseconds spent allocating since
+    the process started, when this PyTorch reports them."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return {}
+    got = stats()
+    keys = ("allocated_bytes.current", "allocated_bytes.peak",
+            "num_host_alloc", "host_alloc_time.total")
+    return {k: got.get(k) for k in keys}
+
+
+def empty_host_cache() -> None:
+    """Give the cached pinned blocks back, so that the next phase starts
+    with none (a private call; skipped where this PyTorch lacks it)."""
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            return
+
+
+def state_bytes(cfg) -> int:
+    """fp32 masters and both Adam moments: 12 bytes a parameter."""
+    return 12 * cfg.param_count()
+
+
+def cut_if_needed(phase: str, spec: dict, directory: str, ram: float,
+                  disk: float) -> dict:
+    """``spec`` at full depth when the phase's need (``ram`` and ``disk``
+    times the training state) fits half of the host's free memory and of
+    ``directory``'s free space, else cut to CKPT_CUT_LAYERS layers."""
+    need = state_bytes(train_model_config(spec))
+    report = host_report(phase, directory, {"ram": ram * need,
+                                            "disk": disk * need})
+    if report["fits_in_half"]:
+        return spec
+    emit(phase + "_cut", layers=CKPT_CUT_LAYERS,
+         reason="the phase's need does not fit half of the host's free "
+                "memory or disk")
+    return dict(spec, layers=CKPT_CUT_LAYERS)
+
+
+def timed_snapshots(record: dict) -> None:
+    """Time every device-to-host snapshot of the store (host clock; the
+    snapshot ends in a synchronize) and keep its size."""
+    snapshot = store_mod.host_snapshot
+
+    def timed(tree, *, step, shard_id):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = snapshot(tree, step=step, shard_id=shard_id)
+        record["snapshot"].append(((time.perf_counter() - t0) * 1e3,
+                                   snap.nbytes, step))
+        return snap
+
+    store_mod.host_snapshot = timed
+    ss_strategies.host_snapshot = timed
+
+
+def untimed_snapshots() -> None:
+    store_mod.host_snapshot = ss_strategies.host_snapshot = \
+        ss_codec.host_snapshot
+
+
+def live_equal(live, saved) -> bool:
+    """Every leaf of the live tree on the card bit-equal to ``saved`` (host
+    tensors, or ints)."""
+    live_leaves, _ = TR.flatten(live)
+    saved_leaves, _ = TR.flatten(saved)
+    return len(live_leaves) == len(saved_leaves) and all(
+        (a == int(b)) if isinstance(a, int) else
+        bool(torch.equal(a.detach(), b.to(a.device)))
+        for a, b in zip(live_leaves, saved_leaves))
+
+
+def phase_train_ckpt() -> dict:
+    """``checkpoint`` at full width: a restart before the first save, a
+    rollback, two saves of the whole state; the ``torch.save`` yardstick."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        spec = cut_if_needed("train_ckpt", TRAIN, work, ram=1, disk=2)
+        return train_ckpt(spec, work)
+    finally:
+        untimed_snapshots()
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        empty_host_cache()
+
+
+def train_ckpt(spec: dict, work: str) -> dict:
+    cfg = train_model_config(spec)
+    ckpt_dir = os.path.join(work, "ckpt")
+    checks = []
+
+    start = {}
+
+    def setup(trainer, record):
+        record.update(snapshot=[], save_ms=[], yardstick=None)
+        timed_snapshots(record)
+        strategy = trainer.strategy
+        after_step, handle = strategy.after_step, strategy.handle_failure
+        init_state = trainer.init_state
+
+        def recorded_init_state(params=None):
+            # a host copy of the parameters the run really starts from,
+            # which the restart at wall 1 must give back
+            state = init_state(params)
+            start["params"] = TR.map(
+                lambda t: t.detach().to("cpu", copy=True), state.params)
+            return state
+
+        def timed_after_step(state, hist):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            after_step(state, hist)
+            torch.cuda.synchronize()
+            if state.effective_step % CKPT_EVERY == 0:
+                record["save_ms"].append((time.perf_counter() - t0) * 1e3)
+                if record["yardstick"] is None:
+                    record["yardstick"] = torch_save_ms(state, work)
+
+        def checked(state, event):
+            state = handle(state, event)
+            live = (state.params, state.opt_state)
+            if state.effective_step == 0:
+                opt = state.opt_state
+                moments = TR.leaves(opt.m) + TR.leaves(opt.v)
+                equal = (live_equal(state.params, start["params"])
+                         and opt.step == 0
+                         and not any(bool(t.any()) for t in moments))
+                what = "restart: the parameters the run started from (a " \
+                       "host copy taken at step 0), zero moments"
+            else:
+                want = load_checkpoint(ckpt_dir, live,
+                                       state.effective_step)[1]
+                equal = live_equal(live, want)
+                del want
+                what = f"rollback: the checkpoint of step " \
+                       f"{state.effective_step} read back"
+            checks.append({"wall_step": event.wall_step,
+                           "effective_step": state.effective_step,
+                           "against": what, "bit_equal": equal})
+            return state
+
+        trainer.init_state = recorded_init_state
+        strategy.after_step = timed_after_step
+        strategy.handle_failure = checked
+
+    hist, launched, record, peak = train_run(
+        "checkpoint", CKPT_STEPS, Forced(CKPT_SCHEDULE), spec=spec,
+        rcfg=dict(checkpoint_every=CKPT_EVERY, checkpoint_dir=ckpt_dir),
+        setup=setup)
+    walls = len(hist.loss)
+    free = [i for i in range(walls) if i not in CKPT_SCHEDULE]
+    step_ms = float(np.median([record["step_ms"][i] for i in free]))
+    replays = [(w, w - 1) for w in sorted(CKPT_SCHEDULE)]
+    replay_err = [abs(hist.loss[a] - hist.loss[b]) / abs(hist.loss[b])
+                  for a, b in replays]
+    nbytes = record["snapshot"][0][1]
+    save_ms = record["save_ms"]
+    rollback_ms = [[w, ms] for _, w, ms in record["recovery_ms"]]
+    emit("train_ckpt", arch=cfg.name, layers=cfg.num_layers,
+         layers_published=get_config(spec["arch"]).num_layers,
+         stages=spec["stages"], batch=spec["batch"], seq=spec["seq"],
+         strategy="checkpoint", checkpoint_every=CKPT_EVERY,
+         steps=CKPT_STEPS, schedule=CKPT_SCHEDULE, trace=hist.steps,
+         loss=hist.loss, failures=hist.failures,
+         recovery_errors=hist.recovery_errors, launches=launched,
+         replayed_loss_rel_err=replay_err,
+         replayed_loss_bit_equal=[hist.loss[a] == hist.loss[b]
+                                  for a, b in replays],
+         restores=checks, state_gb=nbytes / 1e9, save_ms=save_ms,
+         save_gb_per_s=[nbytes / ms / 1e6 for ms in save_ms],
+         save_d2h_ms=[ms for ms, _, _ in record["snapshot"]],
+         torch_save_ms=record["yardstick"],
+         torch_save_gb_per_s=nbytes / record["yardstick"] / 1e6,
+         rollback_ms=rollback_ms, step_ms=record["step_ms"],
+         step_ms_median_failure_free=step_ms, peak_memory_gib=peak,
+         pinned=pinned_stats(), dir=work, nvidia_smi=smi(),
+         timing="host clock ending in torch.cuda.synchronize(): save_ms "
+                "around the strategy's after_step at each save (the "
+                "snapshot's device-to-host copy, save_d2h_ms, then the "
+                "file), rollback_ms around its failure handler (wall 1 a "
+                "restart from init, wall 5 a read of the checkpoint), "
+                "torch_save_ms around torch.save of the same parameters "
+                "and moments to the same directory (a yardstick, never on "
+                "the path)")
+    problems = []
+    if hist.steps != CKPT_TRACE:
+        problems.append(f"trace {hist.steps}, want {CKPT_TRACE}")
+    if max(replay_err) > CKPT_REPLAY_TOL or not all(
+            math.isfinite(x) for x in hist.loss):
+        problems.append(f"replayed losses {replay_err}")
+    if len(checks) != len(CKPT_SCHEDULE) or not all(
+            c["bit_equal"] for c in checks):
+        problems.append(f"restored state {checks}")
+    per_kernel = cfg.num_layers * walls
+    want = {"flash_attention_fwd": per_kernel,
+            "flash_attention_bwd_dq": per_kernel,
+            "flash_attention_bwd_dkv": per_kernel, "stage_merge": 0,
+            "ssd_scan": 0}
+    if launched != want or len(save_ms) != 2:
+        problems.append(f"launches {launched}, saves {save_ms}")
+    if problems:
+        raise AssertionError("train_ckpt: " + "; ".join(problems))
+    return launched
+
+
+def torch_save_ms(state, work: str) -> float:
+    """``torch.save`` of the parameters and both moments to ``work``, host
+    clock; the file is removed again."""
+    path = os.path.join(work, "torch_save.pt")
+    tree = {"params": state.params, "m": state.opt_state.m,
+            "v": state.opt_state.v}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.save(tree, path)
+    ms = (time.perf_counter() - t0) * 1e3
+    os.remove(path)
+    return ms
+
+
+def phase_train_neighbor() -> dict:
+    """``neighbor`` (no disk safety net) at full width: six stage shards
+    snapshotted to host memory every step, stage 3 restored from its
+    neighbour's replica."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_neighbor_")
+    try:
+        spec = cut_if_needed("train_neighbor", TRAIN, work, ram=1, disk=0)
+        return train_neighbor(spec, work)
+    finally:
+        untimed_snapshots()
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        empty_host_cache()
+
+
+def train_neighbor(spec: dict, work: str) -> dict:
+    cfg = train_model_config(spec)
+    (wall, (stage,)), = NEIGHBOR_SCHEDULE.items()
+    saved_step = NEIGHBOR_RESTORE[2]
+    result = {}
+
+    def setup(trainer, record):
+        record.update(snapshot=[], after_step_ms=[])
+        timed_snapshots(record)
+        strategy = trainer.strategy
+        after_step, handle = strategy.after_step, strategy.handle_failure
+
+        def timed_after_step(state, hist):
+            if state.effective_step == saved_step:
+                # an independent copy of the shard this step saves
+                result["saved"] = TR.clone(strategy._shard_tree(state, stage))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            after_step(state, hist)
+            torch.cuda.synchronize()
+            record["after_step_ms"].append((time.perf_counter() - t0) * 1e3)
+
+        def checked(state, event):
+            state = handle(state, event)
+            live = strategy._shard_tree(state, stage)
+            result["bit_equal"] = all(
+                bool(torch.equal(a, b)) for a, b in
+                zip(TR.leaves(live), TR.leaves(result.pop("saved"))))
+            result["restore_log"] = list(strategy.restore_log)
+            result["shard_gb"] = sum(
+                t.numel() * t.element_size() for t in TR.leaves(live)) / 1e9
+            # the device's copy time alone: one shard into pinned buffers
+            # allocated beforehand, CUDA events
+            bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in TR.leaves(live)]
+
+            def copy():
+                for buf, t in zip(bufs, TR.leaves(live)):
+                    buf.copy_(t, non_blocking=True)
+
+            result["shard_d2h_device_ms"] = time_ms(copy, groups=5,
+                                                    per_group=1, warmup=1)
+            del bufs
+            return state
+
+        strategy.after_step = timed_after_step
+        strategy.handle_failure = checked
+
+    hist, launched, record, peak = train_run(
+        "neighbor", NEIGHBOR_STEPS, Forced(NEIGHBOR_SCHEDULE), spec=spec,
+        rcfg=dict(neighbor_cold=False, store_dir=work), setup=setup)
+    per_step = {}
+    for ms, nbytes, step in record["snapshot"]:
+        per_step.setdefault(step, [0.0, 0])
+        per_step[step][0] += ms
+        per_step[step][1] += nbytes
+    snap_ms = [v[0] for _, v in sorted(per_step.items())]
+    snap_bytes = [v[1] for _, v in sorted(per_step.items())]
+    bound_ms = snap_bytes[0] / HOST_LINK_BYTES_PER_S * 1e3
+    walls = len(hist.loss)
+    free = [i for i in range(walls) if i not in NEIGHBOR_SCHEDULE]
+    step_ms = float(np.median([record["step_ms"][i] for i in free]))
+    emit("train_neighbor", arch=cfg.name, layers=cfg.num_layers,
+         layers_published=get_config(spec["arch"]).num_layers,
+         stages=spec["stages"], batch=spec["batch"], seq=spec["seq"],
+         strategy="neighbor", neighbor_cold=False, steps=NEIGHBOR_STEPS,
+         schedule=NEIGHBOR_SCHEDULE, trace=hist.steps, loss=hist.loss,
+         failures=hist.failures, recovery_errors=hist.recovery_errors,
+         restore_log=result.get("restore_log"),
+         restored_stage_bit_equal=result.get("bit_equal"),
+         shard_gb=result.get("shard_gb"), launches=launched,
+         snapshot_ms_per_step=snap_ms,
+         snapshot_gb_per_step=[b / 1e9 for b in snap_bytes],
+         snapshot_gb_per_s=[b / ms / 1e6 for b, ms in
+                            zip(snap_bytes, snap_ms)],
+         snapshot_bound_ms=bound_ms,
+         shard_d2h_device_ms=result.get("shard_d2h_device_ms"),
+         shard_d2h_bound_ms=(result.get("shard_gb", 0) * 1e9
+                             / HOST_LINK_BYTES_PER_S * 1e3),
+         host_link="PCIe 5.0 x16, 64 GB/s a direction (H100 SXM data "
+                   "sheet: 128 GB/s both ways)",
+         after_step_ms=record["after_step_ms"],
+         recovery_ms=record["recovery_ms"], step_ms=record["step_ms"],
+         step_ms_median_failure_free=step_ms, peak_memory_gib=peak,
+         pinned=pinned_stats(), dir=work, nvidia_smi=smi(),
+         timing="host clock ending in torch.cuda.synchronize(): "
+                "snapshot_ms_per_step sums the six shards' device-to-host "
+                "snapshots of a step (pinned buffers, one synchronize "
+                "each); after_step_ms adds placing them in the memory tier; "
+                "shard_d2h_device_ms: CUDA events around the copies of one "
+                "shard into pinned buffers allocated beforehand (median of "
+                "5)")
+    problems = []
+    if result.get("restore_log") != [NEIGHBOR_RESTORE]:
+        problems.append(f"restore log {result.get('restore_log')}, want "
+                        f"{[NEIGHBOR_RESTORE]}")
+    if not result.get("bit_equal"):
+        problems.append("the restored stage differs from the shard saved")
+    if hist.steps != list(range(1, NEIGHBOR_STEPS + 1)) or not all(
+            math.isfinite(x) for x in hist.loss) or \
+            hist.recovery_errors != [(wall, 0.0)]:
+        problems.append(f"trace {hist.steps}, loss {hist.loss}, recovery "
+                        f"errors {hist.recovery_errors}")
+    per_kernel = cfg.num_layers * walls
+    want = {"flash_attention_fwd": per_kernel,
+            "flash_attention_bwd_dq": per_kernel,
+            "flash_attention_bwd_dkv": per_kernel, "stage_merge": 0,
+            "ssd_scan": 0}
+    if launched != want:
+        problems.append(f"launches {launched}, want {want}")
+    if problems:
+        raise AssertionError("train_neighbor: " + "; ".join(problems))
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs the "
@@ -1475,7 +1892,9 @@ def main() -> int:
     trained = {"train": phase_train(),
                "train_gemma": phase_train_dense(TRAIN_GEMMA, "train_gemma"),
                "train_danube": phase_train_dense(TRAIN_DANUBE,
-                                                 "train_danube")}
+                                                 "train_danube"),
+               "train_ckpt": phase_train_ckpt(),
+               "train_neighbor": phase_train_neighbor()}
     # launches: the three training paths; by path: every path that ran it
     for row in (fwd, dq, dkv, merge):
         by_path = {path: n[row["name"]] for path, n in trained.items()}

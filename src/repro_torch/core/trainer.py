@@ -24,9 +24,17 @@ loop prices iterations and recoveries with them, and when it exposes
 ``observed_rate`` the strategy receives the failure rate each wall
 iteration, as in the JAX trainer.
 
+Batches are drawn by effective step from a replay cache
+(:class:`~repro_torch.data.pipeline.ReplayCache`, bounded by the strategy's
+``replay_horizon``), so a rollback replays the lost steps' batches.  The
+strategy is bound with a from-scratch init (the run's starting parameters
+again, with zero moments) for restarts.  The state is updated in place, so
+strategies that save it copy it out, and restores copy into the live
+tensors.
+
 Not ported yet: fused windows and CUDA graphs (ROADMAP.md queue 1, item 3),
 the SPMD pipeline backend, simulated-cluster scenarios, elastic
-repartitioning and telemetry events.
+repartitioning (item 5) and telemetry events (item 6).
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from repro_torch.core.stages import StagePartition
 from repro_torch.core.state import History, TrainState
 from repro_torch.core.swap import swap_permutation
 from repro_torch.core.walltime import WallClockModel
+from repro_torch.data.pipeline import ReplayCache
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
@@ -108,10 +117,13 @@ class Trainer:
             raise NotImplementedError(
                 f"strategy {self.strategy.name!r} repartitions on departures; "
                 "elastic repartitioning is not ported yet (ROADMAP.md queue 1, "
-                "item 10)")
+                "item 5)")
         self.wall = self.strategy.wall
         self.schedule = schedule
-        self.strategy.bind(self.part)
+        # the run's starting parameters as a host copy, when the caller gave
+        # them (run(params=...)); fresh_init re-draws from the seed otherwise
+        self._init_host: Optional[Params] = None
+        self.strategy.bind(self.part, init_fn=self.fresh_init)
         self.loss_fn = make_loss_fn(model, self.part,
                                     self.strategy.uses_swap_schedule)
 
@@ -121,6 +133,18 @@ class Trainer:
         the device (not JAX's draws: ``run(params=...)`` takes those)."""
         gen = torch.Generator(self.device).manual_seed(self.tcfg.seed)
         return self.model.init(gen)
+
+    def fresh_init(self) -> Tuple[Params, Any]:
+        """(params, Adam state) as at the start of the run, as new tensors on
+        the device: the counterpart of the JAX trainer's ``fresh_init``
+        (``model.init(PRNGKey(seed))`` with zero moments), for strategies
+        that restart from scratch."""
+        if self._init_host is None:
+            params = self.init_params()
+        else:
+            params = TR.map(lambda t: t.to(self.device, torch.float32,
+                                           copy=True), self._init_host)
+        return params, init_adam(params)
 
     def device_batch(self, batch: Dict[str, np.ndarray]) -> Batch:
         """A numpy batch as tensors on the trainer's device."""
@@ -181,6 +205,11 @@ class Trainer:
         e.g. JAX's ``model.init`` through ``convert.params_from_numpy``.
         """
         tcfg = self.tcfg
+        # taken before init_state, which trains tensors already on the
+        # device in place
+        self._init_host = (None if params is None else
+                           TR.map(lambda t: t.detach().to("cpu", copy=True),
+                                  params))
         state = self.init_state(params)
         hist = History()
         # the failure events' random draws: a stream of its own, apart from
@@ -188,10 +217,10 @@ class Trainer:
         self._event_rng = np.random.default_rng([tcfg.seed, 1])
         evals = ([self.device_batch(eb) for eb in eval_batches]
                  if eval_batches else None)
-        it = iter(batches)
+        replay = ReplayCache(batches)
         max_wall = tcfg.steps * 10  # safety bound for rollback-heavy runs
         try:
-            state, hist, wall_step = self._loop(state, hist, it, evals,
+            state, hist, wall_step = self._loop(state, hist, replay, evals,
                                                 max_wall, verbose)
         finally:
             self.strategy.on_run_end()
@@ -249,12 +278,13 @@ class Trainer:
                 charge(stage)
         return state, clock
 
-    def _loop(self, state, hist, it, evals, max_wall, verbose):
+    def _loop(self, state, hist, replay, evals, max_wall, verbose):
         tcfg = self.tcfg
         strategy = self.strategy
         iter_factor = getattr(self.schedule, "iteration_factor", None)
         failure_overhead = getattr(self.schedule, "failure_overhead", None)
         observed_rate = getattr(self.schedule, "observed_rate", None)
+        horizon = strategy.replay_horizon()
         clock = 0.0
         wall_step = 0
         while state.effective_step < tcfg.steps and wall_step < max_wall:
@@ -264,7 +294,8 @@ class Trainer:
                 state, clock = self._handle_failures(state, hist, clock,
                                                      wall_step,
                                                      failure_overhead)
-            state, loss, _ = self.step(state, self.device_batch(next(it)))
+            batch = replay.get(state.effective_step)
+            state, loss, _ = self.step(state, self.device_batch(batch))
             hist.dispatches += 1
             factor = iter_factor(wall_step) if iter_factor is not None else 1.0
             clock += strategy.iteration_cost() * factor
@@ -272,6 +303,8 @@ class Trainer:
             hist.wall_time.append(clock)
             hist.loss.append(loss.item())
             strategy.after_step(state, hist)
+            if horizon is not None:
+                replay.evict_below(state.effective_step - horizon)
             if evals and state.effective_step % tcfg.eval_every == 0:
                 el = float(np.mean([self.eval_loss(state.params, eb).item()
                                     for eb in evals]))

@@ -4,12 +4,15 @@ A copy of ``SyntheticLM`` and ``batch_for`` from ``repro.data.pipeline``: the
 same seed gives the same token stream in both packages, so a prompt drawn
 here is the prompt that ``repro.launch.serve`` would serve.
 ``make_batches`` is the same infinite batch stream, so both trainers see the
-same numpy batches.  ``WindowPrefetcher`` waits for fused windows: the
-port's eager trainer takes one batch a step.
+same numpy batches.  :class:`ReplayCache` is the replay half of the JAX
+package's ``WindowPrefetcher``: the trainer takes batch ``effective_step``
+by index, so a rollback replays the lost steps' batches.  Stacking fused
+windows on a background thread waits for fused windows (ROADMAP.md queue 1,
+item 3).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -69,6 +72,46 @@ def batch_for(cfg: ModelConfig, raw: np.ndarray,
         batch["patches"] = rng.standard_normal(
             (b, cfg.num_patches, D_PATCH)).astype(np.float32)
     return batch
+
+
+class ReplayCache:
+    """Bounded replay cache over a deterministic batch stream.
+
+    :meth:`get` returns the batch at stream index ``step``, drawing the
+    stream forward on demand; rollback recovery asks for earlier indices
+    again.  :meth:`evict_below` drops the batches no rollback can reach any
+    more, so a long run holds at most (rollback horizon + 1) batches.
+    """
+
+    def __init__(self, batches: Iterable[Dict[str, np.ndarray]]):
+        self._it = iter(batches)
+        self._cache: Dict[int, Dict[str, np.ndarray]] = {}
+        self._next = 0                     # next stream index to draw
+        self._floor = 0                    # lowest retained index
+
+    def get(self, step: int) -> Dict[str, np.ndarray]:
+        """The batch at stream index ``step``."""
+        if step < self._floor:
+            raise KeyError(
+                f"batch {step} was evicted (floor={self._floor}); the "
+                "recovery strategy rolled back deeper than its declared "
+                "replay_horizon()")
+        while self._next <= step:
+            self._cache[self._next] = next(self._it)
+            self._next += 1
+        return self._cache[step]
+
+    def evict_below(self, step: int) -> None:
+        """Drop batches with index < ``step``."""
+        if step <= self._floor:
+            return
+        for s in range(self._floor, min(step, self._next)):
+            self._cache.pop(s, None)
+        self._floor = step
+
+    @property
+    def cached(self) -> int:
+        return len(self._cache)
 
 
 def make_batches(cfg: ModelConfig, *, batch: int, seq: int, seed: int = 0,

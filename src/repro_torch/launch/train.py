@@ -7,17 +7,25 @@
 
 The counterpart of ``repro.launch.train`` for the flags this slice supports:
 config -> model -> data -> failure schedule -> eager Trainer (recovery
-strategy), then the History.  ``--device`` defaults to ``cuda`` and raises
-where there is none.  Flags of the JAX driver that need parts not ported yet
-are refused by name: ``--backend spmd``, ``--scenario``, ``--fuse-window``
-above 1, ``--depart-prob``, ``--regrow-h``, ``--telemetry-dir`` and
-``--trace``.
+strategy), then the History.  ``--strategy`` takes every registered policy:
+the CheckFree family, ``redundant``, the ``checkpoint`` baseline, the
+state-store baselines ``tiered_ckpt`` and ``neighbor`` and ``adaptive``.
+Their checkpoint and store directories lie in a directory of this run's own
+under the temporary directory (``TMPDIR``), removed when the run ends: each
+strategy wipes its directory when it starts, so a fixed path would let two
+runs on one machine delete each other's state.
+``--device`` defaults to ``cuda`` and raises where there is none.  Flags of
+the JAX driver that need parts not ported yet are refused by name:
+``--backend spmd``, ``--scenario``, ``--fuse-window`` above 1,
+``--depart-prob``, ``--regrow-h``, ``--telemetry-dir`` and ``--trace``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import os
+import shutil
+import tempfile
 from typing import Optional, Sequence
 
 import numpy as np
@@ -137,8 +145,15 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     evals = [batch_for(cfg, src.sample(rng, args.batch, seq), rng)
              for _ in range(2)]
 
-    trainer = Trainer(model, tcfg, wall=wall, schedule=schedule)
-    state, hist = trainer.run(batches, evals, verbose=not args.quiet)
+    run_dir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        tcfg = dataclasses.replace(tcfg, recovery=dataclasses.replace(
+            rcfg, checkpoint_dir=os.path.join(run_dir, "ckpt"),
+            store_dir=os.path.join(run_dir, "statestore")))
+        trainer = Trainer(model, tcfg, wall=wall, schedule=schedule)
+        state, hist = trainer.run(batches, evals, verbose=not args.quiet)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
 
     log(f"\ndone: {state.effective_step} effective steps over "
         f"{hist.wall_iters} wall iterations, "

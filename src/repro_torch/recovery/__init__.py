@@ -6,9 +6,10 @@
     state = strategy.on_failure(state, event)
 
 The counterpart of ``repro.recovery``: ``none``, ``redundant``,
-``checkfree``, ``checkfree_plus``, ``uniform``, ``copy`` and ``random``.
-The checkpoint, statestore, adaptive and elastic strategies come later
-(ROADMAP.md queue 1, items 9-10).
+``checkfree``, ``checkfree_plus``, ``uniform``, ``copy``, ``random``,
+``checkpoint`` and ``adaptive``, and from ``repro_torch.statestore``
+``tiered_ckpt`` and ``neighbor``.  ``elastic`` comes later (ROADMAP.md
+queue 1, item 5).
 """
 from repro_torch.recovery.base import (FailureContext,  # noqa: F401
                                        RecoveryStrategy)
@@ -19,3 +20,6 @@ from repro_torch.recovery.registry import (available_strategies,  # noqa: F401
 
 # import for registration side effects: the built-in policies
 from repro_torch.recovery import strategies as _strategies  # noqa: F401,E402
+from repro_torch.recovery import adaptive as _adaptive  # noqa: F401,E402
+# ... and the statestore-backed ones (tiered_ckpt / neighbor)
+from repro_torch import statestore as _statestore  # noqa: F401,E402

@@ -1,0 +1,167 @@
+"""Adaptive recovery — runtime policy switching (the Chameleon idea,
+arXiv 2508.21613); the counterpart of ``repro.recovery.adaptive``.
+
+Wraps two child strategies from the registry: a cheap optimistic policy for
+calm periods (default CheckFree) and a conservative one for stormy periods
+(default checkpointing).  A sliding window over the last
+``adaptive_window`` wall iterations tracks the empirical failure rate
+(failures per iteration); when it crosses ``adaptive_threshold`` the active
+policy switches to ``adaptive_high``, and back once the window drains.
+When the schedule reports an observed failure rate
+(:meth:`observe_environment`), that rate takes precedence over the window.
+
+The high child's ``after_step`` bookkeeping runs even while the low policy
+is active ("shadow checkpointing"), so a switch under fire has warm state
+to roll back to; the wall-clock model only charges the active child's
+iteration cost.
+
+The JAX policy also decides, per permanent departure, whether to shrink the
+pipeline (``accept_repartition``); that waits for elastic repartitioning
+(ROADMAP.md queue 1, item 5), so this port advertises no repartitioning and
+refuses a child that repartitions.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import List, Tuple
+
+from repro_torch.core.state import History, TrainState
+from repro_torch.recovery.base import FailureContext, RecoveryStrategy
+from repro_torch.recovery.registry import make_strategy, register_strategy
+
+#: JAX strategies that repartition on departures (not ported yet)
+REPARTITIONING = ("elastic",)
+
+
+@register_strategy("adaptive")
+class Adaptive(RecoveryStrategy):
+
+    def __init__(self, rcfg, wall):
+        super().__init__(rcfg, wall)
+        low, high = rcfg.adaptive_low, rcfg.adaptive_high
+        if "adaptive" in (low, high):
+            raise ValueError("adaptive children must be concrete strategies")
+        for name in (low, high):
+            if name in REPARTITIONING:
+                raise NotImplementedError(
+                    f"adaptive child {name!r} repartitions on departures; "
+                    "elastic repartitioning is not ported yet (ROADMAP.md "
+                    "queue 1, item 5)")
+        self.low = make_strategy(
+            dataclasses.replace(rcfg, strategy=low), wall=wall)
+        # same policy both sides -> one shared instance, so the after_step
+        # guard below really does prevent double bookkeeping
+        self.high = self.low if high == low else make_strategy(
+            dataclasses.replace(rcfg, strategy=high), wall=wall)
+        for child in (self.low, self.high):
+            if child.recover_by_repartition:
+                raise NotImplementedError(
+                    f"adaptive child {child.name!r} repartitions on "
+                    "departures; elastic repartitioning is not ported yet "
+                    "(ROADMAP.md queue 1, item 5)")
+        self.active = self.low
+        self._window = deque(maxlen=max(rcfg.adaptive_window, 1))
+        self._pending = 0          # failures since the last wall iteration
+        self._env_rate = None      # the schedule's observed rate
+        # (effective_step, from, to) switch log
+        self.switches: List[Tuple[int, str, str]] = []
+
+    # ---- capability flags follow the children -------------------------
+    # On instances these delegate dynamically; on the class itself they
+    # report the conservative default (registry tooling inspects classes).
+    class _ChildFlag:
+        def __init__(self, getter, class_default: bool):
+            self._getter = getter
+            self._default = class_default
+
+        def __get__(self, obj, objtype=None) -> bool:
+            return self._default if obj is None else self._getter(obj)
+
+    handles_edge_stages = _ChildFlag(
+        lambda self: self.active.handles_edge_stages, False)
+    handles_consecutive = _ChildFlag(
+        lambda self: self.active.handles_consecutive, False)
+    # swap is static: the train step is built once, before any switching
+    uses_swap_schedule = _ChildFlag(
+        lambda self: (self.low.uses_swap_schedule or
+                      self.high.uses_swap_schedule), False)
+
+    # ---- wiring -------------------------------------------------------
+    def bind(self, part, init_fn=None) -> "Adaptive":
+        super().bind(part, init_fn)
+        self.low.bind(part, init_fn)
+        self.high.bind(part, init_fn)
+        return self
+
+    # ---- lifecycle ----------------------------------------------------
+    def observe_environment(self, rate: float) -> None:
+        """The schedule's observed failure rate supersedes the strategy's
+        own sliding window while it flows."""
+        self._env_rate = float(rate)
+
+    def failure_rate(self) -> float:
+        """Failures per wall iteration: the observed rate when the schedule
+        provides one, else the local sliding window."""
+        if self._env_rate is not None:
+            return self._env_rate
+        if not self._window:
+            return 0.0
+        return sum(self._window) / len(self._window)
+
+    def on_failure(self, state: TrainState,
+                   event: FailureContext) -> TrainState:
+        self._pending += 1
+        return self.active.on_failure(state, event)
+
+    def on_consecutive(self, state: TrainState, run: List[int],
+                       event: FailureContext) -> TrainState:
+        self._pending += len(run)
+        return self.active.on_consecutive(state, run, event)
+
+    def after_step(self, state: TrainState, hist: History) -> None:
+        self._window.append(self._pending)
+        self._pending = 0
+        want = (self.high if self.failure_rate() > self.rcfg.adaptive_threshold
+                else self.low)
+        if want is not self.active:
+            self.switches.append((state.effective_step,
+                                  self.active.name, want.name))
+            self.active = want
+        self.low.after_step(state, hist)
+        if self.high is not self.low:
+            self.high.after_step(state, hist)
+
+    def after_step_horizon(self, step: int) -> int:
+        # the sliding window takes one sample per wall iteration (and the
+        # children's shadow bookkeeping runs per step): always eager
+        return 1
+
+    def replay_horizon(self):
+        # either child may be active when a failure lands; the batch cache
+        # must cover the deeper of the two rollbacks (None = unbounded)
+        horizons = [self.low.replay_horizon(), self.high.replay_horizon()]
+        if any(h is None for h in horizons):
+            return None
+        return max(horizons)
+
+    def on_run_end(self) -> None:
+        # both children may own background resources (statestore children
+        # run an async snapshot writer even while shadowing)
+        self.low.on_run_end()
+        if self.high is not self.low:
+            self.high.on_run_end()
+
+    # ---- wall-clock model --------------------------------------------
+    def iteration_cost(self) -> float:
+        return self.active.iteration_cost()
+
+    def failure_cost(self) -> float:
+        return self.active.failure_cost()
+
+    def consume_restore_bytes(self):
+        return self.active.consume_restore_bytes()
+
+    def __repr__(self) -> str:
+        return (f"Adaptive(low={self.low.name}, high={self.high.name}, "
+                f"active={self.active.name}, rate={self.failure_rate():.3f})")

@@ -28,16 +28,28 @@ capability flags (the trainer never looks at names)
                              departure (elastic; the port's trainer refuses
                              such strategies until it is ported)
 
-The fused-window horizons, the from-scratch init of the checkpoint
-strategy, the in-mesh recovery of the pipeline backend and the
-departure/re-layout hooks come with the parts of the port that use them.
+horizons
+  ``after_step_horizon(step)`` — how many iterations may run before
+                             ``after_step`` must observe host state again
+                             (for fused windows; the eager trainer's
+                             windows are one step)
+  ``replay_horizon()``     — how far ``effective_step`` can roll back on a
+                             failure (bounds the trainer's batch replay
+                             cache)
+
+``bind(part, init_fn)`` gives a strategy the stage partition and a
+from-scratch init (``() -> (params, opt_state)``, fresh tensors on the
+trainer's device), for policies that may have to restart.  The in-mesh
+recovery of the pipeline backend and the departure/re-layout hooks come with
+the parts of the port that use them.
+
 Strategies are made through the registry
 (:func:`repro_torch.recovery.registry.make_strategy`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import ClassVar, List, Optional, TYPE_CHECKING
+from typing import Any, Callable, ClassVar, List, Optional, Tuple, TYPE_CHECKING
 
 import torch
 
@@ -46,6 +58,10 @@ if TYPE_CHECKING:  # pragma: no cover — typing only, no import cycles
     from repro_torch.core.stages import StagePartition
     from repro_torch.core.state import History, TrainState
     from repro_torch.core.walltime import WallClockModel
+
+# () -> (params, opt_state): a deterministic from-scratch reinitialization
+InitFn = Callable[[], Tuple[Any, Any]]
+
 
 @dataclass
 class FailureContext:
@@ -70,11 +86,15 @@ class RecoveryStrategy:
         self.rcfg = rcfg
         self.wall = wall
         self.part: Optional["StagePartition"] = None
+        self.init_fn: Optional[InitFn] = None
 
     # ---- trainer wiring ----------------------------------------------
-    def bind(self, part: "StagePartition") -> "RecoveryStrategy":
-        """Attach the stage partition.  Called once by the trainer."""
+    def bind(self, part: "StagePartition",
+             init_fn: Optional[InitFn] = None) -> "RecoveryStrategy":
+        """Attach the stage partition (and a from-scratch init for policies
+        that may have to restart).  Called once by the trainer."""
         self.part = part
+        self.init_fn = init_fn
         return self
 
     # ---- entry points (what the trainer calls) -----------------------
@@ -111,6 +131,23 @@ class RecoveryStrategy:
     def observe_environment(self, rate: float) -> None:
         """The schedule's observed failure rate (failures per wall
         iteration); ignored by default."""
+
+    # ---- fused-window contract ---------------------------------------
+    def after_step_horizon(self, step: int) -> Optional[int]:
+        """How many consecutive iterations, starting from effective step
+        ``step``, may run before ``after_step`` must observe host state
+        again.  ``None`` means unbounded; ``1`` pins the eager loop.  A
+        strategy that keeps the no-op ``after_step`` fuses freely; one that
+        overrides it is pinned to 1 unless it overrides this too."""
+        if type(self).after_step is RecoveryStrategy.after_step:
+            return None
+        return 1
+
+    def replay_horizon(self) -> Optional[int]:
+        """How many iterations ``effective_step`` can move *backwards* on a
+        failure: the trainer evicts cached batches older than this.
+        ``None`` keeps every batch; the base policy never rolls back (0)."""
+        return 0
 
     # ---- wall-clock model --------------------------------------------
     def iteration_cost(self) -> float:

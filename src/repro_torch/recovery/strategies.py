@@ -8,13 +8,15 @@ slice:
   checkfree_plus  — + swap schedule, so edge stages have trained twins
   redundant       — Bamboo-style redundant computation: exact weights, paid
                     for with a 1.654x iteration time (Table 2)
+  checkpoint      — periodic save / rollback baseline (restarts from a fresh
+                    init when a failure precedes the first save)
   none            — ignore failures (convergence lower bound)
   copy / uniform / random — the Fig. 2 ablation reinits
 
-``checkpoint`` and ``elastic`` come later (ROADMAP.md queue 1, items 9-10).
-All recovery math lives in ``repro_torch.core.recovery``; it updates the
-parameters in place, so each strategy copies the failed stages first to
-measure the recovery error.
+``elastic`` comes later (ROADMAP.md queue 1, item 5).  All recovery math
+lives in ``repro_torch.core.recovery``; it updates the parameters in place,
+so each strategy copies the failed stages first to measure the recovery
+error, and a rollback copies the saved state into the live tensors.
 """
 from __future__ import annotations
 
@@ -25,10 +27,11 @@ import torch
 from repro_torch import tree as TR
 from repro_torch.core.recovery import (recover_consecutive, recover_stage,
                                        stage_sq_dist)
-from repro_torch.core.state import TrainState
+from repro_torch.core.state import History, TrainState
 from repro_torch.optim.adam import OptState
 from repro_torch.recovery.base import FailureContext, RecoveryStrategy
 from repro_torch.recovery.registry import register_strategy
+from repro_torch.statestore.codec import copy_into
 
 
 @register_strategy("none")
@@ -47,6 +50,82 @@ class Redundant(RecoveryStrategy):
 
     def failure_cost(self) -> float:
         return self.wall.promote_time_s
+
+
+@register_strategy("checkpoint")
+class Checkpointing(RecoveryStrategy):
+    """Periodic full-model save + rollback (the paper's baseline).
+
+    The :class:`~repro_torch.ckpt.Checkpointer` (a single-disk-tier view of
+    ``repro_torch.statestore``) is created at first use, so that building
+    the strategy stays side-effect-free (cost queries must not wipe
+    checkpoint directories).  Wall-clock is priced through the *remote*
+    tier spec: the paper's 500 Mb/s link to non-faulty storage (fn. 2).
+    A rollback copies the saved parameters, moments and Adam step into the
+    live state in place.
+    """
+
+    def __init__(self, rcfg, wall):
+        super().__init__(rcfg, wall)
+        self._ckpt = None
+
+    @property
+    def checkpointer(self):
+        if self._ckpt is None:
+            # deferred import: repro_torch.ckpt sits on top of the state
+            # store, whose strategies import the recovery package
+            from repro_torch.ckpt.checkpoint import Checkpointer
+            self._ckpt = Checkpointer(self.rcfg.checkpoint_dir,
+                                      self.rcfg.checkpoint_every)
+        return self._ckpt
+
+    def on_failure(self, state: TrainState,
+                   event: FailureContext) -> TrainState:
+        event.hist.recovery_errors.append((event.wall_step, float("nan")))
+        ckpt = self.checkpointer
+        live = (state.params, state.opt_state)
+        if not ckpt.has_checkpoint():
+            # nothing saved yet -> restart from a fresh init at step 0
+            # (lr_scale resets too: any boost belonged to the lost trajectory)
+            if self.init_fn is None:
+                raise RuntimeError("checkpoint strategy needs "
+                                   "bind(init_fn=...)")
+            params, opt_state = copy_into(live, self.init_fn())
+            return TrainState(params, opt_state, lr_scale=1.0,
+                              omegas=None, effective_step=0)
+        step, saved, _lost = ckpt.rollback(state.effective_step, live)
+        params, opt_state = copy_into(live, saved)
+        return TrainState(params, opt_state, state.lr_scale,
+                          state.omegas, effective_step=step)
+
+    def after_step(self, state: TrainState, hist: History) -> None:
+        self.checkpointer.maybe_save(state.effective_step,
+                                     (state.params, state.opt_state))
+
+    def after_step_horizon(self, step: int) -> int:
+        # saves only fire at multiples of checkpoint_every
+        every = max(self.rcfg.checkpoint_every, 1)
+        return every - step % every
+
+    def replay_horizon(self) -> int:
+        # deepest rollback: the newest checkpoint plus every corrupted-
+        # fallback candidate the Checkpointer retains, plus the restart from
+        # step 0 before the first save (effective_step < checkpoint_every)
+        from repro_torch.ckpt.checkpoint import Checkpointer
+        return Checkpointer.DEFAULT_KEEP * max(self.rcfg.checkpoint_every, 1)
+
+    def iteration_cost(self) -> float:
+        # saves overlap training partially; amortized residual overhead,
+        # priced by the remote tier's latency + bandwidth
+        remote = self.wall.tier_specs()["remote"]
+        return (self.wall.iter_time_s +
+                0.1 * remote.write_time_s(self.wall.model_bytes)
+                / self.rcfg.checkpoint_every)
+
+    def failure_cost(self) -> float:
+        remote = self.wall.tier_specs()["remote"]
+        return (self.wall.restart_overhead_s
+                + remote.read_time_s(self.wall.model_bytes))
 
 
 class MergeRecovery(RecoveryStrategy):

@@ -1,0 +1,156 @@
+"""The tiered state store (the counterpart of ``repro.statestore.store``).
+
+A :class:`StateStore` owns an ordered list of tiers (fastest first) and
+mediates every save/restore:
+
+* **save** — one synchronous host copy per shard, then per-tier placement:
+  memory puts land inline (a reference store), disk/remote writes run on
+  the :class:`~repro_torch.statestore.snapshot.AsyncSnapshotter` so the
+  train step never blocks on a serialize;
+* **restore** — the *freshest* step available for the shard wins (lost
+  work dominates read cost by orders of magnitude), served from the
+  fastest tier holding it; corrupted snapshots are skipped in favour of
+  the next copy instead of failing the restore;
+* **retention** — after every put the policy trims that tier's history;
+* **failure semantics** — ``drop_host(stage)`` wipes a dead node's
+  in-memory replicas before a restore is attempted.
+
+Every restore returns the serving tier and its priced read time, which is
+how recovery strategies charge tier-real wall-clock.  The restored tree
+holds host tensors (a memory tier's own); the caller copies them into the
+live state (:func:`~repro_torch.statestore.codec.copy_into`) and never
+trains on them.
+"""
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+from typing import List, Optional
+
+from repro_torch.statestore.codec import (CodecError, Pytree, Snapshot,
+                                          host_snapshot, snapshot_to_tree)
+from repro_torch.statestore.policy import RetentionPolicy
+from repro_torch.statestore.snapshot import AsyncSnapshotter
+from repro_torch.statestore.tiers import StorageTier, TierError
+
+
+class StoreError(RuntimeError):
+    """No tier could serve a requested restore."""
+
+
+@dataclass
+class RestoreResult:
+    """What a restore produced and what it cost."""
+
+    step: int                # step of the snapshot served
+    tree: Pytree
+    tier: str                # serving tier name
+    nbytes: int              # serialized size actually read
+    read_time_s: float       # priced by the serving tier's spec
+
+
+class StateStore:
+    """Tiered snapshot storage with asynchronous cold writes."""
+
+    def __init__(self, tiers: List[StorageTier],
+                 retention: Optional[RetentionPolicy] = None):
+        if not tiers:
+            raise ValueError("StateStore needs at least one tier")
+        names = [t.name for t in tiers]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate tier names: {names}")
+        self.tiers = list(tiers)          # fastest first
+        self.retention = retention or RetentionPolicy()
+        self.writer = AsyncSnapshotter()
+
+    def tier(self, name: str) -> StorageTier:
+        for t in self.tiers:
+            if t.name == name:
+                return t
+        raise KeyError(f"no tier {name!r}; have {[t.name for t in self.tiers]}")
+
+    # ---- save ---------------------------------------------------------
+    def put(self, tree: Pytree, *, step: int, shard_id: str,
+            tier: str, host: Optional[int] = None,
+            sync: bool = False, snap: Optional[Snapshot] = None) -> Snapshot:
+        """Snapshot ``tree`` into ``tier``.
+
+        The host copy is always synchronous; the tier write is inline for
+        memory tiers (reference store) and asynchronous otherwise unless
+        ``sync``.  Pass ``snap`` to reuse one host copy across several
+        tier placements of the same state.
+        """
+        t = self.tier(tier)
+        if snap is None:
+            snap = host_snapshot(tree, step=step, shard_id=shard_id)
+        if t.kind == "memory" or sync:
+            t.put(snap, host=host)
+            self.retention.apply(t, shard_id)
+        else:
+            def write(t=t, snap=snap, shard_id=shard_id):
+                t.put(snap, host=host)
+                self.retention.apply(t, shard_id)
+            self.writer.submit(write)
+        return snap
+
+    def flush(self) -> None:
+        """Block until every asynchronous write has landed."""
+        self.writer.flush()
+
+    def close(self) -> None:
+        self.writer.close()
+
+    # ---- query --------------------------------------------------------
+    def latest_step(self, shard_id: str) -> Optional[int]:
+        best = None
+        for t in self.tiers:
+            steps = t.steps(shard_id)
+            if steps and (best is None or steps[-1] > best):
+                best = steps[-1]
+        return best
+
+    def drop_host(self, host: int) -> int:
+        """A node died: wipe its in-memory replicas across all tiers."""
+        return sum(t.drop_host(host) for t in self.tiers)
+
+    # ---- restore ------------------------------------------------------
+    def restore(self, shard_id: str,
+                template: Optional[Pytree] = None) -> RestoreResult:
+        """Serve the freshest copy of ``shard_id`` from the fastest tier
+        holding it.
+
+        Pending asynchronous writes are flushed first so a restore can
+        never race its own in-flight checkpoint.  A corrupted snapshot is
+        skipped (with a warning) and the next-freshest copy is tried.
+        """
+        self.flush()
+        # candidate (step, tier) pairs: freshest step first; ties broken by
+        # tier order (fastest first)
+        candidates = []
+        for rank, t in enumerate(self.tiers):
+            for s in t.steps(shard_id):
+                candidates.append((-s, rank, t))
+        if not candidates:
+            raise StoreError(f"no snapshot of {shard_id!r} in any tier")
+        candidates.sort(key=lambda c: (c[0], c[1]))
+        last_err: Optional[Exception] = None
+        for neg_s, _, t in candidates:
+            step = -neg_s
+            try:
+                snap = t.get(shard_id, step)
+                tree = snapshot_to_tree(snap, template)
+            except (TierError, CodecError) as e:
+                warnings.warn(
+                    f"statestore: skipping {shard_id}@{step} on tier "
+                    f"{t.name!r}: {e}", RuntimeWarning, stacklevel=2)
+                last_err = e
+                continue
+            return RestoreResult(step=step, tree=tree, tier=t.name,
+                                 nbytes=snap.nbytes,
+                                 read_time_s=t.read_time_s(snap.nbytes))
+        raise StoreError(
+            f"every snapshot of {shard_id!r} failed to decode "
+            f"(last error: {last_err})")
+
+    def __repr__(self) -> str:
+        return f"StateStore(tiers={[t.name for t in self.tiers]})"

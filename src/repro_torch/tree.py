@@ -38,3 +38,51 @@ def map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:  # noqa: A001
 def clone(tree: Tree) -> Dict[str, Any]:
     """A detached copy of every tensor leaf."""
     return map(lambda t: t.detach().clone(), tree)
+
+
+# ---- flattening: the counterpart of ``jax.tree_util.tree_flatten`` -------
+# A treedef is a nested tuple: ("dict", keys, children) for a dict,
+# ("seq", type, children) for a tuple, list or NamedTuple, _INT for a Python
+# int leaf (the port's host-int Adam step, a 0-d int32 array in JAX) and
+# _LEAF for any other leaf.
+_LEAF, _INT = "leaf", "int"
+
+
+def flatten(tree: Tree) -> Tuple[List[Any], Any]:
+    """(leaves, treedef) of a tree of dicts, tuples, lists and NamedTuples,
+    in the order ``jax.tree_util.tree_flatten`` gives: sorted dict keys,
+    sequence order.  Python ints are leaves of their own kind."""
+    out: List[Any] = []
+
+    def go(x):
+        if isinstance(x, dict):
+            keys = tuple(sorted(x))
+            return ("dict", keys, tuple(go(x[k]) for k in keys))
+        if isinstance(x, (tuple, list)):
+            return ("seq", type(x), tuple(go(c) for c in x))
+        out.append(x)
+        return _INT if isinstance(x, int) else _LEAF
+
+    return out, go(tree)
+
+
+def unflatten(treedef: Any, leaves: List[Any]) -> Tree:
+    """The inverse of :func:`flatten`; an int leaf comes back as ``int(x)``
+    (so a 0-d tensor restores the port's host-int step)."""
+    it = iter(leaves)
+
+    def go(d):
+        if d == _LEAF:
+            return next(it)
+        if d == _INT:
+            return int(next(it))
+        kind, meta, children = d
+        if kind == "dict":
+            return {k: go(c) for k, c in zip(meta, children)}
+        vals = [go(c) for c in children]
+        return meta._make(vals) if hasattr(meta, "_fields") else meta(vals)
+
+    tree = go(treedef)
+    if next(it, None) is not None:
+        raise ValueError("unflatten: more leaves than the treedef holds")
+    return tree

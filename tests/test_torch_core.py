@@ -214,7 +214,8 @@ def test_history_json_round_trip_matches_jax():
 
 def test_registry_matches_jax_for_the_ported_strategies():
     ported = {"none", "redundant", "checkfree", "checkfree_plus", "uniform",
-              "copy", "random"}
+              "copy", "random", "checkpoint", "tiered_ckpt", "neighbor",
+              "adaptive"}
     assert set(available_strategies()) == ported
     for name in ported:
         cls, jcls = get_strategy_cls(name), type(
@@ -227,8 +228,17 @@ def test_registry_matches_jax_for_the_ported_strategies():
             jax_make_strategy(JRecoveryConfig(strategy=name))
         assert (s.iteration_cost(), s.failure_cost()) == \
             (js.iteration_cost(), js.failure_cost())
-    with pytest.raises(KeyError, match="checkpoint"):
-        get_strategy_cls("checkpoint")
+        assert s.replay_horizon() == js.replay_horizon(), name
+        assert [s.after_step_horizon(k) for k in range(12)] == \
+            [js.after_step_horizon(k) for k in range(12)], name
+    # elastic repartitioning is not ported: adaptive advertises none
+    assert not make_strategy(RecoveryConfig(strategy="adaptive")) \
+        .recover_by_repartition
+    with pytest.raises(KeyError, match="elastic"):
+        get_strategy_cls("elastic")
+    with pytest.raises(NotImplementedError, match="'elastic' repartitions"):
+        make_strategy(RecoveryConfig(strategy="adaptive",
+                                     adaptive_high="elastic"))
 
 
 # ---------------------------------------------------------------------------

@@ -570,3 +570,80 @@ def test_ssm_models_on_card_match_cpu(arch, kw, s):
         want, want_cache = cpu.decode_step(want_cache, nxt)
         torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
         nxt = want[:, -1].argmax(-1).to(torch.int32)
+
+
+@pytest.mark.gpu
+def test_checkpoint_trainer_on_card_matches_cpu(tmp_path):
+    """2 reduced layers, 2 stages, fp32: ``checkpoint`` on the card and on
+    the CPU through a restart before the first save (wall 1) and a rollback
+    (wall 5, from step 4 to the save at 3): the same trace, losses within
+    1e-4, each replayed step equal to its first run on the card."""
+    from repro_torch.config import OptimizerConfig, RecoveryConfig, TrainConfig
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+
+    class Forced:
+        def at(self, step):
+            return {1: [1], 5: [0]}.get(step, [])
+
+    cfg = get_config("paper-llama-124m").replace(
+        num_layers=2, d_model=128, num_heads=4, num_kv_heads=4, d_ff=344,
+        vocab_size=512, max_seq_len=64, dtype="float32")
+    params = Model(cfg, device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+    hists = {}
+    for device in ("cuda", "cpu"):
+        tcfg = TrainConfig(
+            global_batch=4, microbatch=4, seq_len=64, steps=6, fuse_window=1,
+            optimizer=OptimizerConfig(lr=6e-4, total_steps=6),
+            recovery=RecoveryConfig(strategy="checkpoint", num_stages=2,
+                                    checkpoint_every=3,
+                                    checkpoint_dir=str(tmp_path / device)))
+        trainer = Trainer(Model(cfg, device=device, weights=False), tcfg,
+                          schedule=Forced())
+        _, hists[device] = trainer.run(make_batches(cfg, batch=4, seq=64),
+                                       params=params)
+    card, cpu = hists["cuda"], hists["cpu"]
+    assert card.steps == cpu.steps == [1, 1, 2, 3, 4, 4, 5, 6]
+    assert card.failures == cpu.failures
+    np.testing.assert_allclose(card.loss, cpu.loss, rtol=1e-4)
+    assert card.loss[1] == card.loss[0] and card.loss[5] == card.loss[4]
+
+
+@pytest.mark.gpu
+def test_host_snapshot_from_the_card_is_bit_equal_and_pinned():
+    from repro_torch import tree as TR
+    from repro_torch.optim.adam import OptState
+    from repro_torch.statestore import host_snapshot, snapshot_to_tree
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = {"w": torch.randn(64, 33, generator=gen, device="cuda"),
+              "b": torch.randn(130, generator=gen, device="cuda").bfloat16(),
+              "i": torch.arange(7, dtype=torch.int32, device="cuda")}
+    tree = (params, OptState(TR.map(torch.zeros_like, params),
+                             TR.map(torch.ones_like, params), 3))
+    want = [t.cpu() for t in TR.flatten(tree)[0][:-1]]
+    snap = host_snapshot(tree, step=3, shard_id="full")
+    for got, ref in zip(snap.leaves[:-1], want):
+        assert got.device.type == "cpu" and got.is_pinned()
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+    params["w"].add_(1.0)          # the card's state moves on in place
+    assert torch.equal(snap.leaves[2], want[2])
+    assert snapshot_to_tree(snap, tree)[1].step == 3
+
+
+@pytest.mark.gpu
+def test_restore_into_live_card_leaves_keeps_identity():
+    from repro_torch.statestore import copy_into, host_snapshot
+    from repro_torch.statestore import snapshot_to_tree
+
+    live = {"w": torch.randn(8, 8, device="cuda").requires_grad_()}
+    saved = snapshot_to_tree(host_snapshot(live, step=1, shard_id="full"),
+                             live)
+    w = live["w"]
+    before = w.detach().clone()
+    with torch.no_grad():
+        w.mul_(3.0)
+    out = copy_into(live, saved)
+    assert out["w"] is w and w.is_cuda and w.requires_grad
+    assert torch.equal(w.detach(), before)

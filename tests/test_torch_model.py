@@ -265,12 +265,16 @@ def test_package_imports_no_jax_and_nothing_of_repro():
         "'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "for m in ('launch.serve', 'launch.train', 'core.trainer', "
         "'core.recovery', 'core.stages', 'core.failures', 'core.walltime', "
         "'recovery.strategies', 'optim.adam', 'kernels.stage_merge', "
-        "'models.ssm', 'models.hybrid', 'kernels.ssd_scan'):\n"
+        "'models.ssm', 'models.hybrid', 'kernels.ssd_scan', 'statestore', "
+        "'statestore.codec', 'statestore.tiers', 'statestore.store', "
+        "'statestore.snapshot', 'statestore.policy', 'statestore.faults', "
+        "'statestore.strategies', 'ckpt', 'ckpt.checkpoint', "
+        "'recovery.adaptive', 'data.pipeline'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

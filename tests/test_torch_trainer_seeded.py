@@ -6,6 +6,9 @@ stated there), under ``FailureSchedule(seed=42)`` as in
 examples/train_with_failures.py:44-47, each package with its own copy of the
 schedule.
 """
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -56,3 +59,31 @@ def test_training_defaults_to_cuda_and_raises_without_it(monkeypatch):
     cfg = get_config("paper-llama-124m")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(Model(cfg, weights=False), TrainConfig())
+
+
+@pytest.mark.parametrize("strategy", ["checkpoint", "tiered_ckpt", "neighbor",
+                                      "adaptive"])
+def test_train_cli_runs_the_checkpointing_strategies(strategy, tmp_path,
+                                                     monkeypatch):
+    """``--strategy`` reaches every ported baseline through the registry.
+    Their directories lie in a directory of the run's own under the
+    temporary directory (here tmp_path), which is gone when the run ends."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    seen = []
+
+    class Recording(Trainer):
+        def __init__(self, model, tcfg, **kw):
+            seen.append((tcfg.recovery.checkpoint_dir,
+                         tcfg.recovery.store_dir))
+            super().__init__(model, tcfg, **kw)
+
+    monkeypatch.setattr(train, "Trainer", Recording)
+    hist = train.main(["--reduced", "--device", "cpu", "--strategy", strategy,
+                       "--steps", "3", "--seq", "32", "--batch", "2",
+                       "--rate", "0", "--quiet"])
+    assert hist.steps == [1, 2, 3] and all(np.isfinite(hist.loss))
+    [(ckpt_dir, store_dir)] = seen
+    run_dir = os.path.dirname(ckpt_dir)
+    assert os.path.dirname(run_dir) == str(tmp_path)
+    assert os.path.dirname(store_dir) == run_dir
+    assert not os.listdir(tmp_path)
