@@ -31,6 +31,13 @@ result.  Phases:
              the yardstick) and for the stage merge (against
              ``stage_merge_ref``; timed on one 4-layer stage of
              paper-llama-1.5b, ``torch._foreach_lerp`` as the yardstick).
+             The two Adam kernels (``adam_sumsq``, ``adam_update``) against
+             their plain versions over small leaf sets (tower and other
+             leaves, ragged tails, misaligned views, weight decay, a clip
+             that bites; each launched twice for bit-equality) and the whole
+             tree of paper-llama-1.5b, timed there beside their bound, the
+             plain versions and ``torch.optim.Adam(fused=True)`` (a
+             yardstick only).
              The SSD scan (bf16 on the tensor cores, fp32 on the CUDA cores)
              against its two plain versions (chunked and token by token)
              over tests/test_kernels.py's sweep, ragged lengths, wider P and
@@ -72,6 +79,16 @@ result.  Phases:
              held against the same steps with the plain attention swapped
              in, and the backward kernels are held against their plain
              version on each layer's own inputs of one step.
+7b. train_fused — paper-llama-1.5b as train, ``checkfree_plus`` for 40 steps
+             in fused windows of 8 (each a replayed CUDA graph under
+             ``set_sync_debug_mode("error")``), stage 3 failing at wall 13
+             so that a window is cut short and the merge runs at its
+             boundary, stage 2 at wall 25; the same run in eager steps
+             beside it.  Window sizes, launches (the graph's replays
+             counted), the loss trace and omegas against the eager run,
+             window ms, ms a step, tokens/s, peak memory and both merges'
+             ms, device ms and new device allocations (none allowed: the
+             capture keeps the cache of the eager step's blocks).
 8. train_gemma, train_danube — the same checks for ``checkfree`` (4 steps,
              a merge of stage 2 at step 2) at full width, batch 4 x 512:
              gemma-2b at full depth (18 layers, 6 stages; MQA at head dim
@@ -127,8 +144,10 @@ from repro_torch.config import (OptimizerConfig, RecoveryConfig,  # noqa: E402
                                 TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.trainer import Trainer  # noqa: E402
+from repro_torch.core.window import OMEGAS, RECORD  # noqa: E402
 from repro_torch.data.pipeline import (SyntheticLM, batch_for,  # noqa: E402
                                        make_batches)
+from repro_torch.kernels import adam as AD  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -138,6 +157,7 @@ from repro_torch.kernels import stage_merge as SM  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.optim import adam as A  # noqa: E402
 from repro_torch.statestore import codec as ss_codec  # noqa: E402
 from repro_torch.statestore import store as store_mod  # noqa: E402
 from repro_torch.statestore import strategies as ss_strategies  # noqa: E402
@@ -254,6 +274,32 @@ CKPT_CUT_LAYERS = 12
 HOST_LINK_BYTES_PER_S = 64e9
 SERVE_DANUBE = dict(arch="h2o-danube-3-4b", batch=8, prompt=512,
                     new_tokens=32)
+# the Adam kernels against their plain versions: the sums of squares are
+# taken in fp64 by the kernel and in fp32 by the plain version, 1e-6
+# relative; the update repeats the plain version's fp32 arithmetic (one
+# rounding may differ where the plain version's add fuses a multiply),
+# 1e-6 * (1 + |w|)
+ADAM_SUMSQ_TOL = 1e-6
+ADAM_TOL = 1e-6
+# at the main path's size each of p, m and v is also held against the size
+# of its own change in the plain version: within ADAM_STEP_TOL * |w_new -
+# w_old| + ADAM_ULPS * |w_new| (two fp32 ulps), so that a kernel that
+# leaves a tensor unchanged or scales its step by 1.001 or more fails even
+# where the change is far below 1e-6
+ADAM_STEP_TOL = 1e-3
+ADAM_ULPS = 2.0 ** -22
+# fused windows at TRAIN's shape: checkfree_plus, windows of up to 8, stage
+# 3 fails at wall 13, so the window from wall 8 is cut to 4 and 1 and the
+# merge runs at a window boundary, and stage 2 at wall 25 (the first merge
+# after the capture and a later one); the windows are FUSED_SIZES.  The fused
+# run against the same run in eager steps, the same kernels: the loss
+# within 1e-3 * (1 + |loss|) (a graph replays the eager step's kernels, but
+# nothing asks cuBLAS for the same algorithms under capture), the omegas
+# within TRAIN_OMEGA_TOL
+FUSED_WINDOW, FUSED_STEPS = 8, 40
+FUSED_SCHEDULE = {13: [3], 25: [2]}
+FUSED_SIZES = [8, 4, 1, 8, 4, 8, 4, 2, 1]
+FUSED_LOSS_TOL = 1e-3
 
 
 def emit(phase: str, **kw) -> None:
@@ -728,6 +774,193 @@ def phase_kernel_merge() -> dict:
     return row
 
 
+def adam_case(gen, shapes, tower, offset: int, grad_scale: float):
+    """(p, g, m, v) leaves of ``shapes`` on the card, each ``offset``
+    elements into a larger buffer (off its 16-byte boundary when odd)."""
+    def leaves(scale, positive=False):
+        out = []
+        for sh in shapes:
+            n = math.prod(sh)
+            t = torch.randn(n + offset, generator=gen, device="cuda")[offset:]
+            out.append((t.abs() if positive else t).mul_(scale).view(sh))
+        return out
+    return (leaves(1.0), leaves(grad_scale), leaves(0.1),
+            leaves(0.01, positive=True))
+
+
+def adam_within(got, want, rel: bool) -> tuple:
+    """(ok, max |error|, max |error| / |want|): within ``ADAM_SUMSQ_TOL``
+    relative (``rel``) or ``ADAM_TOL * (1 + |w|)``."""
+    err = (got - want).abs()
+    bound = (ADAM_SUMSQ_TOL * want.abs() if rel
+             else ADAM_TOL * (1 + want.abs()))
+    if not err.numel():
+        return True, 0.0, 0.0
+    return (bool((err <= bound).all()) and bool(torch.isfinite(got).all()),
+            float(err.max()), float((err / want.abs()).max()))
+
+
+def adam_step_within(got, new, old) -> tuple:
+    """(ok, max |error| / (|w_new - w_old| + ulps)): ``got`` within
+    ``ADAM_STEP_TOL`` of the plain version's change ``new - old``."""
+    err = (got - new).abs()
+    scale = (new - old).abs() + ADAM_ULPS / ADAM_STEP_TOL * new.abs()
+    ok = bool((err <= ADAM_STEP_TOL * scale + 1e-30).all()) and \
+        bool(torch.isfinite(got).all())
+    return ok, float((err / (scale + 1e-30)).max())
+
+
+def phase_kernel_adam() -> tuple:
+    """Both Adam kernels against their plain versions: a sweep of small
+    leaf sets (tower and other leaves, ragged tails, misaligned views, weight
+    decay, a clip that bites), then the whole tree of paper-llama-1.5b's
+    gradients and state, where they are timed beside their bound, the plain
+    versions and ``torch.optim.Adam(fused=True)`` (a yardstick, never on the
+    path).  Returns the rows of the kernels line."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    shapes = [(3, 16384), (3, 5, 7), (3, 33000), (3, 96), (1000, 24), (13,)]
+    tower = [True, True, True, True, False, False]
+    cases = failures = 0
+    worst = {"adam_sumsq": 0.0, "adam_update": 0.0}
+    worst_rel = 0.0                        # adam_sumsq, relative
+    deterministic = True
+    for offset in (0, 1, 2):
+        for grad_scale, wd in ((1.0, 0.0), (100.0, 0.0), (1.0, 0.01)):
+            cfg = OptimizerConfig(lr=1e-2, warmup_steps=2, total_steps=20,
+                                  weight_decay=wd)
+            p, g, m, v = adam_case(gen, shapes, tower, offset, grad_scale)
+            got = AD.adam_sumsq(g, tower, 3)
+            again = AD.adam_sumsq(g, tower, 3)
+            want = ref.adam_sumsq_ref(g, tower, 3)
+            deterministic &= all(torch.equal(a, b) for a, b in zip(got, again))
+            for a, w in zip(got, want):
+                ok, err, rel = adam_within(a, w, rel=True)
+                worst["adam_sumsq"] = max(worst["adam_sumsq"], err)
+                worst_rel = max(worst_rel, rel)
+                cases += 1
+                failures += not ok
+            scalars = A.adam_scalars(cfg, torch.tensor(5, device="cuda"),
+                                     torch.tensor(1.1, device="cuda"),
+                                     got[1].sqrt())
+            opts = A.update_options(cfg)
+            outs = []
+            for _ in range(2):
+                pk, mk, vk = ([t.clone() for t in ts] for ts in (p, m, v))
+                AD.adam_update(pk, g, mk, vk, scalars, **opts)
+                outs.append(pk + mk + vk)
+            ref.adam_update_ref(p, g, m, v, scalars, **opts)
+            deterministic &= all(torch.equal(a, b) for a, b in zip(*outs))
+            for a, w in zip(outs[0], p + m + v):
+                ok, err, _ = adam_within(a, w, rel=False)
+                worst["adam_update"] = max(worst["adam_update"], err)
+                cases += 1
+                failures += not ok
+
+    # the main path's call: every leaf of paper-llama-1.5b, the moments at
+    # the gradients' scale (m ~ g, v ~ g^2), a step past the warm-up
+    cfg = get_config(TRAIN["arch"])
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    params = Model(cfg, device="cuda", weights=False).init(gen)
+    part_tower = [path[0] == "blocks"
+                  for path, _ in TR.leaves_with_path(params)]
+    p = TR.leaves(params)
+
+    def draw(t, square=False):
+        x = torch.randn(t.shape, generator=gen, device="cuda") * 1e-3
+        return x.square_() if square else x
+
+    g = [draw(t) for t in p]
+    m = [draw(t) for t in p]
+    v = [draw(t, square=True) for t in p]
+    numel = sum(t.numel() for t in p)
+    got = AD.adam_sumsq(g, part_tower, cfg.num_layers)
+    want = ref.adam_sumsq_ref(g, part_tower, cfg.num_layers)
+    for a, w in zip(got, want):
+        ok, err, rel = adam_within(a, w, rel=True)
+        worst["adam_sumsq"] = max(worst["adam_sumsq"], err)
+        worst_rel = max(worst_rel, rel)
+        cases += 1
+        failures += not ok
+    scalars = A.adam_scalars(opt, torch.tensor(50, device="cuda"),
+                             torch.tensor(1.0, device="cuda"), got[1].sqrt())
+    opts = A.update_options(opt)
+    pk, mk, vk = ([t.clone() for t in ts] for ts in (p, m, v))
+    AD.adam_update(pk, g, mk, vk, scalars, **opts)
+    olds = [t.clone() for t in p + m + v]
+    ref.adam_update_ref(p, g, m, v, scalars, **opts)
+    step_rel = 0.0
+    for a, w, o in zip(pk + mk + vk, p + m + v, olds):
+        ok, err, _ = adam_within(a, w, rel=False)
+        good, rel = adam_step_within(a, w, o)
+        worst["adam_update"] = max(worst["adam_update"], err)
+        step_rel = max(step_rel, rel)
+        cases += 1
+        failures += not (ok and good)
+    del pk, mk, vk, olds
+    emit("kernel_check", kernel="adam", cases=cases, failures=failures,
+         max_abs_err=worst, adam_sumsq_max_rel_err=worst_rel,
+         adam_update_max_err_over_step=step_rel,
+         main_path_scalars=scalars.tolist(),
+         bit_deterministic=deterministic,
+         tol={"adam_sumsq": f"{ADAM_SUMSQ_TOL} relative",
+              "adam_update": f"{ADAM_TOL} * (1 + |w|)",
+              "adam_update_main_path": f"also {ADAM_STEP_TOL} * |w_new - "
+                                       f"w_old| + {ADAM_ULPS} * |w_new|"})
+    if failures or not deterministic:
+        raise AssertionError(f"the Adam kernels disagree with their plain "
+                             f"versions in {failures} of {cases} cases "
+                             f"(bit-deterministic: {deterministic})")
+
+    timing = dict(groups=11, per_group=5)
+    sumsq_ms = time_ms(lambda: AD.adam_sumsq(g, part_tower, cfg.num_layers),
+                       **timing)
+    sumsq_plain = time_ms(lambda: ref.adam_sumsq_ref(g, part_tower,
+                                                     cfg.num_layers), **timing)
+    update_ms = time_ms(lambda: AD.adam_update(p, g, m, v, scalars, **opts),
+                        **timing)
+    update_plain = time_ms(lambda: ref.adam_update_ref(p, g, m, v, scalars,
+                                                       **opts), **timing)
+    # the yardstick: PyTorch's fused Adam over the same parameters and
+    # gradients (its own moments; no clipping, no norms)
+    ps = [torch.nn.Parameter(t) for t in p]
+    for t, grad in zip(ps, g):
+        t.grad = grad
+    fused = torch.optim.Adam(ps, lr=opt.lr, betas=opt.betas, eps=opt.eps,
+                             fused=True)
+    library_ms = time_ms(fused.step, **timing)
+    del fused, ps
+    rows = []
+    for name, ms, plain_ms, nbytes, flops, lib, replaces in (
+            ("adam_sumsq", sumsq_ms, sumsq_plain, 4 * numel, 2 * numel, None,
+             "src/repro/optim/adam.py:34"),
+            ("adam_update", update_ms, update_plain, 28 * numel, 15 * numel,
+             library_ms, "src/repro/optim/adam.py:64")):
+        tb = nbytes / MEM_BYTES_PER_S * 1e3
+        to = flops / PEAK_FLOP_PER_S[torch.float32] * 1e3
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/adam.cu",
+                     "replaces": replaces,
+                     "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(tb, to),
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "library_ms": lib})
+        emit("kernel_time", kernel=name,
+             shape={"arch": TRAIN["arch"], "leaves": len(p),
+                    "elements": numel, "dtype": "float32"},
+             bytes=nbytes, flops=flops,
+             **{k: rows[-1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+             library=("torch.optim.Adam(fused=True).step over the same "
+                      "parameters and gradients" if lib else None),
+             replaces_note="no TPU kernel: jnp code that XLA fuses in the "
+                           "jitted step",
+             timing="median of 11 groups of 5 back-to-back calls, CUDA events")
+    del params, p, g, m, v, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def ssd_inputs(gen, b, t, h, p, g, n, dtype, *, real: bool,
                init: bool = False, strided: bool = False,
                offset: int = 0) -> tuple:
@@ -1137,25 +1370,22 @@ class PlainAttention:
 
 
 def train_config(strategy: str, steps: int, *, stages: int, batch: int,
-                 seq: int, **rcfg) -> TrainConfig:
+                 seq: int, window: int = 1, **rcfg) -> TrainConfig:
     return TrainConfig(
         global_batch=batch, microbatch=batch, seq_len=seq, steps=steps,
-        eval_every=steps, fuse_window=1, seed=0,
+        eval_every=steps, fuse_window=window, seed=0,
         optimizer=OptimizerConfig(total_steps=steps),
         recovery=RecoveryConfig(strategy=strategy, num_stages=stages,
                                 protect_edge_stages=False, **rcfg))
 
 
 def counts() -> dict:
-    return {"flash_attention_fwd": FA.launches,
-            "flash_attention_bwd_dq": FA.launches_dq,
-            "flash_attention_bwd_dkv": FA.launches_dkv,
-            "stage_merge": SM.launches, "ssd_scan": SSD.launches}
+    return ops.launch_counts()
 
 
 def zero_counts() -> None:
     FA.launches = FA.launches_dq = FA.launches_dkv = SM.launches = 0
-    SSD.launches = 0
+    SSD.launches = AD.launches_sumsq = AD.launches_update = 0
 
 
 def phase_train_model() -> None:
@@ -1194,6 +1424,7 @@ def instrument(trainer: Trainer, record: dict) -> None:
     """Time each step (host clock ending in a synchronize) and keep its loss
     and omegas; time each recovery."""
     step = trainer.step
+    time_recoveries(trainer, record)
 
     def timed_step(state, batch):
         torch.cuda.synchronize()
@@ -1205,16 +1436,34 @@ def instrument(trainer: Trainer, record: dict) -> None:
         return state, loss, metrics
 
     trainer.step = timed_step
+
+
+def time_recoveries(trainer: Trainer, record: dict) -> None:
+    """Time each call of the strategy's failure handlers (host clock ending
+    in a synchronize) into ``record["recovery_ms"]``, and into
+    ``record["recovery_device"]`` its device ms (CUDA events) and the
+    caching allocator's new device allocations (``num_device_alloc``)."""
+    record.setdefault("recovery_device", [])
     for name in ("handle_failure", "handle_consecutive"):
         handle = getattr(trainer.strategy, name)
 
         def timed(*args, _handle=handle, _name=name):
             torch.cuda.synchronize()
+            allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
+            start.record()
             out = _handle(*args)
+            end.record()
             torch.cuda.synchronize()
             record["recovery_ms"].append(
                 (_name, args[-1].wall_step, (time.perf_counter() - t0) * 1e3))
+            record["recovery_device"].append({
+                "wall_step": args[-1].wall_step,
+                "device_ms": start.elapsed_time(end),
+                "device_allocs": torch.cuda.memory_stats().get(
+                    "num_device_alloc", 0) - allocs})
             return out
 
         setattr(trainer.strategy, name, timed)
@@ -1269,16 +1518,18 @@ def train_model_config(spec: dict):
 
 def train_run(strategy: str, steps: int, schedule, *, spec: dict = TRAIN,
               check_merge=None, plain: bool = False, rcfg=None,
-              setup=None) -> tuple:
+              setup=None, window: int = 1) -> tuple:
     """One full-width run from the trainer's seeded initial parameters ->
     (hist, launch counts, record, peak GiB).  ``rcfg``: more recovery
-    settings; ``setup(trainer, record)`` installs a phase's own checks."""
+    settings; ``setup(trainer, record)`` installs a phase's own checks;
+    ``window``: the fuse window (1: eager steps)."""
     cfg = train_model_config(spec)
     model = Model(cfg, device="cuda", weights=False)
     trainer = Trainer(model, train_config(strategy, steps,
                                           stages=spec["stages"],
                                           batch=spec["batch"],
-                                          seq=spec["seq"], **(rcfg or {})),
+                                          seq=spec["seq"], window=window,
+                                          **(rcfg or {})),
                       schedule=schedule)
     record = {"step_ms": [], "omegas": [], "recovery_ms": []}
     instrument(trainer, record)
@@ -1300,6 +1551,7 @@ def train_run(strategy: str, steps: int, schedule, *, spec: dict = TRAIN,
     finally:
         FA.FlashAttention = kernel
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    record["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
     del trainer, state
     gc.collect()                     # the instrumented trainer holds a cycle
     torch.cuda.empty_cache()
@@ -1313,7 +1565,7 @@ def check_run(name: str, hist, launched: dict, *, steps: int, halves: int,
     want = {"flash_attention_fwd": per_kernel,
             "flash_attention_bwd_dq": per_kernel,
             "flash_attention_bwd_dkv": per_kernel, "stage_merge": merges,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "adam_sumsq": steps, "adam_update": steps}
     failures = [(s, st) for s in sorted(schedule) for st in schedule[s]]
     problems = []
     if len(hist.loss) != steps or not all(math.isfinite(x) for x in hist.loss):
@@ -1492,6 +1744,145 @@ def phase_train_dense(spec: dict, phase: str) -> dict:
                 "same clock")
     train_vs_plain(spec, "checkfree", hist.loss[:2], record["omegas"][:2])
     check_backward_on_path(spec, "checkfree")
+    return launched
+
+
+def phase_train_fused() -> dict:
+    """``checkfree_plus`` at TRAIN's full width and depth in fused windows
+    of 8 (CUDA graphs replayed under ``set_sync_debug_mode("error")``), the
+    merge of stage 3 at wall 13 cutting a window short and that of stage 2
+    at wall 25, against the same run in eager steps.  Returns the launch counts of the fused run, with the
+    graph's replays counted."""
+    cfg = get_config(TRAIN["arch"])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    eager_hist, eager_launched, eager_record, eager_peak = train_run(
+        "checkfree_plus", FUSED_STEPS, Forced(FUSED_SCHEDULE))
+    check_run("train_fused eager", eager_hist, eager_launched,
+              steps=FUSED_STEPS, halves=2, merges=2, schedule=FUSED_SCHEDULE)
+
+    modes = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def recording(graph):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return replay(graph)
+
+    held = {}
+
+    def setup(trainer, record):
+        # instrument() already times the recoveries
+        record.update(window_ms=[], rings=[])
+        runner = trainer.window
+        held["runner"] = runner
+        dispatch, drain = runner.dispatch, runner.drain
+
+        def timed_dispatch(state, stacked):
+            torch.cuda.synchronize()
+            record["t0"] = time.perf_counter()
+            return dispatch(state, stacked)
+
+        def timed_drain(pending):
+            state, ring = drain(pending)
+            record["window_ms"].append(
+                (pending.k, (time.perf_counter() - record["t0"]) * 1e3))
+            record["rings"].append(ring)
+            return state, ring
+
+        runner.dispatch, runner.drain = timed_dispatch, timed_drain
+
+    torch.cuda.CUDAGraph.replay = recording
+    try:
+        hist, launched, record, peak = train_run(
+            "checkfree_plus", FUSED_STEPS, Forced(FUSED_SCHEDULE),
+            setup=setup, window=FUSED_WINDOW)
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    runner = held.pop("runner")
+    graph = {"captures": runner.captures, "replays": runner.replays,
+             "recorded_launches": runner.recorded_launches}
+    replayed = {name: n * runner.replays
+                for name, n in runner.recorded_launches.items()}
+    del runner                       # its graph's pool and the bound state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the wrappers counted each recorded launch once, at the capture, which
+    # ran nothing; each replay ran the recorded launches
+    counted = dict(launched)
+    launched = {name: n + replayed.get(name, 0) - graph["captures"] *
+                graph["recorded_launches"].get(name, 0)
+                for name, n in counted.items()}
+    check_run("train_fused", hist, launched, steps=FUSED_STEPS, halves=2,
+              merges=2, schedule=FUSED_SCHEDULE)
+    rows = np.concatenate(record["rings"])
+    omegas = rows[:, OMEGAS:]
+    loss_err = [abs(a - b) for a, b in zip(hist.loss, eager_hist.loss)]
+    omega_err = [float(np.max(np.abs(a - b.numpy()) / np.abs(b.numpy())))
+                 for a, b in zip(omegas, eager_record["omegas"])]
+    sizes = [k for k, _ in record["window_ms"]]
+    steady = [ms for i, (k, ms) in enumerate(record["window_ms"])
+              if i > 0 and k == FUSED_WINDOW]
+    window_ms = float(np.median(steady))
+    free = [i for i in range(FUSED_STEPS) if i not in FUSED_SCHEDULE]
+    eager_ms = float(np.median([eager_record["step_ms"][i] for i in free]))
+    emit("train_fused", arch=cfg.name, layers=cfg.num_layers,
+         stages=TRAIN["stages"], params=cfg.param_count(), dtype=cfg.dtype,
+         masters="float32", strategy="checkfree_plus", batch=TRAIN["batch"],
+         seq=TRAIN["seq"], steps=FUSED_STEPS, fuse_window=FUSED_WINDOW,
+         schedule=FUSED_SCHEDULE, window_sizes=sizes,
+         dispatches=hist.dispatches, loss=hist.loss, loss_eager=eager_hist.loss,
+         loss_max_abs_err=max(loss_err), omega_max_rel_err=max(omega_err),
+         loss_tol=f"{FUSED_LOSS_TOL} * (1 + |loss|)",
+         omega_tol=TRAIN_OMEGA_TOL, failures=hist.failures,
+         recovery_errors=hist.recovery_errors,
+         recovery_errors_eager=eager_hist.recovery_errors,
+         launches=launched, launches_counted_by_wrappers=counted,
+         graph=graph,
+         sync_debug_modes=sorted(set(modes)), replays_checked=len(modes),
+         window_ms=record["window_ms"], window_ms_median_full=window_ms,
+         ms_per_step=window_ms / FUSED_WINDOW,
+         tokens_per_s=tokens / (window_ms / FUSED_WINDOW) * 1e3,
+         eager_step_ms=eager_record["step_ms"],
+         eager_step_ms_median_failure_free=eager_ms,
+         eager_tokens_per_s=tokens / eager_ms * 1e3,
+         merge_recovery_ms=[ms for _, _, ms in record["recovery_ms"]],
+         merge_device=record["recovery_device"],
+         eager_merge_recovery_ms=[ms for _, step, ms in
+                                  eager_record["recovery_ms"]],
+         eager_merge_device=eager_record["recovery_device"],
+         peak_memory_gib=peak, peak_reserved_gib=record["peak_reserved_gib"],
+         eager_peak_memory_gib=eager_peak,
+         eager_peak_reserved_gib=eager_record["peak_reserved_gib"],
+         nvidia_smi=smi(),
+         timing="window_ms: host clock from a synchronize before the "
+                "window's dispatch to the end of its drain (the ring's copy "
+                "to the host); the median over the full windows after the "
+                "first (which runs an eager step and the capture); "
+                "eager_step_ms: host clock around Trainer.step ending in a "
+                "synchronize, median over the failure-free steps; "
+                "merge_device: CUDA events around the handler, and the "
+                "caching allocator's new device allocations in it (the "
+                "capture keeps the cache of the eager step's blocks, on the "
+                "stream the boundaries' work runs on)")
+    problems = []
+    if hist.steps != eager_hist.steps or hist.failures != eager_hist.failures:
+        problems.append(f"trace {hist.steps}, failures {hist.failures}")
+    if any(e > FUSED_LOSS_TOL * (1 + abs(b))
+           for e, b in zip(loss_err, eager_hist.loss)) or \
+            len(loss_err) != FUSED_STEPS:
+        problems.append(f"losses against the eager run: {loss_err}")
+    if max(omega_err) > TRAIN_OMEGA_TOL:
+        problems.append(f"omegas against the eager run: {omega_err}")
+    if sizes != FUSED_SIZES:
+        problems.append(f"window sizes {sizes}, want {FUSED_SIZES}")
+    if any(m["device_allocs"] for m in record["recovery_device"]):
+        problems.append(f"merges that allocated device memory anew after the "
+                        f"capture: {record['recovery_device']}")
+    if graph["captures"] != 1 or len(modes) != graph["replays"] or \
+            set(modes) != {2}:
+        problems.append(f"replays {graph['replays']} under sync debug modes "
+                        f"{sorted(set(modes))} (2: error)")
+    if problems:
+        raise AssertionError("train_fused: " + "; ".join(problems))
     return launched
 
 
@@ -1714,7 +2105,7 @@ def train_ckpt(spec: dict, work: str) -> dict:
     want = {"flash_attention_fwd": per_kernel,
             "flash_attention_bwd_dq": per_kernel,
             "flash_attention_bwd_dkv": per_kernel, "stage_merge": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "adam_sumsq": walls, "adam_update": walls}
     if launched != want or len(save_ms) != 2:
         problems.append(f"launches {launched}, saves {save_ms}")
     if problems:
@@ -1858,7 +2249,7 @@ def train_neighbor(spec: dict, work: str) -> dict:
     want = {"flash_attention_fwd": per_kernel,
             "flash_attention_bwd_dq": per_kernel,
             "flash_attention_bwd_dkv": per_kernel, "stage_merge": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "adam_sumsq": walls, "adam_update": walls}
     if launched != want:
         problems.append(f"launches {launched}, want {want}")
     if problems:
@@ -1876,6 +2267,7 @@ def main() -> int:
     fwd = phase_kernel()
     dq, dkv = phase_kernel_bwd()
     merge = phase_kernel_merge()
+    adam_rows = phase_kernel_adam()
     ssd = phase_kernel_ssd()
     phase_model()
     serve = phase_serve(SERVE, "serve")
@@ -1890,13 +2282,14 @@ def main() -> int:
                              danube["attn_err"])
     phase_train_model()
     trained = {"train": phase_train(),
+               "train_fused": phase_train_fused(),
                "train_gemma": phase_train_dense(TRAIN_GEMMA, "train_gemma"),
                "train_danube": phase_train_dense(TRAIN_DANUBE,
                                                  "train_danube"),
                "train_ckpt": phase_train_ckpt(),
                "train_neighbor": phase_train_neighbor()}
-    # launches: the three training paths; by path: every path that ran it
-    for row in (fwd, dq, dkv, merge):
+    # launches: the training paths; by path: every path that ran it
+    for row in (fwd, dq, dkv, merge, *adam_rows):
         by_path = {path: n[row["name"]] for path, n in trained.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
@@ -1909,7 +2302,7 @@ def main() -> int:
     ssd["launches_by_path"] = {"serve_ssm": ssm["launches"]["ssd_scan"],
                                "serve_hybrid": hybrid["launches"]["ssd_scan"]}
     ssd["launches"] = sum(ssd["launches_by_path"].values())
-    rows = [fwd, dq, dkv, merge, ssd]
+    rows = [fwd, dq, dkv, merge, ssd, *adam_rows]
     if any(row["launches"] <= 0 for row in rows):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{[(r['name'], r['launches']) for r in rows]}")

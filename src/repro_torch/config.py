@@ -231,9 +231,8 @@ class TrainConfig:
     log_every: int = 10
     eval_every: int = 50
     eval_batches: int = 4
-    fuse_window: int = 8      # max iterations fused into one window in the
-                              # JAX trainer; the port's trainer is eager
-                              # (every window is 1 step) and ignores it
+    fuse_window: int = 8      # max iterations fused into one window
+                              # (1: one eager step a dispatch)
     seed: int = 0
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)

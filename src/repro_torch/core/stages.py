@@ -102,18 +102,30 @@ class StagePartition:
         """omega_i = ||grad W_{s,i}||^2, a (num_stages,) fp32 tensor.
 
         Per-layer squared norms of the stacked tower, then a segment sum
-        into stages, on the device.
+        into stages, on the device.  The plain version: training takes the
+        per-layer sums from ``ops.adam_sumsq``'s pass over the gradients and
+        reduces them with :meth:`stage_sums`.
         """
         per_layer = None
         for leaf in TR.leaves(grads[self.tower_key]):
             sq = leaf.float().square().reshape(leaf.shape[0], -1).sum(1)
             per_layer = sq if per_layer is None else per_layer + sq
+        return self.stage_sums(per_layer)
+
+    def stage_sums(self, per_layer: torch.Tensor) -> torch.Tensor:
+        """The (num_layers,) per-layer sums segment-summed into stages."""
         if self.uniform:
             # the JAX code's reduction shape on the uniform layout
             return per_layer.reshape(self.num_stages,
                                      self.layers_per_stage).sum(1)
         return torch.stack([per_layer[lo:hi].sum() for lo, hi in
                             zip(self._offsets[:-1], self._offsets[1:])])
+
+    def tower_flags(self, params: Params) -> List[bool]:
+        """For each leaf of ``params`` in ``tree.leaves`` order: whether it
+        is a leaf of the stacked tower (one row a layer along axis 0)."""
+        return [path[0] == self.tower_key
+                for path, _ in TR.leaves_with_path(params)]
 
     # ---- replicated (stage-0) leaves ----------------------------------
     def stage0_keys(self, params: Params) -> List[str]:

@@ -1,43 +1,56 @@
 """Failure-aware trainer: the paper's training loop with pluggable recovery
-strategies, on the host, one step at a time.
+strategies, on the host backend, in fused windows.
 
-The counterpart of ``repro.core.trainer`` on its host backend with
-``fuse_window=1``.  The trainer executes *wall iterations*; a
-:class:`~repro_torch.recovery.base.RecoveryStrategy` (made from
-``RecoveryConfig`` through the registry) reacts to the failure events of a
-schedule (any object with ``.at(step) -> [stages]``), changing the train
-state (the CheckFree merge, a twin copy, ...) and pricing wall-clock through
-its ``iteration_cost`` / ``failure_cost``.  The loop only consults the
-strategy's hooks and capability flags, never its name.  CheckFree+'s
-out-of-order microbatches run half the batch through the swapped stage
-order (``core/swap.py``).
+The counterpart of ``repro.core.trainer`` on its host backend.  The trainer
+executes *wall iterations*; a :class:`~repro_torch.recovery.base.
+RecoveryStrategy` (made from ``RecoveryConfig`` through the registry) reacts
+to the failure events of a schedule (any object with ``.at(step) ->
+[stages]``), changing the train state (the CheckFree merge, a twin copy, a
+rollback, ...) and pricing wall-clock through its ``iteration_cost`` /
+``failure_cost``.  The loop only consults the strategy's hooks and
+capability flags, never its name.  CheckFree+'s out-of-order microbatches
+run half the batch through the swapped stage order (``core/swap.py``).
 
 Each step is one forward and backward through ``Model.loss`` on fp32 master
-parameters (cast to ``cfg.dtype`` inside the graph), the per-stage squared
-gradient norms (Alg. 1's omega), and one in-place Adam update.  On the card
-the attention forward and backward and every merge run the hand-written
-CUDA kernels; on the CPU their plain versions.  The host reads one number a
-step (the loss) and one per failure (its recovery error).
+parameters (cast to ``cfg.dtype`` inside the graph), the per-layer and total
+squared gradient norms in one pass (``ops.adam_sumsq``; the stages' omegas,
+Alg. 1, are their segment sums), and one in-place Adam update on device
+scalars (``optim.adam.adam_step``).  On the card the attention forward and
+backward, both Adam kernels and every merge run the hand-written CUDA
+kernels; on the CPU their plain versions.
+
+**Fused windows** (``tcfg.fuse_window`` > 1, 8 by default as in JAX): the
+failure schedule is known ahead, so between failure events the loop runs K
+uninterrupted steps as one window (``core/window.py``): a CUDA graph
+replayed K times on the card, with no host read inside; the step's metrics
+gather in a device ring, drained with one copy a window.  A window ends at a
+scheduled failure, an eval point, the strategy's ``after_step_horizon`` or
+the end of the run, and its size is bucketed to powers of two
+(:func:`_window_buckets`, :meth:`Trainer._window_size`, as JAX's).  The next
+window's batches are stacked on a worker thread
+(:class:`~repro_torch.data.pipeline.WindowPrefetcher`) while the current
+one runs.  With ``fuse_window=1`` the loop runs the eager
+:meth:`Trainer.step`, one step a dispatch, reading the loss back each step.
 
 When the schedule exposes ``iteration_factor`` / ``failure_overhead`` the
 loop prices iterations and recoveries with them, and when it exposes
 ``observed_rate`` the strategy receives the failure rate each wall
 iteration, as in the JAX trainer.
 
-Batches are drawn by effective step from a replay cache
-(:class:`~repro_torch.data.pipeline.ReplayCache`, bounded by the strategy's
-``replay_horizon``), so a rollback replays the lost steps' batches.  The
-strategy is bound with a from-scratch init (the run's starting parameters
-again, with zero moments) for restarts.  The state is updated in place, so
-strategies that save it copy it out, and restores copy into the live
-tensors.
+Batches are drawn by effective step from the prefetcher's replay cache
+(bounded by the strategy's ``replay_horizon``), so a rollback replays the
+lost steps' batches.  The strategy is bound with a from-scratch init (the
+run's starting parameters again, with zero moments) for restarts.  The
+state is updated in place, so strategies that save it copy it out, and
+restores copy into the live tensors.
 
-Not ported yet: fused windows and CUDA graphs (ROADMAP.md queue 1, item 3),
-the SPMD pipeline backend, simulated-cluster scenarios, elastic
-repartitioning (item 5) and telemetry events (item 6).
+Not ported yet: the SPMD pipeline backend, simulated-cluster scenarios,
+elastic repartitioning (ROADMAP.md queue 1, items 4, 5 and 10) and
+telemetry events (item 6).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -51,17 +64,18 @@ from repro_torch.core.stages import StagePartition
 from repro_torch.core.state import History, TrainState
 from repro_torch.core.swap import swap_permutation
 from repro_torch.core.walltime import WallClockModel
-from repro_torch.data.pipeline import ReplayCache
+from repro_torch.core.window import OMEGAS, RECORD, FusedWindow
+from repro_torch.data.pipeline import WindowPrefetcher
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
-from repro_torch.optim.adam import adam_update, init_adam
+from repro_torch.optim.adam import OptState, adam_step, init_adam
 from repro_torch.recovery import FailureContext, RecoveryStrategy, make_strategy
 from repro_torch.telemetry import log
 
 Params = Any
 Batch = Dict[str, torch.Tensor]
-_F32 = np.float32
 
 
 def make_loss_fn(model: Model, part: StagePartition, use_swap: bool,
@@ -89,8 +103,19 @@ def make_loss_fn(model: Model, part: StagePartition, use_swap: bool,
     return loss_fn
 
 
+def _window_buckets(cap: int) -> List[int]:
+    """Descending power-of-two window sizes <= cap (always ending in 1)
+    (``repro/core/trainer.py:200-211``)."""
+    buckets = []
+    k = 1
+    while k <= cap:
+        buckets.append(k)
+        k *= 2
+    return buckets[::-1]
+
+
 class Trainer:
-    """Drives (model x recovery strategy x failure schedule), eagerly.
+    """Drives (model x recovery strategy x failure schedule).
 
     ``model`` gives the config and the device (``Model(cfg,
     weights=False)``: the trainer keeps its own fp32 master parameters).
@@ -126,6 +151,13 @@ class Trainer:
         self.strategy.bind(self.part, init_fn=self.fresh_init)
         self.loss_fn = make_loss_fn(model, self.part,
                                     self.strategy.uses_swap_schedule)
+        self._buckets = _window_buckets(max(int(tcfg.fuse_window), 1))
+        # window sizes dispatched, as the JAX trainer keeps them
+        self.dispatched_buckets: set = set()
+        self._evals: Optional[List[Batch]] = None
+        #: runs the fused windows
+        self.window = FusedWindow(self._body, self.device,
+                                  self.part.num_stages)
 
     # ---- parameters and batches ---------------------------------------
     def init_params(self) -> Params:
@@ -162,31 +194,56 @@ class Trainer:
         return TrainState(params, init_adam(params))
 
     # ---- one step ------------------------------------------------------
-    def step(self, state: TrainState, batch: Batch,
-             ) -> Tuple[TrainState, torch.Tensor, Dict[str, Any]]:
-        """Forward, backward, omegas, Adam: one effective step.
-
-        Returns the new state, the loss (a 0-d tensor on the device) and the
-        step's metrics (``ce``, ``aux``, ``grad_norm``, ``lr``).
-        """
-        params = state.params
+    def _body(self, params: Params, m: List[torch.Tensor],
+              v: List[torch.Tensor], batch: Batch, step: torch.Tensor,
+              lr_scale: torch.Tensor) -> torch.Tensor:
+        """One step on device scalars, no host read: forward, backward, the
+        squared norms, Adam, the lr-boost decay of ``lr_scale`` (in place,
+        in fp32 as the JAX scan carry).  ``step`` (0-d int32) counts the
+        step.  Returns the step's record (``core.window.RECORD``, then the
+        omegas) as an fp32 vector on the device."""
         loss, metrics = self.loss_fn(params, batch)
         loss.backward()
-        grads = TR.map(lambda p: p.grad, params)
-        omegas = self.part.stage_grad_sqnorms(grads)
-        params, opt_state, opt_metrics = adam_update(
-            self.tcfg.optimizer, params, grads, state.opt_state,
-            state.lr_scale)
-        for p in TR.leaves(params):
-            p.grad = None
-        # the CheckFree LR-boost decay, in fp32 as the JAX scan carry
-        ls = _F32(state.lr_scale)
-        lr_scale = float(_F32(1) + (ls - _F32(1)) *
-                         _F32(self.rcfg.lr_boost_decay))
-        metrics = {**metrics, **opt_metrics}
-        state = TrainState(params, opt_state, lr_scale, omegas.detach(),
-                           state.effective_step + 1)
-        return state, loss.detach(), metrics
+        leaves = TR.leaves(params)
+        grads = [p.grad for p in leaves]
+        with torch.no_grad():
+            per_layer, total = ops.adam_sumsq(
+                grads, self.part.tower_flags(params), self.part.num_layers)
+            omegas = self.part.stage_sums(per_layer)
+            grad_norm = total.sqrt()
+            scalars = adam_step(self.tcfg.optimizer, leaves, grads, m, v,
+                                step, lr_scale, grad_norm)
+            for p in leaves:
+                p.grad = None
+            lr = scalars[1]
+            lr_scale.sub_(1).mul_(self.rcfg.lr_boost_decay).add_(1)
+            return torch.cat([
+                torch.stack([loss.detach(), metrics["ce"].detach(),
+                             metrics["aux"].detach(), grad_norm, lr, lr_scale,
+                             step.float()]),
+                omegas])
+
+    def step(self, state: TrainState, batch: Batch,
+             ) -> Tuple[TrainState, torch.Tensor, Dict[str, Any]]:
+        """Forward, backward, omegas, Adam: one effective step, eagerly,
+        reading the decayed ``lr_scale`` back to the host state.
+
+        Returns the new state, the loss (a 0-d tensor on the device) and the
+        step's metrics (``ce``, ``aux``, ``grad_norm``, ``lr``: 0-d tensors).
+        """
+        opt = state.opt_state
+        step = torch.full((), opt.step, dtype=torch.int32, device=self.device)
+        lr_scale = torch.full((), state.lr_scale, dtype=torch.float32,
+                              device=self.device)
+        rec = self._body(state.params, TR.leaves(opt.m), TR.leaves(opt.v),
+                         batch, step, lr_scale)
+        # the body decayed lr_scale on the device; the host state holds it
+        lr_scale = float(rec[RECORD.index("lr_scale")])
+        metrics = {name: rec[RECORD.index(name)]
+                   for name in ("ce", "aux", "grad_norm", "lr")}
+        state = TrainState(state.params, OptState(opt.m, opt.v, opt.step + 1),
+                           lr_scale, rec[OMEGAS:], state.effective_step + 1)
+        return state, rec[RECORD.index("loss")], metrics
 
     @torch.no_grad()
     def eval_loss(self, params: Params, batch: Batch) -> torch.Tensor:
@@ -195,11 +252,48 @@ class Trainer:
                            batch["tokens"])
         return L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
 
+    # ---- window sizing -------------------------------------------------
+    def _window_size(self, wall_step: int, effective_step: int,
+                     max_wall: int) -> int:
+        """Largest bucketed K such that steps [wall_step, wall_step+K) are
+        failure-free after the first, no interior step needs host state
+        (strategy horizon / eval), and the run doesn't overshoot
+        (``repro/core/trainer.py:304-333``; no regrow: elastic training is
+        not ported)."""
+        cap = self._buckets[0]
+        cap = min(cap, self.tcfg.steps - effective_step)
+        cap = min(cap, max_wall - wall_step)
+        horizon = self.strategy.after_step_horizon(effective_step)
+        if horizon is not None:
+            cap = min(cap, horizon)
+        if self._evals:
+            ev = self.tcfg.eval_every
+            cap = min(cap, ev - effective_step % ev)
+        if self.schedule is not None:
+            for i in range(1, cap):
+                if self.schedule.at(wall_step + i):
+                    cap = i
+                    break
+        for k in self._buckets:
+            if k <= cap:
+                return k
+        return 1
+
+    # ---- fused windows -------------------------------------------------
+    def run_window(self, state: TrainState,
+                   stacked: Dict[str, np.ndarray]
+                   ) -> Tuple[TrainState, np.ndarray]:
+        """One fused window of ``stacked`` (k numpy batches on a leading
+        axis) from ``state`` -> (the state after it, its ring: k rows of
+        ``core.window.RECORD`` then the omegas, on the host)."""
+        return self.window.drain(self.window.dispatch(state, stacked))
+
     # ---- main loop ----------------------------------------------------
     def run(self, batches: Iterable[Dict[str, np.ndarray]],
             eval_batches: Optional[List] = None, params: Optional[Params] = None,
             verbose: bool = False) -> Tuple[TrainState, History]:
-        """Train ``tcfg.steps`` effective steps on ``batches`` (numpy dicts).
+        """Train ``tcfg.steps`` effective steps on ``batches`` (numpy dicts):
+        in fused windows when ``tcfg.fuse_window`` > 1, else eagerly.
 
         ``params`` (default: :meth:`init_params`) are the initial parameters,
         e.g. JAX's ``model.init`` through ``convert.params_from_numpy``.
@@ -215,14 +309,21 @@ class Trainer:
         # the failure events' random draws: a stream of its own, apart from
         # the parameters' init
         self._event_rng = np.random.default_rng([tcfg.seed, 1])
-        evals = ([self.device_batch(eb) for eb in eval_batches]
-                 if eval_batches else None)
-        replay = ReplayCache(batches)
+        self._evals = ([self.device_batch(eb) for eb in eval_batches]
+                       if eval_batches else None)
+        prefetch = WindowPrefetcher(batches)
         max_wall = tcfg.steps * 10  # safety bound for rollback-heavy runs
+        fused = tcfg.fuse_window > 1
+        loop = self._loop_fused if fused else self._loop
         try:
-            state, hist, wall_step = self._loop(state, hist, replay, evals,
-                                                max_wall, verbose)
+            # on the card a fused run's work between windows runs on the
+            # windows' stream, sharing its cached blocks
+            with (self.window.streamed() if fused else
+                  contextlib.nullcontext()):
+                state, hist, wall_step = loop(state, hist, prefetch,
+                                              max_wall, verbose)
         finally:
+            prefetch.close()
             self.strategy.on_run_end()
         hist.wall_iters = wall_step
         if state.effective_step < tcfg.steps:
@@ -278,7 +379,22 @@ class Trainer:
                 charge(stage)
         return state, clock
 
-    def _loop(self, state, hist, replay, evals, max_wall, verbose):
+    def _evaluate(self, state: TrainState, hist: History, clock: float,
+                  verbose: bool) -> None:
+        """The eval losses at an eval point, at a window boundary."""
+        if not (self._evals and
+                state.effective_step % self.tcfg.eval_every == 0):
+            return
+        el = float(np.mean([self.eval_loss(state.params, eb).item()
+                            for eb in self._evals]))
+        hist.eval_loss.append((state.effective_step, clock, el))
+        if verbose:
+            log(f"  step {state.effective_step:4d} wall "
+                f"{clock / 3600:7.2f}h loss {hist.loss[-1]:.3f} "
+                f"eval {el:.3f}")
+
+    def _loop(self, state, hist, prefetch, max_wall, verbose):
+        """One eager step a wall iteration (``fuse_window=1``)."""
         tcfg = self.tcfg
         strategy = self.strategy
         iter_factor = getattr(self.schedule, "iteration_factor", None)
@@ -294,9 +410,10 @@ class Trainer:
                 state, clock = self._handle_failures(state, hist, clock,
                                                      wall_step,
                                                      failure_overhead)
-            batch = replay.get(state.effective_step)
+            batch = prefetch.get(state.effective_step)
             state, loss, _ = self.step(state, self.device_batch(batch))
             hist.dispatches += 1
+            self.dispatched_buckets.add(1)
             factor = iter_factor(wall_step) if iter_factor is not None else 1.0
             clock += strategy.iteration_cost() * factor
             hist.steps.append(state.effective_step)
@@ -304,14 +421,59 @@ class Trainer:
             hist.loss.append(loss.item())
             strategy.after_step(state, hist)
             if horizon is not None:
-                replay.evict_below(state.effective_step - horizon)
-            if evals and state.effective_step % tcfg.eval_every == 0:
-                el = float(np.mean([self.eval_loss(state.params, eb).item()
-                                    for eb in evals]))
-                hist.eval_loss.append((state.effective_step, clock, el))
-                if verbose:
-                    log(f"  step {state.effective_step:4d} wall "
-                        f"{clock / 3600:7.2f}h loss {hist.loss[-1]:.3f} "
-                        f"eval {el:.3f}")
+                prefetch.evict_below(state.effective_step - horizon)
+            self._evaluate(state, hist, clock, verbose)
             wall_step += 1
+        return state, hist, wall_step
+
+    def _loop_fused(self, state, hist, prefetch, max_wall, verbose):
+        """Fused windows, in the order of ``repro/core/trainer.py:585-668``:
+        failures at the boundary, the window, one drain, per-iteration
+        pricing and history, ``after_step`` once, eviction, eval."""
+        tcfg = self.tcfg
+        strategy = self.strategy
+        runner = self.window
+        iter_factor = getattr(self.schedule, "iteration_factor", None)
+        failure_overhead = getattr(self.schedule, "failure_overhead", None)
+        observed_rate = getattr(self.schedule, "observed_rate", None)
+        replay = strategy.replay_horizon()
+        loss_col = RECORD.index("loss")
+        clock = 0.0
+        wall_step = 0
+        while state.effective_step < tcfg.steps and wall_step < max_wall:
+            if observed_rate is not None:
+                strategy.observe_environment(observed_rate(wall_step))
+            if self.schedule is not None:
+                state, clock = self._handle_failures(state, hist, clock,
+                                                     wall_step,
+                                                     failure_overhead)
+            # the window: k steps, one dispatch, no host read inside
+            k = self._window_size(wall_step, state.effective_step, max_wall)
+            pending = runner.dispatch(state,
+                                      prefetch.take(state.effective_step, k))
+            hist.dispatches += 1
+            self.dispatched_buckets.add(k)
+            # while the card runs this window, line up the next one (a
+            # failure at the boundary replays from the cache instead)
+            next_k = self._window_size(wall_step + k,
+                                       state.effective_step + k, max_wall)
+            if state.effective_step + k < tcfg.steps:
+                prefetch.prime(state.effective_step + k, next_k)
+            # one copy to the host for the window's k steps
+            state, ring = runner.drain(pending)
+            for i in range(k):
+                if i > 0 and observed_rate is not None:
+                    strategy.observe_environment(observed_rate(wall_step + i))
+                factor = (iter_factor(wall_step + i) if iter_factor is not None
+                          else 1.0)
+                clock += strategy.iteration_cost() * factor
+                hist.steps.append(state.effective_step - k + i + 1)
+                hist.wall_time.append(clock)
+                hist.loss.append(float(ring[i, loss_col]))
+            # interior steps were certified skippable by after_step_horizon
+            strategy.after_step(state, hist)
+            if replay is not None:
+                prefetch.evict_below(state.effective_step - replay)
+            self._evaluate(state, hist, clock, verbose)
+            wall_step += k
         return state, hist, wall_step

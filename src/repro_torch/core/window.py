@@ -1,0 +1,223 @@
+"""Fused training windows: K steps of the step body with no host read inside.
+
+The counterpart of the JAX package's ``make_fused_train_step``
+(``repro/core/trainer.py:145-187``): one jitted ``lax.scan`` over a stacked
+window of batches, with ``lr_scale`` carried on the device and the step's
+metrics gathered into an on-device ring.  Here a :class:`FusedWindow` runs a
+step body (``Trainer._body``: loss, backward, the Adam kernels on device
+scalars, the ``lr_scale`` decay) K times on one stacked window:
+
+* On the card the body is a CUDA graph.  A window's first step of the run
+  is an eager step on the window's stream (a real step: it also builds the
+  kernels and warms autograd and cuBLAS up), then one step is captured and
+  replayed for every later step: before each replay that step's slot of
+  the stacked window is copied into the graph's static batch, after it the
+  step's record is copied into ring slot i.  Every step but the capture's
+  one-time synchronize runs under ``torch.cuda.set_sync_debug_mode
+  ("error")``, the counterpart of ``repro/analysis/runtime.py:112``
+  ``sync_free``.  The capture keeps the caching allocator's blocks (unlike
+  ``torch.cuda.graph``, which empties the cache first), and the trainer
+  runs the work between windows on the same stream (:meth:`FusedWindow.
+  streamed`), so a merge at a boundary reuses the blocks the eager step
+  freed instead of allocating device memory anew.
+* On the CPU the same body runs K times without capture.
+
+A graph replays fixed addresses, so the window binds the state's leaves
+(parameters, moments) at its first window; before each later window a leaf
+whose identity changed (a strategy that hands back new tensors) is copied
+into the bound one.  The device mirror of the host step (the Adam step
+counter, ``lr_scale``) is written from the host state before every window,
+since a rollback, a restart or a merge may have changed either; the ring
+brings both back in the window's single copy to the host.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import tree as TR
+from repro_torch.core.state import TrainState
+from repro_torch.kernels import ops
+from repro_torch.optim.adam import OptState
+
+#: a step's record, one fp32 row of the ring: these, then the stages' omegas
+RECORD = ("loss", "ce", "aux", "grad_norm", "lr", "lr_scale", "step")
+OMEGAS = len(RECORD)
+
+Batch = Dict[str, torch.Tensor]
+# body(params, m, v, batch, step, lr_scale) -> the step's record: params the
+# tree, m and v its moments' leaves, step (0-d int32) and lr_scale (0-d fp32)
+# the device mirror, advanced in place
+Body = Callable[..., torch.Tensor]
+
+
+@contextlib.contextmanager
+def sync_free(device: torch.device) -> Iterator[None]:
+    """On the card, any synchronizing CUDA call inside raises."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+@dataclasses.dataclass
+class Pending:
+    """A dispatched window: the state it started from, its size and its
+    ring on the device (k rows of :data:`RECORD` + omegas)."""
+    state: TrainState
+    k: int
+    ring: torch.Tensor
+
+
+class FusedWindow:
+    """Runs windows of ``body`` on ``device`` (graph replays on the card)."""
+
+    def __init__(self, body: Body, device: torch.device, num_stages: int):
+        self.body = body
+        self.device = device
+        self.width = OMEGAS + num_stages
+        # the device mirror of the host step, baked into the graph
+        self.step = torch.zeros((), dtype=torch.int32, device=device)
+        self.lr_scale = torch.ones((), dtype=torch.float32, device=device)
+        self.params = self.m = self.v = None      # the bound trees
+        self.graph = None
+        self.static_batch: Batch = {}
+        self.static_record = None
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        #: graphs captured, replays run, and the kernel launches that the
+        #: capture recorded (the wrappers count a launch once, when it is
+        #: recorded; each replay runs it again): the replays ran
+        #: ``recorded_launches`` times ``replays``
+        self.captures = 0
+        self.replays = 0
+        self.recorded_launches: Dict[str, int] = {}
+
+    # ---- state -----------------------------------------------------------
+    @torch.no_grad()
+    def bind(self, state: TrainState) -> TrainState:
+        """``state`` on the bound leaves: the first window binds its leaves;
+        later, a leaf whose identity changed is copied into the bound one."""
+        trees = (state.params, state.opt_state.m, state.opt_state.v)
+        if self.params is None:
+            self.params, self.m, self.v = trees
+            return state
+        for bound, tree in zip((self.params, self.m, self.v), trees):
+            for a, b in zip(TR.leaves(bound), TR.leaves(tree)):
+                if a is not b:
+                    a.copy_(b)
+        return dataclasses.replace(
+            state, params=self.params,
+            opt_state=OptState(self.m, self.v, state.opt_state.step))
+
+    def streamed(self) -> contextlib.AbstractContextManager:
+        """On the card, the window's stream as the current one: the work
+        between windows then shares the cached blocks of the eager step."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def _stage(self, stacked: Dict[str, np.ndarray]) -> Batch:
+        """The stacked window on the device: on the card through pinned
+        memory, one asynchronous copy a key."""
+        out = {}
+        for key, arr in stacked.items():
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[key] = t
+        return out
+
+    # ---- one window ------------------------------------------------------
+    def _run_body(self, batch: Batch) -> torch.Tensor:
+        return self.body(self.params, TR.leaves(self.m), TR.leaves(self.v),
+                         batch, self.step, self.lr_scale)
+
+    def dispatch(self, state: TrainState, stacked: Dict[str, np.ndarray]
+                 ) -> Pending:
+        """Start the window ``stacked`` (k batches on a leading axis) from
+        ``state``; on the card it runs on while the host goes on."""
+        state = self.bind(state)
+        self.step.fill_(state.opt_state.step)
+        self.lr_scale.fill_(state.lr_scale)
+        window = self._stage(stacked)
+        k = next(iter(window.values())).shape[0]
+        ring = torch.empty((k, self.width), dtype=torch.float32,
+                           device=self.device)
+        slot = lambda i: {key: t[i] for key, t in window.items()}  # noqa: E731
+        if self.device.type != "cuda":
+            for i in range(k):
+                ring[i].copy_(self._run_body(slot(i)))
+            return Pending(state, k, ring)
+        first = 0
+        if self.graph is None:
+            # the run's first step, eager on the side stream the graph is
+            # captured on: a real step, and the capture's warm-up
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            with sync_free(self.device), torch.cuda.stream(self.stream):
+                ring[0].copy_(self._run_body(slot(0)))
+            current.wait_stream(self.stream)
+            self._capture(slot(0))
+            first = 1
+        else:
+            want = {key: tuple(t.shape) for key, t in self.static_batch.items()}
+            got = {key: tuple(t.shape[1:]) for key, t in window.items()}
+            if got != want:
+                raise ValueError(f"a window of batches {got}; the captured "
+                                 f"step takes {want}")
+        with sync_free(self.device):
+            for i in range(first, k):
+                for key, t in self.static_batch.items():
+                    t.copy_(window[key][i])
+                self.graph.replay()
+                ring[i].copy_(self.static_record)
+                self.replays += 1
+        return Pending(state, k, ring)
+
+    def _capture(self, batch: Batch) -> None:
+        """Capture one step of the body into the graph's own pool
+        (synchronizes once; the capture itself runs nothing).  The cache of
+        the eager step's blocks is kept for the work between windows."""
+        self.static_batch = {key: torch.empty_like(t) for key, t in
+                             batch.items()}
+        before = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin()
+            try:
+                self.static_record = self._run_body(self.static_batch)
+            finally:
+                graph.capture_end()
+        after = ops.launch_counts()
+        self.recorded_launches = {name: after[name] - before[name]
+                                  for name in after}
+        self.graph = graph
+        self.captures += 1
+
+    def drain(self, pending: Pending) -> Tuple[TrainState, np.ndarray]:
+        """Wait for the window and bring its ring to the host in one copy ->
+        (the state after it, the ring as a (k, width) fp32 array)."""
+        state, k = pending.state, pending.k
+        ring = pending.ring.cpu().numpy()
+        step = state.opt_state.step + k
+        if int(ring[-1, RECORD.index("step")]) != step:
+            raise AssertionError(
+                f"the device step counter reads "
+                f"{int(ring[-1, RECORD.index('step')])} after a window of {k} "
+                f"from step {state.opt_state.step}")
+        return TrainState(
+            state.params, OptState(state.opt_state.m, state.opt_state.v, step),
+            float(ring[-1, RECORD.index("lr_scale")]),
+            pending.ring[-1, OMEGAS:], state.effective_step + k), ring
+

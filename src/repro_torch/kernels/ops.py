@@ -6,14 +6,18 @@ raises: there is no silent fallback.  ``flash_attention`` also adapts the
 model layout (B, S, H, D) to the kernel layout (B, H, S, D) as strided views,
 so no copy is made on the way in or out.  ``ssd_scan`` has no backward on
 the card (nor has the TPU kernel): it refuses inputs that require a gradient
-there rather than return a result cut from the graph.
+there rather than return a result cut from the graph.  ``adam_sumsq`` and
+``adam_update`` have no TPU counterpart: they are the port's counterpart of
+XLA's fusion of the optimizer step.  :func:`launch_counts` reads every
+wrapper's count of launches.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import adam as AD
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as SSD
@@ -97,3 +101,48 @@ def ssd_scan(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     if init_state is not None:
         init_state = init_state.float().contiguous()
     return SSD.ssd_scan(xb, a, bmat, cmat, chunk=chunk, init_state=init_state)
+
+
+def adam_sumsq(grads: Sequence[torch.Tensor], tower: Sequence[bool],
+               layers: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(per-layer sums of squares (layers,), total), fp32, of every gradient
+    leaf: ``tower[i]`` marks a leaf of the stacked tower, whose ``layers``
+    rows are summed apart (the stages' omegas); the total covers every leaf
+    (the global norm).  On CUDA one pass of the kernel over every leaf."""
+    grads = list(grads)
+    device = grads[0].device
+    if device.type == "cpu":
+        return ref.adam_sumsq_ref(grads, tower, layers)
+    if device.type == "cuda":
+        return AD.adam_sumsq(grads, tower, layers)
+    raise ValueError(f"adam_sumsq: no kernel and no plain version for "
+                     f"tensors on {device}")
+
+
+def adam_update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+                m: Sequence[torch.Tensor], v: Sequence[torch.Tensor],
+                scalars: torch.Tensor, *, betas: Tuple[float, float],
+                eps: float, weight_decay: float, clip: bool) -> None:
+    """One Adam step of every fp32 leaf, in place: ``scalars`` is (clip
+    scale, lr, bc1, bc2) on the leaves' device.  On CUDA one launch of the
+    kernel for every leaf."""
+    params = list(params)
+    device = params[0].device
+    kw = dict(betas=betas, eps=eps, weight_decay=weight_decay, clip=clip)
+    if device.type == "cpu":
+        ref.adam_update_ref(params, grads, m, v, scalars, **kw)
+    elif device.type == "cuda":
+        AD.adam_update(params, grads, m, v, scalars, **kw)
+    else:
+        raise ValueError(f"adam_update: no kernel and no plain version for "
+                         f"tensors on {device}")
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each kernel's launches in this process, by the wrappers' counts."""
+    return {"flash_attention_fwd": FA.launches,
+            "flash_attention_bwd_dq": FA.launches_dq,
+            "flash_attention_bwd_dkv": FA.launches_dkv,
+            "stage_merge": SM.launches, "ssd_scan": SSD.launches,
+            "adam_sumsq": AD.launches_sumsq,
+            "adam_update": AD.launches_update}

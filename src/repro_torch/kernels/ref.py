@@ -6,7 +6,7 @@ card hold each CUDA kernel against them on the same inputs.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -86,6 +86,43 @@ def stage_merge_ref(x: torch.Tensor, y: torch.Tensor, ca, cb) -> torch.Tensor:
     ca = torch.as_tensor(ca, dtype=torch.float32, device=x.device)
     cb = torch.as_tensor(cb, dtype=torch.float32, device=x.device)
     return (ca * x.float() + cb * y.float()).to(x.dtype)
+
+
+def adam_sumsq_ref(grads: Sequence[torch.Tensor], tower: Sequence[bool],
+                   layers: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(per-layer sums of squares (layers,), total), fp32: the tower leaves'
+    rows along axis 0 summed per layer over the leaves, and every leaf's
+    squares summed (the squares of ``repro.optim.adam.global_norm`` and of
+    ``repro.core.stages.StagePartition.stage_grad_sqnorms``)."""
+    per_layer = torch.zeros(layers, dtype=torch.float32,
+                            device=grads[0].device)
+    for g, t in zip(grads, tower):
+        if t:
+            per_layer = per_layer + g.float().square().reshape(layers, -1).sum(1)
+    total = torch.stack([g.float().square().sum() for g in grads]).sum()
+    return per_layer, total
+
+
+@torch.no_grad()
+def adam_update_ref(params: Sequence[torch.Tensor],
+                    grads: Sequence[torch.Tensor], m: Sequence[torch.Tensor],
+                    v: Sequence[torch.Tensor], scalars: torch.Tensor, *,
+                    betas: Tuple[float, float], eps: float,
+                    weight_decay: float, clip: bool) -> None:
+    """One Adam step of every leaf, in place (``repro/optim/adam.py:79-104``):
+    ``scalars`` = (clip scale, lr, bc1, bc2), fp32 on the leaves' device."""
+    scale, lr, bc1, bc2 = scalars.unbind()
+    b1, b2 = betas
+    for p, g, mm, vv in zip(params, grads, m, v):
+        g = g.float()
+        if clip:
+            g = g * scale
+        mm.mul_(b1).add_(g, alpha=1 - b1)
+        vv.mul_(b2).add_(g.square(), alpha=1 - b2)
+        delta = (mm / bc1).mul_(lr).div_((vv / bc2).sqrt_().add_(eps))
+        if weight_decay > 0:
+            delta.add_(p.float() * (lr * weight_decay))
+        p.sub_(delta.to(p.dtype))
 
 
 def ssd_scan_ref(x: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,

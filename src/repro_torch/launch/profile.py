@@ -5,22 +5,31 @@
         --full --batch 8 --prompt-len 512 --decode-steps 8
     PYTHONPATH=src python -m repro_torch.launch.profile --arch paper-llama-1.5b \
         --full --batch 8 --prompt-len 512 --train-steps 3
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch paper-llama-1.5b \
+        --full --batch 8 --prompt-len 512 --train-steps 16 --fuse-window 8
     PYTHONPATH=src python -m repro_torch.launch.profile --arch h2o-danube-3-4b \
         --full --layers 12 --batch 4 --train-steps 3 --strategy checkfree
     PYTHONPATH=src python -m repro_torch.launch.profile --arch mamba2-1.3b --full
 
 Serving: builds the model and prompt as ``launch.serve`` does, warms up,
 then takes prefill and decode apart.  Training (``--train-steps``): builds
-the eager Trainer (``--strategy``, the config's stage count), warms up one
-step, then profiles that many steps of ``Trainer.step`` on batches of
-``--batch`` x ``--prompt-len`` made on the device beforehand (``--layers``
-cuts the depth).  Each phase
+the Trainer (``--strategy``, the config's stage count), warms up one step,
+then profiles that many steps of the eager ``Trainer.step`` on batches of
+``--batch`` x ``--prompt-len`` made on the device beforehand; with
+``--fuse-window K`` > 1 it warms up one window (which captures the CUDA
+graph), then profiles ``--train-steps / K`` windows of K steps through
+``Trainer.run_window`` (staging the stacked numpy window, the replays, the
+drain), on windows stacked beforehand (``--layers`` cuts the depth).  Each
+phase
 prints one JSON line: the wall time (host clock around work that ends in a
 synchronize, without the profiler), the device busy time (the sum of the
-CUDA kernels' durations in a profiled run of the same work), the device's
-idle share ``1 - busy / wall``, the number of kernels launched, the device
+CUDA kernels' durations in a profiled run of the same work), the device
+span of that run (from its first kernel's start to its last kernel's end;
+the profiler traces the device only), the device's idle share ``1 - busy /
+span``, both from the one traced run,
+the number of kernels launched, the device
 time by family (the port's kernels: flash attention, the stage merge, the
-SSD scan; cuBLAS matrix products; everything else), the device time of each
+SSD scan, Adam; cuBLAS matrix products; everything else), the device time of each
 of the port's kernels by name, and the kernels that take the most device
 time.  Decode and training
 numbers are per step.  Needs a CUDA device.
@@ -33,7 +42,7 @@ import re
 import subprocess
 import time
 from collections import defaultdict
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,21 +66,26 @@ def _wall_s(fn: Callable[[], None]) -> float:
     return time.perf_counter() - t0
 
 
-def _kernels(fn: Callable[[], None]) -> dict:
-    """{kernel name: [calls, device us]} of one profiled run of ``fn``."""
+def _kernels(fn: Callable[[], None]) -> Tuple[dict, float]:
+    """({kernel name: [calls, device us]}, the device span in us) of one
+    profiled run of ``fn``."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device only: tracing the host's operators too slows a host-bound
+    # step down and stretches the span
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     out = defaultdict(lambda: [0, 0.0])
+    start, end = float("inf"), float("-inf")
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             out[e.name][0] += 1
             out[e.name][1] += e.time_range.elapsed_us()
+            start = min(start, e.time_range.start)
+            end = max(end, e.time_range.end)
     if not out:
         raise RuntimeError("the profiler recorded no CUDA kernels")
-    return out
+    return out, end - start
 
 
 # kernel families by name: the port's own kernels, cuBLAS's matrix products
@@ -80,11 +94,13 @@ def _kernels(fn: Callable[[], None]) -> dict:
 _FAMILIES = (("flash_attention", ("flash_fwd", "flash_bwd")),
              ("stage_merge", ("stage_merge",)),
              ("ssd_scan", ("ssd_scan",)),
+             ("adam", ("adam_update_kernel", "sumsq_")),
              ("matmul", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
 
 
 # the port's kernel names within the profiler's demangled signatures
-_OURS = re.compile(r"(flash_\w+|stage_merge\w*|ssd_scan\w*)(<[^>]*>)?")
+_OURS = re.compile(r"(flash_\w+|stage_merge\w*|ssd_scan\w*|adam_update\w*|"
+                   r"sumsq_\w+)(<[^>]*>)?")
 
 
 def _family(name: str) -> str:
@@ -94,9 +110,11 @@ def _family(name: str) -> str:
     return "other"
 
 
-def _report(phase: str, wall_s: float, kernels: dict, per: int, top: int = 8,
-            **extra) -> None:
+def _report(phase: str, wall_s: float, traced: Tuple[dict, float], per: int,
+            top: int = 8, **extra) -> None:
+    kernels, span_us = traced
     busy_ms = sum(us for _, us in kernels.values()) / 1e3 / per
+    span_ms = span_us / 1e3 / per
     wall_ms = wall_s * 1e3 / per
     rows = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
     families = defaultdict(lambda: [0, 0.0])
@@ -112,7 +130,7 @@ def _report(phase: str, wall_s: float, kernels: dict, per: int, top: int = 8,
             ours[key][1] += us
     print(json.dumps({
         "phase": phase, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / wall_ms,
+        "device_span_ms": span_ms, "idle_share": 1.0 - busy_ms / span_ms,
         "kernel_launches": sum(n for n, _ in kernels.values()) / per,
         "families": {f: {"calls": n / per, "ms": us / 1e3 / per}
                      for f, (n, us) in sorted(families.items())},
@@ -139,6 +157,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     choices=available_strategies())
     ap.add_argument("--layers", type=int, default=0,
                     help="override the config's layer count (0 = keep)")
+    ap.add_argument("--fuse-window", type=int, default=1,
+                    help="profile training in fused windows of this many "
+                         "steps (1 = eager steps)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
@@ -187,29 +208,45 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
 def _profile_train(cfg, args, card: str) -> None:
     stages = min(get_stages(args.arch), cfg.num_layers)
+    k = max(args.fuse_window, 1)
+    windows = -(-args.train_steps // k)
     tcfg = TrainConfig(global_batch=args.batch, microbatch=args.batch,
-                       seq_len=args.prompt_len, steps=args.train_steps + 1,
-                       fuse_window=1, seed=args.seed,
+                       seq_len=args.prompt_len, steps=(windows + 1) * k,
+                       fuse_window=k, seed=args.seed,
                        recovery=RecoveryConfig(strategy=args.strategy,
                                                num_stages=stages))
     trainer = Trainer(build_model(cfg, device="cuda", weights=False), tcfg)
     stream = make_batches(cfg, batch=args.batch, seq=args.prompt_len,
                           seed=args.seed)
-    # made before the clock starts, as chip_smoke times Trainer.step alone
-    batches = [trainer.device_batch(next(stream))
-               for _ in range(args.train_steps + 1)]
+    raw = [next(stream) for _ in range((windows + 1) * k)]
     state = {"state": trainer.init_state()}
+    shape = dict(arch=cfg.name, layers=cfg.num_layers, strategy=args.strategy,
+                 stages=stages, batch=args.batch, seq=args.prompt_len,
+                 fuse_window=k, card=card)
+    if k == 1:
+        # made before the clock starts, as chip_smoke times Trainer.step alone
+        batches = [trainer.device_batch(b) for b in raw]
 
-    def steps(n: int) -> None:
-        for batch in batches[:n]:
-            state["state"], _, _ = trainer.step(state["state"], batch)
+        def steps(n: int) -> None:
+            for batch in batches[:n]:
+                state["state"], _, _ = trainer.step(state["state"], batch)
 
-    steps(1)                                           # warm-up
-    n = args.train_steps
-    _report("train_step", _wall_s(lambda: steps(n)), _kernels(lambda: steps(n)),
-            n, top=12, arch=cfg.name, layers=cfg.num_layers,
-            strategy=args.strategy, stages=stages,
-            batch=args.batch, seq=args.prompt_len, card=card)
+        steps(1)                                       # warm-up
+        n = args.train_steps
+        _report("train_step", _wall_s(lambda: steps(n)),
+                _kernels(lambda: steps(n)), n, top=12, **shape)
+        return
+    stacked = [{key: np.stack([b[key] for b in raw[i * k:(i + 1) * k]])
+                for key in raw[0]} for i in range(windows + 1)]
+
+    def run(ws) -> None:
+        for window in ws:
+            state["state"], _ = trainer.run_window(state["state"], window)
+
+    run(stacked[:1])                  # warm-up: the eager step, the capture
+    _report("train_window", _wall_s(lambda: run(stacked[1:])),
+            _kernels(lambda: run(stacked[1:])), windows * k, top=12,
+            replays=trainer.window.replays, **shape)
 
 
 if __name__ == "__main__":

@@ -3,11 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch paper-llama-124m --strategy checkfree_plus \
         --steps 300 --rate 0.10 [--reduced] [--seq 512 --batch 8] \
-        [--device cpu] [--out history.json]
+        [--device cpu] [--fuse-window 8] [--out history.json]
 
 The counterpart of ``repro.launch.train`` for the flags this slice supports:
-config -> model -> data -> failure schedule -> eager Trainer (recovery
-strategy), then the History.  ``--strategy`` takes every registered policy:
+config -> model -> data -> failure schedule -> Trainer (recovery strategy),
+then the History.  ``--fuse-window`` (8, as in JAX) runs up to that
+many steps as one window, a replayed CUDA graph on the card; 1 steps
+eagerly.  ``--strategy`` takes every registered policy:
 the CheckFree family, ``redundant``, the ``checkpoint`` baseline, the
 state-store baselines ``tiered_ckpt`` and ``neighbor`` and ``adaptive``.
 Their checkpoint and store directories lie in a directory of this run's own
@@ -16,8 +18,8 @@ strategy wipes its directory when it starts, so a fixed path would let two
 runs on one machine delete each other's state.
 ``--device`` defaults to ``cuda`` and raises where there is none.  Flags of
 the JAX driver that need parts not ported yet are refused by name:
-``--backend spmd``, ``--scenario``, ``--fuse-window`` above 1,
-``--depart-prob``, ``--regrow-h``, ``--telemetry-dir`` and ``--trace``.
+``--backend spmd``, ``--scenario``, ``--depart-prob``, ``--regrow-h``,
+``--telemetry-dir`` and ``--trace``.
 """
 from __future__ import annotations
 
@@ -47,7 +49,6 @@ def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
     unported = {
         "--backend spmd": args.backend == "spmd",
         "--scenario": bool(args.scenario),
-        "--fuse-window > 1": args.fuse_window > 1,
         "--depart-prob": args.depart_prob is not None,
         "--regrow-h": args.regrow_h is not None,
         "--telemetry-dir": bool(args.telemetry_dir),
@@ -56,7 +57,7 @@ def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
     named = [flag for flag, used in unported.items() if used]
     if named:
         ap.error(f"{', '.join(named)}: not ported yet (the port trains "
-                 "eagerly on the host backend; see ROADMAP.md queue 1)")
+                 "on the host backend; see ROADMAP.md queue 1)")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> History:
@@ -83,8 +84,9 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
                     help="cuda (default) or cpu (the kernels' plain versions)")
     ap.add_argument("--out", default="", help="write History JSON here")
     ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--fuse-window", type=int, default=8,
+                    help="max steps fused into one window (1 = eager)")
     # flags of the JAX driver that are refused by name
-    ap.add_argument("--fuse-window", type=int, default=1)
     ap.add_argument("--backend", default="host", choices=["host", "spmd"])
     ap.add_argument("--scenario", default="")
     ap.add_argument("--depart-prob", type=float, default=None)
@@ -119,7 +121,7 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     tcfg = TrainConfig(
         global_batch=args.batch, microbatch=args.batch, seq_len=seq,
         steps=args.steps, eval_every=max(args.steps // 10, 1),
-        fuse_window=1, seed=args.seed,
+        fuse_window=args.fuse_window, seed=args.seed,
         optimizer=OptimizerConfig(lr=lr, total_steps=args.steps),
         recovery=rcfg)
 

@@ -295,8 +295,9 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def embed(p: Params, tokens: torch.Tensor, scale: bool = False) -> torch.Tensor:
     x = p["table"][tokens]
     if scale:  # gemma-style sqrt(d) embedding scale, rounded to x's dtype
-        x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype,
-                             device=x.device)
+        # a 0-d CPU tensor: a kernel argument on the card, no copy to the
+        # device (which a CUDA graph could not capture)
+        x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype)
     return x
 
 

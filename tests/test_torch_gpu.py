@@ -647,3 +647,209 @@ def test_restore_into_live_card_leaves_keeps_identity():
     out = copy_into(live, saved)
     assert out["w"] is w and w.is_cuda and w.requires_grad
     assert torch.equal(w.detach(), before)
+
+
+# ---------------------------------------------------------------------------
+# Adam in two kernels, and fused training windows as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def adam_leaves(seed, layers=3, offset=0):
+    """A tree's worth of fp32 leaves on the card: tower leaves (layers along
+    axis 0, rows of 1 to 3 chunks of the sum-of-squares pass, a tail not a
+    multiple of 4) and two others; ``offset`` elements into a larger buffer
+    moves every leaf off its 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    shapes = [(layers, 16384), (layers, 5, 7), (layers, 33000), (layers, 96),
+              (1000, 24), (13,)]
+    tower = [True, True, True, True, False, False]
+    leaves = []
+    for sh in shapes:
+        n = int(np.prod(sh))
+        buf = torch.from_numpy(rng.standard_normal(n + offset)
+                               .astype(np.float32)).cuda()
+        leaves.append(buf[offset:].view(sh))
+    return leaves, tower
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_adam_sumsq_kernel_matches_plain(offset):
+    """Per-layer sums and the total against the plain version (and so
+    against global_norm and stage_grad_sqnorms), 1e-6 relative: the kernel
+    sums in fp64, the plain version in fp32."""
+    from repro_torch.kernels import adam as AD
+    leaves, tower = adam_leaves(offset, offset=offset)
+    before = AD.launches_sumsq
+    per_layer, total = AD.adam_sumsq(leaves, tower, 3)
+    torch.cuda.synchronize()
+    assert AD.launches_sumsq == before + 1
+    want_layer, want_total = ref.adam_sumsq_ref(leaves, tower, 3)
+    torch.testing.assert_close(per_layer, want_layer, rtol=1e-6, atol=0)
+    torch.testing.assert_close(total, want_total, rtol=1e-6, atol=0)
+    # the same as the trainer's plain norms of a tree with this tower
+    from repro_torch.core.stages import StagePartition
+    from repro_torch.optim.adam import global_norm
+    grads = {"blocks": {f"w{i}": g for i, g in enumerate(leaves[:4])},
+             "embed": {"table": leaves[4]}, "final_norm": {"scale": leaves[5]}}
+    part = StagePartition(get_config("paper-llama-124m").replace(num_layers=3),
+                          3)
+    torch.testing.assert_close(total.sqrt(), global_norm(grads), rtol=1e-6,
+                               atol=0)
+    torch.testing.assert_close(part.stage_sums(per_layer),
+                               part.stage_grad_sqnorms(grads), rtol=1e-6,
+                               atol=0)
+    again = AD.adam_sumsq(leaves, tower, 3)
+    assert torch.equal(again[0], per_layer) and torch.equal(again[1], total)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+@pytest.mark.parametrize("grad_scale", [1.0, 100.0])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_adam_update_kernel_matches_plain(weight_decay, grad_scale, offset):
+    """p, m and v against the plain version on the same inputs within
+    1e-6 * (1 + |w|), with weight decay and with a clip that bites; two
+    runs give the same bits."""
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.kernels import adam as AD
+    from repro_torch.optim import adam as A
+    cfg = OptimizerConfig(lr=1e-2, warmup_steps=2, total_steps=20,
+                          weight_decay=weight_decay)
+    params, _ = adam_leaves(10 + offset, offset=offset)
+    grads = [g * grad_scale for g in adam_leaves(20 + offset,
+                                                 offset=offset)[0]]
+    m = [0.1 * t for t in adam_leaves(30, offset=offset)[0]]
+    v = [0.01 * t.abs() for t in adam_leaves(40, offset=offset)[0]]
+    gn = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    scalars = A.adam_scalars(cfg, torch.tensor(5, device="cuda"),
+                             torch.tensor(1.1, device="cuda"), gn)
+    if grad_scale > 1:
+        assert float(scalars[0]) < 1.0               # the clip bites
+    opts = A.update_options(cfg)
+    runs = []
+    for _ in range(2):
+        p, mm, vv = ([t.clone() for t in ts] for ts in (params, m, v))
+        before = AD.launches_update
+        AD.adam_update(p, grads, mm, vv, scalars, **opts)
+        torch.cuda.synchronize()
+        assert AD.launches_update == before + 1
+        runs.append((p, mm, vv))
+    p, mm, vv = ([t.clone() for t in ts] for ts in (params, m, v))
+    ref.adam_update_ref(p, grads, mm, vv, scalars, **opts)
+    for got, again, want in zip(runs[0], runs[1], (p, mm, vv)):
+        for a, b, w in zip(got, again, want):
+            assert torch.equal(a, b)
+            assert bool(((a - w).abs() <= 1e-6 * (1 + w.abs())).all())
+
+
+def fused_config(window, steps=10, strategy="checkfree_plus"):
+    from repro_torch.config import OptimizerConfig, RecoveryConfig, TrainConfig
+    return TrainConfig(global_batch=4, microbatch=4, seq_len=64, steps=steps,
+                       eval_every=100, fuse_window=window,
+                       optimizer=OptimizerConfig(lr=6e-4, total_steps=steps),
+                       recovery=RecoveryConfig(strategy=strategy,
+                                               num_stages=2,
+                                               protect_edge_stages=False))
+
+
+class FusedForced:
+    def at(self, step):
+        return {5: [1]}.get(step, [])
+
+
+def fused_run(device, window, params, setup=None):
+    from repro_torch import tree as TR
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+    cfg = get_config("paper-llama-124m").replace(
+        num_layers=2, d_model=128, num_heads=4, num_kv_heads=4, d_ff=344,
+        vocab_size=512, max_seq_len=64, dtype="float32")
+    trainer = Trainer(Model(cfg, device=device, weights=False),
+                      fused_config(window), schedule=FusedForced())
+    if setup is not None:
+        setup(trainer)
+    state, hist = trainer.run(make_batches(cfg, batch=4, seq=64),
+                              params=TR.clone(params))
+    return trainer, TR.map(lambda t: t.detach().cpu(), state.params), hist
+
+
+def fused_params():
+    cfg = get_config("paper-llama-124m").replace(
+        num_layers=2, d_model=128, num_heads=4, num_kv_heads=4, d_ff=344,
+        vocab_size=512, max_seq_len=64, dtype="float32")
+    return Model(cfg, device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+
+
+@pytest.mark.gpu
+def test_fused_run_on_card_matches_cpu():
+    """2 layers, ``checkfree_plus``, windows of up to 8 cut by a merge at
+    wall 5: the graph replays on the card against the same windows on the
+    CPU, losses and parameters within 1e-3 * (1 + |w|) (chip_smoke.py's
+    TRAIN_MODEL_TOL: cuBLAS and the CPU sum in other orders); every replay
+    ran its recorded Adam launches."""
+    from repro_torch import tree as TR
+    params = fused_params()
+    card_trainer, card_p, card = fused_run("cuda", 8, params)
+    _, cpu_p, cpu = fused_run("cpu", 8, params)
+    assert card.steps == cpu.steps and card.failures == cpu.failures == [(5, 1)]
+    assert card.dispatches == cpu.dispatches < card.wall_iters
+    np.testing.assert_allclose(card.loss, cpu.loss, rtol=1e-3, atol=1e-3)
+    for a, b in zip(TR.leaves(card_p), TR.leaves(cpu_p)):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    window = card_trainer.window
+    assert window.captures == 1 and window.replays == 10 - 1
+    assert window.recorded_launches["adam_sumsq"] == 1
+    assert window.recorded_launches["adam_update"] == 1
+    assert window.recorded_launches["flash_attention_fwd"] == 4
+
+
+@pytest.mark.gpu
+def test_graph_replay_matches_eager_steps_on_card():
+    """The same run in windows of 8 (graph replays) and of 1 (eager steps)
+    on the card: the same kernels on the same inputs, within 1e-5
+    relative."""
+    from repro_torch import tree as TR
+    params = fused_params()
+    _, p8, h8 = fused_run("cuda", 8, params)
+    _, p1, h1 = fused_run("cuda", 1, params)
+    assert h8.steps == h1.steps and h8.failures == h1.failures
+    np.testing.assert_allclose(h8.loss, h1.loss, rtol=1e-5)
+    np.testing.assert_allclose([e for _, e in h8.recovery_errors],
+                               [e for _, e in h1.recovery_errors], rtol=1e-5)
+    for a, b in zip(TR.leaves(p8), TR.leaves(p1)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_window_runs_under_sync_debug_error():
+    """Every replay runs with ``set_sync_debug_mode("error")``; a host read
+    inside the window raises there, and the mode is restored after."""
+    modes = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def recording(self):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return replay(self)
+
+    torch.cuda.CUDAGraph.replay = recording
+    try:
+        fused_run("cuda", 8, fused_params())
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    assert len(modes) == 9 and set(modes) == {2}     # 2: "error"
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+    def reading(trainer):
+        body = trainer.window.body
+
+        def read_back(*args):
+            rec = body(*args)
+            rec[0].item()                             # a host read
+            return rec
+
+        trainer.window.body = read_back
+
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        fused_run("cuda", 8, fused_params(), setup=reading)
+    assert torch.cuda.get_sync_debug_mode() == 0

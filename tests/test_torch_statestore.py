@@ -30,7 +30,7 @@ from repro_torch.core.stages import StagePartition
 from repro_torch.core.state import History, TrainState
 from repro_torch.core.trainer import Trainer
 from repro_torch.core.walltime import TierSpec, WallClockModel
-from repro_torch.data.pipeline import ReplayCache, make_batches
+from repro_torch.data.pipeline import WindowPrefetcher, make_batches
 from repro_torch.models.model import Model
 from repro_torch.optim.adam import OptState, init_adam
 from repro_torch.recovery import FailureContext, make_strategy
@@ -664,7 +664,7 @@ def test_restart_before_the_first_save_restores_the_run_start(tmp_path):
 
 
 def test_replay_cache_serves_by_index_and_evicts():
-    cache = ReplayCache(iter(range(100)))
+    cache = WindowPrefetcher(iter(range(100)))
     assert [cache.get(i) for i in (0, 1, 2, 1, 5)] == [0, 1, 2, 1, 5]
     cache.evict_below(3)
     assert cache.cached == 3 and cache.get(4) == 4
