@@ -89,6 +89,20 @@ result.  Phases:
              window ms, ms a step, tokens/s, peak memory and both merges'
              ms, device ms and new device allocations (none allowed: the
              capture keeps the cache of the eager step's blocks).
+7c. train_elastic — paper-llama-1.5b as train, ``elastic`` with the edge
+             stages protected, 40 walls of the port's own simulated
+             ``spot_shrink`` (ELASTIC_SCENARIO, seed 71): a failure at wall
+             15, a departure that shrinks 6 -> 5 stages at 16, a merge on
+             the uneven 5-stage layout (a gathered 4-layer neighbour) at 26
+             and a regrow to 6 at 27; in fused windows of 8 and the same
+             walls eagerly.  The repartition logs against the one the
+             schedule implies, failures, losses and omegas (each first
+             window after a re-layout at the new K) against the eager run,
+             one capture per layout epoch, reserved memory after the last
+             capture within 2 GiB of the first, the uneven merge against its
+             plain version, launch counts; each re-layout's host ms, the
+             first window of each epoch, ms a step and memory peaks per
+             epoch, the uneven merge's ms.
 8. train_gemma, train_danube — the same checks for ``checkfree`` (4 steps,
              a merge of stage 2 at step 2) at full width, batch 4 x 512:
              gemma-2b at full depth (18 layers, 6 stages; MQA at head dim
@@ -144,7 +158,7 @@ from repro_torch.config import (OptimizerConfig, RecoveryConfig,  # noqa: E402
                                 TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.trainer import Trainer  # noqa: E402
-from repro_torch.core.window import OMEGAS, RECORD  # noqa: E402
+from repro_torch.core.window import OMEGAS, RECORD, FusedWindow  # noqa: E402
 from repro_torch.data.pipeline import (SyntheticLM, batch_for,  # noqa: E402
                                        make_batches)
 from repro_torch.kernels import adam as AD  # noqa: E402
@@ -158,6 +172,8 @@ from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim import adam as A  # noqa: E402
+from repro_torch.recovery import default_protect_edges  # noqa: E402
+from repro_torch.sim import get_scenario, simulate  # noqa: E402
 from repro_torch.statestore import codec as ss_codec  # noqa: E402
 from repro_torch.statestore import store as store_mod  # noqa: E402
 from repro_torch.statestore import strategies as ss_strategies  # noqa: E402
@@ -300,6 +316,27 @@ FUSED_WINDOW, FUSED_STEPS = 8, 40
 FUSED_SCHEDULE = {13: [3], 25: [2]}
 FUSED_SIZES = [8, 4, 1, 8, 4, 8, 4, 2, 1]
 FUSED_LOSS_TOL = 1e-3
+# elastic repartitioning at TRAIN's shape: the port's simulator on
+# spot_shrink with these overrides and seed, 6 stages, the edges protected
+# (``elastic`` has no swap twins).  spot_shrink makes every failure a
+# departure (rejoin "never"); respawning the node and departing it with
+# probability 0.5 gives transient failures too, and 91.3 s walls are the wall
+# model's iteration time (40 walls: about one simulated hour).  Chosen on the
+# CPU (the simulator is numpy: the same events on any machine) so that within
+# ELASTIC_STEPS walls slot 4 fails at wall 15 (6 stages), departs at 16 (6 ->
+# 5 stages, 5/5/5/5/4 layers), slot 3 fails at 26 (stage 3 of 5: neighbours
+# of 5 and 4 layers, so the merge takes a gathered neighbour) and slot 4
+# regrows at 27 (5 -> 6).  Windows of 8 against the same walls eagerly, at
+# train_fused's limits; reserved memory after the last capture within
+# ELASTIC_RESERVED_GIB of its value after the first
+ELASTIC_SCENARIO = dict(rate_per_hour=0.8, regrow_h=0.4, rejoin="respawn",
+                        depart_prob=0.5, iteration_time_s=91.3)
+ELASTIC_SEED, ELASTIC_STEPS, ELASTIC_WINDOW = 71, 40, 8
+ELASTIC_STORY = [(15, "fail", 4), (16, "depart", 4), (26, "fail", 3),
+                 (27, "regrow", 4)]
+ELASTIC_UNEVEN = (26, 3)              # (wall, stage) of the uneven merge
+ELASTIC_RESERVED_GIB = 2.0
+CARD_BYTES = 80e9
 
 
 def emit(phase: str, **kw) -> None:
@@ -1371,12 +1408,12 @@ class PlainAttention:
 
 def train_config(strategy: str, steps: int, *, stages: int, batch: int,
                  seq: int, window: int = 1, **rcfg) -> TrainConfig:
+    rcfg = {"protect_edge_stages": False, **rcfg}
     return TrainConfig(
         global_batch=batch, microbatch=batch, seq_len=seq, steps=steps,
         eval_every=steps, fuse_window=window, seed=0,
         optimizer=OptimizerConfig(total_steps=steps),
-        recovery=RecoveryConfig(strategy=strategy, num_stages=stages,
-                                protect_edge_stages=False, **rcfg))
+        recovery=RecoveryConfig(strategy=strategy, num_stages=stages, **rcfg))
 
 
 def counts() -> dict:
@@ -1444,7 +1481,7 @@ def time_recoveries(trainer: Trainer, record: dict) -> None:
     ``record["recovery_device"]`` its device ms (CUDA events) and the
     caching allocator's new device allocations (``num_device_alloc``)."""
     record.setdefault("recovery_device", [])
-    for name in ("handle_failure", "handle_consecutive"):
+    for name in ("handle_failure", "handle_consecutive", "handle_departure"):
         handle = getattr(trainer.strategy, name)
 
         def timed(*args, _handle=handle, _name=name):
@@ -1776,10 +1813,10 @@ def phase_train_fused() -> dict:
         held["runner"] = runner
         dispatch, drain = runner.dispatch, runner.drain
 
-        def timed_dispatch(state, stacked):
+        def timed_dispatch(state, stacked, **kw):
             torch.cuda.synchronize()
             record["t0"] = time.perf_counter()
-            return dispatch(state, stacked)
+            return dispatch(state, stacked, **kw)
 
         def timed_drain(pending):
             state, ring = drain(pending)
@@ -1883,6 +1920,343 @@ def phase_train_fused() -> dict:
                         f"{sorted(set(modes))} (2: error)")
     if problems:
         raise AssertionError("train_fused: " + "; ".join(problems))
+    return launched
+
+
+def elastic_schedule() -> tuple:
+    """The phase's simulated spot_shrink schedule and its story within
+    ELASTIC_STEPS walls: [(wall, "fail" | "depart" | "regrow", slot)]."""
+    sched = simulate(get_scenario("spot_shrink", **ELASTIC_SCENARIO),
+                     steps=ELASTIC_STEPS * 10, seed=ELASTIC_SEED,
+                     num_stages=TRAIN["stages"],
+                     protect_edges=default_protect_edges("elastic"))
+    story = []
+    for w in range(ELASTIC_STEPS):
+        story += [(w, "regrow", s) for s in sched.regrown_at(w)]
+        story += [(w, "depart" if s in sched.departed_at(w) else "fail", s)
+                  for s in sorted(sched.at(w))]
+    return sched, story
+
+
+def implied_relayouts(story: list) -> list:
+    """(wall, direction, from_k, to_k) that the story's departures and
+    regrows imply for a strategy that takes every re-layout."""
+    k, out = TRAIN["stages"], []
+    for wall, kind, _ in story:
+        if kind != "fail":
+            to = k - 1 if kind == "depart" else k + 1
+            out.append((wall, "shrink" if kind == "depart" else "grow", k, to))
+            k = to
+    return out
+
+
+def peaks() -> dict:
+    return {"allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+
+
+def elastic_setup(trainer: Trainer, record: dict) -> None:
+    """The phase's instruments: each ``_repartition``'s host ms (ending in a
+    synchronize), the memory peaks of the layout epoch it closes (the peaks
+    start anew after it) and the window it makes, and the merge at
+    ELASTIC_UNEVEN against ``stage_merge_ref`` of the neighbours' layers
+    gathered before it."""
+    record.update(repartition_ms=[], epoch_peaks=[],
+                  log=trainer.repartition_log, layout_windows=[trainer.window])
+    repartition = trainer._repartition
+
+    def timed(state, new_slots, **kw):
+        torch.cuda.synchronize()
+        record["epoch_peaks"].append(peaks())
+        t0 = time.perf_counter()
+        out = repartition(state, new_slots, **kw)
+        torch.cuda.synchronize()
+        record["repartition_ms"].append(
+            (kw["wall_step"], kw["direction"],
+             (time.perf_counter() - t0) * 1e3))
+        record["layout_windows"].append(trainer.window)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    trainer._repartition = timed
+    handle = trainer.strategy.handle_failure
+
+    def checked(state, event):
+        if (event.wall_step, event.stage) != ELASTIC_UNEVEN:
+            return handle(state, event)
+        part, stage = trainer.part, event.stage
+        counts = list(part.layer_counts)
+        n = counts[stage]
+        lo = sum(counts[:stage])
+        hi = lo + n
+        # the neighbours' layers nearest the shared bounds, by plain indexing
+        # of the tower: the last n before lo (from the previous stage's
+        # first on) and the first n from hi (the next stage's last repeated)
+        prev_idx = [max(lo - n + j, lo - counts[stage - 1]) for j in range(n)]
+        next_idx = [min(hi + j, hi + counts[stage + 1] - 1) for j in range(n)]
+        prev = [x[prev_idx] for x in TR.leaves(state.params[part.tower_key])]
+        nxt = [x[next_idx] for x in TR.leaves(state.params[part.tower_key])]
+        wa = state.omegas[stage - 1].float()
+        wb = state.omegas[stage + 1].float()
+        ca, cb = wa / (wa + wb + 1e-30), wb / (wa + wb + 1e-30)
+        state = handle(state, event)
+        err, ok = 0.0, True
+        for x, y, got in zip(prev, nxt, [
+                t[lo:hi] for t in TR.leaves(state.params[part.tower_key])]):
+            good, e = within(got, ref.stage_merge_ref(x, y, ca, cb),
+                             MERGE_TOL[torch.float32])
+            ok &= good
+            err = max(err, e)
+        record["uneven_merge"] = {
+            "wall_step": event.wall_step, "stage": stage,
+            "layer_counts": list(part.layer_counts),
+            "neighbour_layers": [part.layer_counts[stage - 1],
+                                 part.layer_counts[stage + 1]],
+            "max_abs_err": err, "tol": MERGE_TOL[torch.float32]}
+        if not ok or part.layer_counts[stage + 1] == n:
+            raise AssertionError(f"the merge on the uneven layout: "
+                                 f"{record['uneven_merge']}")
+        return state
+
+    trainer.strategy.handle_failure = checked
+
+
+def layout_graphs(record: dict) -> list:
+    """Each layout epoch's window as numbers; the windows themselves (their
+    pools and the bound state) are let go."""
+    graphs = [{"stages": w.part.num_stages, "captures": w.captures,
+               "replays": w.replays, "recorded_launches": w.recorded_launches}
+              for w in record.pop("layout_windows")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return graphs
+
+
+def phase_train_elastic() -> dict:
+    """``elastic`` at TRAIN's full width and depth under the port's simulated
+    ``spot_shrink`` (ELASTIC_SCENARIO): a transient failure on 6 stages, a
+    departure that shrinks 6 -> 5, a merge on the uneven 5-stage layout and
+    a regrow back to 6, in fused windows of 8 (a new window and capture per
+    layout epoch) against the same walls eagerly.  Returns the launch
+    counts of the fused run, with the graphs' replays counted."""
+    cfg = get_config(TRAIN["arch"])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    sched, story = elastic_schedule()
+    if story != ELASTIC_STORY:
+        raise AssertionError(f"train_elastic: the simulated story {story}, "
+                             f"want {ELASTIC_STORY}")
+    implied = implied_relayouts(story)
+    failures = [(w, s) for w, kind, s in story if kind != "regrow"]
+    rcfg = dict(protect_edge_stages=default_protect_edges("elastic"))
+
+    eager_hist, eager_launched, eager_record, eager_peak = train_run(
+        "elastic", ELASTIC_STEPS, sched, rcfg=rcfg, setup=elastic_setup)
+    layout_graphs(eager_record)
+
+    modes, fused = [], {"windows": [], "captures": []}
+    replay, dispatch, drain, capture = (torch.cuda.CUDAGraph.replay,
+                                        FusedWindow.dispatch,
+                                        FusedWindow.drain,
+                                        FusedWindow._capture)
+
+    def recording(graph):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return replay(graph)
+
+    def timed_dispatch(self, state, stacked, **kw):
+        torch.cuda.synchronize()
+        fused["t0"] = time.perf_counter()
+        return dispatch(self, state, stacked, **kw)
+
+    def timed_drain(self, pending):
+        state, ring = drain(self, pending)
+        fused["windows"].append({
+            "k": pending.k, "stages": self.part.num_stages,
+            "ms": (time.perf_counter() - fused["t0"]) * 1e3,
+            "runner": id(self), "ring": ring})
+        return state, ring
+
+    def measured_capture(self, batch):
+        capture(self, batch)
+        torch.cuda.synchronize()
+        fused["captures"].append({
+            "stages": self.part.num_stages,
+            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+            "max_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30})
+
+    torch.cuda.CUDAGraph.replay = recording
+    FusedWindow.dispatch, FusedWindow.drain = timed_dispatch, timed_drain
+    FusedWindow._capture = measured_capture
+    try:
+        hist, launched, record, peak = train_run(
+            "elastic", ELASTIC_STEPS, sched, rcfg=rcfg, setup=elastic_setup,
+            window=ELASTIC_WINDOW)
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+        FusedWindow.dispatch, FusedWindow.drain = dispatch, drain
+        FusedWindow._capture = capture
+    graphs = layout_graphs(record)
+    # the wrappers counted each recorded launch once, at its capture, which
+    # ran nothing; each replay ran the recorded launches
+    counted = dict(launched)
+    launched = {name: n + sum((g["replays"] - g["captures"]) *
+                              g["recorded_launches"].get(name, 0)
+                              for g in graphs)
+                for name, n in counted.items()}
+
+    # the rows of the fused run against the eager steps' omegas, and each
+    # window's rows (a window after a re-layout: its new K entries)
+    loss_err = [abs(a - b) for a, b in zip(hist.loss, eager_hist.loss)]
+    omega_err, start = [], 0
+    for w in fused["windows"]:
+        w["omega_err"] = []
+        for row, want in zip(w["ring"], eager_record["omegas"][start:]):
+            got, want = row[OMEGAS:], want.numpy()
+            w["omega_err"].append(float(np.max(np.abs(got - want) /
+                                               np.abs(want)))
+                                  if got.shape == want.shape else math.inf)
+        omega_err += w["omega_err"]
+        start += w["k"]
+    # per layout epoch: its windows, ms a step over the windows after its
+    # first (which runs an eager step and the capture), memory peaks
+    epoch_windows = []
+    for w in fused["windows"]:
+        if not epoch_windows or epoch_windows[-1][-1]["runner"] != w["runner"]:
+            epoch_windows.append([])
+        epoch_windows[-1].append(w)
+    for w in fused["windows"]:
+        del w["runner"]
+    epoch_peaks = record["epoch_peaks"] + [
+        {"allocated_gib": peak, "reserved_gib": record["peak_reserved_gib"]}]
+    epochs = []
+    for g, wins, p in zip(graphs, epoch_windows, epoch_peaks):
+        steady = wins[1:]
+        epochs.append({
+            "stages": g["stages"], "captures": g["captures"],
+            "replays": g["replays"], "window_sizes": [w["k"] for w in wins],
+            "first_window": {"k": wins[0]["k"], "ms": wins[0]["ms"]},
+            "ms_per_step": (sum(w["ms"] for w in steady) /
+                            sum(w["k"] for w in steady)) if steady else None,
+            "peak_allocated_gib": p["allocated_gib"],
+            "peak_reserved_gib": p["reserved_gib"]})
+    first_after = [{"wall_step": log_row[0], "stages": log_row[3],
+                    "k": wins[0]["k"], "ring_width": wins[0]["ring"].shape[1],
+                    "omegas": wins[0]["ring"][-1, OMEGAS:].tolist(),
+                    "omega_max_rel_err": max(wins[0]["omega_err"])}
+                   for log_row, wins in zip(record["log"], epoch_windows[1:])]
+    eager_epoch_ms = []
+    for lo, hi in zip([0] + [r[0] for r in implied],
+                      [r[0] for r in implied] + [ELASTIC_STEPS]):
+        free = [i for i in range(lo, hi) if i not in dict(failures)
+                and i not in [r[0] for r in implied]]
+        eager_epoch_ms.append(float(np.median(
+            [eager_record["step_ms"][i] for i in free])))
+    uneven_ms = [(name, step, ms) for name, step, ms in record["recovery_ms"]
+                 if step == ELASTIC_UNEVEN[0]]
+    uneven_device = [m for m in record["recovery_device"]
+                     if m["wall_step"] == ELASTIC_UNEVEN[0]]
+    emit("train_elastic", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=cfg.num_heads, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, stages=TRAIN["stages"],
+         params=cfg.param_count(), dtype=cfg.dtype, masters="float32",
+         strategy="elastic", protect_edges=rcfg["protect_edge_stages"],
+         batch=TRAIN["batch"], seq=TRAIN["seq"], steps=ELASTIC_STEPS,
+         fuse_window=ELASTIC_WINDOW, scenario="spot_shrink",
+         overrides=ELASTIC_SCENARIO, seed=ELASTIC_SEED, story=story,
+         repartition_log=record["log"],
+         repartition_log_eager=eager_record["log"],
+         repartition_host_ms=record["repartition_ms"],
+         repartition_host_ms_eager=eager_record["repartition_ms"],
+         failures=hist.failures, recovery_errors=hist.recovery_errors,
+         recovery_errors_eager=eager_hist.recovery_errors,
+         loss=hist.loss, loss_eager=eager_hist.loss,
+         loss_max_abs_err=max(loss_err), omega_max_rel_err=max(omega_err),
+         loss_tol=f"{FUSED_LOSS_TOL} * (1 + |loss|)",
+         omega_tol=TRAIN_OMEGA_TOL, epochs=epochs,
+         first_window_after_relayout=first_after,
+         captures=fused["captures"], dispatches=hist.dispatches,
+         launches=launched, launches_counted_by_wrappers=counted,
+         launches_eager=eager_launched,
+         sync_debug_modes=sorted(set(modes)), replays_checked=len(modes),
+         eager_ms_per_step_by_epoch=eager_epoch_ms,
+         eager_peak_memory_gib=eager_peak,
+         uneven_merge=record.get("uneven_merge"),
+         uneven_merge_host_ms=uneven_ms, uneven_merge_device=uneven_device,
+         merge_recovery_ms=record["recovery_ms"],
+         merge_device=record["recovery_device"],
+         tokens_per_s_by_epoch=[tokens / e["ms_per_step"] * 1e3
+                                if e["ms_per_step"] else None
+                                for e in epochs],
+         nvidia_smi=smi(),
+         timing="window ms: host clock from a synchronize before a window's "
+                "dispatch to the end of its drain; ms_per_step: an epoch's "
+                "windows after its first (which runs an eager step and the "
+                "capture) over their steps; repartition_host_ms: host clock "
+                "around Trainer._repartition ending in a synchronize (the "
+                "old graph's reset and the allocator's cache emptied); eager "
+                "ms: host clock around Trainer.step ending in a synchronize, "
+                "median over an epoch's walls without failures or "
+                "re-layouts; merge device ms: CUDA events around the "
+                "handler")
+    problems = []
+    want = {"flash_attention_fwd": cfg.num_layers * ELASTIC_STEPS,
+            "flash_attention_bwd_dq": cfg.num_layers * ELASTIC_STEPS,
+            "flash_attention_bwd_dkv": cfg.num_layers * ELASTIC_STEPS,
+            "stage_merge": len(failures), "ssd_scan": 0,
+            "adam_sumsq": ELASTIC_STEPS, "adam_update": ELASTIC_STEPS}
+    for name, got in (("fused", launched), ("eager", eager_launched)):
+        if got != want:
+            problems.append(f"{name} launches {got}, want {want}")
+    for name, log in (("fused", record["log"]),
+                      ("eager", eager_record["log"])):
+        if [r[:4] for r in log] != implied:
+            problems.append(f"{name} repartition log {log}, the schedule "
+                            f"implies {implied}")
+    if record["log"] != eager_record["log"]:
+        problems.append(f"repartition logs {record['log']} fused, "
+                        f"{eager_record['log']} eager")
+    for name, h in (("fused", hist), ("eager", eager_hist)):
+        if [tuple(f) for f in h.failures] != failures or \
+                h.steps != list(range(1, ELASTIC_STEPS + 1)) or \
+                len(h.recovery_errors) != len(failures) or not all(
+                    math.isfinite(e) for _, e in h.recovery_errors):
+            problems.append(f"{name} failures {h.failures}, steps {h.steps}, "
+                            f"recovery errors {h.recovery_errors}")
+    if len(loss_err) != ELASTIC_STEPS or any(
+            e > FUSED_LOSS_TOL * (1 + abs(b))
+            for e, b in zip(loss_err, eager_hist.loss)) or \
+            not all(math.isfinite(x) for x in hist.loss):
+        problems.append(f"losses against the eager run: {loss_err}")
+    if len(omega_err) != ELASTIC_STEPS or max(omega_err) > TRAIN_OMEGA_TOL:
+        problems.append(f"omegas against the eager run: {omega_err}")
+    if [f["stages"] for f in first_after] != [r[3] for r in implied] or any(
+            f["ring_width"] != OMEGAS + f["stages"] or
+            f["omega_max_rel_err"] > TRAIN_OMEGA_TOL for f in first_after):
+        problems.append(f"the first windows after the re-layouts: "
+                        f"{first_after}")
+    if [g["captures"] for g in graphs] != [1] * (len(implied) + 1) or \
+            [g["stages"] for g in graphs] != \
+            [TRAIN["stages"]] + [r[3] for r in implied]:
+        problems.append(f"captures per layout epoch: {graphs}")
+    if len(modes) != sum(g["replays"] for g in graphs) or set(modes) != {2}:
+        problems.append(f"replays {len(modes)} under sync debug modes "
+                        f"{sorted(set(modes))} (2: error)")
+    first_gib = fused["captures"][0]["max_reserved_gib"] \
+        if fused["captures"] else math.inf
+    last_gib = fused["captures"][-1]["max_reserved_gib"] \
+        if fused["captures"] else math.inf
+    if last_gib > first_gib + ELASTIC_RESERVED_GIB or \
+            max(p["reserved_gib"] for p in epoch_peaks) > \
+            first_gib + ELASTIC_RESERVED_GIB or \
+            max(p["reserved_gib"] for p in epoch_peaks) * 2 ** 30 >= \
+            CARD_BYTES:
+        problems.append(f"reserved memory: {first_gib} GiB after the first "
+                        f"capture, {last_gib} after the last, epoch peaks "
+                        f"{epoch_peaks}")
+    if "uneven_merge" not in record:
+        problems.append("no merge ran on the uneven layout")
+    if problems:
+        raise AssertionError("train_elastic: " + "; ".join(problems))
     return launched
 
 
@@ -2283,6 +2657,7 @@ def main() -> int:
     phase_train_model()
     trained = {"train": phase_train(),
                "train_fused": phase_train_fused(),
+               "train_elastic": phase_train_elastic(),
                "train_gemma": phase_train_dense(TRAIN_GEMMA, "train_gemma"),
                "train_danube": phase_train_dense(TRAIN_DANUBE,
                                                  "train_danube"),

@@ -32,10 +32,24 @@ window's batches are stacked on a worker thread
 one runs.  With ``fuse_window=1`` the loop runs the eager
 :meth:`Trainer.step`, one step a dispatch, reading the loss back each step.
 
-When the schedule exposes ``iteration_factor`` / ``failure_overhead`` the
-loop prices iterations and recoveries with them, and when it exposes
-``observed_rate`` the strategy receives the failure rate each wall
-iteration, as in the JAX trainer.
+The ``schedule`` may be the seeded :class:`~repro_torch.core.failures.
+FailureSchedule`, a simulated cluster's ``SimFailureSchedule``
+(:mod:`repro_torch.sim`, built from ``rcfg.scenario`` when no schedule is
+given) or any object with ``.at(step)``.  When it exposes
+``iteration_factor`` / ``failure_overhead`` the loop prices iterations and
+recoveries with them, and when it exposes ``observed_rate`` the strategy
+receives the failure rate each wall iteration, as in the JAX trainer.
+
+**Elastic repartitioning.**  A strategy with ``recover_by_repartition``
+(``elastic``, ``adaptive``) answers a permanent departure
+(``schedule.departed_at``) by rebuilding the lost stage in the old layout and
+then re-cutting the pipeline over the surviving K-1 cluster slots
+(:meth:`Trainer._repartition`); a regrow (``schedule.regrown_at``) grows it
+back.  The tower stays one resident tensor: a re-layout changes the stage
+bounds, never the values.  It rebuilds the loss and gives the loop a new
+:class:`~repro_torch.core.window.FusedWindow` for the new cut, whose first
+window captures anew after the old graph's pool went back; a shrunk layout
+is paced by its surviving slots only (``iteration_factor_active``).
 
 Batches are drawn by effective step from the prefetcher's replay cache
 (bounded by the strategy's ``replay_horizon``), so a rollback replays the
@@ -44,9 +58,8 @@ run's starting parameters again, with zero moments) for restarts.  The
 state is updated in place, so strategies that save it copy it out, and
 restores copy into the live tensors.
 
-Not ported yet: the SPMD pipeline backend, simulated-cluster scenarios,
-elastic repartitioning (ROADMAP.md queue 1, items 4, 5 and 10) and
-telemetry events (item 6).
+Not ported yet: the SPMD pipeline backend (ROADMAP.md queue 1, item 10)
+and telemetry events (item 6).
 """
 from __future__ import annotations
 
@@ -60,7 +73,8 @@ import torch
 
 from repro_torch import tree as TR
 from repro_torch.config import TrainConfig
-from repro_torch.core.stages import StagePartition
+from repro_torch.core.stages import (StagePartition, moved_layers,
+                                     remap_stage_stats)
 from repro_torch.core.state import History, TrainState
 from repro_torch.core.swap import swap_permutation
 from repro_torch.core.walltime import WallClockModel
@@ -103,6 +117,27 @@ def make_loss_fn(model: Model, part: StagePartition, use_swap: bool,
     return loss_fn
 
 
+@dataclasses.dataclass(frozen=True)
+class ScheduleHooks:
+    """The schedule's optional hooks, None where it has none; the elastic
+    ones only for a strategy that repartitions."""
+    iteration_factor: Optional[Callable[[int], float]] = None
+    failure_overhead: Optional[Callable[..., float]] = None
+    observed_rate: Optional[Callable[[int], float]] = None
+    departed_at: Optional[Callable[[int], List[int]]] = None
+    regrown_at: Optional[Callable[[int], List[int]]] = None
+    iteration_factor_active: Optional[Callable[[int, List[int]], float]] = None
+
+    @classmethod
+    def of(cls, schedule, elastic: bool) -> "ScheduleHooks":
+        def hook(name: str, allowed: bool = True):
+            return getattr(schedule, name, None) if allowed else None
+        return cls(hook("iteration_factor"), hook("failure_overhead"),
+                   hook("observed_rate"), hook("departed_at", elastic),
+                   hook("regrown_at", elastic),
+                   hook("iteration_factor_active", elastic))
+
+
 def _window_buckets(cap: int) -> List[int]:
     """Descending power-of-two window sizes <= cap (always ending in 1)
     (``repro/core/trainer.py:200-211``)."""
@@ -132,18 +167,16 @@ class Trainer:
                                "device='cpu' to train on the CPU")
         self.tcfg = tcfg
         self.rcfg = tcfg.recovery
-        if schedule is None and self.rcfg.scenario:
-            raise NotImplementedError(
-                "simulated-cluster scenarios (repro.sim) are not ported yet; "
-                "pass a schedule object with .at(step)")
         self.part = StagePartition(model.cfg, self.rcfg.num_stages)
         self.strategy: RecoveryStrategy = make_strategy(self.rcfg, wall=wall)
-        if self.strategy.recover_by_repartition:
-            raise NotImplementedError(
-                f"strategy {self.strategy.name!r} repartitions on departures; "
-                "elastic repartitioning is not ported yet (ROADMAP.md queue 1, "
-                "item 5)")
         self.wall = self.strategy.wall
+        if schedule is None and self.rcfg.scenario:
+            # deferred: the simulator is only loaded by runs that use it
+            from repro_torch.sim import simulate
+            schedule = simulate(
+                self.rcfg.scenario, steps=tcfg.steps * 10,
+                seed=self.rcfg.seed, num_stages=self.rcfg.num_stages,
+                protect_edges=self.rcfg.protect_edge_stages, wall=self.wall)
         self.schedule = schedule
         # the run's starting parameters as a host copy, when the caller gave
         # them (run(params=...)); fresh_init re-draws from the seed otherwise
@@ -155,9 +188,18 @@ class Trainer:
         # window sizes dispatched, as the JAX trainer keeps them
         self.dispatched_buckets: set = set()
         self._evals: Optional[List[Batch]] = None
-        #: runs the fused windows
-        self.window = FusedWindow(self._body, self.device,
-                                  self.part.num_stages)
+        #: runs the fused windows of the current layout
+        self.window = FusedWindow(self._body, self.device, self.part)
+
+        # ---- elastic repartitioning ---------------------------------------
+        # partition stage index -> cluster slot: the identity until a
+        # permanent departure shrinks the layout (the slots keep their
+        # identity in the schedule; the partition re-cuts over survivors)
+        self._slots: List[int] = list(range(self.rcfg.num_stages))
+        self._hooks = ScheduleHooks.of(
+            schedule, bool(self.strategy.recover_by_repartition))
+        #: (wall_step, direction, from_k, to_k, moved_layers, cost_s)
+        self.repartition_log: List[Tuple[int, str, int, int, int, float]] = []
 
     # ---- parameters and batches ---------------------------------------
     def init_params(self) -> Params:
@@ -256,10 +298,9 @@ class Trainer:
     def _window_size(self, wall_step: int, effective_step: int,
                      max_wall: int) -> int:
         """Largest bucketed K such that steps [wall_step, wall_step+K) are
-        failure-free after the first, no interior step needs host state
-        (strategy horizon / eval), and the run doesn't overshoot
-        (``repro/core/trainer.py:304-333``; no regrow: elastic training is
-        not ported)."""
+        failure- and regrow-free after the first, no interior step needs
+        host state (strategy horizon / eval), and the run doesn't overshoot
+        (``repro/core/trainer.py:304-333``)."""
         cap = self._buckets[0]
         cap = min(cap, self.tcfg.steps - effective_step)
         cap = min(cap, max_wall - wall_step)
@@ -270,8 +311,11 @@ class Trainer:
             ev = self.tcfg.eval_every
             cap = min(cap, ev - effective_step % ev)
         if self.schedule is not None:
+            regrown_at = self._hooks.regrown_at
             for i in range(1, cap):
-                if self.schedule.at(wall_step + i):
+                # a regrow re-cuts the layout: the window ends there too
+                if self.schedule.at(wall_step + i) or (
+                        regrown_at is not None and regrown_at(wall_step + i)):
                     cap = i
                     break
         for k in self._buckets:
@@ -286,7 +330,73 @@ class Trainer:
         """One fused window of ``stacked`` (k numpy batches on a leading
         axis) from ``state`` -> (the state after it, its ring: k rows of
         ``core.window.RECORD`` then the omegas, on the host)."""
-        return self.window.drain(self.window.dispatch(state, stacked))
+        return self.window.drain(self.window.dispatch(state, stacked,
+                                                      part=self.part))
+
+    # ---- elastic re-layout --------------------------------------------
+    def _repartition(self, state: TrainState, new_slots: List[int], *,
+                     wall_step: int, direction: str
+                     ) -> Tuple[TrainState, float]:
+        """Re-cut the stage layout over the cluster slots ``new_slots``: a
+        balanced partition, the loss and a fused window for it, the
+        strategy's per-stage state re-sharded, the omegas re-bucketed, and
+        the moved layers priced over the wall model's link
+        (``repro/core/trainer.py:349-380``)."""
+        old_part, old_slots = self.part, self._slots
+        new_part = StagePartition(self.model.cfg, len(new_slots))
+        moved = moved_layers(old_part, old_slots, new_part, new_slots)
+        nbytes = moved * self.wall.layer_bytes(old_part.num_layers)
+        self.part = new_part
+        self._slots = list(new_slots)
+        self.loss_fn = make_loss_fn(self.model, new_part,
+                                    self.strategy.uses_swap_schedule)
+        # the old graph summed the omegas over the old cut: its pool goes
+        # back before the new window's capture
+        self.window = self.window.relayout(new_part)
+        # one window size per bucket and layout epoch
+        self.dispatched_buckets = set()
+        state = self.strategy.on_layout_change(state, old_part, new_part)
+        state = dataclasses.replace(
+            state, omegas=remap_stage_stats(old_part, new_part, state.omegas))
+        cost = self.wall.relayout_time_s(nbytes)
+        self.repartition_log.append(
+            (wall_step, direction, old_part.num_stages, new_part.num_stages,
+             int(moved), cost))
+        return state, cost
+
+    def _iteration_factor(self, wall_step: int) -> float:
+        """The schedule's stretch of wall iteration ``wall_step``: a shrunk
+        layout is paced by its surviving slots only."""
+        hooks = self._hooks
+        if hooks.iteration_factor_active is not None and \
+                len(self._slots) < self.rcfg.num_stages:
+            return hooks.iteration_factor_active(wall_step, self._slots)
+        if hooks.iteration_factor is not None:
+            return hooks.iteration_factor(wall_step)
+        return 1.0
+
+    def _boundary(self, state: TrainState, hist: History, clock: float,
+                  wall_step: int) -> Tuple[TrainState, float]:
+        """The work at the boundary before wall iteration ``wall_step``, in
+        the JAX trainer's order (``repro/core/trainer.py:563-583``): the
+        observed failure rate to the strategy, a grow on fresh capacity,
+        then the failures (departures first)."""
+        hooks = self._hooks
+        if hooks.observed_rate is not None:
+            self.strategy.observe_environment(hooks.observed_rate(wall_step))
+        if hooks.regrown_at is not None and \
+                len(self._slots) < self.rcfg.num_stages:
+            back = [s for s in hooks.regrown_at(wall_step)
+                    if s not in self._slots]
+            if back:
+                state, cost = self._repartition(
+                    state, sorted(self._slots + back), wall_step=wall_step,
+                    direction="grow")
+                clock += cost
+        if self.schedule is not None:
+            state, clock = self._handle_failures(state, hist, clock,
+                                                 wall_step)
+        return state, clock
 
     # ---- main loop ----------------------------------------------------
     def run(self, batches: Iterable[Dict[str, np.ndarray]],
@@ -340,43 +450,85 @@ class Trainer:
         return torch.Generator(self.device).manual_seed(seed)
 
     def _handle_failures(self, state: TrainState, hist: History,
-                         clock: float, wall_step: int,
-                         failure_overhead) -> Tuple[TrainState, float]:
-        """Failures arrive at iteration boundaries; runs of consecutive
-        stages are recovered together when the strategy can.  No ported
-        strategy repartitions, so a permanent departure is recovered like a
-        transient failure."""
+                         clock: float, wall_step: int
+                         ) -> Tuple[TrainState, float]:
+        """Failures arrive at iteration boundaries
+        (``repro/core/trainer.py:443-538``).  The schedule names cluster
+        slots, the recovery math partition stages: the same until the first
+        shrink.  Permanent departures come first: rebuilt in the old layout
+        when the strategy accepts the priced re-layout and more than two
+        stages would remain, then shrunk away together after the transient
+        failures (and declined departures), whose runs of consecutive stages
+        are recovered together when the strategy can."""
         strategy = self.strategy
-        stages = [s for s in sorted(self.schedule.at(wall_step))
-                  if 0 <= s < self.part.num_stages]
+        failure_overhead = self._hooks.failure_overhead
+        slots = sorted(self.schedule.at(wall_step))
+        departed_at = self._hooks.departed_at
+        departed = (set(departed_at(wall_step)) if departed_at is not None
+                    else set())
+        slot_to_stage = {s: i for i, s in enumerate(self._slots)}
 
-        def charge(stage: int) -> None:
+        def charge(slot: int) -> None:
             nonlocal clock
-            hist.failures.append((wall_step, stage))
+            hist.failures.append((wall_step, slot))
             clock += strategy.failure_cost()
             nbytes = strategy.consume_restore_bytes()
             if failure_overhead is not None:
-                clock += (failure_overhead(wall_step, stage) if nbytes is None
-                          else failure_overhead(wall_step, stage, nbytes))
+                clock += (failure_overhead(wall_step, slot) if nbytes is None
+                          else failure_overhead(wall_step, slot, nbytes))
 
-        runs: List[List[int]] = []
-        for stage in stages:
-            if runs and stage == runs[-1][-1] + 1:
-                runs[-1].append(stage)
+        # 1) departures: rebuild in the old layout, shrink after
+        shrink: List[int] = []
+        transient: List[Tuple[int, int]] = []        # (slot, stage)
+        for slot in slots:
+            stage = slot_to_stage.get(slot)
+            if stage is None:
+                continue          # departed at an earlier boundary
+            if slot in departed and len(self._slots) - len(shrink) > 2:
+                event = FailureContext(stage=stage, wall_step=wall_step,
+                                       generator=self._event_generator(),
+                                       hist=hist)
+                survivors = [s for s in self._slots
+                             if s != slot and s not in shrink]
+                moved = moved_layers(
+                    self.part, self._slots,
+                    StagePartition(self.model.cfg, len(survivors)), survivors)
+                if strategy.accept_repartition(
+                        event, moved * self.wall.layer_bytes(
+                            self.part.num_layers)):
+                    state = strategy.handle_departure(state, event)
+                    shrink.append(slot)
+                    charge(slot)
+                    continue
+            transient.append((slot, stage))
+
+        # 2) transient failures, by runs of consecutive partition stages
+        runs: List[List[Tuple[int, int]]] = []
+        for slot, stage in transient:
+            if runs and stage == runs[-1][-1][1] + 1:
+                runs[-1].append((slot, stage))
             else:
-                runs.append([stage])
+                runs.append([(slot, stage)])
         for run in runs:
-            event = FailureContext(stage=run[0], wall_step=wall_step,
+            event = FailureContext(stage=run[0][1], wall_step=wall_step,
                                    generator=self._event_generator(),
                                    hist=hist)
             if len(run) > 1 and strategy.handles_consecutive:
-                state = strategy.handle_consecutive(state, run, event)
+                state = strategy.handle_consecutive(
+                    state, [stage for _, stage in run], event)
             else:
-                for stage in run:
+                for _, stage in run:
                     state = strategy.handle_failure(
                         state, dataclasses.replace(event, stage=stage))
-            for stage in run:
-                charge(stage)
+            for slot, _ in run:
+                charge(slot)
+
+        # 3) one shrink covers every accepted departure at this boundary
+        if shrink:
+            state, cost = self._repartition(
+                state, [s for s in self._slots if s not in shrink],
+                wall_step=wall_step, direction="shrink")
+            clock += cost
         return state, clock
 
     def _evaluate(self, state: TrainState, hist: History, clock: float,
@@ -397,25 +549,17 @@ class Trainer:
         """One eager step a wall iteration (``fuse_window=1``)."""
         tcfg = self.tcfg
         strategy = self.strategy
-        iter_factor = getattr(self.schedule, "iteration_factor", None)
-        failure_overhead = getattr(self.schedule, "failure_overhead", None)
-        observed_rate = getattr(self.schedule, "observed_rate", None)
         horizon = strategy.replay_horizon()
         clock = 0.0
         wall_step = 0
         while state.effective_step < tcfg.steps and wall_step < max_wall:
-            if observed_rate is not None:
-                strategy.observe_environment(observed_rate(wall_step))
-            if self.schedule is not None:
-                state, clock = self._handle_failures(state, hist, clock,
-                                                     wall_step,
-                                                     failure_overhead)
+            state, clock = self._boundary(state, hist, clock, wall_step)
             batch = prefetch.get(state.effective_step)
             state, loss, _ = self.step(state, self.device_batch(batch))
             hist.dispatches += 1
             self.dispatched_buckets.add(1)
-            factor = iter_factor(wall_step) if iter_factor is not None else 1.0
-            clock += strategy.iteration_cost() * factor
+            clock += strategy.iteration_cost() * self._iteration_factor(
+                wall_step)
             hist.steps.append(state.effective_step)
             hist.wall_time.append(clock)
             hist.loss.append(loss.item())
@@ -432,25 +576,20 @@ class Trainer:
         pricing and history, ``after_step`` once, eviction, eval."""
         tcfg = self.tcfg
         strategy = self.strategy
-        runner = self.window
-        iter_factor = getattr(self.schedule, "iteration_factor", None)
-        failure_overhead = getattr(self.schedule, "failure_overhead", None)
-        observed_rate = getattr(self.schedule, "observed_rate", None)
+        observed_rate = self._hooks.observed_rate
         replay = strategy.replay_horizon()
         loss_col = RECORD.index("loss")
         clock = 0.0
         wall_step = 0
         while state.effective_step < tcfg.steps and wall_step < max_wall:
-            if observed_rate is not None:
-                strategy.observe_environment(observed_rate(wall_step))
-            if self.schedule is not None:
-                state, clock = self._handle_failures(state, hist, clock,
-                                                     wall_step,
-                                                     failure_overhead)
-            # the window: k steps, one dispatch, no host read inside
+            state, clock = self._boundary(state, hist, clock, wall_step)
+            # the window: k steps, one dispatch, no host read inside (on the
+            # current layout's window: a re-layout at the boundary made anew)
             k = self._window_size(wall_step, state.effective_step, max_wall)
+            runner = self.window
             pending = runner.dispatch(state,
-                                      prefetch.take(state.effective_step, k))
+                                      prefetch.take(state.effective_step, k),
+                                      part=self.part)
             hist.dispatches += 1
             self.dispatched_buckets.add(k)
             # while the card runs this window, line up the next one (a
@@ -464,9 +603,8 @@ class Trainer:
             for i in range(k):
                 if i > 0 and observed_rate is not None:
                     strategy.observe_environment(observed_rate(wall_step + i))
-                factor = (iter_factor(wall_step + i) if iter_factor is not None
-                          else 1.0)
-                clock += strategy.iteration_cost() * factor
+                clock += strategy.iteration_cost() * self._iteration_factor(
+                    wall_step + i)
                 hist.steps.append(state.effective_step - k + i + 1)
                 hist.wall_time.append(clock)
                 hist.loss.append(float(ring[i, loss_col]))

@@ -29,17 +29,28 @@ into the bound one.  The device mirror of the host step (the Adam step
 counter, ``lr_scale``) is written from the host state before every window,
 since a rollback, a restart or a merge may have changed either; the ring
 brings both back in the window's single copy to the host.
+
+A graph also bakes in the stage cut (the omegas are summed over it, the ring
+is ``OMEGAS + K`` wide), so a window belongs to one partition and refuses a
+dispatch under another.  An elastic re-layout, the counterpart of the JAX
+trainer's ``_rebuild_fused_step``, takes :meth:`FusedWindow.relayout`: the
+old graph is reset and every reference into its private pool dropped, the
+allocator's cache is emptied so that the pool goes back to the device, and
+a new window for the new partition takes over the bound leaves, the device
+mirror and the stream.  Its first window runs an eager step and captures,
+as the run's first window does.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import tree as TR
+from repro_torch.core.stages import StagePartition
 from repro_torch.core.state import TrainState
 from repro_torch.kernels import ops
 from repro_torch.optim.adam import OptState
@@ -79,12 +90,16 @@ class Pending:
 
 
 class FusedWindow:
-    """Runs windows of ``body`` on ``device`` (graph replays on the card)."""
+    """Runs windows of ``body`` on ``device`` (graph replays on the card),
+    for the stage partition ``part`` that the body sums the omegas over."""
 
-    def __init__(self, body: Body, device: torch.device, num_stages: int):
+    def __init__(self, body: Body, device: torch.device,
+                 part: StagePartition,
+                 stream: Optional["torch.cuda.Stream"] = None):
         self.body = body
         self.device = device
-        self.width = OMEGAS + num_stages
+        self.part = part
+        self.width = OMEGAS + part.num_stages
         # the device mirror of the host step, baked into the graph
         self.step = torch.zeros((), dtype=torch.int32, device=device)
         self.lr_scale = torch.ones((), dtype=torch.float32, device=device)
@@ -92,8 +107,9 @@ class FusedWindow:
         self.graph = None
         self.static_batch: Batch = {}
         self.static_record = None
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        if stream is None and device.type == "cuda":
+            stream = torch.cuda.Stream(device)
+        self.stream = stream
         #: graphs captured, replays run, and the kernel launches that the
         #: capture recorded (the wrappers count a launch once, when it is
         #: recorded; each replay runs it again): the replays ran
@@ -119,6 +135,25 @@ class FusedWindow:
             state, params=self.params,
             opt_state=OptState(self.m, self.v, state.opt_state.step))
 
+    # ---- re-layout -------------------------------------------------------
+    def relayout(self, part: StagePartition) -> "FusedWindow":
+        """A new window for ``part`` that takes over this one's bound leaves,
+        device mirror and stream (a re-layout changes the cut, never the
+        weights).  This one's graph is reset and every tensor of its private
+        pool dropped first, then the allocator's cache emptied: the reset
+        pool's blocks wait there until they go back to the device."""
+        graph, self.graph = self.graph, None
+        self.static_record = None
+        self.static_batch = {}
+        if graph is not None:
+            graph.reset()
+            del graph
+            torch.cuda.empty_cache()
+        new = FusedWindow(self.body, self.device, part, self.stream)
+        new.step, new.lr_scale = self.step, self.lr_scale
+        new.params, new.m, new.v = self.params, self.m, self.v
+        return new
+
     def streamed(self) -> contextlib.AbstractContextManager:
         """On the card, the window's stream as the current one: the work
         between windows then shares the cached blocks of the eager step."""
@@ -142,10 +177,17 @@ class FusedWindow:
         return self.body(self.params, TR.leaves(self.m), TR.leaves(self.v),
                          batch, self.step, self.lr_scale)
 
-    def dispatch(self, state: TrainState, stacked: Dict[str, np.ndarray]
-                 ) -> Pending:
+    def dispatch(self, state: TrainState, stacked: Dict[str, np.ndarray], *,
+                 part: StagePartition) -> Pending:
         """Start the window ``stacked`` (k batches on a leading axis) from
-        ``state``; on the card it runs on while the host goes on."""
+        ``state`` under the caller's partition ``part``, which must be this
+        window's own; on the card it runs on while the host goes on."""
+        if part is not self.part:
+            raise AssertionError(
+                f"a window for {self.part.num_stages} stages "
+                f"{self.part.layer_counts} dispatched under "
+                f"{part.num_stages} stages {part.layer_counts}: its graph "
+                "sums the omegas over another cut")
         state = self.bind(state)
         self.step.fill_(state.opt_state.step)
         self.lr_scale.fill_(state.lr_scale)

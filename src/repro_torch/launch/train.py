@@ -4,6 +4,8 @@
         --arch paper-llama-124m --strategy checkfree_plus \
         --steps 300 --rate 0.10 [--reduced] [--seq 512 --batch 8] \
         [--device cpu] [--fuse-window 8] [--out history.json]
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --layers 6 \
+        --stages 4 --strategy elastic --scenario spot_shrink --device cpu
 
 The counterpart of ``repro.launch.train`` for the flags this slice supports:
 config -> model -> data -> failure schedule -> Trainer (recovery strategy),
@@ -16,10 +18,15 @@ Their checkpoint and store directories lie in a directory of this run's own
 under the temporary directory (``TMPDIR``), removed when the run ends: each
 strategy wipes its directory when it starts, so a fixed path would let two
 runs on one machine delete each other's state.
-``--device`` defaults to ``cuda`` and raises where there is none.  Flags of
-the JAX driver that need parts not ported yet are refused by name:
-``--backend spmd``, ``--scenario``, ``--depart-prob``, ``--regrow-h``,
-``--telemetry-dir`` and ``--trace``.
+``--scenario`` (a registered scenario of :mod:`repro_torch.sim` or
+``trace:<file>``) replaces ``--rate``'s Bernoulli schedule with a simulated
+cluster; ``--depart-prob`` and ``--regrow-h`` override its permanent
+departures and the hours until fresh capacity arrives, and need
+``--scenario``.  ``--strategy elastic`` shrinks the pipeline on a departure
+and grows it back on a regrow.  ``--device`` defaults to ``cuda`` and raises
+where there is none.  Flags of the JAX launcher that need parts not ported
+yet are refused by name: ``--backend spmd``, ``--telemetry-dir`` and
+``--trace``.
 """
 from __future__ import annotations
 
@@ -42,15 +49,13 @@ from repro_torch.core.walltime import WallClockModel
 from repro_torch.data.pipeline import SyntheticLM, batch_for, make_batches
 from repro_torch.models.model import build_model
 from repro_torch.recovery import available_strategies, default_protect_edges
+from repro_torch.sim import get_scenario, simulate
 from repro_torch.telemetry import log
 
 
 def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
     unported = {
         "--backend spmd": args.backend == "spmd",
-        "--scenario": bool(args.scenario),
-        "--depart-prob": args.depart_prob is not None,
-        "--regrow-h": args.regrow_h is not None,
         "--telemetry-dir": bool(args.telemetry_dir),
         "--trace": args.trace,
     }
@@ -86,15 +91,25 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--fuse-window", type=int, default=8,
                     help="max steps fused into one window (1 = eager)")
+    ap.add_argument("--scenario", default="",
+                    help="simulated-cluster environment (repro_torch.sim): a "
+                         "registered scenario name or trace:<file>; "
+                         "supersedes --rate's Bernoulli schedule")
+    ap.add_argument("--depart-prob", type=float, default=None,
+                    help="override the scenario's per-failure probability "
+                         "that the node is gone for good")
+    ap.add_argument("--regrow-h", type=float, default=None,
+                    help="override the scenario's hours until fresh "
+                         "capacity replaces a departed node (inf = never)")
     # flags of the JAX driver that are refused by name
     ap.add_argument("--backend", default="host", choices=["host", "spmd"])
-    ap.add_argument("--scenario", default="")
-    ap.add_argument("--depart-prob", type=float, default=None)
-    ap.add_argument("--regrow-h", type=float, default=None)
     ap.add_argument("--telemetry-dir", default="")
     ap.add_argument("--trace", action="store_true")
     args = ap.parse_args(argv)
     _refuse_unported(ap, args)
+    if (args.depart_prob is not None or args.regrow_h is not None) \
+            and not args.scenario:
+        ap.error("--depart-prob/--regrow-h need --scenario (repro_torch.sim)")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -116,8 +131,8 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     protect = default_protect_edges(args.strategy)
     rcfg = RecoveryConfig(
         strategy=args.strategy, num_stages=stages,
-        failure_rate_per_hour=args.rate, seed=args.seed,
-        protect_edge_stages=protect)
+        failure_rate_per_hour=args.rate, scenario=args.scenario,
+        seed=args.seed, protect_edge_stages=protect)
     tcfg = TrainConfig(
         global_batch=args.batch, microbatch=args.batch, seq_len=seq,
         steps=args.steps, eval_every=max(args.steps // 10, 1),
@@ -133,7 +148,18 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
 
     wall = WallClockModel(model_bytes=4 * n * 2)
     schedule = None
-    if args.rate > 0 and args.strategy != "none":
+    if args.scenario:
+        # the Trainer's own schedule for rcfg.scenario, with the shrink
+        # knobs' overrides
+        overrides = {"depart_prob": args.depart_prob,
+                     "regrow_h": args.regrow_h}
+        schedule = simulate(
+            get_scenario(args.scenario, **{k: v for k, v in overrides.items()
+                                           if v is not None}),
+            steps=args.steps * 10, seed=args.seed, num_stages=stages,
+            protect_edges=rcfg.protect_edge_stages, wall=wall)
+        log(schedule.summary())
+    elif args.rate > 0 and args.strategy != "none":
         schedule = FailureSchedule(
             rate_per_hour=args.rate, iteration_time_s=rcfg.iteration_time_s,
             num_stages=stages, steps=args.steps * 10, seed=args.seed,
@@ -164,6 +190,9 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
         f"{hist.wall_time[-1] / 3600:.1f}h", level=0)
     for (step, err) in hist.recovery_errors:
         log(f"  recovery @ wall-iter {step}: error term {err:.3e}")
+    for (step, direction, k0, k1, moved, cost) in trainer.repartition_log:
+        log(f"  {direction} @ wall-iter {step}: {k0} -> {k1} stages, "
+            f"{moved} layers moved, {cost:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -6,10 +6,9 @@
     state = strategy.on_failure(state, event)
 
 The counterpart of ``repro.recovery``: ``none``, ``redundant``,
-``checkfree``, ``checkfree_plus``, ``uniform``, ``copy``, ``random``,
-``checkpoint`` and ``adaptive``, and from ``repro_torch.statestore``
-``tiered_ckpt`` and ``neighbor``.  ``elastic`` comes later (ROADMAP.md
-queue 1, item 5).
+``checkfree``, ``checkfree_plus``, ``elastic``, ``uniform``, ``copy``,
+``random``, ``checkpoint`` and ``adaptive``, and from
+``repro_torch.statestore`` ``tiered_ckpt`` and ``neighbor``.
 """
 from repro_torch.recovery.base import (FailureContext,  # noqa: F401
                                        RecoveryStrategy)

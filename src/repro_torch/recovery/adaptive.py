@@ -15,10 +15,11 @@ is active ("shadow checkpointing"), so a switch under fire has warm state
 to roll back to; the wall-clock model only charges the active child's
 iteration cost.
 
-The JAX policy also decides, per permanent departure, whether to shrink the
-pipeline (``accept_repartition``); that waits for elastic repartitioning
-(ROADMAP.md queue 1, item 5), so this port advertises no repartitioning and
-refuses a child that repartitions.
+Per permanent departure the policy also decides whether to shrink the
+pipeline (:meth:`Adaptive.accept_repartition`): the one-time re-layout
+against staying degraded on a spare, logged in ``repartition_decisions``.
+As in JAX it advertises ``recover_by_repartition`` on every instance, so the
+trainer asks it at each departure whatever its children are.
 """
 from __future__ import annotations
 
@@ -30,10 +31,6 @@ from repro_torch.core.state import History, TrainState
 from repro_torch.recovery.base import FailureContext, RecoveryStrategy
 from repro_torch.recovery.registry import make_strategy, register_strategy
 
-#: JAX strategies that repartition on departures (not ported yet)
-REPARTITIONING = ("elastic",)
-
-
 @register_strategy("adaptive")
 class Adaptive(RecoveryStrategy):
 
@@ -42,30 +39,20 @@ class Adaptive(RecoveryStrategy):
         low, high = rcfg.adaptive_low, rcfg.adaptive_high
         if "adaptive" in (low, high):
             raise ValueError("adaptive children must be concrete strategies")
-        for name in (low, high):
-            if name in REPARTITIONING:
-                raise NotImplementedError(
-                    f"adaptive child {name!r} repartitions on departures; "
-                    "elastic repartitioning is not ported yet (ROADMAP.md "
-                    "queue 1, item 5)")
         self.low = make_strategy(
             dataclasses.replace(rcfg, strategy=low), wall=wall)
         # same policy both sides -> one shared instance, so the after_step
         # guard below really does prevent double bookkeeping
         self.high = self.low if high == low else make_strategy(
             dataclasses.replace(rcfg, strategy=high), wall=wall)
-        for child in (self.low, self.high):
-            if child.recover_by_repartition:
-                raise NotImplementedError(
-                    f"adaptive child {child.name!r} repartitions on "
-                    "departures; elastic repartitioning is not ported yet "
-                    "(ROADMAP.md queue 1, item 5)")
         self.active = self.low
         self._window = deque(maxlen=max(rcfg.adaptive_window, 1))
         self._pending = 0          # failures since the last wall iteration
         self._env_rate = None      # the schedule's observed rate
         # (effective_step, from, to) switch log
         self.switches: List[Tuple[int, str, str]] = []
+        # (wall_step, accepted, relayout_s, stay_degraded_s) per departure
+        self.repartition_decisions: List[Tuple[int, bool, float, float]] = []
 
     # ---- capability flags follow the children -------------------------
     # On instances these delegate dynamically; on the class itself they
@@ -86,6 +73,10 @@ class Adaptive(RecoveryStrategy):
     uses_swap_schedule = _ChildFlag(
         lambda self: (self.low.uses_swap_schedule or
                       self.high.uses_swap_schedule), False)
+    # the policy itself decides per departure whether to shrink
+    # (accept_repartition prices the re-layout against staying degraded),
+    # so an instance always advertises the capability, as JAX's does
+    recover_by_repartition = _ChildFlag(lambda self: True, False)
 
     # ---- wiring -------------------------------------------------------
     def bind(self, part, init_fn=None) -> "Adaptive":
@@ -118,6 +109,47 @@ class Adaptive(RecoveryStrategy):
                        event: FailureContext) -> TrainState:
         self._pending += len(run)
         return self.active.on_consecutive(state, run, event)
+
+    # ---- elastic repartitioning ---------------------------------------
+    #: pipeline slowdown while a departed slot limps on a spare (the
+    #: simulator's default ``spare_penalty``)
+    DEGRADED_PENALTY = 1.5
+
+    def on_departure(self, state: TrainState,
+                     event: FailureContext) -> TrainState:
+        self._pending += 1
+        return self.active.on_departure(state, event)
+
+    def accept_repartition(self, event: FailureContext,
+                           moved_bytes: float) -> bool:
+        """Shrink only when the one-time re-layout beats staying degraded.
+
+        * re-layout: ``relayout_time_s(moved_bytes)`` once;
+        * stay at K: an in-place restore (a memory-tier read of one stage
+          shard) plus the spare's excess iteration time over the expected
+          degraded horizon, which observed churn shortens (a stormy cluster
+          returns capacity soon; a calm one makes the loss permanent).
+        """
+        relayout_s = self.wall.relayout_time_s(moved_bytes)
+        specs = self.wall.tier_specs()
+        restore_s = specs["mem"].read_time_s(
+            self.wall.stage_bytes(self.part.num_stages))
+        window = max(self.rcfg.adaptive_window, 1)
+        expected_fails = self.failure_rate() * window
+        horizon_iters = window / max(expected_fails, 1.0)
+        degraded_s = ((self.DEGRADED_PENALTY - 1.0)
+                      * self.wall.iter_time_s * horizon_iters)
+        accept = relayout_s <= restore_s + degraded_s
+        self.repartition_decisions.append(
+            (event.wall_step, accept, relayout_s, restore_s + degraded_s))
+        return accept
+
+    def on_layout_change(self, state: TrainState, old, new) -> TrainState:
+        self.part = new
+        state = self.low.on_layout_change(state, old, new)
+        if self.high is not self.low:
+            state = self.high.on_layout_change(state, old, new)
+        return state
 
     def after_step(self, state: TrainState, hist: History) -> None:
         self._window.append(self._pending)

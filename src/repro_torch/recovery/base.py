@@ -7,6 +7,11 @@ lifecycle hooks (called by the trainer)
   ``on_failure(state, event)``      — one stage died at an iteration boundary
   ``on_consecutive(state, run, event)`` — a run of adjacent stages died
                                       together (only if ``handles_consecutive``)
+  ``on_departure(state, event)``    — a stage's node left for good and the
+                                      trainer will shrink the layout; rebuild
+                                      the stage's values in the old layout
+  ``accept_repartition(event, bytes)`` — whether to shrink for a departure
+  ``on_layout_change(state, old, new)`` — the trainer re-cut the stages
   ``after_step(state, hist)``       — bookkeeping after every wall iteration
   ``on_run_end()``                  — loop exit (even on error)
   ``observe_environment(rate)``     — the schedule's observed failure rate,
@@ -25,8 +30,7 @@ capability flags (the trainer never looks at names)
   ``uses_swap_schedule``   — the train step runs CheckFree+'s swapped stage
                              order on half the batch
   ``recover_by_repartition`` — wants the layout shrunk on a permanent
-                             departure (elastic; the port's trainer refuses
-                             such strategies until it is ported)
+                             departure and grown back on a regrow (elastic)
 
 horizons
   ``after_step_horizon(step)`` — how many iterations may run before
@@ -40,8 +44,8 @@ horizons
 ``bind(part, init_fn)`` gives a strategy the stage partition and a
 from-scratch init (``() -> (params, opt_state)``, fresh tensors on the
 trainer's device), for policies that may have to restart.  The in-mesh
-recovery of the pipeline backend and the departure/re-layout hooks come with
-the parts of the port that use them.
+recovery of the pipeline backend comes with the part of the port that uses
+it.
 
 Strategies are made through the registry
 (:func:`repro_torch.recovery.registry.make_strategy`).
@@ -110,6 +114,14 @@ class RecoveryStrategy:
         """:meth:`on_consecutive`, as :meth:`handle_failure`."""
         return self.on_consecutive(state, run, event)
 
+    def handle_departure(self, state: "TrainState",
+                         event: FailureContext) -> "TrainState":
+        """:meth:`on_departure`, as :meth:`handle_failure`.  Called instead
+        of it when the failure is a permanent departure that the trainer
+        will repartition away: the strategy only rebuilds the lost stage's
+        values in the *old* layout; the trainer re-cuts the layout after."""
+        return self.on_departure(state, event)
+
     # ---- lifecycle ---------------------------------------------------
     def on_failure(self, state: "TrainState",
                    event: FailureContext) -> "TrainState":
@@ -120,6 +132,29 @@ class RecoveryStrategy:
         """Default: recover each stage of the run independently."""
         for stage in run:
             state = self.on_failure(state, replace(event, stage=stage))
+        return state
+
+    def on_departure(self, state: "TrainState",
+                     event: FailureContext) -> "TrainState":
+        """A permanent departure rebuilds the stage as a failure does; the
+        re-layout that follows is the trainer's (it owns the partition and
+        the fused window), not the strategy's."""
+        return self.on_failure(state, event)
+
+    def accept_repartition(self, event: FailureContext,
+                           moved_bytes: float) -> bool:
+        """Whether to shrink the layout for this departure (``moved_bytes``:
+        the state the re-layout would move).  Consulted only when
+        ``recover_by_repartition`` is set; ``adaptive`` prices it against
+        staying degraded."""
+        return True
+
+    def on_layout_change(self, state: "TrainState", old: "StagePartition",
+                         new: "StagePartition") -> "TrainState":
+        """The trainer re-cut the stage layout (a shrink after a departure,
+        a grow on a regrow).  Rebind the partition and refresh per-stage
+        state; store-backed strategies re-shard their snapshots here."""
+        self.part = new
         return state
 
     def after_step(self, state: "TrainState", hist: "History") -> None:

@@ -10,10 +10,13 @@ slice:
                     for with a 1.654x iteration time (Table 2)
   checkpoint      — periodic save / rollback baseline (restarts from a fresh
                     init when a failure precedes the first save)
+  elastic         — checkfree, and on a permanent departure a re-cut of
+                    the pipeline over the surviving stages (grown back on a
+                    regrow)
   none            — ignore failures (convergence lower bound)
   copy / uniform / random — the Fig. 2 ablation reinits
 
-``elastic`` comes later (ROADMAP.md queue 1, item 5).  All recovery math
+All recovery math
 lives in ``repro_torch.core.recovery``; it updates the parameters in place,
 so each strategy copies the failed stages first to measure the recovery
 error, and a rollback copies the saved state into the live tensors.
@@ -206,6 +209,25 @@ class CheckFreePlus(MergeRecovery):
     handles_edge_stages = True
     handles_consecutive = True
     uses_swap_schedule = True
+
+
+@register_strategy("elastic")
+class Elastic(MergeRecovery):
+    """CheckFree reconstruction + elastic repartitioning.
+
+    Transient failures behave exactly like ``checkfree``.  When the
+    schedule reports a *permanent* departure, the lost stage is first
+    rebuilt by the gradient-norm-weighted neighbour merge (the
+    ``stage_merge`` kernel on the card) in the old layout; then the trainer
+    re-cuts the surviving K-1 stages into balanced contiguous ranges and
+    re-captures its fused window; on a later regrow it grows back to K.
+    The re-layout is priced once through
+    :meth:`repro_torch.core.walltime.WallClockModel.relayout_time_s`.
+    """
+
+    handles_edge_stages = False
+    handles_consecutive = True
+    recover_by_repartition = True
 
 
 @register_strategy("uniform")

@@ -13,7 +13,9 @@ mediates every save/restore:
   the next copy instead of failing the restore;
 * **retention** — after every put the policy trims that tier's history;
 * **failure semantics** — ``drop_host(stage)`` wipes a dead node's
-  in-memory replicas before a restore is attempted.
+  in-memory replicas before a restore is attempted;
+* **re-layout** — ``reshard`` drops every snapshot cut along the old stage
+  bounds and seeds the fastest tier with shards cut along the new ones.
 
 Every restore returns the serving tier and its priced read time, which is
 how recovery strategies charge tier-real wall-clock.  The restored tree
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from repro_torch.statestore.codec import (CodecError, Pytree, Snapshot,
                                           host_snapshot, snapshot_to_tree)
@@ -112,6 +114,28 @@ class StateStore:
     def drop_host(self, host: int) -> int:
         """A node died: wipe its in-memory replicas across all tiers."""
         return sum(t.drop_host(host) for t in self.tiers)
+
+    # ---- elastic re-layout --------------------------------------------
+    def reshard(self, shards: Dict[str, Pytree], *, step: int,
+                hosts: Dict[str, int]) -> None:
+        """A stage-layout change made every stored snapshot stale.
+
+        Shards are cut along stage bounds, so after an elastic shrink or
+        grow the stored copies describe ranges that no longer exist: a
+        restore from them would graft the wrong layers.  Drop everything
+        (every shard, every tier), then seed the fastest tier synchronously
+        with the freshly cut ``shards`` (``{shard_id: tree}``) at ``step``;
+        ``hosts`` maps each shard id to its new host.  Colder tiers refill
+        at their usual cadence from the strategy's ``after_step``.
+        """
+        self.flush()
+        for t in self.tiers:
+            for sid in t.shard_ids():
+                for s in list(t.steps(sid)):
+                    t.delete(sid, s)
+        for sid, tree in shards.items():
+            self.put(tree, step=step, shard_id=sid, tier=self.tiers[0].name,
+                     host=hosts[sid], sync=True)
 
     # ---- restore ------------------------------------------------------
     def restore(self, shard_id: str,

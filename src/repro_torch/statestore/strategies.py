@@ -199,6 +199,24 @@ class StoreBackedStrategy(RecoveryStrategy):
                 state, stage, dataclasses.replace(event, stage=stage))
         return state
 
+    def on_layout_change(self, state: TrainState, old, new) -> TrainState:
+        """The trainer re-cut the stage layout: every stored shard is sliced
+        along stale bounds and must not serve a restore.  Rebind the
+        partition, then re-shard: drop every snapshot and seed the fastest
+        tier synchronously with shards cut from the current state along the
+        new bounds (placed by the new ``(i+1) % K`` rule)."""
+        self.part = new
+        if self._store is not None:
+            shards = {}
+            hosts = {}
+            for stage in range(new.num_stages):
+                sid = self._shard_id(stage)
+                shards[sid] = self._shard_tree(state, stage)
+                hosts[sid] = self._shard_host(stage)
+            self._store.reshard(shards, step=state.effective_step,
+                                hosts=hosts)
+        return state
+
     def on_run_end(self) -> None:
         if self._store is not None:
             self._store.close()

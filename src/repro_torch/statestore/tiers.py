@@ -92,6 +92,10 @@ class StorageTier:
         """Steps available for ``shard_id``, ascending."""
         raise NotImplementedError
 
+    def shard_ids(self) -> List[str]:
+        """Every shard id with at least one snapshot in this tier."""
+        raise NotImplementedError
+
     def has(self, shard_id: str, step: int) -> bool:
         return step in self.steps(shard_id)
 
@@ -148,6 +152,9 @@ class MemoryTier(StorageTier):
 
     def steps(self, shard_id: str) -> List[int]:
         return sorted(s for (sid, s) in self._items if sid == shard_id)
+
+    def shard_ids(self) -> List[str]:
+        return sorted({sid for (sid, _) in self._items})
 
     def used_bytes(self) -> int:
         return sum(snap.nbytes for snap, _ in self._items.values())
@@ -287,6 +294,9 @@ class DiskTier(StorageTier):
 
     def steps(self, shard_id: str) -> List[int]:
         return sorted(s for sid, s, _ in self._listing() if sid == shard_id)
+
+    def shard_ids(self) -> List[str]:
+        return sorted({sid for sid, _, _ in self._listing()})
 
     def used_bytes(self) -> int:
         if not os.path.isdir(self.dir):

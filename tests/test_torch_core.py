@@ -215,7 +215,7 @@ def test_history_json_round_trip_matches_jax():
 def test_registry_matches_jax_for_the_ported_strategies():
     ported = {"none", "redundant", "checkfree", "checkfree_plus", "uniform",
               "copy", "random", "checkpoint", "tiered_ckpt", "neighbor",
-              "adaptive"}
+              "adaptive", "elastic"}
     assert set(available_strategies()) == ported
     for name in ported:
         cls, jcls = get_strategy_cls(name), type(
@@ -231,14 +231,14 @@ def test_registry_matches_jax_for_the_ported_strategies():
         assert s.replay_horizon() == js.replay_horizon(), name
         assert [s.after_step_horizon(k) for k in range(12)] == \
             [js.after_step_horizon(k) for k in range(12)], name
-    # elastic repartitioning is not ported: adaptive advertises none
-    assert not make_strategy(RecoveryConfig(strategy="adaptive")) \
-        .recover_by_repartition
-    with pytest.raises(KeyError, match="elastic"):
-        get_strategy_cls("elastic")
-    with pytest.raises(NotImplementedError, match="'elastic' repartitions"):
-        make_strategy(RecoveryConfig(strategy="adaptive",
-                                     adaptive_high="elastic"))
+    # an adaptive instance advertises repartitioning whatever its children,
+    # as JAX's; its class reports the conservative default
+    for low in ("checkfree", "elastic"):
+        rcfg = dict(strategy="adaptive", adaptive_low=low)
+        assert make_strategy(RecoveryConfig(**rcfg)).recover_by_repartition \
+            == jax_make_strategy(JRecoveryConfig(**rcfg)) \
+            .recover_by_repartition is True
+    assert get_strategy_cls("elastic").recover_by_repartition
 
 
 # ---------------------------------------------------------------------------

@@ -225,9 +225,9 @@ def test_fused_window_cut_by_a_scheduled_failure(tmp_path):
     def record(trainer):
         dispatch = trainer.window.dispatch
 
-        def recording(state, stacked):
+        def recording(state, stacked, **kw):
             sizes.append(len(stacked["tokens"]))
-            return dispatch(state, stacked)
+            return dispatch(state, stacked, **kw)
 
         trainer.window.dispatch = recording
 
@@ -331,10 +331,10 @@ def test_window_body_reads_nothing_back(monkeypatch, tmp_path):
     def setup(trainer):
         dispatch = trainer.window.dispatch
 
-        def checked(state, stacked):
+        def checked(state, stacked, **kw):
             inside.on = True
             try:
-                return dispatch(state, stacked)
+                return dispatch(state, stacked, **kw)
             finally:
                 inside.on = False
 

@@ -853,3 +853,136 @@ def test_window_runs_under_sync_debug_error():
     with pytest.raises(RuntimeError, match="synchroniz"):
         fused_run("cuda", 8, fused_params(), setup=reading)
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# ---------------------------------------------------------------------------
+# elastic re-layouts on the card: a new window, a new capture, the old pool
+# back to the device
+# ---------------------------------------------------------------------------
+
+class ElasticForced:
+    """6 layers on 4 stages (2, 2, 1, 1): slot 2 fails at wall 3 (its
+    neighbours hold 2 and 1 layers), slot 1 departs at wall 6 (4 -> 3
+    stages), regrows at 10 (3 -> 4), slot 2 departs at 14 (4 -> 3)."""
+    fails = {3: [2], 6: [1], 14: [2]}
+    departs = {6: [1], 14: [2]}
+    regrows = {10: [1]}
+
+    def at(self, step):
+        return list(self.fails.get(step, []))
+
+    def departed_at(self, step):
+        return list(self.departs.get(step, []))
+
+    def regrown_at(self, step):
+        return list(self.regrows.get(step, []))
+
+
+def elastic_cfg():
+    return get_config("paper-llama-124m").replace(
+        num_layers=6, d_model=128, num_heads=4, num_kv_heads=4, d_ff=344,
+        vocab_size=512, max_seq_len=64, dtype="float32")
+
+
+def elastic_run(device, params, window=8):
+    from repro_torch import tree as TR
+    from repro_torch.config import (OptimizerConfig, RecoveryConfig,
+                                    TrainConfig)
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+    tcfg = TrainConfig(global_batch=4, microbatch=4, seq_len=64, steps=20,
+                       eval_every=100, fuse_window=window,
+                       optimizer=OptimizerConfig(lr=6e-4, total_steps=20),
+                       recovery=RecoveryConfig(strategy="elastic",
+                                               num_stages=4))
+    trainer = Trainer(Model(elastic_cfg(), device=device, weights=False),
+                      tcfg, schedule=ElasticForced())
+    state, hist = trainer.run(make_batches(elastic_cfg(), batch=4, seq=64),
+                              params=TR.clone(params))
+    return trainer, TR.map(lambda t: t.detach().cpu(), state.params), hist
+
+
+def elastic_params():
+    return Model(elastic_cfg(), device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+
+
+@pytest.mark.gpu
+def test_elastic_shrink_and_grow_on_card_matches_cpu():
+    """``elastic`` in windows of 8 through a shrink, a grow and a shrink on
+    the card against the same run on the CPU: the same re-layouts,
+    failures and windows, losses and parameters within 1e-3 * (1 + |w|)."""
+    from repro_torch import tree as TR
+    params = elastic_params()
+    card_trainer, card_p, card = elastic_run("cuda", params)
+    cpu_trainer, cpu_p, cpu = elastic_run("cpu", params)
+    assert card_trainer.repartition_log == cpu_trainer.repartition_log
+    assert [r[1:4] for r in card_trainer.repartition_log] == [
+        ("shrink", 4, 3), ("grow", 3, 4), ("shrink", 4, 3)]
+    assert card.steps == cpu.steps and card.failures == cpu.failures
+    assert card.dispatches == cpu.dispatches < card.wall_iters
+    np.testing.assert_allclose(card.loss, cpu.loss, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose([e for _, e in card.recovery_errors],
+                               [e for _, e in cpu.recovery_errors],
+                               rtol=1e-3, atol=1e-3)
+    for a, b in zip(TR.leaves(card_p), TR.leaves(cpu_p)):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_elastic_recaptures_once_per_layout_with_the_new_omegas():
+    """One capture per layout epoch; every ring of an epoch is OMEGAS + K
+    wide for that epoch's K; the losses equal the eager run's at 1e-5."""
+    from repro_torch.core.window import OMEGAS, FusedWindow
+    rings, windows = [], []
+    drain, init = FusedWindow.drain, FusedWindow.__init__
+
+    def recording(self, pending):
+        state, ring = drain(self, pending)
+        rings.append((self.part.num_stages, ring))
+        return state, ring
+
+    def made(self, *args, **kw):
+        init(self, *args, **kw)
+        windows.append(self)
+
+    FusedWindow.drain, FusedWindow.__init__ = recording, made
+    try:
+        trainer, _, hist = elastic_run("cuda", elastic_params())
+    finally:
+        FusedWindow.drain, FusedWindow.__init__ = drain, init
+    _, _, eager = elastic_run("cuda", elastic_params(), window=1)
+    assert [w.captures for w in windows] == [1, 1, 1, 1]
+    assert [w.part.num_stages for w in windows] == [4, 3, 4, 3]
+    assert trainer.window is windows[-1]
+    assert all(w.graph is None for w in windows[:-1])
+    assert all(ring.shape[1] == OMEGAS + k for k, ring in rings)
+    np.testing.assert_allclose(hist.loss, eager.loss, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_elastic_relayouts_give_the_old_pool_back():
+    """Reserved memory after each re-capture stays within one graph pool of
+    its value after the first: a pool leaked per re-layout would add one
+    pool each time."""
+    from repro_torch.core.window import FusedWindow
+    reserved = []
+    capture = FusedWindow._capture
+
+    def measured(self, batch):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_reserved()
+        capture(self, batch)
+        torch.cuda.synchronize()
+        reserved.append((before, torch.cuda.memory_reserved()))
+
+    torch.cuda.empty_cache()
+    FusedWindow._capture = measured
+    try:
+        elastic_run("cuda", elastic_params())
+    finally:
+        FusedWindow._capture = capture
+    assert len(reserved) == 4
+    pool = reserved[0][1] - reserved[0][0]
+    assert pool > 0
+    assert all(after - reserved[0][1] < pool for _, after in reserved[1:])

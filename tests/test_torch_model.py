@@ -274,7 +274,8 @@ def test_package_imports_no_jax_and_nothing_of_repro():
         "'statestore.codec', 'statestore.tiers', 'statestore.store', "
         "'statestore.snapshot', 'statestore.policy', 'statestore.faults', "
         "'statestore.strategies', 'ckpt', 'ckpt.checkpoint', "
-        "'recovery.adaptive', 'data.pipeline'):\n"
+        "'recovery.adaptive', 'data.pipeline', 'sim', 'sim.node', "
+        "'sim.scenario', 'sim.processes', 'sim.cluster', 'sim.adapters'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

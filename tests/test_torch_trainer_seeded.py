@@ -43,7 +43,7 @@ def test_train_cli_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--backend", "spmd"],
-                                   ["--scenario", "spot_diurnal"],
+                                   ["--trace"],
                                    ["--depart-prob", "0.1"],
                                    ["--telemetry-dir", "x"]])
 def test_train_cli_refuses_unported_flags_by_name(flags, capsys):
