@@ -48,6 +48,15 @@ result.  Phases:
              16-byte boundary; a state-carry check, and both models' serving
              shapes, timed there beside its bound and the chunked plain
              version (no PyTorch call computes it).
+             The SSD backward (fp32 on the CUDA cores for both dtypes)
+             against ``ssd_chunked_bwd_ref`` over tests/test_kernels.py's
+             SSD shapes, ragged chunks and a chunk of 1 at the widest P and
+             N with the real decay, starting states and dfinal, both
+             training widths cut in batch and heads and B and C rows off a
+             16-byte boundary, each case launched twice for bit-equality;
+             timed at both models' training shapes (B 8 x 512 x 64 heads,
+             N 128; B 4 x 512 x 80 heads, N 64) beside its bound and the
+             plain version (no PyTorch call computes it).
 4. model   — paper-llama-1.5b, mamba2-1.3b, zamba2-2.7b, gemma-2b and
              h2o-danube-3-4b at full width cut to 2 layers, fp32: prefill
              logits (and cache) on the card (kernels) against the port on the
@@ -109,6 +118,23 @@ result.  Phases:
              256) and h2o-danube-3-4b cut to 12 of its 24 layers (6 stages;
              GQA at head dim 120, window 4096), the backward kernels
              running at those head dims.
+8b. train_ssm — mamba2-1.3b at full width and depth (48 layers, 8 stages,
+             batch 8 x 512): ``checkfree_plus`` for 6 eager steps under
+             train's schedule with train's checks (the SSD scan and its
+             backward launched once a layer and half-batch, the step-2
+             merge against its plain version, the first two steps against
+             the same steps with the plain SSD scan, the SSD backward
+             against its plain version on every layer's inputs of one step,
+             finite gradients; the plain comparison at batch 4, where the
+             plain SSD's autograd fits); then 16 steps in fused windows of
+             8 (the capture emptying the allocator's cache, which would not
+             leave room for the graph's pool), stage 3 failing at the window
+             boundary, against the same steps eagerly, bit for bit.  ms a
+             step, tokens/s, peak allocated and reserved.
+8c. train_hybrid — zamba2-2.7b at full width and depth (54 SSM layers and
+             the shared attention block after every 9, 6 stages, batch 4 x
+             512): train_gemma's checks for ``checkfree``, with the SSD
+             kernels and the flash kernels at head dim 80 (6 a pass).
 9. train_ckpt — the checkpoint baseline at TRAIN's full width and depth
              (cut to 12 layers, and said so, if the host cannot hold the
              state in half its free memory, or two saves in half the free
@@ -127,8 +153,9 @@ result.  Phases:
              failing at wall 2 and served from the memory tier, bit-equal to
              the shard saved at step 2; snapshot time a step beside its
              bound over the host link.
-11. kernels — one line for every kernel: launches (the training paths, and
-             by path), error, times, bound.
+11. kernels — one line for every kernel: launches (the training paths and
+             for the SSD scan the serving ones, and by path), error, times,
+             bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -337,6 +364,28 @@ ELASTIC_STORY = [(15, "fail", 4), (16, "depart", 4), (26, "fail", 3),
 ELASTIC_UNEVEN = (26, 3)              # (wall, stage) of the uneven merge
 ELASTIC_RESERVED_GIB = 2.0
 CARD_BYTES = 80e9
+# training the ssm and hybrid families at full width and depth (random
+# weights, bf16 compute, fp32 masters and moments, seq 512): mamba2-1.3b in
+# 8 stages of 6 layers, batch 8 (checkfree_plus's half batch gives the SSD
+# kernels B 4), and zamba2-2.7b in 6 stages of 9 (the shared attention block
+# after each), batch 4
+TRAIN_SSM = dict(arch="mamba2-1.3b", stages=8, batch=8, seq=512)
+TRAIN_HYBRID = dict(arch="zamba2-2.7b", stages=6, batch=4, seq=512)
+# the plain SSD scan's autograd keeps its chunked intermediates: mamba2-
+# 1.3b's two steps with it run at batch 4, beside the same two steps with the
+# kernels at batch 4 (at batch 8 the plain run did not fit the card: out of
+# memory at 76.7 GiB allocated on an NVIDIA H100 80GB HBM3, 700 W)
+SSM_PLAIN_BATCH = 4
+# train_ssm's fused walls: 16 steps in windows of 8, stage 3 failing at wall
+# 8, between the two windows; the fused run equals the eager one bit for
+# bit.  At batch 8 the eager step's cached blocks (38.6 GiB) and the graph's
+# own pool do not fit the card together, so the capture empties the cache
+# (core/window.py) and the merge between the windows allocates anew
+SSM_FUSED_STEPS, SSM_FUSED_SCHEDULE, SSM_FUSED_SIZES = 16, {8: [3]}, [8, 8]
+# the SSD backward, timed at both models' training shapes (bf16, chunk 64,
+# the real decay, B and C strided views of xBC)
+SSD_TRAIN = {"mamba2-1.3b": dict(b=8, t=512, h=64, p=64, g=1, n=128),
+             "zamba2-2.7b": dict(b=4, t=512, h=80, p=64, g=1, n=64)}
 
 
 def emit(phase: str, **kw) -> None:
@@ -1202,15 +1251,150 @@ def phase_kernel_ssd() -> dict:
             "shapes": shapes}
 
 
-def path_launches(cfg) -> dict:
-    """The flash-forward and SSD launches that one prefill of ``cfg`` makes:
-    one flash forward a dense layer or a hybrid's shared-block application,
-    one SSD scan an SSM layer."""
+def ssd_bwd_cases():
+    """(dtype, shape, chunk, real, init, offset) of the SSD backward's sweep:
+    tests/test_kernels.py's SSD shapes, ragged chunks and a chunk of 1 at
+    the widest P and N with the real decay, a starting state and dfinal,
+    both training widths cut in batch and heads, and B and C rows off a
+    16-byte boundary."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for t in (64, 128):
+            for chunk in (16, 32, 64):
+                for h, g in ((2, 1), (4, 2)):
+                    yield (dtype, dict(b=2, t=t, h=h, p=16, g=g, n=8), chunk,
+                           False, False, 0)
+        for t, chunk in ((509, 64), (37, 1), (100, 48)):
+            for p, n in ((32, 16), (64, 128)):
+                for init in (False, True):
+                    yield (dtype, dict(b=2, t=t, h=4, p=p, g=2, n=n), chunk,
+                           True, init, 0)
+    for n, h in ((128, 8), (64, 10)):
+        yield (torch.bfloat16, dict(b=2, t=512, h=h, p=64, g=1, n=n), 64,
+               True, False, 0)
+    for offset in (4, 1):
+        yield (torch.bfloat16, dict(b=2, t=150, h=4, p=64, g=1, n=36), 64,
+               True, True, offset)
+
+
+def compare_ssd_bwd(xb, a, bmat, cmat, init_state, dy, dfinal,
+                    chunk: int) -> tuple:
+    """The SSD backward kernel against ``ssd_chunked_bwd_ref``: each
+    gradient within GRAD_TOL * (1 + |w|), finite, in its dtype, and a second
+    launch's bits equal to the first's.  Returns (ok, max |error|)."""
+    got = SSD.ssd_scan_bwd(xb, a, bmat, cmat, dy, chunk=chunk,
+                           init_state=init_state, dfinal=dfinal)
+    again = SSD.ssd_scan_bwd(xb, a, bmat, cmat, dy, chunk=chunk,
+                             init_state=init_state, dfinal=dfinal)
+    want = ref.ssd_chunked_bwd_ref(xb, a, bmat, cmat, chunk, init_state, dy,
+                                   dfinal)
+    ok, worst = (got[4] is None) == (init_state is None), 0.0
+    for g1, g2, w in zip(got, again, want):
+        if g1 is None:
+            continue
+        good, err = within(g1, w, GRAD_TOL[xb.dtype])
+        ok &= good and g1.dtype == w.dtype and torch.equal(g1, g2)
+        worst = max(worst, err)
+    return ok, worst
+
+
+def ssd_bwd_bound(b, t, h, p, g, n, chunk: int) -> tuple:
+    """(bytes, flops) of one backward call at a training shape: bf16 x, dy,
+    B and C read and dx, dB and dC written, fp32 a read and da written; per
+    (batch, head, chunk) the products C B^T, dy x^T, att^T dy, dS B,
+    E C, dS^T x, E B, S^T dy, dy C^T (the state gradient) and x B^T (the
+    recomputed state)."""
+    nbytes = 3 * b * t * h * p * 2 + 2 * b * t * h * 4 + 4 * b * t * g * n * 2
+    per_chunk = 2 * (3 * chunk * chunk * n + 2 * chunk * chunk * p
+                     + 5 * chunk * p * n)
+    return nbytes, b * h * -(-t // chunk) * per_chunk
+
+
+def phase_kernel_ssd_bwd() -> dict:
+    gen = torch.Generator("cuda").manual_seed(4)
+    cases = failures = 0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype, shp, chunk, real, init, offset in ssd_bwd_cases():
+        xb, a, bm, cm, init_state = ssd_inputs(
+            gen, **shp, dtype=dtype, real=real, init=init, strided=real,
+            offset=offset)
+        dy = torch.randn(xb.shape, generator=gen, device="cuda").to(dtype)
+        dfinal = torch.randn(init_state.shape, generator=gen,
+                             device="cuda") if init else None
+        ok, err = compare_ssd_bwd(xb, a, bm, cm, init_state, dy, dfinal, chunk)
+        name = str(dtype).split(".")[1]
+        worst[name] = max(worst[name], err)
+        cases += 1
+        if not ok:
+            failures += 1
+            print(f"MISMATCH ssd_bwd dtype={name} {shp} chunk={chunk} "
+                  f"real={real} init={init} offset={offset} err={err}",
+                  file=sys.stderr)
+    emit("kernel_check", kernel="ssd_scan_bwd", cases=cases,
+         failures=failures, max_abs_err=worst,
+         tol={"float32": GRAD_TOL[torch.float32],
+              "bfloat16": GRAD_TOL[torch.bfloat16]},
+         oracles=["ref.ssd_chunked_bwd_ref"],
+         deterministic="two launches of every case compared bit for bit")
+    if failures:
+        raise AssertionError(f"the SSD backward disagrees with its plain "
+                             f"version in {failures} of {cases} cases")
+
+    # the training shapes: one layer's backward of each model
+    shapes = {}
+    for arch, shp in SSD_TRAIN.items():
+        xb, a, bm, cm, _ = ssd_inputs(gen, **shp, dtype=torch.bfloat16,
+                                      real=True, strided=True)
+        dy = torch.randn(xb.shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        ok, err = compare_ssd_bwd(xb, a, bm, cm, None, dy, None, SSD_CHUNK)
+        if not ok:
+            raise AssertionError(f"{arch} training shape: backward error "
+                                 f"{err}")
+        kernel_ms = time_ms(lambda: SSD.ssd_scan_bwd(xb, a, bm, cm, dy,
+                                                     chunk=SSD_CHUNK),
+                            groups=11, per_group=5)
+        plain_ms = time_ms(lambda: ref.ssd_chunked_bwd_ref(
+            xb, a, bm, cm, SSD_CHUNK, None, dy, None), groups=5, per_group=3)
+        nbytes, flops = ssd_bwd_bound(**shp, chunk=SSD_CHUNK)
+        tb = nbytes / MEM_BYTES_PER_S * 1e3
+        to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
+        shapes[arch] = {"max_abs_err": err, "ms": kernel_ms,
+                        "plain_ms": plain_ms, "bound_ms": max(tb, to),
+                        "bound_by": "bytes" if tb >= to else "operations",
+                        "library_ms": None}
+        emit("kernel_time", kernel="ssd_scan_bwd",
+             shape=dict(shp, arch=arch, chunk=SSD_CHUNK, dtype="bfloat16"),
+             bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
+             bound_fp32_ops_ms=flops / PEAK_FLOP_PER_S[torch.float32] * 1e3,
+             **shapes[arch], library="none: no PyTorch call computes the "
+             "SSD scan's backward", plain="ref.ssd_chunked_bwd_ref",
+             timing="median of 11 groups of 5 back-to-back calls, CUDA "
+                    "events (plain: 5 groups of 3)")
+        del xb, a, bm, cm, dy
+    main_shape = shapes["mamba2-1.3b"]
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/models/ssm.py:52",
+            "replaces_note": "no TPU kernel: JAX's autodiff of ssd_chunked",
+            **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "max_abs_err": max(worst.values()), "shapes": shapes}
+
+
+def pass_launches(cfg) -> tuple:
+    """(attention, SSD) launches of each direction in one forward and
+    backward pass of ``cfg``: a flash kernel a dense layer or a hybrid's
+    shared-block application, an SSD kernel an SSM layer."""
     attention = {"dense": cfg.num_layers,
                  "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}
-    return {"flash_attention_fwd": attention.get(cfg.arch_type, 0),
-            "ssd_scan": cfg.num_layers if cfg.arch_type in ("ssm", "hybrid")
-            else 0}
+    ssd = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
+    return attention.get(cfg.arch_type, 0), ssd
+
+
+def path_launches(cfg) -> dict:
+    """The flash-forward and SSD launches that one prefill of ``cfg`` makes."""
+    attention, ssd = pass_launches(cfg)
+    return {"flash_attention_fwd": attention, "ssd_scan": ssd}
 
 
 def phase_model() -> None:
@@ -1327,17 +1511,10 @@ def phase_serve(spec: dict, phase: str) -> dict:
     attn_seen.clear()
 
     want_launches = {**dict.fromkeys(launched, 0), **path_launches(cfg)}
-    shape = {}
-    if want_launches["flash_attention_fwd"]:
-        shape.update(heads=cfg.num_heads, head_dim=cfg.resolved_head_dim)
-    if want_launches["ssd_scan"]:
-        shape.update(ssm_heads=cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim,
-                     ssm_head_dim=cfg.ssm.head_dim,
-                     state_dim=cfg.ssm.state_dim)
     steps = spec["new_tokens"] - 1
     new = spec["batch"] * spec["new_tokens"]
     emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         **shape, vocab=cfg.vocab_size, dtype=cfg.dtype,
+         **model_shape(cfg), vocab=cfg.vocab_size, dtype=cfg.dtype,
          params=sum(p.numel() for p in model.parameters()),
          batch=spec["batch"], prompt=spec["prompt"],
          new_tokens=spec["new_tokens"], init_s=init_s,
@@ -1406,6 +1583,12 @@ class PlainAttention:
                                        window=window)[0]
 
 
+def plain_ssd(xb, a, bmat, cmat, *, chunk, init_state=None):
+    """Stands in for ``ops.ssd_scan`` so that the model runs the plain chunked
+    scan (autograd through ``ref.ssd_chunked``) on the card."""
+    return ref.ssd_chunked(xb, a, bmat, cmat, chunk, init_state)
+
+
 def train_config(strategy: str, steps: int, *, stages: int, batch: int,
                  seq: int, window: int = 1, **rcfg) -> TrainConfig:
     rcfg = {"protect_edge_stages": False, **rcfg}
@@ -1422,7 +1605,8 @@ def counts() -> dict:
 
 def zero_counts() -> None:
     FA.launches = FA.launches_dq = FA.launches_dkv = SM.launches = 0
-    SSD.launches = AD.launches_sumsq = AD.launches_update = 0
+    SSD.launches = SSD.launches_bwd = 0
+    AD.launches_sumsq = AD.launches_update = 0
 
 
 def phase_train_model() -> None:
@@ -1470,6 +1654,7 @@ def instrument(trainer: Trainer, record: dict) -> None:
         torch.cuda.synchronize()
         record["step_ms"].append((time.perf_counter() - t0) * 1e3)
         record["omegas"].append(state.omegas.cpu())
+        record.setdefault("grad_norm", []).append(float(metrics["grad_norm"]))
         return state, loss, metrics
 
     trainer.step = timed_step
@@ -1559,7 +1744,8 @@ def train_run(strategy: str, steps: int, schedule, *, spec: dict = TRAIN,
     """One full-width run from the trainer's seeded initial parameters ->
     (hist, launch counts, record, peak GiB).  ``rcfg``: more recovery
     settings; ``setup(trainer, record)`` installs a phase's own checks;
-    ``window``: the fuse window (1: eager steps)."""
+    ``window``: the fuse window (1: eager steps); ``plain``: the model's
+    attention and SSD scan run their plain versions."""
     cfg = train_model_config(spec)
     model = Model(cfg, device="cuda", weights=False)
     trainer = Trainer(model, train_config(strategy, steps,
@@ -1577,16 +1763,16 @@ def train_run(strategy: str, steps: int, schedule, *, spec: dict = TRAIN,
     batches = make_batches(cfg, batch=spec["batch"], seq=spec["seq"], seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel = FA.FlashAttention
+    kernel, ssd_kernel = FA.FlashAttention, ops.ssd_scan
     if plain:
-        FA.FlashAttention = PlainAttention
+        FA.FlashAttention, ops.ssd_scan = PlainAttention, plain_ssd
     try:
         zero_counts()
         state, hist = trainer.run(batches)
         torch.cuda.synchronize()
         launched = counts()
     finally:
-        FA.FlashAttention = kernel
+        FA.FlashAttention, ops.ssd_scan = kernel, ssd_kernel
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     record["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
     del trainer, state
@@ -1598,11 +1784,12 @@ def train_run(strategy: str, steps: int, schedule, *, spec: dict = TRAIN,
 def check_run(name: str, hist, launched: dict, *, steps: int, halves: int,
               merges: int, schedule: dict, spec: dict = TRAIN) -> None:
     cfg = train_model_config(spec)
-    per_kernel = cfg.num_layers * halves * steps
-    want = {"flash_attention_fwd": per_kernel,
-            "flash_attention_bwd_dq": per_kernel,
-            "flash_attention_bwd_dkv": per_kernel, "stage_merge": merges,
-            "ssd_scan": 0, "adam_sumsq": steps, "adam_update": steps}
+    attention, ssd = (n * halves * steps for n in pass_launches(cfg))
+    want = {"flash_attention_fwd": attention,
+            "flash_attention_bwd_dq": attention,
+            "flash_attention_bwd_dkv": attention, "stage_merge": merges,
+            "ssd_scan": ssd, "ssd_scan_bwd": ssd, "adam_sumsq": steps,
+            "adam_update": steps}
     failures = [(s, st) for s in sorted(schedule) for st in schedule[s]]
     problems = []
     if len(hist.loss) != steps or not all(math.isfinite(x) for x in hist.loss):
@@ -1619,31 +1806,48 @@ def check_run(name: str, hist, launched: dict, *, steps: int, halves: int,
 
 
 def check_backward_on_path(spec: dict = TRAIN,
-                           strategy: str = "checkfree_plus") -> None:
-    """The backward kernels against their plain version on the inputs that
-    one full-width ``strategy`` step gives them: each layer's q, k, v, out,
-    lse and dO (``checkfree_plus``: in both stage orders), as the serve
-    phases check the forward on the prefill's own inputs."""
+                           strategy: str = "checkfree_plus") -> float:
+    """The backward kernels against their plain versions on the inputs that
+    one full-width ``strategy`` step gives them (``checkfree_plus``: in both
+    stage orders), as the serve phases check the forward on the prefill's
+    own inputs: each attention application's q, k, v, out, lse and dO, and
+    each SSM layer's xb, a, B, C and dy (the SSD backward, checked as it
+    runs, so that no layer's inputs are kept).  Returns the SSD backward's
+    largest error."""
     cfg = train_model_config(spec)
     trainer = Trainer(Model(cfg, device="cuda", weights=False),
                       train_config(strategy, 1, stages=spec["stages"],
                                    batch=spec["batch"], seq=spec["seq"]))
     seen = []
-    kernel = FA.flash_attention_bwd
+    ssd = {"calls": 0, "failures": 0, "max_abs_err": 0.0}
+    kernel, ssd_kernel = FA.flash_attention_bwd, SSD.ssd_scan_bwd
 
     def recording(q, k, v, out, lse, do, *, causal, window):
         got = kernel(q, k, v, out, lse, do, causal=causal, window=window)
         seen.append(((q, k, v, out, lse, do, causal, window), got))
         return got
 
-    FA.flash_attention_bwd = recording
+    def ssd_checking(xb, a, bmat, cmat, dy, *, chunk, init_state=None,
+                     dfinal=None):
+        got = ssd_kernel(xb, a, bmat, cmat, dy, chunk=chunk,
+                         init_state=init_state, dfinal=dfinal)
+        want = ref.ssd_chunked_bwd_ref(xb, a, bmat, cmat, chunk, init_state,
+                                       dy, dfinal)
+        for g, w in zip(got[:4], want[:4]):
+            ok, err = within(g, w, GRAD_TOL[xb.dtype])
+            ssd["failures"] += not ok
+            ssd["max_abs_err"] = max(ssd["max_abs_err"], err)
+        ssd["calls"] += 1
+        return got
+
+    FA.flash_attention_bwd, SSD.ssd_scan_bwd = recording, ssd_checking
     try:
         batch = next(make_batches(cfg, batch=spec["batch"], seq=spec["seq"],
                                   seed=0))
         trainer.step(trainer.init_state(), trainer.device_batch(batch))
         torch.cuda.synchronize()
     finally:
-        FA.flash_attention_bwd = kernel
+        FA.flash_attention_bwd, SSD.ssd_scan_bwd = kernel, ssd_kernel
     failures, worst = 0, 0.0
     for (q, k, v, out, lse, do, causal, window), got in seen:
         want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
@@ -1656,22 +1860,34 @@ def check_backward_on_path(spec: dict = TRAIN,
     head_dims = sorted({q.shape[-1] for (q, *_), _ in seen})
     emit("train_backward_inputs", arch=cfg.name, strategy=strategy,
          calls=calls, head_dims=head_dims, failures=failures,
-         max_abs_err=worst, tol=GRAD_TOL[torch.bfloat16])
+         max_abs_err=worst, tol=GRAD_TOL[torch.bfloat16],
+         ssd_calls=ssd["calls"], ssd_failures=ssd["failures"],
+         ssd_max_abs_err=ssd["max_abs_err"])
     del trainer, seen
     gc.collect()
     torch.cuda.empty_cache()
     halves = 2 if strategy == "checkfree_plus" else 1
-    if calls != halves * cfg.num_layers or failures or head_dims != [
-            cfg.resolved_head_dim]:
+    attention, ssd_layers = pass_launches(cfg)
+    if calls != halves * attention or failures or head_dims != (
+            [cfg.resolved_head_dim] if attention else []):
         raise AssertionError(f"the backward kernels on {calls} training-path "
                              f"inputs at head dims {head_dims}: {failures} "
                              "outputs disagree with the plain version")
+    if ssd["calls"] != halves * ssd_layers or ssd["failures"]:
+        raise AssertionError(f"the SSD backward on {ssd['calls']} training-"
+                             f"path inputs: {ssd['failures']} outputs "
+                             "disagree with the plain version")
+    return ssd["max_abs_err"]
 
 
-def train_vs_plain(spec: dict, strategy: str, kernel_losses: list,
-                   kernel_omegas: list) -> None:
-    """The first two (failure-free) steps again with the plain attention,
-    against the same steps with the kernels."""
+def train_vs_plain(spec: dict, strategy: str, kernel_losses: list = None,
+                   kernel_omegas: list = None) -> None:
+    """The first two (failure-free) steps again with the plain attention
+    and SSD scan, against the same steps with the kernels (run here at
+    ``spec``'s shape when not given)."""
+    if kernel_losses is None:
+        hist, _, record, _ = train_run(strategy, 2, None, spec=spec)
+        kernel_losses, kernel_omegas = hist.loss, record["omegas"]
     plain_hist, plain_launched, plain_record, _ = train_run(
         strategy, 2, None, spec=spec, plain=True)
     loss_err = [abs(a - b) / abs(b) for a, b in zip(kernel_losses,
@@ -1679,14 +1895,16 @@ def train_vs_plain(spec: dict, strategy: str, kernel_losses: list,
     omega_err = [float(((a - b).abs() / b.abs()).max())
                  for a, b in zip(kernel_omegas, plain_record["omegas"])]
     emit("train_vs_plain", arch=spec["arch"], strategy=strategy, steps=2,
+         batch=spec["batch"],
          loss_kernel=kernel_losses, loss_plain=plain_hist.loss,
          loss_rel_err=loss_err,
          omegas_kernel=[o.tolist() for o in kernel_omegas],
          omegas_plain=[o.tolist() for o in plain_record["omegas"]],
          omega_rel_err=omega_err, loss_tol=TRAIN_LOSS_TOL,
          omega_tol=TRAIN_OMEGA_TOL, plain_launches=plain_launched)
-    if plain_launched["flash_attention_fwd"] or \
-            plain_launched["flash_attention_bwd_dq"]:
+    if any(plain_launched[k] for k in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv", "ssd_scan", "ssd_scan_bwd")):
         raise AssertionError(f"the plain run launched kernels: "
                              f"{plain_launched}")
     if max(loss_err) > TRAIN_LOSS_TOL or max(omega_err) > TRAIN_OMEGA_TOL:
@@ -1745,10 +1963,38 @@ def phase_train() -> dict:
     return total
 
 
-def phase_train_dense(spec: dict, phase: str) -> dict:
-    """``checkfree`` at full width on a model whose backward runs at a head
-    dim no other path runs: launch counts, the failure, the step-2 merge
-    against its plain version, the first two steps against plain attention
+def model_shape(cfg) -> dict:
+    """The widths a phase reports: attention heads where the model has
+    attention, SSD heads where it has an SSM tower."""
+    attention, ssd = pass_launches(cfg)
+    shape = {}
+    if attention:
+        shape.update(heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                     head_dim=cfg.resolved_head_dim,
+                     window=cfg.sliding_window)
+    if ssd:
+        shape.update(ssm_heads=cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim,
+                     ssm_head_dim=cfg.ssm.head_dim,
+                     state_dim=cfg.ssm.state_dim, chunk=cfg.ssm.chunk_size)
+    if cfg.arch_type == "hybrid":
+        shape.update(attn_every=cfg.attn_every)
+    return shape
+
+
+def check_finite_gradients(phase: str, record: dict) -> None:
+    norms = record["grad_norm"] + [float(x) for o in record["omegas"]
+                                   for x in o]
+    if not all(math.isfinite(x) for x in norms):
+        raise AssertionError(f"{phase}: gradient norms and omegas "
+                             f"{record['grad_norm']}, {record['omegas']}")
+
+
+def phase_train_checkfree(spec: dict, phase: str) -> dict:
+    """``checkfree`` at full width on a model whose backward runs kernels at
+    shapes no other path runs (gemma-2b's and h2o-danube-3-4b's head dims,
+    zamba2-2.7b's SSD layers and shared attention at head dim 80): launch
+    counts, the failure, the step-2 merge against its plain version, finite
+    gradients, the first two steps against the plain attention and SSD scan
     and the backward kernels on one step's own inputs.  Returns the launch
     counts of the counted run."""
     cfg = train_model_config(spec)
@@ -1757,14 +2003,14 @@ def phase_train_dense(spec: dict, phase: str) -> dict:
         check_merge=(2, CHECKFREE_SCHEDULE[2][0]))
     check_run(phase, hist, launched, steps=CHECKFREE_STEPS, halves=1,
               merges=CHECKFREE_MERGES, schedule=CHECKFREE_SCHEDULE, spec=spec)
+    check_finite_gradients(phase, record)
     free = [i for i in range(CHECKFREE_STEPS) if i not in CHECKFREE_SCHEDULE]
     step_ms = float(np.median([record["step_ms"][i] for i in free]))
     merge_ms = [ms for name, step, ms in record["recovery_ms"] if step == 2]
     tokens = spec["batch"] * spec["seq"]
     emit(phase, arch=cfg.name, layers=cfg.num_layers,
          layers_published=get_config(spec["arch"]).num_layers,
-         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
-         head_dim=cfg.resolved_head_dim, window=cfg.sliding_window,
+         d_model=cfg.d_model, **model_shape(cfg),
          stages=spec["stages"], params=cfg.param_count(), dtype=cfg.dtype,
          masters="float32", strategy="checkfree", batch=spec["batch"],
          seq=spec["seq"], steps=CHECKFREE_STEPS, schedule=CHECKFREE_SCHEDULE,
@@ -1772,9 +2018,10 @@ def phase_train_dense(spec: dict, phase: str) -> dict:
          recovery_errors=hist.recovery_errors, launches=launched,
          merge_check=record["merge_check"], step_ms=record["step_ms"],
          step_ms_median_failure_free=step_ms,
-         tokens_per_s=tokens / step_ms * 1e3,
+         tokens_per_s=tokens / step_ms * 1e3, grad_norm=record["grad_norm"],
          recovery_ms=record["recovery_ms"], merge_recovery_ms=merge_ms[0],
-         peak_memory_gib=peak,
+         peak_memory_gib=peak, peak_reserved_gib=record["peak_reserved_gib"],
+         nvidia_smi=smi(),
          timing="host clock around Trainer.step ending in "
                 "torch.cuda.synchronize(); median over the failure-free "
                 f"steps {free}; recovery_ms: the strategy's handler, "
@@ -1784,18 +2031,72 @@ def phase_train_dense(spec: dict, phase: str) -> dict:
     return launched
 
 
-def phase_train_fused() -> dict:
-    """``checkfree_plus`` at TRAIN's full width and depth in fused windows
-    of 8 (CUDA graphs replayed under ``set_sync_debug_mode("error")``), the
-    merge of stage 3 at wall 13 cutting a window short and that of stage 2
-    at wall 25, against the same run in eager steps.  Returns the launch counts of the fused run, with the
-    graph's replays counted."""
-    cfg = get_config(TRAIN["arch"])
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+def phase_train_ssm() -> dict:
+    """mamba2-1.3b at full width and depth (TRAIN_SSM): ``checkfree_plus``
+    for 6 eager steps under PLUS_SCHEDULE (a merge, an edge twin copy, two
+    merges in one step) with train's checks, then 16 steps in fused windows
+    of 8 with stage 3 failing at the window boundary, beside the same steps
+    eagerly, equal bit for bit.  Returns the launch counts of both counted
+    runs."""
+    spec = TRAIN_SSM
+    cfg = train_model_config(spec)
+    tokens = spec["batch"] * spec["seq"]
+    hist, launched, record, peak = train_run(
+        "checkfree_plus", PLUS_STEPS, Forced(PLUS_SCHEDULE), spec=spec,
+        check_merge=(2, 3))
+    check_run("train_ssm", hist, launched, steps=PLUS_STEPS, halves=2,
+              merges=PLUS_MERGES, schedule=PLUS_SCHEDULE, spec=spec)
+    check_finite_gradients("train_ssm", record)
+    free = [i for i in range(PLUS_STEPS) if i not in PLUS_SCHEDULE]
+    step_ms = float(np.median([record["step_ms"][i] for i in free]))
+    merge_ms = [ms for name, step, ms in record["recovery_ms"] if step == 2]
+    emit("train_ssm", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, **model_shape(cfg), stages=spec["stages"],
+         params=cfg.param_count(), dtype=cfg.dtype, masters="float32",
+         strategy="checkfree_plus", batch=spec["batch"], seq=spec["seq"],
+         steps=PLUS_STEPS, schedule=PLUS_SCHEDULE, loss=hist.loss,
+         failures=hist.failures, recovery_errors=hist.recovery_errors,
+         launches=launched, merge_check=record["merge_check"],
+         step_ms=record["step_ms"], step_ms_median_failure_free=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3, grad_norm=record["grad_norm"],
+         recovery_ms=record["recovery_ms"], merge_recovery_ms=merge_ms[0],
+         peak_memory_gib=peak, peak_reserved_gib=record["peak_reserved_gib"],
+         nvidia_smi=smi(),
+         timing="host clock around Trainer.step ending in "
+                "torch.cuda.synchronize(); median over the failure-free "
+                f"steps {free}; recovery_ms: the strategy's handler, "
+                "same clock")
+    total = dict(launched)
+    train_vs_plain(dict(spec, batch=SSM_PLAIN_BATCH), "checkfree_plus")
+    check_backward_on_path(spec, "checkfree_plus")
+    fused = phase_train_fused(spec, "train_ssm_fused", steps=SSM_FUSED_STEPS,
+                              schedule=SSM_FUSED_SCHEDULE,
+                              sizes=SSM_FUSED_SIZES, merges=1, exact=True,
+                              kept_cache=False)
+    for k, n in fused.items():
+        total[k] += n
+    return total
+
+
+def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
+                      steps: int = FUSED_STEPS, schedule: dict = FUSED_SCHEDULE,
+                      sizes: list = FUSED_SIZES, merges: int = 2,
+                      exact: bool = False, kept_cache: bool = True) -> dict:
+    """``checkfree_plus`` at ``spec``'s full width in fused windows of 8
+    (CUDA graphs replayed under ``set_sync_debug_mode("error")``) against
+    the same run in eager steps; TRAIN's: the merge of stage 3 at wall 13
+    cutting a window short and that of stage 2 at wall 25.  ``exact``: the
+    fused losses, omegas and gradient norms must equal the eager ones bit
+    for bit.  ``kept_cache``: whether the capture must keep the allocator's
+    cache (then merges may allocate nothing) or must have emptied it.
+    Returns the launch counts of the fused run, with the graph's replays
+    counted."""
+    cfg = train_model_config(spec)
+    tokens = spec["batch"] * spec["seq"]
     eager_hist, eager_launched, eager_record, eager_peak = train_run(
-        "checkfree_plus", FUSED_STEPS, Forced(FUSED_SCHEDULE))
-    check_run("train_fused eager", eager_hist, eager_launched,
-              steps=FUSED_STEPS, halves=2, merges=2, schedule=FUSED_SCHEDULE)
+        "checkfree_plus", steps, Forced(schedule), spec=spec)
+    check_run(f"{phase} eager", eager_hist, eager_launched, steps=steps,
+              halves=2, merges=merges, schedule=schedule, spec=spec)
 
     modes = []
     replay = torch.cuda.CUDAGraph.replay
@@ -1830,13 +2131,14 @@ def phase_train_fused() -> dict:
     torch.cuda.CUDAGraph.replay = recording
     try:
         hist, launched, record, peak = train_run(
-            "checkfree_plus", FUSED_STEPS, Forced(FUSED_SCHEDULE),
+            "checkfree_plus", steps, Forced(schedule), spec=spec,
             setup=setup, window=FUSED_WINDOW)
     finally:
         torch.cuda.CUDAGraph.replay = replay
     runner = held.pop("runner")
     graph = {"captures": runner.captures, "replays": runner.replays,
-             "recorded_launches": runner.recorded_launches}
+             "recorded_launches": runner.recorded_launches,
+             "kept_cache": runner.kept_cache}
     replayed = {name: n * runner.replays
                 for name, n in runner.recorded_launches.items()}
     del runner                       # its graph's pool and the bound state
@@ -1848,28 +2150,36 @@ def phase_train_fused() -> dict:
     launched = {name: n + replayed.get(name, 0) - graph["captures"] *
                 graph["recorded_launches"].get(name, 0)
                 for name, n in counted.items()}
-    check_run("train_fused", hist, launched, steps=FUSED_STEPS, halves=2,
-              merges=2, schedule=FUSED_SCHEDULE)
+    check_run(phase, hist, launched, steps=steps, halves=2, merges=merges,
+              schedule=schedule, spec=spec)
     rows = np.concatenate(record["rings"])
     omegas = rows[:, OMEGAS:]
+    grad_norm = rows[:, RECORD.index("grad_norm")]
     loss_err = [abs(a - b) for a, b in zip(hist.loss, eager_hist.loss)]
     omega_err = [float(np.max(np.abs(a - b.numpy()) / np.abs(b.numpy())))
                  for a, b in zip(omegas, eager_record["omegas"])]
-    sizes = [k for k, _ in record["window_ms"]]
     steady = [ms for i, (k, ms) in enumerate(record["window_ms"])
               if i > 0 and k == FUSED_WINDOW]
     window_ms = float(np.median(steady))
-    free = [i for i in range(FUSED_STEPS) if i not in FUSED_SCHEDULE]
+    free = [i for i in range(steps) if i not in schedule]
     eager_ms = float(np.median([eager_record["step_ms"][i] for i in free]))
-    emit("train_fused", arch=cfg.name, layers=cfg.num_layers,
-         stages=TRAIN["stages"], params=cfg.param_count(), dtype=cfg.dtype,
-         masters="float32", strategy="checkfree_plus", batch=TRAIN["batch"],
-         seq=TRAIN["seq"], steps=FUSED_STEPS, fuse_window=FUSED_WINDOW,
-         schedule=FUSED_SCHEDULE, window_sizes=sizes,
+    window_sizes = [k for k, _ in record["window_ms"]]
+    same_bits = (hist.loss == eager_hist.loss and all(
+        np.array_equal(a, b.numpy()) for a, b in zip(omegas,
+                                                     eager_record["omegas"]))
+        and grad_norm.tolist() == eager_record["grad_norm"])
+    emit(phase, arch=cfg.name, layers=cfg.num_layers,
+         stages=spec["stages"], params=cfg.param_count(), dtype=cfg.dtype,
+         masters="float32", strategy="checkfree_plus", batch=spec["batch"],
+         seq=spec["seq"], steps=steps, fuse_window=FUSED_WINDOW,
+         schedule=schedule, window_sizes=window_sizes,
          dispatches=hist.dispatches, loss=hist.loss, loss_eager=eager_hist.loss,
          loss_max_abs_err=max(loss_err), omega_max_rel_err=max(omega_err),
-         loss_tol=f"{FUSED_LOSS_TOL} * (1 + |loss|)",
-         omega_tol=TRAIN_OMEGA_TOL, failures=hist.failures,
+         bit_equal_to_eager=same_bits,
+         loss_tol=("bit for bit" if exact
+                   else f"{FUSED_LOSS_TOL} * (1 + |loss|)"),
+         omega_tol="bit for bit" if exact else TRAIN_OMEGA_TOL,
+         grad_norm=grad_norm.tolist(), failures=hist.failures,
          recovery_errors=hist.recovery_errors,
          recovery_errors_eager=eager_hist.recovery_errors,
          launches=launched, launches_counted_by_wrappers=counted,
@@ -1905,13 +2215,22 @@ def phase_train_fused() -> dict:
         problems.append(f"trace {hist.steps}, failures {hist.failures}")
     if any(e > FUSED_LOSS_TOL * (1 + abs(b))
            for e, b in zip(loss_err, eager_hist.loss)) or \
-            len(loss_err) != FUSED_STEPS:
+            len(loss_err) != steps:
         problems.append(f"losses against the eager run: {loss_err}")
     if max(omega_err) > TRAIN_OMEGA_TOL:
         problems.append(f"omegas against the eager run: {omega_err}")
-    if sizes != FUSED_SIZES:
-        problems.append(f"window sizes {sizes}, want {FUSED_SIZES}")
-    if any(m["device_allocs"] for m in record["recovery_device"]):
+    if exact and not same_bits:
+        problems.append("the fused losses, omegas and gradient norms are not "
+                        "the eager run's bits")
+    if not (np.isfinite(grad_norm).all() and np.isfinite(omegas).all()):
+        problems.append(f"gradient norms {grad_norm.tolist()}")
+    if window_sizes != sizes:
+        problems.append(f"window sizes {window_sizes}, want {sizes}")
+    if graph["kept_cache"] != kept_cache:
+        problems.append(f"the capture kept the allocator's cache: "
+                        f"{graph['kept_cache']}, want {kept_cache}")
+    if kept_cache and any(m["device_allocs"]
+                          for m in record["recovery_device"]):
         problems.append(f"merges that allocated device memory anew after the "
                         f"capture: {record['recovery_device']}")
     if graph["captures"] != 1 or len(modes) != graph["replays"] or \
@@ -1919,7 +2238,7 @@ def phase_train_fused() -> dict:
         problems.append(f"replays {graph['replays']} under sync debug modes "
                         f"{sorted(set(modes))} (2: error)")
     if problems:
-        raise AssertionError("train_fused: " + "; ".join(problems))
+        raise AssertionError(f"{phase}: " + "; ".join(problems))
     return launched
 
 
@@ -2202,7 +2521,7 @@ def phase_train_elastic() -> dict:
     want = {"flash_attention_fwd": cfg.num_layers * ELASTIC_STEPS,
             "flash_attention_bwd_dq": cfg.num_layers * ELASTIC_STEPS,
             "flash_attention_bwd_dkv": cfg.num_layers * ELASTIC_STEPS,
-            "stage_merge": len(failures), "ssd_scan": 0,
+            "stage_merge": len(failures), "ssd_scan": 0, "ssd_scan_bwd": 0,
             "adam_sumsq": ELASTIC_STEPS, "adam_update": ELASTIC_STEPS}
     for name, got in (("fused", launched), ("eager", eager_launched)):
         if got != want:
@@ -2479,7 +2798,8 @@ def train_ckpt(spec: dict, work: str) -> dict:
     want = {"flash_attention_fwd": per_kernel,
             "flash_attention_bwd_dq": per_kernel,
             "flash_attention_bwd_dkv": per_kernel, "stage_merge": 0,
-            "ssd_scan": 0, "adam_sumsq": walls, "adam_update": walls}
+            "ssd_scan": 0, "ssd_scan_bwd": 0, "adam_sumsq": walls,
+            "adam_update": walls}
     if launched != want or len(save_ms) != 2:
         problems.append(f"launches {launched}, saves {save_ms}")
     if problems:
@@ -2623,7 +2943,8 @@ def train_neighbor(spec: dict, work: str) -> dict:
     want = {"flash_attention_fwd": per_kernel,
             "flash_attention_bwd_dq": per_kernel,
             "flash_attention_bwd_dkv": per_kernel, "stage_merge": 0,
-            "ssd_scan": 0, "adam_sumsq": walls, "adam_update": walls}
+            "ssd_scan": 0, "ssd_scan_bwd": 0, "adam_sumsq": walls,
+            "adam_update": walls}
     if launched != want:
         problems.append(f"launches {launched}, want {want}")
     if problems:
@@ -2643,6 +2964,7 @@ def main() -> int:
     merge = phase_kernel_merge()
     adam_rows = phase_kernel_adam()
     ssd = phase_kernel_ssd()
+    ssd_bwd = phase_kernel_ssd_bwd()
     phase_model()
     serve = phase_serve(SERVE, "serve")
     ssm = phase_serve(SERVE_SSM, "serve_ssm")
@@ -2658,13 +2980,17 @@ def main() -> int:
     trained = {"train": phase_train(),
                "train_fused": phase_train_fused(),
                "train_elastic": phase_train_elastic(),
-               "train_gemma": phase_train_dense(TRAIN_GEMMA, "train_gemma"),
-               "train_danube": phase_train_dense(TRAIN_DANUBE,
-                                                 "train_danube"),
+               "train_gemma": phase_train_checkfree(TRAIN_GEMMA,
+                                                    "train_gemma"),
+               "train_danube": phase_train_checkfree(TRAIN_DANUBE,
+                                                     "train_danube"),
+               "train_ssm": phase_train_ssm(),
+               "train_hybrid": phase_train_checkfree(TRAIN_HYBRID,
+                                                     "train_hybrid"),
                "train_ckpt": phase_train_ckpt(),
                "train_neighbor": phase_train_neighbor()}
     # launches: the training paths; by path: every path that ran it
-    for row in (fwd, dq, dkv, merge, *adam_rows):
+    for row in (fwd, dq, dkv, merge, ssd, ssd_bwd, *adam_rows):
         by_path = {path: n[row["name"]] for path, n in trained.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
@@ -2675,9 +3001,10 @@ def main() -> int:
         "serve_danube": danube["launches"]["flash_attention_fwd"],
         **fwd["launches_by_path"]}
     ssd["launches_by_path"] = {"serve_ssm": ssm["launches"]["ssd_scan"],
-                               "serve_hybrid": hybrid["launches"]["ssd_scan"]}
+                               "serve_hybrid": hybrid["launches"]["ssd_scan"],
+                               **ssd["launches_by_path"]}
     ssd["launches"] = sum(ssd["launches_by_path"].values())
-    rows = [fwd, dq, dkv, merge, ssd, *adam_rows]
+    rows = [fwd, dq, dkv, merge, ssd, ssd_bwd, *adam_rows]
     if any(row["launches"] <= 0 for row in rows):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{[(r['name'], r['launches']) for r in rows]}")

@@ -15,9 +15,11 @@ Each step is one forward and backward through ``Model.loss`` on fp32 master
 parameters (cast to ``cfg.dtype`` inside the graph), the per-layer and total
 squared gradient norms in one pass (``ops.adam_sumsq``; the stages' omegas,
 Alg. 1, are their segment sums), and one in-place Adam update on device
-scalars (``optim.adam.adam_step``).  On the card the attention forward and
-backward, both Adam kernels and every merge run the hand-written CUDA
-kernels; on the CPU their plain versions.
+scalars (``optim.adam.adam_step``).  Every family the port trains (dense,
+ssm, hybrid) goes through ``Model.loss`` and evaluates through it.  On the
+card the attention forward and backward, the SSD scan and its backward,
+both Adam kernels and every merge run the hand-written CUDA kernels; on the
+CPU their plain versions.
 
 **Fused windows** (``tcfg.fuse_window`` > 1, 8 by default as in JAX): the
 failure schedule is known ahead, so between failure events the loop runs K
@@ -81,8 +83,6 @@ from repro_torch.core.walltime import WallClockModel
 from repro_torch.core.window import OMEGAS, RECORD, FusedWindow
 from repro_torch.data.pipeline import WindowPrefetcher
 from repro_torch.kernels import ops
-from repro_torch.models import layers as L
-from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
 from repro_torch.optim.adam import OptState, adam_step, init_adam
 from repro_torch.recovery import FailureContext, RecoveryStrategy, make_strategy
@@ -289,10 +289,9 @@ class Trainer:
 
     @torch.no_grad()
     def eval_loss(self, params: Params, batch: Batch) -> torch.Tensor:
-        cfg = self.model.cfg
-        logits = T.forward(L.cast_tree(params, cfg.dtype), cfg,
-                           batch["tokens"])
-        return L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        """The cross-entropy of ``batch`` through the family's forward (JAX's
+        ``make_eval_step`` through ``model.apply``)."""
+        return self.model.loss(params, batch)[1]["ce"]
 
     # ---- window sizing -------------------------------------------------
     def _window_size(self, wall_step: int, effective_step: int,

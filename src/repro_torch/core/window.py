@@ -19,7 +19,12 @@ scalars, the ``lr_scale`` decay) K times on one stacked window:
   ``torch.cuda.graph``, which empties the cache first), and the trainer
   runs the work between windows on the same stream (:meth:`FusedWindow.
   streamed`), so a merge at a boundary reuses the blocks the eager step
-  freed instead of allocating device memory anew.
+  freed instead of allocating device memory anew.  The graph's own pool
+  needs about as much as the eager step's working set, which those cached
+  blocks measure: where the device's free memory could not hold that much
+  beside them (mamba2-1.3b at batch 8 on an 80 GB card), the capture
+  empties the cache first, and the work between windows allocates anew
+  (:attr:`FusedWindow.kept_cache`).
 * On the CPU the same body runs K times without capture.
 
 A graph replays fixed addresses, so the window binds the state's leaves
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -117,6 +123,8 @@ class FusedWindow:
         self.captures = 0
         self.replays = 0
         self.recorded_launches: Dict[str, int] = {}
+        #: whether the last capture kept the allocator's cache
+        self.kept_cache = True
 
     # ---- state -----------------------------------------------------------
     @torch.no_grad()
@@ -229,12 +237,23 @@ class FusedWindow:
     def _capture(self, batch: Batch) -> None:
         """Capture one step of the body into the graph's own pool
         (synchronizes once; the capture itself runs nothing).  The cache of
-        the eager step's blocks is kept for the work between windows."""
+        the eager step's blocks is kept for the work between windows when
+        the device's free memory can hold the graph's pool beside it (a pool
+        about the size of that cache), else emptied first."""
         self.static_batch = {key: torch.empty_like(t) for key, t in
                              batch.items()}
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        # as torch.cuda.graph does: a collection during the capture could
+        # free an unreachable graph, whose release invalidates the capture
+        gc.collect()
         torch.cuda.synchronize(self.device)
+        free, _ = torch.cuda.mem_get_info(self.device)
+        cached = (torch.cuda.memory_reserved(self.device)
+                  - torch.cuda.memory_allocated(self.device))
+        self.kept_cache = cached <= free
+        if not self.kept_cache:
+            torch.cuda.empty_cache()
         with torch.cuda.stream(self.stream):
             graph.capture_begin()
             try:

@@ -4,9 +4,10 @@ A CPU tensor takes the plain PyTorch version (``kernels.ref``); a CUDA tensor
 takes the hand-written kernel, which launches or raises.  Any other device
 raises: there is no silent fallback.  ``flash_attention`` also adapts the
 model layout (B, S, H, D) to the kernel layout (B, H, S, D) as strided views,
-so no copy is made on the way in or out.  ``ssd_scan`` has no backward on
-the card (nor has the TPU kernel): it refuses inputs that require a gradient
-there rather than return a result cut from the graph.  ``adam_sumsq`` and
+so no copy is made on the way in or out.  ``ssd_scan`` is differentiable on
+both devices: on the card through :class:`SSD.SSDScan`, whose backward is a
+hand-written kernel too (the TPU kernel has none; JAX trains through
+autodiff of ``ssd_chunked``).  ``adam_sumsq`` and
 ``adam_update`` have no TPU counterpart: they are the port's counterpart of
 XLA's fusion of the optimizer step.  :func:`launch_counts` reads every
 wrapper's count of launches.
@@ -22,8 +23,6 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.kernels import stage_merge as SM
-
-SSM_TRAINING = "ROADMAP.md queue 1, item 8 (training the SSM and hybrid families)"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,24 +82,17 @@ def ssd_scan(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     xb (B, T, H, P) dt-weighted inputs, a (B, T, H) fp32 log decay,
     bmat/cmat (B, T, G, N), init_state optional (B, H, P, N).  On the CPU the
     plain ``ref.ssd_chunked`` (differentiable by PyTorch's autograd); on CUDA
-    the kernel, which has no backward: with grad mode on, an input that
-    requires a gradient raises instead of leaving a result with no
-    ``grad_fn``.
+    :class:`SSD.SSDScan`: the forward kernel, and the backward kernel for
+    the gradients of xb, a, bmat, cmat and init_state.
     """
     if xb.device.type == "cpu":
         return ref.ssd_chunked(xb, a, bmat, cmat, chunk, init_state)
     if xb.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel and no plain version for "
                          f"tensors on {xb.device}")
-    inputs = (xb, a, bmat, cmat, init_state)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in inputs):
-        raise RuntimeError(
-            "ssd_scan: the CUDA kernel is forward-only and an input requires "
-            f"a gradient; training through the SSD scan is {SSM_TRAINING}")
     if init_state is not None:
         init_state = init_state.float().contiguous()
-    return SSD.ssd_scan(xb, a, bmat, cmat, chunk=chunk, init_state=init_state)
+    return SSD.SSDScan.apply(xb, a, bmat, cmat, chunk, init_state)
 
 
 def adam_sumsq(grads: Sequence[torch.Tensor], tower: Sequence[bool],
@@ -144,5 +136,6 @@ def launch_counts() -> Dict[str, int]:
             "flash_attention_bwd_dq": FA.launches_dq,
             "flash_attention_bwd_dkv": FA.launches_dkv,
             "stage_merge": SM.launches, "ssd_scan": SSD.launches,
+            "ssd_scan_bwd": SSD.launches_bwd,
             "adam_sumsq": AD.launches_sumsq,
             "adam_update": AD.launches_update}

@@ -167,23 +167,14 @@ def ssd_chunked(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     it; the padded rows of y are dropped.  The decay is exponentiated only
     where j <= i: the masked entries' exponents can overflow to inf, which
     ``torch.where`` would discard in the forward but not in a gradient.
+    Sums run in fp32, or in float64 for float64 inputs (the gradient tests'
+    oracle).
     """
     b, t, h, p = xb.shape
     g, n = bmat.shape[2], bmat.shape[3]
     r = h // g
-    if chunk < 1:
-        raise ValueError(f"ssd_chunked: chunk {chunk}")
-    pad = -t % chunk
-    xf, af, bf, cf = xb.float(), a.float(), bmat.float(), cmat.float()
-    if pad:
-        xf, bf, cf = (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-                      for v in (xf, bf, cf))
-        af = torch.nn.functional.pad(af, (0, 0, 0, pad))
-    nc = (t + pad) // chunk
-    xc = xf.reshape(b, nc, chunk, h, p)
-    ac = af.reshape(b, nc, chunk, h)
-    bc = bf.reshape(b, nc, chunk, g, n)
-    cc = cf.reshape(b, nc, chunk, g, n)
+    xc, ac, bc, cc = _chunked(xb, a, bmat, cmat, chunk)
+    nc, wd = xc.shape[1], xc.dtype
 
     cs = torch.cumsum(ac, dim=2)                                 # (b,nc,q,h)
     # intra-chunk quadratic term
@@ -204,8 +195,8 @@ def ssd_chunked(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     d_tot = torch.exp(cs[:, :, -1, :])                           # (b,nc,h)
 
     # inter-chunk recurrence
-    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xb.device)
-             if init_state is None else init_state.float())
+    state = (torch.zeros((b, h, p, n), dtype=wd, device=xb.device)
+             if init_state is None else init_state.to(wd))
     prev = []
     for c in range(nc):
         prev.append(state)
@@ -218,3 +209,126 @@ def ssd_chunked(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     y_inter = y_inter * torch.exp(cs)[..., None]
     y = (y_intra + y_inter).reshape(b, nc * chunk, h, p)[:, :t]
     return y.to(xb.dtype), state
+
+
+def _chunked(xb, a, bmat, cmat, chunk: int, *more: torch.Tensor):
+    """The inputs in the working type (fp32, or float64 for float64 inputs),
+    a ragged end padded with tokens that carry nothing, cut into chunks:
+    xb and ``more`` (each shaped like xb) (B, nc, Q, H, P), a (B, nc, Q, H),
+    bmat/cmat (B, nc, Q, G, N)."""
+    b, t, h, p = xb.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    if chunk < 1:
+        raise ValueError(f"ssd_chunked: chunk {chunk}")
+    wd = torch.promote_types(xb.dtype, torch.float32)
+    pad = -t % chunk
+    nc = (t + pad) // chunk
+    seq = [v.to(wd) for v in (xb, bmat, cmat, *more)]
+    af = a.to(wd)
+    if pad:
+        seq = [torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) for v in seq]
+        af = torch.nn.functional.pad(af, (0, 0, 0, pad))
+    xf, bf, cf, *mf = seq
+    return (xf.reshape(b, nc, chunk, h, p), af.reshape(b, nc, chunk, h),
+            bf.reshape(b, nc, chunk, g, n), cf.reshape(b, nc, chunk, g, n),
+            *(v.reshape(b, nc, chunk, h, p) for v in mf))
+
+
+def ssd_chunked_bwd_ref(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                        cmat: torch.Tensor, chunk: int,
+                        init_state: Optional[torch.Tensor],
+                        dy: Optional[torch.Tensor],
+                        dfinal: Optional[torch.Tensor],
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The backward of :func:`ssd_chunked`, written out chunk by chunk: the
+    function of ``csrc/ssd_scan_bwd.cu``.
+
+    dy (B, T, H, P) and dfinal (B, H, P, N) are the gradients of y and of
+    the final state (None for zeros); init_state as in the forward.
+    Returns (dxb like xb, da (B, T, H) in a's dtype, dbmat like bmat, dcmat
+    like cmat, dinit (B, H, P, N) in the working type: the gradient of the
+    starting state, whether given or zeros).
+
+    Per chunk, with cs the chunk-local inclusive cumsum of a, L its last
+    token, S the state the chunk starts from (a forward walk recomputes it)
+    and dS the gradient of the state it ends in (a reverse walk from
+    dfinal: dS_{c-1} = e^{cs_L} dS_c + sum_t e^{cs_t} dy_t C_t^T):
+
+    * dx_j = sum_{i>=j} (C_i.B_j) e^{cs_i-cs_j} dy_i + e^{cs_L-cs_j} dS B_j
+    * dB_j = sum_{i>=j} e^{cs_i-cs_j} (dy_i.x_j) C_i + e^{cs_L-cs_j} dS^T x_j
+    * dC_i = sum_{j<=i} e^{cs_i-cs_j} (dy_i.x_j) B_j + e^{cs_i} S^T dy_i
+    * d cs_i = sum_{j<i} M_ij - sum_{k>i} M_ki + e^{cs_i} C_i.(S^T dy_i)
+      - u_i, with M_ij = (C_i.B_j) e^{cs_i-cs_j} (dy_i.x_j) and
+      u_i = e^{cs_L-cs_i} x_i.(dS B_i); d cs_L also takes sum_i u_i +
+      e^{cs_L} <dS, S>.  da is the in-chunk reverse cumsum of d cs.
+
+    dB and dC sum over the heads of each group.  As in the forward, the
+    decay is exponentiated only where j <= i, so the real decay range gives
+    finite gradients.
+    """
+    b, t, h, p = xb.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    r = h // g
+    if dy is None:
+        dy = torch.zeros_like(xb)
+    xc, ac, bc, cc, dyc = _chunked(xb, a, bmat, cmat, chunk, dy)
+    nc, wd = xc.shape[1], xc.dtype
+    cs = torch.cumsum(ac, dim=2)                                 # (b,nc,q,h)
+    bh = bc.repeat_interleave(r, dim=3)                          # (b,nc,q,h,n)
+    ch = cc.repeat_interleave(r, dim=3)
+    csh = cs.movedim(3, 2)                                       # (b,nc,h,q)
+    lower = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                  device=xb.device))
+    expo = csh[..., :, None] - csh[..., None, :]
+    decay = torch.where(lower, torch.exp(torch.where(lower, expo, 0.0)), 0.0)
+    cb = torch.einsum("bcqhn,bckhn->bchqk", ch, bh)              # C_i . B_j
+    dyx = torch.einsum("bcqhp,bckhp->bchqk", dyc, xc)            # dy_i . x_j
+    att = cb * decay
+    e_mat = dyx * decay
+
+    # the forward walk: the state each chunk starts from
+    w_end = torch.exp(cs[:, :, -1:, :] - cs)                     # (b,nc,q,h)
+    s_chunk = torch.einsum("bcqhn,bcqhp,bcqh->bchpn", bh, xc, w_end)
+    d_tot = torch.exp(cs[:, :, -1, :])                           # (b,nc,h)
+    state = (torch.zeros((b, h, p, n), dtype=wd, device=xb.device)
+             if init_state is None else init_state.to(wd))
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * d_tot[:, c, :, None, None] + s_chunk[:, c]
+    prev = torch.stack(prev, dim=1)                              # (b,nc,h,p,n)
+
+    # the reverse walk: the gradient of the state each chunk ends in
+    ecs = torch.exp(cs)                                          # (b,nc,q,h)
+    d_state = (torch.zeros((b, h, p, n), dtype=wd, device=xb.device)
+               if dfinal is None else dfinal.to(wd))
+    after = [None] * nc
+    for c in reversed(range(nc)):
+        after[c] = d_state
+        d_state = d_state * d_tot[:, c, :, None, None] + torch.einsum(
+            "bqhp,bqhn,bqh->bhpn", dyc[:, c], ch[:, c], ecs[:, c])
+    after = torch.stack(after, dim=1)                            # (b,nc,h,p,n)
+
+    # each chunk's own work
+    r_mat = torch.einsum("bckhn,bchpn->bckhp", bh, after)        # dS B_j
+    dx = torch.einsum("bchqk,bcqhp->bckhp", att, dyc) + w_end[..., None] * r_mat
+    db = (torch.einsum("bchqk,bcqhn->bckhn", e_mat, ch)
+          + w_end[..., None] * torch.einsum("bckhp,bchpn->bckhn", xc, after))
+    v = torch.einsum("bcqhp,bchpn->bcqhn", dyc, prev)            # S^T dy_i
+    dc = torch.einsum("bchqk,bckhn->bcqhn", e_mat, bh) + ecs[..., None] * v
+    strict = torch.tril(lower, diagonal=-1)
+    m = torch.where(strict, cb * e_mat, 0.0)
+    dcs = (m.sum(-1) - m.sum(-2)).movedim(2, 3)                  # (b,nc,q,h)
+    u = w_end * (xc * r_mat).sum(-1)
+    dcs = dcs + ecs * (ch * v).sum(-1) - u
+    last = u.sum(2) + d_tot * (after * prev).sum((-2, -1))       # (b,nc,h)
+    dcs = torch.cat([dcs[:, :, :-1], dcs[:, :, -1:] + last[:, :, None]], 2)
+    da = dcs.flip(2).cumsum(2).flip(2)
+
+    def unchunk(v):
+        return v.reshape(b, nc * chunk, *v.shape[3:])[:, :t]
+
+    db = db.reshape(b, nc, chunk, g, r, n).sum(4)
+    dc = dc.reshape(b, nc, chunk, g, r, n).sum(4)
+    return (unchunk(dx).to(xb.dtype), unchunk(da).to(a.dtype),
+            unchunk(db).to(bmat.dtype), unchunk(dc).to(cmat.dtype), d_state)

@@ -6,6 +6,11 @@
         [--device cpu] [--fuse-window 8] [--out history.json]
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --layers 6 \
         --stages 4 --strategy elastic --scenario spot_shrink --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+        --reduced --device cpu --strategy checkfree_plus
+
+Every family the port trains goes through it: the dense decoders, mamba2-1.3b
+(ssm) and zamba2-2.7b (hybrid).
 
 The counterpart of ``repro.launch.train`` for the flags this slice supports:
 config -> model -> data -> failure schedule -> Trainer (recovery strategy),

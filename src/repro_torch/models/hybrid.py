@@ -5,13 +5,14 @@ The counterpart of ``repro.models.hybrid``: a Mamba2 backbone with one
 layers, the same parameters at every application.  The SSM layers run
 ``models.ssm.mamba_block`` (the SSD kernel on the card); each application
 of the shared block runs ``layers.attention``, which on the card is the
-flash-attention forward kernel (zamba2-2.7b: 32 heads of 80).  Serving keeps
+flash-attention forward kernel (zamba2-2.7b: 32 heads of 80), and in
+training its two backward kernels.  Serving keeps
 one KV cache per application (segment) and one SSM state and conv tail per
 SSM layer.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,16 +61,22 @@ def _attn_apply(bp: Params, x: torch.Tensor, positions: torch.Tensor,
     return (x, kv) if return_kv else x
 
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, T) -> logits (B, T, V)."""
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            order: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """tokens: (B, T) -> logits (B, T, V).
+
+    ``order`` walks the ``"mamba"`` tower in that order (CheckFree+'s
+    swapped stages); the shared block still runs after every
+    ``attn_every`` positions of the walk, as after JAX's permuted tower.
+    """
     nseg, per = _nseg(cfg)
     positions = T.token_positions(tokens)
     x = S.embed_tokens(params, cfg, tokens)
     mamba = T.unstack(params["mamba"], cfg.num_layers)
+    walk = T.layer_order(cfg.num_layers, order)
     for seg in range(nseg):
-        for bp in mamba[seg * per:(seg + 1) * per]:
-            x = x + S.mamba_block(bp, x, cfg)
+        for i in walk[seg * per:(seg + 1) * per]:
+            x = x + S.mamba_block(mamba[i], x, cfg)
         x = _attn_apply(params["shared_attn"], x, positions, cfg)
     return S.logits_from_hidden(params, cfg, x)
 

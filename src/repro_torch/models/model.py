@@ -10,10 +10,9 @@ The parameters keep the JAX layout: the same nested keys, decoder blocks
 stacked on axis 0, so ``state_dict`` keys read ``tree.blocks.attn.wq`` and
 ``repro_torch.convert`` carries JAX parameters across one to one.
 
-The dense, ssm and hybrid families are ported; the others raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.  The ssm and
-hybrid families serve but do not train yet: ``loss`` and
-``weights=False`` refuse them the same way.
+The dense, ssm and hybrid families are ported, to serve and to train:
+``loss`` dispatches by family as the JAX ``Model.loss`` does.  The others
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -23,7 +22,6 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels.ops import SSM_TRAINING
 from repro_torch.models import hybrid as H
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -83,7 +81,6 @@ class Model(nn.Module):
         self.family = _FAMILIES[cfg.arch_type]
         self.device = torch.device(device)
         if not weights:
-            self._refuse_training()
             if params is not None:
                 raise ValueError("weights=False takes no params")
             self.tree = nn.Module()
@@ -109,27 +106,20 @@ class Model(nn.Module):
         """A fresh parameter tree in ``cfg.param_dtype`` drawn from ``generator``."""
         return self.family.init(generator, self.cfg, self.device)
 
-    def _refuse_training(self) -> None:
-        if self.cfg.arch_type != "dense":
-            raise NotImplementedError(
-                f"{self.cfg.arch_type} models serve but do not train yet: "
-                f"{SSM_TRAINING}")
-
     def loss(self, params: Params, batch: Batch, *,
              order: Optional[Sequence[int]] = None,
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean token cross-entropy of ``batch`` -> (loss, {"ce", "aux"}).
 
         ``params`` is an explicit tree, normally the fp32 masters: they are
-        cast to ``cfg.dtype`` inside the graph (as ``repro.models.transformer
-        .forward`` does), so their gradients land in fp32.  Runs with
-        autograd.  ``order`` runs the tower's layers in that order
-        (CheckFree+'s swapped stages).  aux is 0 for the dense family.
+        cast to ``cfg.dtype`` inside the graph (as the JAX family forwards
+        do), so their gradients land in fp32.  Runs with autograd.
+        ``order`` walks the family's staged tower in that order (CheckFree+'s
+        swapped stages).  aux is 0 for the ported families.
         """
-        self._refuse_training()
         cfg = self.cfg
-        logits = T.forward(L.cast_tree(params, cfg.dtype), cfg,
-                           batch["tokens"], order=order)
+        logits = self.family.forward(L.cast_tree(params, cfg.dtype), cfg,
+                                     batch["tokens"], order=order)
         ce = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + cfg.moe.router_aux_coef * aux, {"ce": ce, "aux": aux}

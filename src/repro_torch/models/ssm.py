@@ -2,8 +2,10 @@
 
 The counterpart of ``repro.models.ssm``, function for function.  The full
 sequence runs the chunked SSD scan through ``kernels.ops.ssd_scan``: on the
-card the hand-written kernel (``csrc/ssd_scan.cu``), on the CPU the plain
-``ssd_chunked``, where the JAX code calls its own ``ssd_chunked``.  Decode
+card the hand-written kernels (``csrc/ssd_scan.cu``, and
+``csrc/ssd_scan_bwd.cu`` for its gradient in training), on the CPU the
+plain ``ssd_chunked`` and PyTorch's autograd of it, where the JAX code
+calls its own ``ssd_chunked``.  Decode
 runs the exact one-token recurrence against a (state, conv tail) cache in
 plain PyTorch, as the JAX package computes it outside any kernel.  Where JAX
 scans the stacked blocks, a Python loop walks views of them
@@ -25,7 +27,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (the JAX name)
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import unstack
+from repro_torch.models.transformer import layer_order, unstack
 
 Params = Dict[str, Any]
 
@@ -240,12 +242,18 @@ def init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     return params
 
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, T) -> logits (B, T, V)."""
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            order: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """tokens: (B, T) -> logits (B, T, V).
+
+    ``order`` walks the ``"blocks"`` tower in that order (CheckFree+'s
+    swapped stages), the counterpart of the JAX trainer's ``_permute_tower``
+    before ``ssm.forward``; with autograd on this is the training forward.
+    """
     x = embed_tokens(params, cfg, tokens)
-    for bp in unstack(params["blocks"], cfg.num_layers):
-        x = x + mamba_block(bp, x, cfg)
+    blocks = unstack(params["blocks"], cfg.num_layers)
+    for i in layer_order(cfg.num_layers, order):
+        x = x + mamba_block(blocks[i], x, cfg)
     return logits_from_hidden(params, cfg, x)
 
 

@@ -127,6 +127,17 @@ def token_positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=tokens.device).expand(b, s)
 
 
+def layer_order(num_layers: int,
+                order: Optional[Sequence[int]]) -> List[int]:
+    """The layers a forward walks: ``order``, a permutation of
+    ``range(num_layers)`` (CheckFree+'s swapped stages), or in order."""
+    order = list(range(num_layers)) if order is None else list(order)
+    if sorted(order) != list(range(num_layers)):
+        raise ValueError(f"order {order} is no permutation of the "
+                         f"{num_layers} layers")
+    return order
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             order: Optional[Sequence[int]] = None) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S, V).
@@ -141,11 +152,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = token_positions(tokens)
     x = embed_tokens(params, cfg, tokens, positions)
     blocks = unstack(params["blocks"], cfg.num_layers)
-    order = range(cfg.num_layers) if order is None else list(order)
-    if sorted(order) != list(range(cfg.num_layers)):
-        raise ValueError(f"order {order} is no permutation of the "
-                         f"{cfg.num_layers} layers")
-    for i, swa in zip(order, swa_flags(cfg)):
+    for i, swa in zip(layer_order(cfg.num_layers, order), swa_flags(cfg)):
         x, _ = _block(blocks[i], x, positions, cfg,
                       cfg.sliding_window if swa else 0)
     return logits_from_hidden(params, cfg, x)

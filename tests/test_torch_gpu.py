@@ -373,6 +373,8 @@ def test_real_head_dim_models_train_on_card_as_on_cpu(arch):
 SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
            torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
 STATE_TOL = dict(atol=1e-4, rtol=1e-4)
+# the backward: the flash backward's tolerances (PERF.md section 2)
+SSD_GRAD_TOL = GRAD_TOL
 
 
 def ssd_inputs(seed, b, t, h, p, g, n, dtype, *, real, init=False, offset=8):
@@ -530,13 +532,24 @@ def test_ssd_kernel_carries_its_state():
 
 @pytest.mark.gpu
 def test_ops_ssd_scan_refuses_a_gradient_on_the_card():
+    """It refused until the scan had a backward kernel; now an input that
+    requires a gradient goes through ``SSD.SSDScan``: the forward kernel
+    once, the backward kernel once, and the gradients of the plain version.
+    Without grad mode the forward kernel runs alone."""
     xb, a, bm, cm, _ = ssd_inputs(3, 1, 32, 2, 8, 1, 4, torch.float32,
                                   real=False)
     xb.requires_grad_()
-    with pytest.raises(RuntimeError, match="ROADMAP.md"):
-        ops.ssd_scan(xb, a, bm, cm, chunk=16)
+    fwd, bwd = SSD.launches, SSD.launches_bwd
+    y, _ = ops.ssd_scan(xb, a, bm, cm, chunk=16)
+    assert y.grad_fn is not None
+    y.square().sum().backward()
+    assert (SSD.launches - fwd, SSD.launches_bwd - bwd) == (1, 1)
+    want = ref.ssd_chunked_bwd_ref(xb.detach(), a, bm, cm, 16, None,
+                                   2 * y.detach(), None)[0]
+    torch.testing.assert_close(xb.grad, want, **SSD_GRAD_TOL[torch.float32])
     with torch.no_grad():
         y, _ = ops.ssd_scan(xb, a, bm, cm, chunk=16)
+    assert SSD.launches_bwd - bwd == 1
     want, _ = ref.ssd_chunked(xb.detach(), a, bm, cm, 16)
     torch.testing.assert_close(y, want, **SSD_TOL[torch.float32])
 
@@ -986,3 +999,289 @@ def test_elastic_relayouts_give_the_old_pool_back():
     pool = reserved[0][1] - reserved[0][0]
     assert pool > 0
     assert all(after - reserved[0][1] < pool for _, after in reserved[1:])
+
+
+# ---------------------------------------------------------------------------
+# the SSD backward kernel and ssm / hybrid training
+# ---------------------------------------------------------------------------
+
+def ssd_bwd_case(seed, b, t, h, p, g, n, dtype, *, real, init=False,
+                 dfinal=False, offset=8):
+    """The forward's inputs (``ssd_inputs``) and numpy-drawn dy and dfinal."""
+    xb, a, bm, cm, init_state = ssd_inputs(seed, b, t, h, p, g, n, dtype,
+                                           real=real, init=init,
+                                           offset=offset)
+    rng = np.random.default_rng(seed + 1000)
+    dy = torch.from_numpy(rng.standard_normal((b, t, h, p)).astype(
+        np.float32)).to("cuda", dtype)
+    df = torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(
+        np.float32)).cuda() if dfinal else None
+    return xb, a, bm, cm, init_state, dy, df
+
+
+def check_ssd_bwd(xb, a, bm, cm, init_state, dy, df, chunk):
+    """The backward kernel against ``ssd_chunked_bwd_ref`` on the same
+    inputs: each gradient within the tolerance, finite, in its dtype; a
+    second launch gives the same bits."""
+    before = SSD.launches_bwd
+    got = SSD.ssd_scan_bwd(xb, a, bm, cm, dy, chunk=chunk,
+                           init_state=init_state, dfinal=df)
+    again = SSD.ssd_scan_bwd(xb, a, bm, cm, dy, chunk=chunk,
+                             init_state=init_state, dfinal=df)
+    torch.cuda.synchronize()
+    assert SSD.launches_bwd == before + 2
+    want = ref.ssd_chunked_bwd_ref(xb, a, bm, cm, chunk, init_state, dy, df)
+    for name, g1, g2, w in zip(("dx", "da", "db", "dc", "dinit"), got, again,
+                               want):
+        if init_state is None and name == "dinit":
+            assert g1 is None
+            continue
+        assert g1.dtype == w.dtype, name
+        assert torch.isfinite(g1.float()).all(), name
+        assert torch.equal(g1, g2), name
+        torch.testing.assert_close(g1.float(), w.float(),
+                                   **SSD_GRAD_TOL[xb.dtype], msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,chunk", [(64, 16), (128, 32), (128, 64)])
+@pytest.mark.parametrize("h,g", [(2, 1), (4, 2)])
+def test_ssd_bwd_kernel_matches_plain_sweep(dtype, t, chunk, h, g):
+    """tests/test_kernels.py's SSD shapes (B 2, P 16, N 8), with dfinal."""
+    check_ssd_bwd(*ssd_bwd_case(10, 2, t, h, 16, g, 8, dtype, real=False,
+                                dfinal=True), chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,chunk", [(509, 64), (37, 1), (100, 48), (23, 7)])
+@pytest.mark.parametrize("p,n", [(32, 16), (64, 128), (20, 36)])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_bwd_kernel_ragged_wide_real_decay(dtype, t, chunk, p, n, init):
+    """Ragged last chunks, a chunk of 1, the widest P and N, the real decay
+    range (exp(cs_i - cs_j) above the diagonal overflows), B and C strided
+    views of xBC, a starting state and dfinal: finite gradients equal to the
+    plain version's."""
+    check_ssd_bwd(*ssd_bwd_case(11, 2, t, 4, p, 2, n, dtype, real=True,
+                                init=init, dfinal=init), chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h", [(128, 4), (64, 5)])
+def test_ssd_bwd_kernel_bf16_training_widths(n, h):
+    """mamba2-1.3b's (N 128) and zamba2-2.7b's (N 64) layer cut in batch and
+    heads: P 64, chunk 64, T 512, the real decay, one group."""
+    check_ssd_bwd(*ssd_bwd_case(12, 2, 512, h, 64, 1, n, torch.bfloat16,
+                                real=True), 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [4, 1])
+def test_ssd_bwd_kernel_unaligned_views(offset):
+    xb, a, bm, cm, init, dy, df = ssd_bwd_case(13, 2, 150, 4, 64, 1, 36,
+                                               torch.bfloat16, real=True,
+                                               offset=offset)
+    assert bm.data_ptr() % 16
+    check_ssd_bwd(xb, a, bm, cm, init, dy.transpose(0, 1).contiguous()
+                  .transpose(0, 1), df, 64)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_kernel_refuses_what_it_was_not_built_for():
+    xb, a, bm, cm, _, dy, _ = ssd_bwd_case(14, 1, 32, 2, 8, 1, 8,
+                                           torch.float32, real=False)
+    before = SSD.launches_bwd
+    with pytest.raises(NotImplementedError, match="P=6"):
+        SSD.ssd_scan_bwd(xb[..., :6], a, bm, cm, dy[..., :6], chunk=16)
+    with pytest.raises(ValueError, match="chunk=65"):
+        SSD.ssd_scan_bwd(xb, a, bm, cm, dy, chunk=65)
+    with pytest.raises(ValueError, match="dy must be"):
+        SSD.ssd_scan_bwd(xb, a, bm, cm, dy.bfloat16(), chunk=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        SSD.ssd_scan_bwd(xb.cpu(), a, bm, cm, dy, chunk=16)
+    assert SSD.launches_bwd == before
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_kernel_captures_and_replays_in_a_cuda_graph():
+    """Captured once and replayed on new inputs copied into the static
+    ones, the backward gives the bits of an eager launch on those inputs."""
+    xb, a, bm, cm, init, dy, df = ssd_bwd_case(15, 2, 200, 4, 64, 1, 128,
+                                               torch.bfloat16, real=True,
+                                               init=True, dfinal=True)
+    static = [xb.clone(), a.clone(), bm.clone(), cm.clone(), init.clone(),
+              dy.clone(), df.clone()]
+
+    def run():
+        x_, a_, b_, c_, i_, dy_, df_ = static
+        return SSD.ssd_scan_bwd(x_, a_, b_, c_, dy_, chunk=64, init_state=i_,
+                                dfinal=df_)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()                                   # warm-up: builds the library
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    new = ssd_bwd_case(16, 2, 200, 4, 64, 1, 128, torch.bfloat16, real=True,
+                       init=True, dfinal=True)
+    for dst, src in zip(static, new):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = SSD.ssd_scan_bwd(*new[:4], new[5], chunk=64, init_state=new[4],
+                            dfinal=new[6])
+    for got, w in zip(out, want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.gpu
+def test_ssm_layer_gradients_through_the_kernels_match_plain(monkeypatch):
+    """One bf16 mamba2 block at zamba2's widths cut in heads: the gradients
+    of every parameter through ``SSDScan`` (both kernels) against the same
+    block with the plain ``ssd_chunked`` and PyTorch's autograd, on the
+    card."""
+    from repro_torch import tree as TR
+    from repro_torch.models import ssm as S
+    cfg = get_config("zamba2-2.7b").replace(d_model=256, dtype="bfloat16")
+    bp = S.init_mamba_block(torch.Generator("cuda").manual_seed(0), cfg,
+                            torch.bfloat16, "cuda", 1)
+    bp = TR.map(lambda t: t[0].float().requires_grad_(), bp)
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (2, 160, 256)).astype(np.float32)).to("cuda", torch.bfloat16)
+    grads = {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            monkeypatch.setattr(
+                ops, "ssd_scan", lambda xb, a, b_, c_, *, chunk,
+                init_state=None: ref.ssd_chunked(xb, a, b_, c_, chunk,
+                                                 init_state))
+        before = SSD.launches_bwd
+        out = S.mamba_block(TR.map(lambda t: t.bfloat16(), bp), x, cfg)
+        grads[name] = torch.autograd.grad(out.float().square().mean(),
+                                          TR.leaves(bp))
+        assert SSD.launches_bwd - before == (name == "kernel")
+    for g, w in zip(grads["kernel"], grads["plain"]):
+        assert torch.isfinite(g).all()
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 3e-2 * (1 + scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("strategy", ["checkfree", "checkfree_plus"])
+def test_ssm_families_train_on_card_as_on_cpu(arch, strategy):
+    """2 layers at reduced width (zamba2: the shared block after each), fp32:
+    three Adam steps of the Trainer on the card (the SSD kernels, and for
+    zamba2 the flash kernels at head dim 64) and on the CPU (plain versions)
+    from the same parameters agree at 1e-3 * (1 + |w|); the SSD scan and its
+    backward launch once a layer and half-batch."""
+    from repro_torch import tree as TR
+    from repro_torch.config import OptimizerConfig, RecoveryConfig, TrainConfig
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
+    params = Model(cfg, device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+    tcfg = TrainConfig(global_batch=4, microbatch=4, seq_len=96, steps=3,
+                       eval_every=3, fuse_window=1, seed=0,
+                       optimizer=OptimizerConfig(total_steps=3),
+                       recovery=RecoveryConfig(strategy=strategy,
+                                               num_stages=2,
+                                               protect_edge_stages=False))
+    halves = 2 if strategy == "checkfree_plus" else 1
+    result = {}
+    for device in ("cuda", "cpu"):
+        before = (SSD.launches, SSD.launches_bwd)
+        trainer = Trainer(Model(cfg, device=device, weights=False), tcfg)
+        state, hist = trainer.run(make_batches(cfg, batch=4, seq=96, seed=0),
+                                  params=TR.clone(params))
+        launched = (SSD.launches - before[0], SSD.launches_bwd - before[1])
+        want = cfg.num_layers * 3 * halves
+        assert launched == ((want, want) if device == "cuda" else (0, 0))
+        result[device] = (hist.loss, TR.map(lambda t: t.detach().cpu(),
+                                            state.params))
+        del trainer, state
+    (card_loss, card_p), (cpu_loss, cpu_p) = result["cuda"], result["cpu"]
+    assert all(np.isfinite(card_loss))
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-3, atol=1e-3)
+    for a, b in zip(TR.leaves(card_p), TR.leaves(cpu_p)):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_ssm_fused_windows_equal_eager_steps_on_card():
+    """Reduced mamba2, ``checkfree_plus``: windows of 8 (a replayed CUDA
+    graph holding both SSD kernels) give the eager steps' losses and
+    parameters bit for bit."""
+    from repro_torch import tree as TR
+    from repro_torch.config import OptimizerConfig, RecoveryConfig, TrainConfig
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+
+    cfg = reduced(get_config("mamba2-1.3b")).replace(dtype="bfloat16")
+    params = Model(cfg, device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+    runs = {}
+    for window in (8, 1):
+        tcfg = TrainConfig(global_batch=4, microbatch=4, seq_len=128,
+                           steps=10, eval_every=100, fuse_window=window,
+                           optimizer=OptimizerConfig(lr=6e-4, total_steps=10),
+                           recovery=RecoveryConfig(strategy="checkfree_plus",
+                                                   num_stages=2,
+                                                   protect_edge_stages=False))
+        trainer = Trainer(Model(cfg, device="cuda", weights=False), tcfg,
+                          schedule=FusedForced())
+        state, hist = trainer.run(make_batches(cfg, batch=4, seq=128),
+                                  params=TR.clone(params))
+        runs[window] = (hist, TR.map(lambda t: t.detach().cpu(),
+                                     state.params))
+        if window == 8:
+            assert trainer.window.captures == 1
+            assert trainer.window.recorded_launches["ssd_scan_bwd"] == 4
+    (h8, p8), (h1, p1) = runs[8], runs[1]
+    assert h8.failures == h1.failures == [(5, 1)]
+    assert h8.loss == h1.loss
+    for a, b in zip(TR.leaves(p8), TR.leaves(p1)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_capture_empties_the_cache_only_without_room(monkeypatch):
+    """Where the device's free memory could not hold the graph's pool beside
+    the eager step's cached blocks, the capture empties the cache first; the
+    replays give the same bits either way (reduced mamba2, windows of 8)."""
+    from repro_torch import tree as TR
+    from repro_torch.config import OptimizerConfig, RecoveryConfig, TrainConfig
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+
+    cfg = reduced(get_config("mamba2-1.3b")).replace(dtype="bfloat16")
+    params = Model(cfg, device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+    tcfg = TrainConfig(global_batch=4, microbatch=4, seq_len=128, steps=8,
+                       eval_every=100, fuse_window=8,
+                       optimizer=OptimizerConfig(lr=6e-4, total_steps=8),
+                       recovery=RecoveryConfig(strategy="checkfree_plus",
+                                               num_stages=2,
+                                               protect_edge_stages=False))
+    runs = {}
+    for room in (True, False):
+        if not room:
+            monkeypatch.setattr(torch.cuda, "mem_get_info",
+                                lambda device=None: (0, 80 * 2 ** 30))
+        trainer = Trainer(Model(cfg, device="cuda", weights=False), tcfg)
+        state, hist = trainer.run(make_batches(cfg, batch=4, seq=128),
+                                  params=TR.clone(params))
+        assert trainer.window.captures == 1
+        assert trainer.window.kept_cache is room
+        runs[room] = (hist.loss, TR.map(lambda t: t.detach().cpu(),
+                                        state.params))
+        del trainer, state          # a trainer and its window form a cycle
+    assert runs[True][0] == runs[False][0]
+    for a, b in zip(TR.leaves(runs[True][1]), TR.leaves(runs[False][1])):
+        assert torch.equal(a, b)

@@ -12,8 +12,8 @@ attention block after every 2) with JAX parameters carried over by the
 converter: prefill logits and the whole cache, four teacher-forced decode
 steps, greedy generation and the full forward at 1e-4 in fp32, and within
 0.05 of the largest |logit| in bf16 (tests/test_smoke_archs.py's limit).
-Also the refusals: no device but the CPU's and CUDA's, no training of these
-families, no head dim 80 in the flash backward.  The CUDA kernels are held
+Also the refusals: no device but the CPU's and CUDA's.  Training these
+families is held against JAX in tests/test_torch_ssm_train.py.  The CUDA kernels are held
 against these plain versions on the card in tests/test_torch_gpu.py.
 """
 import jax
@@ -28,6 +28,7 @@ from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan
 from repro.models import ssm as JS
 from repro.models.model import build_model as jax_build_model
 from repro_torch import configs as C
+from repro_torch import tree as TRE
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
@@ -561,14 +562,23 @@ def test_serve_cli_on_cpu(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_ssm_families_refuse_training(arch):
+    """Both families refused to train until the SSD scan had a backward;
+    now ``loss`` runs on them with a gradient and ``weights=False`` builds
+    a trainer's model (tests/test_torch_ssm_train.py holds both against
+    JAX)."""
     cfg = C.reduced(C.get_config(arch))
     model = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
              "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.loss(model.params, batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Model(cfg, device="cpu", weights=False)
+    params = TRE.map(lambda t: t.detach().float().requires_grad_(),
+                     model.params)
+    loss, metrics = model.loss(params, batch)
+    assert loss.grad_fn is not None and torch.isfinite(loss)
+    assert float(metrics["aux"]) == 0.0
+    trainer_model = Model(cfg, device="cpu", weights=False)
+    assert trainer_model.family is model.family
+    with pytest.raises(RuntimeError, match="weights=False"):
+        trainer_model.params
 
 
 def test_flash_forward_plain_at_head_dim_80_matches_jax():
