@@ -48,15 +48,17 @@ result.  Phases:
              16-byte boundary; a state-carry check, and both models' serving
              shapes, timed there beside its bound and the chunked plain
              version (no PyTorch call computes it).
-             The SSD backward (fp32 on the CUDA cores for both dtypes)
-             against ``ssd_chunked_bwd_ref`` over tests/test_kernels.py's
-             SSD shapes, ragged chunks and a chunk of 1 at the widest P and
-             N with the real decay, starting states and dfinal, both
-             training widths cut in batch and heads and B and C rows off a
-             16-byte boundary, each case launched twice for bit-equality;
-             timed at both models' training shapes (B 8 x 512 x 64 heads,
-             N 128; B 4 x 512 x 80 heads, N 64) beside its bound and the
-             plain version (no PyTorch call computes it).
+             The SSD backward (bf16 on the tensor cores, several blocks a
+             head; fp32 on the CUDA cores) against ``ssd_chunked_bwd_ref``
+             over tests/test_kernels.py's SSD shapes, ragged chunks and a
+             chunk of 1 at the widest P and N with the real decay, starting
+             states and dfinal, both training widths cut in batch and heads
+             and B and C rows off a 16-byte boundary, each case launched
+             twice for bit-equality; timed at both models' training shapes
+             (B 8 x 512 x 64 heads, N 128; B 4 x 512 x 80 heads, N 64)
+             beside its bound (and as a multiple of it) and the plain
+             version (no PyTorch call computes it), and the fp32 check path
+             at mamba2-1.3b's.
 4. model   — paper-llama-1.5b, mamba2-1.3b, zamba2-2.7b, gemma-2b and
              h2o-danube-3-4b at full width cut to 2 layers, fp32: prefill
              logits (and cache) on the card (kernels) against the port on the
@@ -1362,14 +1364,25 @@ def phase_kernel_ssd_bwd() -> dict:
                         "plain_ms": plain_ms, "bound_ms": max(tb, to),
                         "bound_by": "bytes" if tb >= to else "operations",
                         "library_ms": None}
+        extra = {}
+        if arch == "mamba2-1.3b":
+            # the fp32 kernel (CUDA cores) on the same inputs in fp32: the
+            # card-vs-CPU checks' path, never a training path's
+            f32 = [v.float() for v in (xb, bm, cm, dy)]
+            extra["check_path_f32_ms"] = time_ms(
+                lambda: SSD.ssd_scan_bwd(f32[0], a, f32[1], f32[2], f32[3],
+                                         chunk=SSD_CHUNK),
+                groups=5, per_group=3)
+            del f32
         emit("kernel_time", kernel="ssd_scan_bwd",
              shape=dict(shp, arch=arch, chunk=SSD_CHUNK, dtype="bfloat16"),
              bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
              bound_fp32_ops_ms=flops / PEAK_FLOP_PER_S[torch.float32] * 1e3,
-             **shapes[arch], library="none: no PyTorch call computes the "
+             **shapes[arch], times_bound=kernel_ms / max(tb, to), **extra,
+             library="none: no PyTorch call computes the "
              "SSD scan's backward", plain="ref.ssd_chunked_bwd_ref",
              timing="median of 11 groups of 5 back-to-back calls, CUDA "
-                    "events (plain: 5 groups of 3)")
+                    "events (plain and the fp32 check path: 5 groups of 3)")
         del xb, a, bm, cm, dy
     main_shape = shapes["mamba2-1.3b"]
     return {"name": "ssd_scan_bwd", "route": "cuda",
@@ -1606,6 +1619,7 @@ def counts() -> dict:
 def zero_counts() -> None:
     FA.launches = FA.launches_dq = FA.launches_dkv = SM.launches = 0
     SSD.launches = SSD.launches_bwd = 0
+    SSD.launches_bwd_path.update(bf16=0, f32=0)
     AD.launches_sumsq = AD.launches_update = 0
 
 
@@ -1796,6 +1810,9 @@ def check_run(name: str, hist, launched: dict, *, steps: int, halves: int,
         problems.append(f"losses {hist.loss}")
     if launched != want:
         problems.append(f"launches {launched}, want {want}")
+    if SSD.launches_bwd_path["f32"]:
+        problems.append(f"the SSD backward ran its fp32 kernel "
+                        f"{SSD.launches_bwd_path['f32']} times")
     if [tuple(f) for f in hist.failures] != failures:
         problems.append(f"failures {hist.failures}, want {failures}")
     if len(hist.recovery_errors) != len(failures) or not all(

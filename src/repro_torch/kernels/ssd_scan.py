@@ -14,14 +14,18 @@ The backward kernel has no TPU counterpart (the TPU kernel has no VJP; JAX
 trains through autodiff of ``ssd_chunked``): it computes
 ``ref.ssd_chunked_bwd_ref``, recomputing the chunks' entry states instead of
 saving them, in a fixed order of sums (no atomics), so that a CUDA graph
-replays it bit for bit.  :class:`SSDScan` is the autograd Function: its
+replays it bit for bit.  bf16 runs on the tensor cores, one block per 32
+state rows of a head, leaving fp32 partials of dB, dC and d cs per block
+that a second pass sums; fp32 (the card-vs-CPU checks) on the CUDA cores,
+one block a head.  :class:`SSDScan` is the autograd Function: its
 forward launches the forward kernel and saves its inputs, its backward
 launches the backward kernel.
 
 Both take tensors that lie on a CUDA device and nothing else: the plain
 versions for CPU tensors are in ``kernels.ref``, and ``kernels.ops`` picks
 between them by the tensor's device.  ``launches`` and ``launches_bwd``
-count each kernel's launches in this process.
+count each kernel's launches in this process, ``launches_bwd_path`` the
+backward's by the walk kernel it ran (``bf16``, the tensor cores; ``f32``).
 """
 from __future__ import annotations
 
@@ -33,15 +37,17 @@ import torch
 from repro_torch.kernels import build
 
 MAX_CHUNK, MAX_P, MAX_N = 64, 64, 128     # csrc/ssd_scan.cu
+P_BLK = 32                                # the bf16 backward's state rows a block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 launches_bwd = 0
+launches_bwd_path = {"bf16": 0, "f32": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # without argtypes ctypes passes each pointer as a 32-bit int and cuts it
 _ARGTYPES = {"ssd_scan": [_P] * 7 + [_I] * 8 + [_LL] * 15 + [_P],
-             "ssd_scan_bwd": [_P] * 15 + [_I] * 8 + [_LL] * 15 + [_P]}
+             "ssd_scan_bwd": [_P] * 16 + [_I] * 8 + [_LL] * 15 + [_P]}
 
 
 def _entry(name: str = "ssd_scan"):
@@ -159,7 +165,8 @@ def ssd_scan_bwd(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     The forward's inputs as :func:`ssd_scan` takes them; dy (B, T, H, P) in
     xb's dtype with a contiguous last axis, dfinal (B, H, P, N) contiguous
     fp32 or None for zeros.  The outputs are contiguous.  Scratch (the
-    chunks' entry states, fp32 dB and dC per head) comes from the caching
+    chunks' entry states; fp32 dB and dC per head and, for bf16, per block
+    of 32 state rows, with that block's d cs) comes from the caching
     allocator for the call.  Launches on the current stream and does not
     synchronise.
     """
@@ -176,8 +183,20 @@ def ssd_scan_bwd(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     dc = torch.empty((b, t, g, n), dtype=cmat.dtype, device=dev)
     dinit = None if init_state is None else torch.empty(
         (b, h, p, n), dtype=torch.float32, device=dev)
-    states = torch.empty((b, h, nc, p, n), dtype=torch.float32, device=dev)
-    dbh = torch.empty((b, t, h, n), dtype=torch.float32, device=dev)
+    path = "bf16" if xb.dtype == torch.bfloat16 else "f32"
+    if path == "bf16":
+        # per 32-row block and chunk, bf16 hi and lo tiles of the entry
+        # state, N padded to 64 or 128: 4 bytes an element
+        nblk = -(-p // P_BLK)
+        states = torch.empty((b, h, nblk, nc, P_BLK, 64 if n <= 64 else 128),
+                             dtype=torch.float32, device=dev)
+        dcs = torch.empty((b, t, h, nblk), dtype=torch.float32, device=dev)
+    else:
+        nblk = 1
+        states = torch.empty((b, h, nc, p, n), dtype=torch.float32,
+                             device=dev)
+        dcs = None
+    dbh = torch.empty((b, t, h, nblk, n), dtype=torch.float32, device=dev)
     dch = torch.empty_like(dbh)
 
     def ptr(v):
@@ -188,13 +207,14 @@ def ssd_scan_bwd(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
         err = fn(xb.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
                  dy.data_ptr(), ptr(init_state), ptr(dfinal), dx.data_ptr(),
                  da.data_ptr(), db.data_ptr(), dc.data_ptr(), ptr(dinit),
-                 states.data_ptr(), dbh.data_ptr(), dch.data_ptr(),
+                 states.data_ptr(), dbh.data_ptr(), dch.data_ptr(), ptr(dcs),
                  _DTYPE_CODES[xb.dtype], b, t, h, g, p, n, chunk,
                  *xb.stride()[:3], *a.stride(), *bmat.stride()[:3],
                  *cmat.stride()[:3], *dy.stride()[:3],
                  torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "ssd_scan_bwd")
     launches_bwd += 1
+    launches_bwd_path[path] += 1
     return dx, da, db, dc, dinit
 
 

@@ -29,7 +29,7 @@ the profiler traces the device only), the device's idle share ``1 - busy /
 span``, both from the one traced run,
 the number of kernels launched, the device
 time by family (the port's kernels: flash attention, the stage merge, the
-SSD scan, Adam; cuBLAS matrix products; everything else), the device time of each
+SSD scan, its backward, Adam; cuBLAS matrix products; everything else), the device time of each
 of the port's kernels by name, and the kernels that take the most device
 time.  Decode and training
 numbers are per step.  Needs a CUDA device.
@@ -88,19 +88,21 @@ def _kernels(fn: Callable[[], None]) -> Tuple[dict, float]:
     return out, end - start
 
 
-# kernel families by name: the port's own kernels, cuBLAS's matrix products
-# (nvjet / gemm / cutlass kernels), and everything else (PyTorch's
-# element-wise, reduction and copy kernels)
+# kernel families by name: the port's own kernels (the SSD scan's forward
+# and its backward apart), cuBLAS's matrix products (nvjet / gemm / cutlass
+# kernels), and everything else (PyTorch's element-wise, reduction and copy
+# kernels)
 _FAMILIES = (("flash_attention", ("flash_fwd", "flash_bwd")),
              ("stage_merge", ("stage_merge",)),
+             ("ssd_scan_bwd", ("ssd_bwd_",)),
              ("ssd_scan", ("ssd_scan",)),
              ("adam", ("adam_update_kernel", "sumsq_")),
              ("matmul", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
 
 
 # the port's kernel names within the profiler's demangled signatures
-_OURS = re.compile(r"(flash_\w+|stage_merge\w*|ssd_scan\w*|adam_update\w*|"
-                   r"sumsq_\w+)(<[^>]*>)?")
+_OURS = re.compile(r"(flash_\w+|stage_merge\w*|ssd_scan\w*|ssd_bwd_\w+|"
+                   r"adam_update\w*|sumsq_\w+)(<[^>]*>)?")
 
 
 def _family(name: str) -> str:

@@ -1088,6 +1088,53 @@ def test_ssd_bwd_kernel_unaligned_views(offset):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("p", [20, 48])
+@pytest.mark.parametrize("n", [128, 36])
+def test_ssd_bwd_kernel_p_not_a_multiple_of_the_block(p, n):
+    """P 20 and 48, not multiples of the bf16 kernel's 32 state rows a
+    block (one padded block, or a full one beside a padded one), at N 128
+    and 36, with the real decay, a starting state and dfinal."""
+    check_ssd_bwd(*ssd_bwd_case(17, 2, 300, 4, p, 2, n, torch.bfloat16,
+                                real=True, init=True, dfinal=True), 64)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_kernel_mamba2_full_head_count():
+    """mamba2-1.3b's layer cut only in batch: B 1, 64 heads of P 64 (two P
+    blocks a head, whose dB, dC and d cs parts are summed in order over the
+    blocks, then over the 64 heads of the one group), N 128, T 512."""
+    check_ssd_bwd(*ssd_bwd_case(18, 1, 512, 64, 64, 1, 128, torch.bfloat16,
+                                real=True), 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_bwd_runs_the_walk_kernel_of_its_dtype(dtype):
+    """A bf16 call runs the tensor-core walk and never the fp32 one, and an
+    fp32 call the reverse: by the wrapper's count of each path and by the
+    names of the kernels the profiler records on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    xb, a, bm, cm, _, dy, _ = ssd_bwd_case(19, 1, 128, 2, 64, 1, 128, dtype,
+                                           real=True)
+    SSD.ssd_scan_bwd(xb, a, bm, cm, dy, chunk=64)     # built before the trace
+    torch.cuda.synchronize()
+    want, other = (("bf16", "f32") if dtype == torch.bfloat16
+                   else ("f32", "bf16"))
+    before = dict(SSD.launches_bwd_path)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        SSD.ssd_scan_bwd(xb, a, bm, cm, dy, chunk=64)
+        torch.cuda.synchronize()
+    assert SSD.launches_bwd_path[want] == before[want] + 1
+    assert SSD.launches_bwd_path[other] == before[other]
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA}
+    assert any(f"ssd_bwd_{want}_kernel" in n for n in names), names
+    assert not any(f"ssd_bwd_{other}_kernel" in n for n in names), names
+    assert any("ssd_bwd_sum_kernel" in n for n in names), names
+
+
+@pytest.mark.gpu
 def test_ssd_bwd_kernel_refuses_what_it_was_not_built_for():
     xb, a, bm, cm, _, dy, _ = ssd_bwd_case(14, 1, 32, 2, 8, 1, 8,
                                            torch.float32, real=False)
