@@ -100,7 +100,19 @@ result.  Phases:
              window ms, ms a step, tokens/s, peak memory and both merges'
              ms, device ms and new device allocations (none allowed: the
              capture keeps the cache of the eager step's blocks).
-7c. train_elastic — paper-llama-1.5b as train, ``elastic`` with the edge
+7c. train_telemetry — train_fused's fused run three times: dark (no
+             recorder), lit (``telemetry.configure`` streaming into a run
+             directory) and dark again, each under
+             ``set_sync_debug_mode("warn")``.  Lit against dark: losses,
+             omegas, dispatches and walls bit-equal, the same number of
+             synchronizing-call warnings; the stream schema-valid with
+             ``run_end.effective_steps`` 40, a ``window_dispatch`` and a
+             ``window_drain`` span a window, 2 ``recovery`` spans, the
+             ``step_window`` k summing to the walls; the port's report
+             ``--strict`` returns 0 and the Chrome trace loads; the lit ms a
+             step (median of the full windows after the first) within 2% of
+             the mean of the two dark runs'.
+7d. train_elastic — paper-llama-1.5b as train, ``elastic`` with the edge
              stages protected, 40 walls of the port's own simulated
              ``spot_shrink`` (ELASTIC_SCENARIO, seed 71): a failure at wall
              15, a departure that shrinks 6 -> 5 stages at 16, a merge on
@@ -154,7 +166,10 @@ result.  Phases:
              stage shards snapshotted to host memory every step, stage 3
              failing at wall 2 and served from the memory tier, bit-equal to
              the shard saved at step 2; snapshot time a step beside its
-             bound over the host link.
+             bound over the host link.  A recorder of the run's own: one
+             schema-valid ``snapshot_save`` event for each snapshot, with its
+             bytes, and the one ``snapshot_restore`` with those of the shard
+             it served.
 11. kernels — one line for every kernel: launches (the training paths and
              for the SSD scan the serving ones, and by path), error, times,
              bound.
@@ -163,7 +178,9 @@ The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -173,6 +190,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -181,6 +199,7 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch import telemetry  # noqa: E402
 from repro_torch import tree as TR  # noqa: E402
 from repro_torch.ckpt.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.config import (OptimizerConfig, RecoveryConfig,  # noqa: E402
@@ -206,6 +225,7 @@ from repro_torch.sim import get_scenario, simulate  # noqa: E402
 from repro_torch.statestore import codec as ss_codec  # noqa: E402
 from repro_torch.statestore import store as store_mod  # noqa: E402
 from repro_torch.statestore import strategies as ss_strategies  # noqa: E402
+from repro_torch.telemetry import report as tel_report  # noqa: E402
 
 # H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak, fp32 peak
 MEM_BYTES_PER_S = 3.35e12
@@ -345,6 +365,13 @@ FUSED_WINDOW, FUSED_STEPS = 8, 40
 FUSED_SCHEDULE = {13: [3], 25: [2]}
 FUSED_SIZES = [8, 4, 1, 8, 4, 8, 4, 2, 1]
 FUSED_LOSS_TOL = 1e-3
+# telemetry on the main path: train_fused's fused run (TRAIN, FUSED_SCHEDULE,
+# windows of 8) dark (no recorder), lit (a recorder streaming into a run
+# directory) and dark again; lit and dark equal bit for bit with the same
+# dispatches and synchronizing calls, and the lit ms a step within 2% of
+# the mean of the two dark runs' (a fused window idles the card under 2%,
+# and the sites run once a window, on the host)
+TELEMETRY_MS_TOL = 0.02
 # elastic repartitioning at TRAIN's shape: the port's simulator on
 # spot_shrink with these overrides and seed, 6 stages, the edges protected
 # (``elastic`` has no swap twins).  spot_shrink makes every failure a
@@ -2259,6 +2286,171 @@ def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
     return launched
 
 
+@contextlib.contextmanager
+def sync_warnings():
+    """PyTorch's warnings of synchronizing CUDA calls inside, as a list
+    (``set_sync_debug_mode("warn")``; a window's replays run under "error"
+    all the same)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            yield seen
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def telemetry_run(run_dir=None) -> dict:
+    """train_fused's fused run (TRAIN, ``checkfree_plus``, FUSED_SCHEDULE,
+    windows of 8), with a recorder streaming into ``run_dir`` installed
+    (lit) or none (dark): its history, omegas, window times, synchronizing
+    calls, launches (the graph's replays counted) and, lit, the recorder."""
+    cfg = train_model_config(TRAIN)
+    trainer = Trainer(Model(cfg, device="cuda", weights=False),
+                      train_config("checkfree_plus", FUSED_STEPS,
+                                   stages=TRAIN["stages"],
+                                   batch=TRAIN["batch"], seq=TRAIN["seq"],
+                                   window=FUSED_WINDOW),
+                      schedule=Forced(FUSED_SCHEDULE))
+    out = {"window_ms": [], "rings": []}
+    runner = trainer.window
+    dispatch, drain = runner.dispatch, runner.drain
+
+    def timed_dispatch(state, stacked, **kw):
+        torch.cuda.synchronize()
+        out["t0"] = time.perf_counter()
+        return dispatch(state, stacked, **kw)
+
+    def timed_drain(pending):
+        state, ring = drain(pending)
+        out["window_ms"].append(
+            (pending.k, (time.perf_counter() - out["t0"]) * 1e3))
+        out["rings"].append(ring)
+        return state, ring
+
+    runner.dispatch, runner.drain = timed_dispatch, timed_drain
+    batches = make_batches(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                           seed=0)
+    rec = telemetry.configure(run_dir=run_dir) if run_dir else None
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        with sync_warnings() as seen:
+            state, hist = trainer.run(batches)
+        torch.cuda.synchronize()
+        counted = counts()
+    finally:
+        if rec is not None:
+            rec.close()
+            telemetry.set_recorder(None)
+    out.update(hist=hist, recorder=rec,
+               syncs=sum("synchroniz" in str(w.message) for w in seen),
+               omegas=np.concatenate(out.pop("rings"))[:, OMEGAS:])
+    # each replay ran the launches that the capture recorded (and counted)
+    out["launched"] = {
+        name: n + (runner.replays - runner.captures)
+        * runner.recorded_launches.get(name, 0)
+        for name, n in counted.items()}
+    out["ms_per_step"] = float(np.median(
+        [ms for i, (k, ms) in enumerate(out["window_ms"])
+         if i > 0 and k == FUSED_WINDOW])) / FUSED_WINDOW
+    del trainer, state, runner, dispatch, drain
+    gc.collect()                     # a trainer and its window form a cycle
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_telemetry() -> dict:
+    """train_fused's fused run dark, lit and dark again: the sites change no
+    bit, no dispatch and no synchronizing call, cost the lit run under 2% a
+    step, and give a stream that passes the schema and the report's strict
+    contract, and a Chrome trace that loads."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        run_dir = os.path.join(work, "run")
+        dark = telemetry_run()
+        lit = telemetry_run(run_dir)
+        dark2 = telemetry_run()
+        rec, hist = lit["recorder"], lit["hist"]
+        check_run("train_telemetry", hist, lit["launched"], steps=FUSED_STEPS,
+                  halves=2, merges=2, schedule=FUSED_SCHEDULE)
+        events, spans = rec.events, rec.spans
+        problems = [f"schema: {p}" for p in telemetry.validate_events(events)]
+        names = [sp["name"] for sp in spans]
+        windows = [e for e in events if e["kind"] == "step_window"]
+        end = [e for e in events if e["kind"] == "run_end"]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            strict = tel_report.main([run_dir, "--strict"])
+        trace_path = rec.write_chrome_trace()
+        trace = telemetry.load_chrome_trace(trace_path)
+        metrics = telemetry.compute_metrics(events)
+        dark_ms = (dark["ms_per_step"] + dark2["ms_per_step"]) / 2
+        overhead = lit["ms_per_step"] / dark_ms - 1
+        emit("train_telemetry", arch=TRAIN["arch"], stages=TRAIN["stages"],
+             batch=TRAIN["batch"], seq=TRAIN["seq"], steps=FUSED_STEPS,
+             fuse_window=FUSED_WINDOW, strategy="checkfree_plus",
+             schedule=FUSED_SCHEDULE,
+             ms_per_step={"dark": dark["ms_per_step"], "lit": lit["ms_per_step"],
+                          "dark_again": dark2["ms_per_step"]},
+             lit_over_dark=overhead, tol=TELEMETRY_MS_TOL,
+             window_ms={"dark": dark["window_ms"], "lit": lit["window_ms"],
+                        "dark_again": dark2["window_ms"]},
+             syncs={"dark": dark["syncs"], "lit": lit["syncs"],
+                    "dark_again": dark2["syncs"]},
+             dispatches=hist.dispatches, wall_iters=hist.wall_iters,
+             events=len(events), spans=len(spans),
+             event_kinds=metrics["counts"],
+             span_names={n: names.count(n) for n in sorted(set(names))},
+             goodput=metrics["goodput"], recovery=metrics["recovery"],
+             report_strict_rc=strict, report=text.getvalue().splitlines(),
+             events_bytes=os.path.getsize(os.path.join(run_dir,
+                                                       "events.jsonl")),
+             trace_bytes=os.path.getsize(trace_path),
+             trace_events=len(trace["traceEvents"]), launches=lit["launched"],
+             nvidia_smi=smi(),
+             timing="ms_per_step: host clock from a synchronize before a "
+                    "window's dispatch to the end of its drain, the median "
+                    "over the full windows after the first, over 8; syncs: "
+                    "warnings of synchronizing CUDA calls under "
+                    "set_sync_debug_mode('warn') over Trainer.run")
+        for name, run in (("dark", dark), ("dark again", dark2)):
+            other = run["hist"]
+            if other.loss != hist.loss or not np.array_equal(
+                    run["omegas"], lit["omegas"]):
+                problems.append(f"the lit run's losses or omegas are not the "
+                                f"{name} run's bits")
+            if (other.dispatches, other.wall_iters, other.steps,
+                    other.failures) != (hist.dispatches, hist.wall_iters,
+                                        hist.steps, hist.failures):
+                problems.append(f"dispatches, walls, trace or failures differ "
+                                f"from the {name} run")
+            if run["syncs"] != lit["syncs"]:
+                problems.append(f"synchronizing calls: lit {lit['syncs']}, "
+                                f"{name} {run['syncs']}")
+        if len(end) != 1 or end[0]["effective_steps"] != FUSED_STEPS:
+            problems.append(f"run_end {end}")
+        if not (names.count("window_dispatch") == names.count("window_drain")
+                == hist.dispatches) or names.count("recovery") != 2:
+            problems.append(f"spans {sorted(set(names))}: dispatch "
+                            f"{names.count('window_dispatch')}, drain "
+                            f"{names.count('window_drain')}, recovery "
+                            f"{names.count('recovery')}")
+        if sum(e["k"] for e in windows) != hist.wall_iters:
+            problems.append(f"step_window k sum {[e['k'] for e in windows]}")
+        if strict != 0:
+            problems.append(f"report --strict returned {strict}")
+        if overhead > TELEMETRY_MS_TOL:
+            problems.append(f"the lit run takes {overhead:.2%} more a step "
+                            f"than the dark runs' mean")
+        if problems:
+            raise AssertionError("train_telemetry: " + "; ".join(problems))
+        return lit["launched"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def elastic_schedule() -> tuple:
     """The phase's simulated spot_shrink schedule and its story within
     ELASTIC_STEPS walls: [(wall, "fail" | "depart" | "regrow", slot)]."""
@@ -2901,9 +3093,18 @@ def train_neighbor(spec: dict, work: str) -> dict:
         strategy.after_step = timed_after_step
         strategy.handle_failure = checked
 
-    hist, launched, record, peak = train_run(
-        "neighbor", NEIGHBOR_STEPS, Forced(NEIGHBOR_SCHEDULE), spec=spec,
-        rcfg=dict(neighbor_cold=False, store_dir=work), setup=setup)
+    # the store's events on the card: a recorder of the run's own
+    rec = telemetry.Recorder(stream=False)
+    prev = telemetry.set_recorder(rec)
+    try:
+        hist, launched, record, peak = train_run(
+            "neighbor", NEIGHBOR_STEPS, Forced(NEIGHBOR_SCHEDULE), spec=spec,
+            rcfg=dict(neighbor_cold=False, store_dir=work), setup=setup)
+    finally:
+        telemetry.set_recorder(prev)
+    saves = [e for e in rec.events if e["kind"] == "snapshot_save"]
+    restores = [e for e in rec.events if e["kind"] == "snapshot_restore"]
+    store_events = saves + restores
     per_step = {}
     for ms, nbytes, step in record["snapshot"]:
         per_step.setdefault(step, [0.0, 0])
@@ -2937,7 +3138,12 @@ def train_neighbor(spec: dict, work: str) -> dict:
          after_step_ms=record["after_step_ms"],
          recovery_ms=record["recovery_ms"], step_ms=record["step_ms"],
          step_ms_median_failure_free=step_ms, peak_memory_gib=peak,
-         pinned=pinned_stats(), dir=work, nvidia_smi=smi(),
+         pinned=pinned_stats(), dir=work,
+         store_events={"snapshot_save": len(saves),
+                       "snapshot_restore": restores,
+                       "schema_problems": telemetry.validate_events(
+                           store_events)},
+         nvidia_smi=smi(),
          timing="host clock ending in torch.cuda.synchronize(): "
                 "snapshot_ms_per_step sums the six shards' device-to-host "
                 "snapshots of a step (pinned buffers, one synchronize "
@@ -2964,6 +3170,19 @@ def train_neighbor(spec: dict, work: str) -> dict:
             "adam_update": walls}
     if launched != want:
         problems.append(f"launches {launched}, want {want}")
+    # one snapshot_save for each snapshot taken, with its bytes, and the
+    # restore of stage 3 with the bytes of the shard saved at its step
+    saved = {(e["shard_id"], e["step"]): e["nbytes"] for e in saves}
+    if telemetry.validate_events(store_events) or sorted(
+            (e["step"], e["nbytes"]) for e in saves) != sorted(
+            (step, nbytes) for _, nbytes, step in record["snapshot"]) or \
+            len(restores) != 1 or restores[0]["nbytes"] != saved.get(
+                (restores[0]["shard_id"], restores[0]["step"])) or \
+            (restores[0]["step"], restores[0]["tier"]) != (
+                saved_step, NEIGHBOR_RESTORE[3]):
+        problems.append(f"store events: {len(saves)} saves, restores "
+                        f"{restores}, schema "
+                        f"{telemetry.validate_events(store_events)}")
     if problems:
         raise AssertionError("train_neighbor: " + "; ".join(problems))
     return launched
@@ -2996,6 +3215,7 @@ def main() -> int:
     phase_train_model()
     trained = {"train": phase_train(),
                "train_fused": phase_train_fused(),
+               "train_telemetry": phase_train_telemetry(),
                "train_elastic": phase_train_elastic(),
                "train_gemma": phase_train_checkfree(TRAIN_GEMMA,
                                                     "train_gemma"),

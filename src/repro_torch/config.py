@@ -143,6 +143,16 @@ class ModelConfig:
             total += self.num_layers * dec_layer
         return total
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top-k + shared experts)."""
+        if self.arch_type != "moe":
+            return self.param_count()
+        d = self.d_model
+        m = self.moe
+        active_experts = (m.top_k + m.num_shared_experts) * 3 * d * m.d_ff_expert
+        all_experts = (m.num_experts + m.num_shared_experts) * 3 * d * m.d_ff_expert
+        return self.param_count() - self.num_layers * (all_experts - active_experts)
+
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -187,8 +197,7 @@ class OptimizerConfig:
 class RecoveryConfig:
     """CheckFree / CheckFree+ configuration (the paper's contribution).
 
-    Field for field the JAX ``RecoveryConfig``; the statestore and adaptive
-    fields are carried for the strategies that come later.
+    Field for field the JAX ``RecoveryConfig``.
     """
 
     strategy: str = "checkfree"       # a name in repro_torch.recovery's registry

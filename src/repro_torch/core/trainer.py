@@ -60,8 +60,16 @@ run's starting parameters again, with zero moments) for restarts.  The
 state is updated in place, so strategies that save it copy it out, and
 restores copy into the live tensors.
 
-Not ported yet: the SPMD pipeline backend (ROADMAP.md queue 1, item 10)
-and telemetry events (item 6).
+**Telemetry** (``repro_torch.telemetry``, the JAX trainer's sites): the
+``run_start``, ``failure``, ``repartition``, ``step_window``, ``eval``,
+``truncation`` and ``run_end`` events, and the ``window_dispatch``,
+``window_drain`` and ``repartition`` spans.  The eager loop emits them as
+windows of one step, as JAX's ``fuse_window=1`` does.  They take only host
+values (python numbers, the drained ring), so a run with a recorder
+installed makes no host read and no synchronize that a dark run does not.
+
+Not ported yet: the pipeline-parallel backend (ROADMAP.md queue 1,
+"Pipeline-parallel backend").
 """
 from __future__ import annotations
 
@@ -73,6 +81,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch import tree as TR
 from repro_torch.config import TrainConfig
 from repro_torch.core.stages import (StagePartition, moved_layers,
@@ -345,6 +354,7 @@ class Trainer:
         new_part = StagePartition(self.model.cfg, len(new_slots))
         moved = moved_layers(old_part, old_slots, new_part, new_slots)
         nbytes = moved * self.wall.layer_bytes(old_part.num_layers)
+        t0 = telemetry.clock()
         self.part = new_part
         self._slots = list(new_slots)
         self.loss_fn = make_loss_fn(self.model, new_part,
@@ -358,6 +368,12 @@ class Trainer:
         state = dataclasses.replace(
             state, omegas=remap_stage_stats(old_part, new_part, state.omegas))
         cost = self.wall.relayout_time_s(nbytes)
+        telemetry.complete("repartition", t0, cat="trainer",
+                           direction=direction, to_stages=new_part.num_stages)
+        telemetry.emit(
+            "repartition", wall_step=wall_step, direction=direction,
+            from_stages=old_part.num_stages, to_stages=new_part.num_stages,
+            moved_layers=int(moved), nbytes=float(nbytes), cost_s=cost)
         self.repartition_log.append(
             (wall_step, direction, old_part.num_stages, new_part.num_stages,
              int(moved), cost))
@@ -421,6 +437,15 @@ class Trainer:
         self._evals = ([self.device_batch(eb) for eb in eval_batches]
                        if eval_batches else None)
         prefetch = WindowPrefetcher(batches)
+        # the per-family FLOP estimate (6 * active params * tokens for
+        # training) that the report turns into an MFU figure
+        tokens = tcfg.global_batch * tcfg.seq_len
+        telemetry.emit(
+            "run_start", arch=self.model.cfg.name,
+            strategy=self.strategy.name, backend="host", steps=tcfg.steps,
+            num_stages=self.rcfg.num_stages,
+            flops_per_step=6 * self.model.cfg.active_param_count() * tokens,
+            tokens_per_step=tokens)
         max_wall = tcfg.steps * 10  # safety bound for rollback-heavy runs
         fused = tcfg.fuse_window > 1
         loop = self._loop_fused if fused else self._loop
@@ -429,19 +454,27 @@ class Trainer:
             # windows' stream, sharing its cached blocks
             with (self.window.streamed() if fused else
                   contextlib.nullcontext()):
-                state, hist, wall_step = loop(state, hist, prefetch,
-                                              max_wall, verbose)
+                state, hist, wall_step, clock = loop(state, hist, prefetch,
+                                                     max_wall, verbose)
         finally:
             prefetch.close()
             self.strategy.on_run_end()
         hist.wall_iters = wall_step
         if state.effective_step < tcfg.steps:
             hist.truncated = True
+            telemetry.emit(
+                "truncation", wall_iters=wall_step,
+                effective_step=state.effective_step, target_steps=tcfg.steps)
             warnings.warn(
                 f"Trainer.run truncated at max_wall={max_wall} wall "
                 f"iterations (effective_step={state.effective_step}/"
                 f"{tcfg.steps}); results are incomplete", RuntimeWarning,
                 stacklevel=2)
+        telemetry.emit(
+            "run_end", effective_steps=state.effective_step,
+            wall_iters=hist.wall_iters, dispatches=hist.dispatches,
+            failures=len(hist.failures), truncated=hist.truncated,
+            clock_s=clock)
         return state, hist
 
     def _event_generator(self) -> torch.Generator:
@@ -470,11 +503,16 @@ class Trainer:
         def charge(slot: int) -> None:
             nonlocal clock
             hist.failures.append((wall_step, slot))
-            clock += strategy.failure_cost()
+            cost = strategy.failure_cost()
+            clock += cost
             nbytes = strategy.consume_restore_bytes()
+            overhead = 0.0
             if failure_overhead is not None:
-                clock += (failure_overhead(wall_step, slot) if nbytes is None
-                          else failure_overhead(wall_step, slot, nbytes))
+                overhead = (failure_overhead(wall_step, slot) if nbytes is None
+                            else failure_overhead(wall_step, slot, nbytes))
+                clock += overhead
+            telemetry.emit("failure", wall_step=wall_step, stage=slot,
+                           cost_s=cost, overhead_s=overhead, nbytes=nbytes)
 
         # 1) departures: rebuild in the old layout, shrink after
         shrink: List[int] = []
@@ -539,13 +577,17 @@ class Trainer:
         el = float(np.mean([self.eval_loss(state.params, eb).item()
                             for eb in self._evals]))
         hist.eval_loss.append((state.effective_step, clock, el))
+        telemetry.emit("eval", step=state.effective_step, loss=el,
+                       clock_s=clock)
         if verbose:
             log(f"  step {state.effective_step:4d} wall "
                 f"{clock / 3600:7.2f}h loss {hist.loss[-1]:.3f} "
                 f"eval {el:.3f}")
 
     def _loop(self, state, hist, prefetch, max_wall, verbose):
-        """One eager step a wall iteration (``fuse_window=1``)."""
+        """One eager step a wall iteration (``fuse_window=1``), with the
+        telemetry of a window of one step (JAX's ``fuse_window=1`` is its
+        fused loop with windows of one)."""
         tcfg = self.tcfg
         strategy = self.strategy
         horizon = strategy.replay_horizon()
@@ -554,20 +596,29 @@ class Trainer:
         while state.effective_step < tcfg.steps and wall_step < max_wall:
             state, clock = self._boundary(state, hist, clock, wall_step)
             batch = prefetch.get(state.effective_step)
+            t0 = telemetry.clock()
             state, loss, _ = self.step(state, self.device_batch(batch))
+            telemetry.complete("window_dispatch", t0, cat="trainer", k=1,
+                               wall_step=wall_step, backend="host")
             hist.dispatches += 1
             self.dispatched_buckets.add(1)
-            clock += strategy.iteration_cost() * self._iteration_factor(
-                wall_step)
+            # the step's one read of its loss
+            with telemetry.span("window_drain", cat="trainer", k=1):
+                loss = loss.item()
+            factor = self._iteration_factor(wall_step)
+            clock += strategy.iteration_cost() * factor
             hist.steps.append(state.effective_step)
             hist.wall_time.append(clock)
-            hist.loss.append(loss.item())
+            hist.loss.append(loss)
+            telemetry.emit("step_window", wall_step=wall_step, k=1,
+                           effective_step=state.effective_step, loss=loss,
+                           clock_s=clock, stretch=factor)
             strategy.after_step(state, hist)
             if horizon is not None:
                 prefetch.evict_below(state.effective_step - horizon)
             self._evaluate(state, hist, clock, verbose)
             wall_step += 1
-        return state, hist, wall_step
+        return state, hist, wall_step, clock
 
     def _loop_fused(self, state, hist, prefetch, max_wall, verbose):
         """Fused windows, in the order of ``repro/core/trainer.py:585-668``:
@@ -586,9 +637,11 @@ class Trainer:
             # current layout's window: a re-layout at the boundary made anew)
             k = self._window_size(wall_step, state.effective_step, max_wall)
             runner = self.window
-            pending = runner.dispatch(state,
-                                      prefetch.take(state.effective_step, k),
-                                      part=self.part)
+            stacked = prefetch.take(state.effective_step, k)
+            t0 = telemetry.clock()
+            pending = runner.dispatch(state, stacked, part=self.part)
+            telemetry.complete("window_dispatch", t0, cat="trainer", k=k,
+                               wall_step=wall_step, backend="host")
             hist.dispatches += 1
             self.dispatched_buckets.add(k)
             # while the card runs this window, line up the next one (a
@@ -598,19 +651,26 @@ class Trainer:
             if state.effective_step + k < tcfg.steps:
                 prefetch.prime(state.effective_step + k, next_k)
             # one copy to the host for the window's k steps
-            state, ring = runner.drain(pending)
+            with telemetry.span("window_drain", cat="trainer", k=k):
+                state, ring = runner.drain(pending)
+            stretch = 0.0
             for i in range(k):
                 if i > 0 and observed_rate is not None:
                     strategy.observe_environment(observed_rate(wall_step + i))
-                clock += strategy.iteration_cost() * self._iteration_factor(
-                    wall_step + i)
+                factor = self._iteration_factor(wall_step + i)
+                clock += strategy.iteration_cost() * factor
+                stretch += factor
                 hist.steps.append(state.effective_step - k + i + 1)
                 hist.wall_time.append(clock)
                 hist.loss.append(float(ring[i, loss_col]))
+            telemetry.emit("step_window", wall_step=wall_step, k=k,
+                           effective_step=state.effective_step,
+                           loss=hist.loss[-1], clock_s=clock,
+                           stretch=stretch / k)
             # interior steps were certified skippable by after_step_horizon
             strategy.after_step(state, hist)
             if replay is not None:
                 prefetch.evict_below(state.effective_step - replay)
             self._evaluate(state, hist, clock, verbose)
             wall_step += k
-        return state, hist, wall_step
+        return state, hist, wall_step, clock

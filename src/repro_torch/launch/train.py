@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch paper-llama-124m --strategy checkfree_plus \
         --steps 300 --rate 0.10 [--reduced] [--seq 512 --batch 8] \
-        [--device cpu] [--fuse-window 8] [--out history.json]
+        [--device cpu] [--fuse-window 8] [--out history.json] \
+        [--telemetry-dir runs/x [--trace]]
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --layers 6 \
         --stages 4 --strategy elastic --scenario spot_shrink --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
@@ -29,9 +30,14 @@ cluster; ``--depart-prob`` and ``--regrow-h`` override its permanent
 departures and the hours until fresh capacity arrives, and need
 ``--scenario``.  ``--strategy elastic`` shrinks the pipeline on a departure
 and grows it back on a regrow.  ``--device`` defaults to ``cuda`` and raises
-where there is none.  Flags of the JAX launcher that need parts not ported
-yet are refused by name: ``--backend spmd``, ``--telemetry-dir`` and
-``--trace``.
+where there is none.  ``--telemetry-dir`` records the run's structured
+events into ``events.jsonl`` there (the recorder is installed before the
+schedule is simulated, so the simulator's events are in the stream; read
+the run with ``python -m repro_torch.telemetry.report DIR``), and
+``--trace`` also writes a Chrome trace (``trace.json``) there; the recorder
+is closed and uninstalled when the run ends, also when it raises.  The flag
+of the JAX launcher that needs a part not ported yet is refused by name:
+``--backend spmd``.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.config import OptimizerConfig, RecoveryConfig, TrainConfig
 from repro_torch.configs import ARCHS, PAPER_MODELS, get_config, get_stages, reduced
 from repro_torch.core.failures import FailureSchedule
@@ -56,18 +63,6 @@ from repro_torch.models.model import build_model
 from repro_torch.recovery import available_strategies, default_protect_edges
 from repro_torch.sim import get_scenario, simulate
 from repro_torch.telemetry import log
-
-
-def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
-    unported = {
-        "--backend spmd": args.backend == "spmd",
-        "--telemetry-dir": bool(args.telemetry_dir),
-        "--trace": args.trace,
-    }
-    named = [flag for flag, used in unported.items() if used]
-    if named:
-        ap.error(f"{', '.join(named)}: not ported yet (the port trains "
-                 "on the host backend; see ROADMAP.md queue 1)")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> History:
@@ -106,16 +101,47 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     ap.add_argument("--regrow-h", type=float, default=None,
                     help="override the scenario's hours until fresh "
                          "capacity replaces a departed node (inf = never)")
-    # flags of the JAX driver that are refused by name
+    ap.add_argument("--telemetry-dir", default="",
+                    help="record the structured telemetry event stream "
+                         "(events.jsonl) into this directory; summarize "
+                         "with `python -m repro_torch.telemetry.report "
+                         "<dir>`")
+    ap.add_argument("--trace", action="store_true",
+                    help="also export a Chrome trace_event JSON "
+                         "(trace.json, loadable in Perfetto) into "
+                         "--telemetry-dir")
+    # the flag of the JAX launcher that is refused by name
     ap.add_argument("--backend", default="host", choices=["host", "spmd"])
-    ap.add_argument("--telemetry-dir", default="")
-    ap.add_argument("--trace", action="store_true")
     args = ap.parse_args(argv)
-    _refuse_unported(ap, args)
+    if args.backend == "spmd":
+        ap.error("--backend spmd: not ported yet (the port trains on the "
+                 "host backend; see ROADMAP.md queue 1)")
+    if args.trace and not args.telemetry_dir:
+        ap.error("--trace needs --telemetry-dir")
     if (args.depart_prob is not None or args.regrow_h is not None) \
             and not args.scenario:
         ap.error("--depart-prob/--regrow-h need --scenario (repro_torch.sim)")
 
+    rec = (telemetry.configure(run_dir=args.telemetry_dir)
+           if args.telemetry_dir else None)
+    try:
+        hist = _train(args)
+        if rec is not None and args.trace:
+            log(f"trace -> {rec.write_chrome_trace()}")
+    finally:
+        # a run that raises leaves no recorder installed either
+        if rec is not None:
+            rec.close()
+            telemetry.set_recorder(None)
+    if rec is not None:
+        log(f"telemetry -> {os.path.join(args.telemetry_dir, 'events.jsonl')}"
+            f"  (summarize: python -m repro_torch.telemetry.report "
+            f"{args.telemetry_dir})")
+    return hist
+
+
+def _train(args: argparse.Namespace) -> History:
+    """The run of ``main``'s parsed and checked arguments."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("launch.train: no CUDA device; pass --device cpu "

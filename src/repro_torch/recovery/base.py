@@ -57,6 +57,8 @@ from typing import Any, Callable, ClassVar, List, Optional, Tuple, TYPE_CHECKING
 
 import torch
 
+from repro_torch import telemetry
+
 if TYPE_CHECKING:  # pragma: no cover — typing only, no import cycles
     from repro_torch.config import RecoveryConfig
     from repro_torch.core.stages import StagePartition
@@ -101,18 +103,39 @@ class RecoveryStrategy:
         self.init_fn = init_fn
         return self
 
-    # ---- entry points (what the trainer calls) -----------------------
+    # ---- instrumented entry points (what the trainer calls) ----------
     def handle_failure(self, state: "TrainState",
                        event: FailureContext) -> "TrainState":
-        """:meth:`on_failure`; the trainer routes failures through here so
-        that instrumentation wraps every policy alike (telemetry events come
-        later in the port)."""
-        return self.on_failure(state, event)
+        """:meth:`on_failure` wrapped in a host-side trace span and a
+        structured ``recovery`` event (``repro_torch.telemetry``).  The
+        trainer routes failures through here so every policy's recovery is
+        measured alike; subclasses override :meth:`on_failure` only.
+        ``duration_s`` is host time around the handler: on the card the
+        merge is enqueued, not waited for."""
+        t0 = telemetry.clock()
+        state = self.on_failure(state, event)
+        duration = telemetry.clock() - t0
+        telemetry.complete("recovery", t0, cat="recovery",
+                           strategy=self.name, stage=event.stage)
+        telemetry.emit("recovery", wall_step=event.wall_step,
+                       stage=event.stage, strategy=self.name,
+                       duration_s=duration, stages=[event.stage])
+        return state
 
     def handle_consecutive(self, state: "TrainState", run: List[int],
                            event: FailureContext) -> "TrainState":
-        """:meth:`on_consecutive`, as :meth:`handle_failure`."""
-        return self.on_consecutive(state, run, event)
+        """:meth:`on_consecutive`, as :meth:`handle_failure` (one
+        ``recovery`` event for the whole run of adjacent stages)."""
+        t0 = telemetry.clock()
+        state = self.on_consecutive(state, run, event)
+        duration = telemetry.clock() - t0
+        telemetry.complete("recovery", t0, cat="recovery",
+                           strategy=self.name, stage=event.stage,
+                           stages=len(run))
+        telemetry.emit("recovery", wall_step=event.wall_step,
+                       stage=event.stage, strategy=self.name,
+                       duration_s=duration, stages=list(run))
+        return state
 
     def handle_departure(self, state: "TrainState",
                          event: FailureContext) -> "TrainState":
@@ -120,7 +143,15 @@ class RecoveryStrategy:
         of it when the failure is a permanent departure that the trainer
         will repartition away: the strategy only rebuilds the lost stage's
         values in the *old* layout; the trainer re-cuts the layout after."""
-        return self.on_departure(state, event)
+        t0 = telemetry.clock()
+        state = self.on_departure(state, event)
+        duration = telemetry.clock() - t0
+        telemetry.complete("recovery", t0, cat="recovery",
+                           strategy=self.name, stage=event.stage)
+        telemetry.emit("recovery", wall_step=event.wall_step,
+                       stage=event.stage, strategy=self.name,
+                       duration_s=duration, stages=[event.stage])
+        return state
 
     # ---- lifecycle ---------------------------------------------------
     def on_failure(self, state: "TrainState",

@@ -25,8 +25,8 @@ wall-clock hooks the trainer upgrades to when present:
     schedule = simulate("spot_diurnal", steps=4000, seed=42)
     Trainer(model, tcfg, schedule=schedule).run(batches)
 
-A copy of ``repro.sim.adapters`` on the port's ``WallClockModel``, without
-the ``sim_run`` telemetry event.
+A copy of ``repro.sim.adapters`` on the port's ``WallClockModel`` and
+telemetry (the ``sim_run`` event of :func:`simulate`).
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from typing import List, Optional, Union
 
 import numpy as np
 
+from repro_torch import telemetry
 from repro_torch.core.walltime import WallClockModel
 from repro_torch.sim.cluster import Cluster, SimResult
 from repro_torch.sim.scenario import ScenarioConfig, get_scenario
@@ -170,4 +171,8 @@ def simulate(scenario: Union[str, ScenarioConfig], *, steps: int,
     cluster = Cluster(scenario, steps=steps, seed=seed,
                       stage_bytes=wall.stage_bytes(scenario.num_stages))
     result = cluster.run()
+    telemetry.emit("sim_run", scenario=scenario.name, steps=steps,
+                   events=len(result.events),
+                   suppressed=len(result.suppressed),
+                   total_hours=result.total_hours)
     return SimFailureSchedule(result, rate_window=rate_window)

@@ -23,9 +23,9 @@ process bit-compatible with the legacy schedule: the failure process owns
 ``FailureSchedule`` would), while node/infrastructure randomness draws
 from an independent stream.
 
-A copy of ``repro.sim.cluster`` on the port's ``FailureEvent``, without the
-JAX package's ``sim_node`` and ``sim_run`` telemetry (the port's telemetry
-has only ``log`` so far).
+A copy of ``repro.sim.cluster`` on the port's ``FailureEvent`` and
+telemetry: a ``sim_node`` event for each entry of the node log, and the
+``sim_run`` span around :meth:`Cluster.run`.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import telemetry
 from repro_torch.core.failures import FailureEvent
 from repro_torch.sim.node import Node
 from repro_torch.sim.processes import FailureProcess, make_process
@@ -147,6 +148,7 @@ class Cluster:
         regrows: List[Tuple[int, int]] = []
         log = []
 
+        t_span = telemetry.clock()
         t_h = 0.0
         for step in range(self.steps):
             # 1) finished restarts rejoin their stage; departed slots whose
@@ -157,6 +159,8 @@ class Cluster:
                     self.nodes[stage] = node
                     del self._restarting[stage]
                     log.append(("rejoin", step, stage, node.node_id))
+                    telemetry.emit("sim_node", what="rejoin", step=step,
+                                   stage=stage, node_id=node.node_id)
             for stage, ready_h in list(self._departed.items()):
                 if t_h >= ready_h:
                     node = self._fresh_node(t_h)
@@ -164,6 +168,8 @@ class Cluster:
                     del self._departed[stage]
                     regrows.append((step, stage))
                     log.append(("regrow", step, stage, node.node_id))
+                    telemetry.emit("sim_node", what="regrow", step=step,
+                                   stage=stage, node_id=node.node_id)
 
             # 2) this iteration runs at the slowest participant's pace
             factor = max(self._effective_slowdown(s)
@@ -203,6 +209,9 @@ class Cluster:
                 if departs:
                     departures.append((step, stage))
                     log.append(("depart", step, stage, dead.node_id))
+                    telemetry.emit("sim_node", what="depart", step=step,
+                                   stage=stage, node_id=dead.node_id,
+                                   overhead_s=0.0)
                     self._restarting.pop(stage, None)
                     ready = (t_h + sc.regrow_h
                              if sc.regrow_h != float("inf") else float("inf"))
@@ -233,12 +242,20 @@ class Cluster:
                         replacement.restart_latency_s,
                         replacement.bandwidth_Bps)
                     self.nodes[stage] = replacement
+                telemetry.emit("sim_node", what="fail", step=step,
+                               stage=stage, node_id=dead.node_id,
+                               overhead_s=overheads[(step, stage)])
                 if replacement is not None:
                     log.append(("respawn", step, stage,
                                 replacement.node_id))
+                    telemetry.emit("sim_node", what="respawn", step=step,
+                                   stage=stage,
+                                   node_id=replacement.node_id)
 
             t_h += dt_h
 
+        telemetry.complete("sim_run", t_span, cat="sim", scenario=sc.name,
+                           steps=self.steps, events=len(events))
         return SimResult(scenario=sc, steps=self.steps, seed=self.seed,
                          num_stages=sc.num_stages,
                          protect_edges=sc.protect_edges,

@@ -17,6 +17,8 @@ import queue
 import threading
 from typing import Callable, Optional
 
+from repro_torch import telemetry
+
 _SENTINEL = object()
 
 
@@ -50,7 +52,10 @@ class AsyncSnapshotter:
                 if item is _SENTINEL:
                     return
                 if self._error is None:  # fail-fast: skip after first error
-                    item()
+                    # on this thread's own row of the Chrome trace
+                    with telemetry.span("snapshot_write", cat="statestore",
+                                        pending=self._q.qsize()):
+                        item()
             except BaseException as e:  # noqa: BLE001 — reported on flush
                 self._error = e
             finally:

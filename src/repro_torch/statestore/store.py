@@ -29,6 +29,7 @@ import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from repro_torch import telemetry
 from repro_torch.statestore.codec import (CodecError, Pytree, Snapshot,
                                           host_snapshot, snapshot_to_tree)
 from repro_torch.statestore.policy import RetentionPolicy
@@ -88,10 +89,21 @@ class StateStore:
         if t.kind == "memory" or sync:
             t.put(snap, host=host)
             self.retention.apply(t, shard_id)
+            telemetry.emit("snapshot_save", step=step, shard_id=shard_id,
+                           tier=t.name, nbytes=snap.nbytes,
+                           synchronous=True)
         else:
-            def write(t=t, snap=snap, shard_id=shard_id):
-                t.put(snap, host=host)
-                self.retention.apply(t, shard_id)
+            def write(t=t, snap=snap, shard_id=shard_id, step=step):
+                # runs on the AsyncSnapshotter thread; the span lands on
+                # its own row of the Chrome trace
+                with telemetry.span("tier_write", cat="statestore",
+                                    tier=t.name, shard_id=shard_id,
+                                    nbytes=snap.nbytes):
+                    t.put(snap, host=host)
+                    self.retention.apply(t, shard_id)
+                telemetry.emit("snapshot_save", step=step,
+                               shard_id=shard_id, tier=t.name,
+                               nbytes=snap.nbytes, synchronous=False)
             self.writer.submit(write)
         return snap
 
@@ -145,8 +157,19 @@ class StateStore:
 
         Pending asynchronous writes are flushed first so a restore can
         never race its own in-flight checkpoint.  A corrupted snapshot is
-        skipped (with a warning) and the next-freshest copy is tried.
+        skipped (with a warning) and the next-freshest copy is tried.  The
+        restore is a ``restore`` span and a ``snapshot_restore`` event.
         """
+        with telemetry.span("restore", cat="statestore",
+                            shard_id=shard_id):
+            res = self._restore(shard_id, template)
+        telemetry.emit("snapshot_restore", step=res.step,
+                       shard_id=shard_id, tier=res.tier, nbytes=res.nbytes,
+                       read_time_s=res.read_time_s)
+        return res
+
+    def _restore(self, shard_id: str,
+                 template: Optional[Pytree]) -> RestoreResult:
         self.flush()
         # candidate (step, tier) pairs: freshest step first; ties broken by
         # tier order (fastest first)

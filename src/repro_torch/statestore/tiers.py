@@ -29,6 +29,7 @@ from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Tuple
 
+from repro_torch import telemetry
 from repro_torch.core.walltime import TierSpec
 from repro_torch.statestore import codec
 from repro_torch.statestore.codec import Snapshot
@@ -44,8 +45,9 @@ class RetryPolicy:
 
     Only transient errors are retried (``OSError`` except a missing file); a
     corrupted snapshot (``CodecError``) is data, not weather, and fails at
-    once so that the store can fall back to the next snapshot.  A restore is
-    priced once by the serving tier's spec, however many attempts it took.
+    once so that the store can fall back to the next snapshot.  Each retry
+    emits a ``tier_retry`` telemetry event; a restore is priced once by the
+    serving tier's spec, however many attempts it took.
     """
 
     attempts: int = 3          # total tries, including the first
@@ -260,8 +262,11 @@ class DiskTier(StorageTier):
                     raise TierError(
                         f"tier {self.name!r} {op} {shard_id}@{step} failed "
                         f"after {attempt} attempt(s): {e}") from e
-                self._sleep(self.retry.delay_s(attempt,
-                                               self._retry_rng.random()))
+                delay = self.retry.delay_s(attempt, self._retry_rng.random())
+                telemetry.emit("tier_retry", tier=self.name, op=op,
+                               shard_id=shard_id, step=step,
+                               attempt=attempt, delay_s=delay)
+                self._sleep(delay)
                 attempt += 1
 
     # ---- container contract ------------------------------------------

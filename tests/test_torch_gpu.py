@@ -13,6 +13,9 @@ SSD scan fp32 1e-4, bf16 3e-2, its fp32 final state 1e-4), and the models
 and the Trainer on the card against the same on the CPU at 1e-4 (fp32, with
 TF32 off; cuBLAS and the CPU sum in different orders).
 """
+import contextlib
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -1332,3 +1335,115 @@ def test_capture_empties_the_cache_only_without_room(monkeypatch):
     assert runs[True][0] == runs[False][0]
     for a, b in zip(TR.leaves(runs[True][1]), TR.leaves(runs[False][1])):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# telemetry on the card: the sites add no host sync and change no bits
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def sync_warnings():
+    """PyTorch's warnings of synchronizing CUDA calls inside, as a list
+    (``set_sync_debug_mode("warn")``; a window's replays run under
+    "error" all the same)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            yield seen
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def syncs(seen) -> int:
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+@pytest.mark.gpu
+def test_lit_fused_run_on_card_equals_dark():
+    """The 2-layer fused run with a recorder installed and without: the
+    same loss bits, dispatches and synchronizing calls; every window a
+    ``window_dispatch`` and a ``window_drain`` span."""
+    from repro_torch import telemetry
+    from repro_torch import tree as TR
+    params = fused_params()
+    fused_run("cuda", 8, params)                      # builds, warms up
+    with sync_warnings() as seen:
+        _, dark_p, dark = fused_run("cuda", 8, params)
+    dark_syncs = syncs(seen)
+    rec = telemetry.Recorder(stream=False)
+    prev = telemetry.set_recorder(rec)
+    try:
+        with sync_warnings() as seen:
+            _, lit_p, lit = fused_run("cuda", 8, params)
+    finally:
+        telemetry.set_recorder(prev)
+    assert lit.loss == dark.loss and lit.dispatches == dark.dispatches
+    assert syncs(seen) == dark_syncs
+    for a, b in zip(TR.leaves(lit_p), TR.leaves(dark_p)):
+        assert torch.equal(a, b)
+    assert telemetry.validate_events(rec.events) == []
+    names = [s["name"] for s in rec.spans]
+    assert names.count("window_dispatch") == names.count(
+        "window_drain") == lit.dispatches
+    assert names.count("recovery") == 1
+
+
+@pytest.mark.gpu
+def test_store_events_from_pinned_snapshots_are_valid(tmp_path):
+    """Snapshots of card tensors into pinned host memory: the memory tier's
+    save on the main thread, the disk tier's on the snapshotter's, and the
+    restore, each a valid event with the snapshot's own byte count."""
+    from repro_torch import telemetry
+    from repro_torch.core.walltime import WallClockModel
+    from repro_torch.statestore import DiskTier, MemoryTier, StateStore
+    specs = WallClockModel().tier_specs()
+    store = StateStore([MemoryTier(specs["mem"]),
+                        DiskTier(specs["disk"], str(tmp_path))])
+    tree = {"w": torch.randn(64, 33, device="cuda"),
+            "b": torch.randn(130, device="cuda").bfloat16()}
+    rec = telemetry.Recorder(stream=False)
+    prev = telemetry.set_recorder(rec)
+    try:
+        snaps = [store.put(tree, step=1, shard_id="s0", tier="mem"),
+                 store.put(tree, step=2, shard_id="s0", tier="disk")]
+        store.flush()
+        res = store.restore("s0", template=tree)
+        store.close()
+    finally:
+        telemetry.set_recorder(prev)
+    assert all(t.is_pinned() for snap in snaps for t in snap.leaves)
+    assert telemetry.validate_events(rec.events) == []
+    saves = [e for e in rec.events if e["kind"] == "snapshot_save"]
+    assert [(e["tier"], e["synchronous"], e["nbytes"]) for e in saves] == [
+        ("mem", True, snaps[0].nbytes), ("disk", False, snaps[1].nbytes)]
+    restore, = [e for e in rec.events if e["kind"] == "snapshot_restore"]
+    assert (restore["tier"], restore["nbytes"]) == ("disk", res.nbytes)
+
+
+@pytest.mark.gpu
+def test_recorder_installed_while_windows_replay_under_sync_error():
+    """With a recorder installed, every replay still runs under
+    ``set_sync_debug_mode("error")`` and nothing raises: the sites run
+    around the window, never in it."""
+    from repro_torch import telemetry
+    modes = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def recording(self):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return replay(self)
+
+    rec = telemetry.Recorder(stream=False)
+    prev = telemetry.set_recorder(rec)
+    torch.cuda.CUDAGraph.replay = recording
+    try:
+        _, _, hist = fused_run("cuda", 8, fused_params())
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+        telemetry.set_recorder(prev)
+    assert len(modes) == 9 and set(modes) == {2}     # 2: "error"
+    windows = [e for e in rec.events if e["kind"] == "step_window"]
+    assert len(windows) == hist.dispatches
+    assert sum(e["k"] for e in windows) == hist.wall_iters

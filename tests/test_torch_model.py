@@ -275,7 +275,10 @@ def test_package_imports_no_jax_and_nothing_of_repro():
         "'statestore.snapshot', 'statestore.policy', 'statestore.faults', "
         "'statestore.strategies', 'ckpt', 'ckpt.checkpoint', "
         "'recovery.adaptive', 'data.pipeline', 'sim', 'sim.node', "
-        "'sim.scenario', 'sim.processes', 'sim.cluster', 'sim.adapters'):\n"
+        "'sim.scenario', 'sim.processes', 'sim.cluster', 'sim.adapters', "
+        "'telemetry', 'telemetry.events', 'telemetry.recorder', "
+        "'telemetry.trace', 'telemetry.metrics', 'telemetry.report', "
+        "'telemetry.log'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

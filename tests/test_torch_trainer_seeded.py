@@ -45,11 +45,18 @@ def test_train_cli_on_cpu(tmp_path):
 @pytest.mark.parametrize("flags", [["--backend", "spmd"],
                                    ["--trace"],
                                    ["--depart-prob", "0.1"],
-                                   ["--telemetry-dir", "x"]])
-def test_train_cli_refuses_unported_flags_by_name(flags, capsys):
+                                   ["--backend", "spmd", "--telemetry-dir",
+                                    "x"]])
+def test_train_cli_refuses_unported_flags_by_name(flags, capsys, tmp_path,
+                                                  monkeypatch):
+    """``--backend spmd`` is not ported; ``--trace`` needs
+    ``--telemetry-dir``; ``--depart-prob`` needs ``--scenario``.  A refused
+    run makes no run directory."""
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit):
         train.main(["--reduced", "--device", "cpu", *flags])
     assert flags[0] in capsys.readouterr().err
+    assert os.listdir(tmp_path) == []
 
 
 def test_training_defaults_to_cuda_and_raises_without_it(monkeypatch):
