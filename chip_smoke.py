@@ -16,7 +16,8 @@ result.  Phases:
              window at S 512), lengths shorter than one tile, ragged and long,
              and the four serving shapes (paper-llama-1.5b 16 x 128,
              zamba2-2.7b's shared attention 32 x 80, h2o-danube-3-4b 32/8 x
-             120 with its 4096 window, gemma-2b 8/1 x 256); then kernel,
+             120 with its 4096 window, gemma-2b 8/1 x 256, granite-moe-3b-
+             a800m 24/8 x 64, also swept at S 512 and 333); then kernel,
              plain version and SDPA (as a yardstick only) timed at the
              serving shapes with CUDA events around back-to-back calls,
              beside the bound.  The same for the two backward kernels
@@ -27,8 +28,9 @@ result.  Phases:
              h2o-danube-3-4b's 32/8 group with its 4096 window at D 120;
              timed at four training shapes, B 4 x 512: paper-llama-1.5b
              16 x 128, gemma-2b 8/1 x 256, h2o-danube-3-4b 32/8 x 120 and
-             zamba2-2.7b's attention 32 x 80, with SDPA's flash backward as
-             the yardstick) and for the stage merge (against
+             zamba2-2.7b's attention 32 x 80, and at granite-moe-3b-a800m's
+             24/8 x 64, B 2 x 512, with SDPA's flash backward as the
+             yardstick) and for the stage merge (against
              ``stage_merge_ref``; timed on one 4-layer stage of
              paper-llama-1.5b, ``torch._foreach_lerp`` as the yardstick).
              The two Adam kernels (``adam_sumsq``, ``adam_update``) against
@@ -63,6 +65,10 @@ result.  Phases:
              h2o-danube-3-4b at full width cut to 2 layers, fp32: prefill
              logits (and cache) on the card (kernels) against the port on the
              CPU (plain versions).
+4b. model_moe — granite-moe-3b-a800m and deepseek-moe-16b the same way,
+             batch 2: full-sequence logits, the (token, layer) routing
+             decisions of card and CPU compared, the logits held on the
+             tokens whose routing agreed (MOE_ROUTE_DIFF_MAX).
 5. serve   — paper-llama-1.5b, all 24 layers, random weights from a seeded
              generator on the card: batch 8, prompt 512, 32 new tokens
              through ``launch.serve.generate``; the kernel must launch once
@@ -76,7 +82,14 @@ result.  Phases:
              against the token-by-token one on the first and last; and
              gemma-2b (18 flash-forward launches a prefill at head dim 256)
              and h2o-danube-3-4b (24 at head dim 120, window 4096), all
-             layers, as paper-llama-1.5b.
+             layers, as paper-llama-1.5b.  serve_moe, serve_deepseek:
+             granite-moe-3b-a800m (32 flash-forward launches at 24/8 x 64)
+             and deepseek-moe-16b (28 at 16 x 128, all 28 layers, 33.8 GB in
+             bf16, drawn leaf by leaf), the same checks with the routing
+             drift of every comparison printed; the plain prefill is pinned
+             to the kernel run's routing, and both bf16 prefills, pinned to
+             an fp32 prefill's routing, are held against it
+             (SERVE_LOGITS_TOL says why).
 6. train_model — the same 2-layer fp32 cut, two Adam steps of the Trainer on
              the card (kernels) and on the CPU (plain versions) from the same
              parameters: loss and parameters agree.
@@ -149,6 +162,16 @@ result.  Phases:
              the shared attention block after every 9, 6 stages, batch 4 x
              512): train_gemma's checks for ``checkfree``, with the SSD
              kernels and the flash kernels at head dim 80 (6 a pass).
+8d. train_moe — granite-moe-3b-a800m at full width and depth (32 layers, 8
+             stages, batch 4 x 512): ``checkfree_plus`` for 6 eager steps
+             with train's checks (the step-2 merge of a stage holding the
+             (4, 40, 1536, 512) expert tensors, the backward kernels on a
+             step's own inputs at 24/8 x 64) and aux of the order of 1 a
+             layer; then 16 steps in fused windows of 8 at batch 2
+             (MOE_FUSED_BATCH says why), bit-equal to the same steps
+             eagerly.  train_deepseek: deepseek-moe-16b cut to 4 of its 28
+             layers (4 stages of 1, batch 4; TRAIN_DEEPSEEK says why),
+             train_gemma's checks for ``checkfree``.
 9. train_ckpt — the checkpoint baseline at TRAIN's full width and depth
              (cut to 12 layers, and said so, if the host cannot hold the
              state in half its free memory, or two saves in half the free
@@ -217,6 +240,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels import stage_merge as SM  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim import adam as A  # noqa: E402
@@ -239,7 +263,15 @@ LSE_TOL = 1e-4
 SERVE_TOL = 1e-2
 # the full 24-layer bf16 prefill with the kernel against the same prefill with
 # the plain version, as a share of the largest |logit|
-# (tests/test_smoke_archs.py's bf16 limit)
+# (tests/test_smoke_archs.py's bf16 limit).  The MoE models route: a bf16
+# difference in the attention moves the router's inputs, a choice flips and
+# the flip travels through the later layers (about half of the decisions
+# differ after 28-32 layers of random weights, for the plain version as for
+# the kernel).  There the plain prefill is pinned to the kernel run's
+# routing (each layer's experts taken from it, weighed by its own gates) and
+# held to this limit; and both bf16 prefills, pinned to the routing of an
+# fp32 prefill with the plain versions on the same weights, are held to it
+# against that fp32 prefill
 SERVE_LOGITS_TOL = 0.05
 # the 2-layer fp32 model on the card against the CPU: cuBLAS and the CPU's
 # BLAS sum d=2048 and d_ff=5504 products in different orders
@@ -268,7 +300,8 @@ TRAIN_ATTN_SHAPES = {
     "d128": dict(b=4, h=16, hkv=16, s=512, d=128, window=0),
     "d256": dict(b=4, h=8, hkv=1, s=512, d=256, window=0),
     "d120": dict(b=4, h=32, hkv=8, s=512, d=120, window=4096),
-    "d80": dict(b=4, h=32, hkv=32, s=512, d=80, window=0)}
+    "d80": dict(b=4, h=32, hkv=32, s=512, d=80, window=0),
+    "d64": dict(b=2, h=24, hkv=8, s=512, d=64, window=0)}
 # checkfree_plus: a merge, an edge twin copy, a consecutive run (two merges)
 PLUS_SCHEDULE = {2: [3], 4: [0], 5: [2, 3]}
 PLUS_STEPS, PLUS_MERGES = 6, 3
@@ -317,7 +350,8 @@ SSD_TOKEN_LAYERS = (0, -1)
 ATTN_SHAPES = {"d128": dict(b=8, h=16, hkv=16, s=512, d=128, window=0),
                "d80": dict(b=8, h=32, hkv=32, s=512, d=80, window=0),
                "d120": dict(b=8, h=32, hkv=8, s=512, d=120, window=4096),
-               "d256": dict(b=8, h=8, hkv=1, s=512, d=256, window=0)}
+               "d256": dict(b=8, h=8, hkv=1, s=512, d=256, window=0),
+               "d64": dict(b=8, h=24, hkv=8, s=512, d=64, window=0)}
 SERVE_GEMMA = dict(arch="gemma-2b", batch=8, prompt=512, new_tokens=32)
 # the checkpoint baseline at TRAIN's shape: no save before wall 1 (restart
 # from the initial parameters at step 0), saves at steps 3 and 6, wall 5
@@ -415,6 +449,58 @@ SSM_FUSED_STEPS, SSM_FUSED_SCHEDULE, SSM_FUSED_SIZES = 16, {8: [3]}, [8, 8]
 # the real decay, B and C strided views of xBC)
 SSD_TRAIN = {"mamba2-1.3b": dict(b=8, t=512, h=64, p=64, g=1, n=128),
              "zamba2-2.7b": dict(b=4, t=512, h=80, p=64, g=1, n=64)}
+# the MoE family.  granite-moe-3b-a800m's attention is 24 query heads on 8
+# kv heads of 64, a group of 3 that no other path gives the flash kernels:
+# swept at S 512 and a ragged 333, timed at its serving shape (ATTN_SHAPES)
+# and its training shape (TRAIN_ATTN_SHAPES)
+GRANITE_GROUP = (24, 8, 64)
+GRANITE_SWEEP_LENGTHS = (512, 333)
+# the 2-layer fp32 cuts held card vs CPU, batch 2 x prompt.  Routing is
+# discrete: cuBLAS and the CPU's BLAS sum the router's d-long products in
+# different orders, so a gate within ~1e-6 of the next one may swap a
+# choice (and then the slots of the choices after it).  The check counts
+# the (token, layer) decisions (top-k set and kept set) that differ, holds
+# the full-sequence logits to MODEL_TOL on the rows whose own routing and
+# whose sequence's earlier tokens' routing agreed in every layer, and fails
+# if more than MOE_ROUTE_DIFF_MAX of the decisions differ (in fp32 the gates
+# of 40 or 64 experts from random weights are rarely within 1e-6: a larger
+# share would be a fault, not rounding)
+MOE_MODEL_CHECKS = (("granite-moe-3b-a800m", 256), ("deepseek-moe-16b", 256))
+MOE_MODEL_BATCH = 2
+MOE_ROUTE_DIFF_MAX = 0.01
+SERVE_MOE = dict(arch="granite-moe-3b-a800m", batch=8, prompt=512,
+                 new_tokens=32)
+# all 28 layers in bf16 (16.9 B parameters, 33.8 GB), drawn leaf by leaf
+# in bf16 (its fp32 tree, 67.5 GB, would not fit beside it)
+SERVE_DEEPSEEK = dict(arch="deepseek-moe-16b", batch=8, prompt=512,
+                      new_tokens=32)
+# granite-moe-3b-a800m at full width and depth: 32 layers, 8 stages of 4,
+# batch 4 x 512 (checkfree_plus's half batch: 2 x 512 a stage order),
+# checkfree_plus under PLUS_SCHEDULE; then 16 steps in fused windows of 8,
+# stage 3 failing at the window boundary, bit-equal to the same steps
+# eagerly
+TRAIN_MOE = dict(arch="granite-moe-3b-a800m", stages=8, batch=4, seq=512)
+MOE_FUSED_STEPS, MOE_FUSED_SCHEDULE, MOE_FUSED_SIZES = 16, {8: [3]}, [8, 8]
+# the fused windows run at batch 2 x 512: at batch 4 the captured step's
+# private pool took 38.60 GiB beside the 38.49 GiB of fp32 masters and
+# moments, and the merge after the first window found no room for 480 MiB
+# (NVIDIA H100 80GB HBM3, 700 W), as zamba2-2.7b's capture did at batch 4
+# (ROADMAP.md queue 1, "Fused windows: what is left")
+MOE_FUSED_BATCH = 2
+# deepseek-moe-16b cut to 4 of its 28 layers, 4 stages of 1: at full depth
+# its fp32 masters, gradients and Adam moments alone (16.9 B parameters x
+# 16 B = 270 GB) would not fit the card's 80 GB; 4 layers hold 2.77 B
+# parameters (the 102400 x 2048 embedding and head are a sixth of them),
+# 44.3 GB of state.  checkfree, batch 4 x 512, stage 2 merged at step 2
+TRAIN_DEEPSEEK = dict(arch="deepseek-moe-16b", stages=4, batch=4, seq=512,
+                      layers=4)
+# the load-balance loss of a layer is about 1 where the router spreads the
+# tokens evenly (E * sum of E shares of 1/E each) and E where one expert
+# takes every token's first choice; aux sums the layers.  A step's aux per
+# layer must lie between MOE_AUX_LOW and E / MOE_AUX_SPREAD: of the order
+# of 1, at most half the way to a router that sends everything to one
+# expert (random weights route unevenly, the more so in small groups)
+MOE_AUX_LOW, MOE_AUX_SPREAD = 0.5, 2.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -536,6 +622,10 @@ def sweep_cases():
                                causal, window, TOL[dtype])
                 # h2o-danube's window, longer than the prompt
                 yield (dtype, 2, hq, hkv, 512, dd, True, 4096, TOL[dtype])
+        # granite-moe-3b-a800m's group of 3
+        hq, hkv, dd = GRANITE_GROUP
+        for ss in GRANITE_SWEEP_LENGTHS:
+            yield (dtype, 2, hq, hkv, ss, dd, True, 0, TOL[dtype])
         # the serving shapes, where bf16 is held to one ulp
         for shape in ATTN_SHAPES.values():
             yield (dtype, shape["b"], shape["h"], shape["hkv"], shape["s"],
@@ -613,7 +703,7 @@ def phase_kernel() -> dict:
            "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:39",
            **time_fwd(ATTN_SHAPES["d128"], gen)}
-    for name in ("d80", "d120", "d256"):
+    for name in ("d80", "d120", "d256", "d64"):
         row[name] = time_fwd(ATTN_SHAPES[name], gen)
     return row
 
@@ -643,6 +733,9 @@ def bwd_cases():
             b = 1 if s == 2048 else 2
             yield (dtype, b, 8, 1, s, 256, True, 0)
             yield (dtype, b, 32, 8, s, 120, True, 4096)
+        hq, hkv, d = GRANITE_GROUP
+        for s in GRANITE_SWEEP_LENGTHS:
+            yield (dtype, 2, hq, hkv, s, d, True, 0)
         for shape in TRAIN_ATTN_SHAPES.values():
             yield (dtype, shape["b"], shape["h"], shape["hkv"], shape["s"],
                    shape["d"], True, shape["window"])
@@ -696,7 +789,7 @@ def phase_kernel_bwd() -> list:
                              f"versions in {failures} of {cases} cases")
 
     rows = time_bwd(TRAIN_ATTN_SHAPES["d128"], gen)
-    for name in ("d256", "d120", "d80"):
+    for name in ("d256", "d120", "d80", "d64"):
         for row, sub in zip(rows, time_bwd(TRAIN_ATTN_SHAPES[name], gen)):
             row[name] = {k: sub[k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
@@ -1425,7 +1518,7 @@ def pass_launches(cfg) -> tuple:
     """(attention, SSD) launches of each direction in one forward and
     backward pass of ``cfg``: a flash kernel a dense layer or a hybrid's
     shared-block application, an SSD kernel an SSM layer."""
-    attention = {"dense": cfg.num_layers,
+    attention = {"dense": cfg.num_layers, "moe": cfg.num_layers,
                  "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}
     ssd = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
     return attention.get(cfg.arch_type, 0), ssd
@@ -1520,14 +1613,40 @@ def phase_serve(spec: dict, phase: str) -> dict:
     def fwd_plain(q, k, v, *, causal, window):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
+    route_fn, routes = MOE.route, {"kernel": [], "plain": []}
     try:
         SSD.ssd_scan, FA.flash_attention_fwd = ssd_recording, fwd_recording
-        logits, _ = model.prefill({"tokens": toks}, capacity)
+        MOE.route = recording_routes(route_fn, routes["kernel"])
+        logits = model.prefill({"tokens": toks}, capacity)[0]
         SSD.ssd_scan, FA.flash_attention_fwd = ssd_plain, fwd_plain
-        want, _ = model.prefill({"tokens": toks}, capacity)
+        MOE.route = recording_routes(route_fn, routes["plain"])
+        want = model.prefill({"tokens": toks}, capacity)[0]
     finally:
         SSD.ssd_scan, FA.flash_attention_fwd = ssd_kernel, fwd_kernel
-    logits, want = logits.float(), want.float()
+        MOE.route = route_fn
+    n_params = sum(p.numel() for p in model.parameters())
+    moe = {}
+    if cfg.arch_type == "moe":
+        # the routing is discrete: a bf16 difference in the attention moves
+        # the router's inputs, a choice flips, and the flip travels.  The
+        # plain prefill again, its routing pinned to the kernel run's, is
+        # the comparison the limit holds; the free-running one is reported
+        try:
+            FA.flash_attention_fwd = fwd_plain
+            MOE.route = pinned_routes(route_fn, routes["kernel"])
+            want_free = want
+            want = model.prefill({"tokens": toks}, capacity)[0]
+        finally:
+            FA.flash_attention_fwd, MOE.route = fwd_kernel, route_fn
+        drift = routing_drift(routes["kernel"], routes["plain"])
+        drift.pop("clean")
+        want_free = want_free.float().cpu()
+        moe = {"routing_kernel_vs_plain": drift,
+               "logits_vs_plain_free_max_abs_err": float(
+                   (logits.float().cpu() - want_free).abs().max()),
+               "logits_vs_plain_compared": "routing pinned to the kernel "
+                                           "run's"}
+    logits, want = logits.float().cpu(), want.float().cpu()
     logits_err = float((logits - want).abs().max())
     logits_scale = float(want.abs().max())
     first_ok = bool((logits[:, -1].argmax(-1).cpu().numpy()
@@ -1549,14 +1668,24 @@ def phase_serve(spec: dict, phase: str) -> dict:
         attn_fail += not ok
         attn_err, attn_lse_err = max(attn_err, err), max(attn_lse_err, lse_err)
     attn_seen.clear()
+    if moe:
+        # the fp32 reference needs the room: nothing of this run may stay
+        # on the card but the prompt and the routing records (small blocks:
+        # a tensor left in a large cached segment, such as a prefill's
+        # cache, keeps the whole segment from going back)
+        model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe.update(moe_fp32_reference(cfg, toks, capacity, logits, want_free,
+                                      routes["kernel"], routes["plain"],
+                                      fwd_plain))
 
     want_launches = {**dict.fromkeys(launched, 0), **path_launches(cfg)}
     steps = spec["new_tokens"] - 1
     new = spec["batch"] * spec["new_tokens"]
     emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          **model_shape(cfg), vocab=cfg.vocab_size, dtype=cfg.dtype,
-         params=sum(p.numel() for p in model.parameters()),
-         batch=spec["batch"], prompt=spec["prompt"],
+         params=n_params, batch=spec["batch"], prompt=spec["prompt"],
          new_tokens=spec["new_tokens"], init_s=init_s,
          prefill_ms=res.prefill_s * 1e3,
          decode_ms_per_token=res.decode_s / steps * 1e3,
@@ -1572,7 +1701,8 @@ def phase_serve(spec: dict, phase: str) -> dict:
          ssd_tol={"y": SSD_TOL[torch.bfloat16], "state": SSD_STATE_TOL},
          attention_inputs_checked=attn_checked, attention_head_dims=head_dims,
          attention_failures=attn_fail, attention_max_abs_err=attn_err,
-         attention_lse_max_abs_err=attn_lse_err, attention_tol=SERVE_TOL)
+         attention_lse_max_abs_err=attn_lse_err, attention_tol=SERVE_TOL,
+         **moe)
     problems = []
     if launched != want_launches:
         problems.append(f"launches {launched}, want {want_launches}")
@@ -1582,6 +1712,9 @@ def phase_serve(spec: dict, phase: str) -> dict:
                         f"{head_dims}")
     if ssd_checked != want_launches["ssd_scan"]:
         problems.append(f"{ssd_checked} SSD inputs")
+    if moe and moe["routing_kernel_vs_plain"]["layers"] != cfg.num_layers:
+        problems.append(f"routing of {moe['routing_kernel_vs_plain']} "
+                        "layers recorded")
     if res.tokens.shape != (spec["batch"], spec["new_tokens"]) or not (
             (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
         problems.append(f"bad generation {res.tokens.shape}")
@@ -1592,6 +1725,13 @@ def phase_serve(spec: dict, phase: str) -> dict:
             and logits_err <= SERVE_LOGITS_TOL * logits_scale):
         problems.append(f"prefill with the kernels vs the plain versions: "
                         f"logits {logits_err} of {logits_scale}")
+    if moe and not all(
+            math.isfinite(e) and e <= SERVE_LOGITS_TOL
+            * moe["fp32_logits_max_abs"]
+            for e in moe["vs_fp32_pinned_max_abs_err"].values()):
+        problems.append(f"the bf16 prefills vs the fp32 one, routing pinned "
+                        f"to its: {moe['vs_fp32_pinned_max_abs_err']} of "
+                        f"{moe['fp32_logits_max_abs']}")
     if ssd_fail or attn_fail:
         problems.append(f"kernels vs plain versions on the path's inputs: "
                         f"{ssd_fail} SSD, {attn_fail} attention failures")
@@ -1601,6 +1741,176 @@ def phase_serve(spec: dict, phase: str) -> dict:
     if problems:
         raise AssertionError(f"{phase}: " + "; ".join(problems))
     return {"launches": launched, "ssd_err": ssd_err, "attn_err": attn_err}
+
+
+def moe_fp32_reference(cfg, toks, capacity: int, kernel_logits,
+                       plain_logits, kernel_routes: list, plain_routes: list,
+                       fwd_plain) -> dict:
+    """An fp32 prefill with the plain attention on the bf16 model's own
+    weights (the seeded draws, each rounded to bf16 and held in fp32: the
+    bf16 model is freed first, since deepseek-moe-16b's fp32 tree, 67.5 GB,
+    would not fit beside it), then the bf16 model again with the kernel and
+    with the plain attention, both pinned to the fp32 run's routing.
+    Returns each bf16 prefill's distance to the fp32 one (free-running and
+    pinned) and the routing drift of each free-running bf16 run from it."""
+    cfg32 = cfg.replace(dtype="float32")
+    allocated_gib = torch.cuda.memory_allocated() / 2 ** 30
+    tree = Model(cfg32, device="cuda", weights=False).init(
+        torch.Generator("cuda").manual_seed(0))
+    with torch.no_grad():
+        for leaf in TR.leaves(tree):
+            for part in (leaf.unbind(0) if leaf.dim() > 1 else (leaf,)):
+                part.copy_(part.to(torch.bfloat16))
+    model32 = Model(cfg32, tree, device="cuda")
+    del tree
+    route_fn, fwd_kernel = MOE.route, FA.flash_attention_fwd
+    fp32_routes, out = [], {}
+    try:
+        FA.flash_attention_fwd = fwd_plain
+        MOE.route = recording_routes(route_fn, fp32_routes)
+        ref32 = model32.prefill({"tokens": toks}, capacity)[0].float().cpu()
+    finally:
+        FA.flash_attention_fwd, MOE.route = fwd_kernel, route_fn
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(0))
+    for name, fwd in (("kernel", fwd_kernel), ("plain", fwd_plain)):
+        try:
+            FA.flash_attention_fwd = fwd
+            MOE.route = pinned_routes(route_fn, fp32_routes)
+            out[name] = model.prefill({"tokens": toks},
+                                      capacity)[0].float().cpu()
+        finally:
+            FA.flash_attention_fwd, MOE.route = fwd_kernel, route_fn
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def err(x):
+        return float((x - ref32).abs().max())
+
+    drift = {}
+    for name, routes in (("kernel", kernel_routes), ("plain", plain_routes)):
+        drift[name] = routing_drift(routes, fp32_routes)
+        drift[name].pop("clean")
+    return {"fp32_allocated_gib_before": allocated_gib,
+            "fp32_logits_max_abs": float(ref32.abs().max()),
+            "vs_fp32_free_max_abs_err": {"kernel": err(kernel_logits),
+                                         "plain": err(plain_logits)},
+            "vs_fp32_pinned_max_abs_err": {"kernel": err(out["kernel"]),
+                                           "plain": err(out["plain"])},
+            "routing_vs_fp32": drift}
+
+
+def decisions(topi: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Each token's routing in one MoE layer, comparable across runs: its
+    top-k experts and its kept experts (a drop reads as -1), each sorted ->
+    (G, T, 2k)."""
+    kept = torch.where(keep, topi, -1)
+    return torch.cat([topi.sort(-1).values, kept.sort(-1).values], -1)
+
+
+def recording_routes(route_fn, into: list):
+    """``MOE.route`` that also appends each layer's (topi, keep), copied to
+    the host: ``topi`` is a view of the router's whole sort, which would
+    keep a block of every layer, and the segment it lies in, on the card."""
+    def recorded(p, xg, cfg, cap):
+        r = route_fn(p, xg, cfg, cap)
+        into.append((r.topi.cpu(), r.keep.cpu()))
+        return r
+    return recorded
+
+
+def pinned_routes(route_fn, pinned: list):
+    """``MOE.route`` that takes each layer's choices from another run's
+    record (``pinned``: (topi, keep) a layer, in order) and weighs them by
+    this run's own gates; the slots follow from the choices.  Two prefills
+    pinned to one routing compute the same function up to rounding: what
+    differs between them is the attention, not a discrete choice."""
+    layers = iter(pinned)
+
+    def routed(p, xg, cfg, cap):
+        r = route_fn(p, xg, cfg, cap)
+        topi = next(layers)[0].to(r.gates.device)
+        topv = torch.gather(r.gates, -1, topi)
+        topv = topv / (topv.sum(dim=-1, keepdim=True) + 1e-9)
+        pos, keep = MOE.slots(topi, cfg.moe.num_experts, cap)
+        return MOE.Routing(r.gates, topv, topi, pos, keep)
+    return routed
+
+
+def routing_drift(a: list, b: list) -> dict:
+    """Two runs' routing, layer by layer ((topi, keep) each): the (token,
+    layer) decisions whose top-k set or kept set differ, their count and
+    share, and ``clean``: a (G, T) mask of the tokens whose own routing and
+    whose group's earlier tokens' routing agreed in every layer."""
+    differ = torch.stack([(decisions(*x) != decisions(*y)).any(-1)
+                          for x, y in zip(a, b)])
+    clean = ~(differ.any(0).int().cumsum(-1) > 0)
+    n = int(differ.numel())
+    return {"layers": len(a), "decisions": n,
+            "differ": int(differ.sum()),
+            "differ_share": float(differ.sum()) / max(n, 1),
+            "tokens_clean": int(clean.sum()), "tokens": int(clean.numel()),
+            "clean": clean}
+
+
+def phase_model_moe() -> None:
+    """granite-moe-3b-a800m and deepseek-moe-16b at full width cut to 2
+    layers, fp32: the full-sequence logits on the card (flash kernels, the
+    index-form MoE on the card) against the port on the CPU, held on the
+    tokens whose routing agreed (MOE_ROUTE_DIFF_MAX says why)."""
+    for arch, prompt in MOE_MODEL_CHECKS:
+        cfg = get_config(arch).replace(num_layers=2, dtype="float32")
+        params = Model(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0)).params
+        cpu = Model(cfg, params, device="cpu")
+        card = Model(cfg, params, device="cuda")
+        raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
+            np.random.default_rng(1), MOE_MODEL_BATCH, prompt)
+        toks = torch.from_numpy(batch_for(cfg, raw)["tokens"])
+        route_fn, routes = MOE.route, {"card": [], "cpu": []}
+        try:
+            MOE.route = recording_routes(route_fn, routes["card"])
+            zero_counts()
+            logits, aux = card.apply({"tokens": toks.cuda()})
+            torch.cuda.synchronize()
+            launched = counts()
+            MOE.route = recording_routes(route_fn, routes["cpu"])
+            want, want_aux = cpu.apply({"tokens": toks})
+        finally:
+            MOE.route = route_fn
+        drift = routing_drift(routes["card"], routes["cpu"])
+        clean = drift.pop("clean").reshape(-1)
+        got = logits.cpu().reshape(-1, cfg.vocab_size)[clean]
+        ref_rows = want.reshape(-1, cfg.vocab_size)[clean]
+        err = float((got - ref_rows).abs().max()) if clean.any() \
+            else float("nan")
+        scale = float(want.abs().max())
+        aux_err = abs(float(aux) - float(want_aux))
+        want_launches = {**dict.fromkeys(launched, 0), **path_launches(cfg)}
+        emit("model", arch=cfg.name, layers=cfg.num_layers,
+             d_model=cfg.d_model, **model_shape(cfg), dtype=cfg.dtype,
+             experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+             shared_experts=cfg.moe.num_shared_experts,
+             batch=MOE_MODEL_BATCH, prompt=prompt, kernel_launches=launched,
+             routing_card_vs_cpu=drift, route_differ_max=MOE_ROUTE_DIFF_MAX,
+             logits_rows_checked=int(clean.sum()),
+             logits_max_abs_err=err, logits_max_abs=scale, aux=float(aux),
+             aux_abs_err=aux_err, tol=MODEL_TOL)
+        if launched != want_launches:
+            raise AssertionError(f"{arch}: launches {launched}, want "
+                                 f"{want_launches}")
+        if drift["differ_share"] > MOE_ROUTE_DIFF_MAX or not clean.any():
+            raise AssertionError(f"{arch} card vs CPU: routing {drift}")
+        if not (math.isfinite(err) and err <= MODEL_TOL * (1 + scale)):
+            raise AssertionError(f"{arch} card vs CPU: logits {err} on "
+                                 f"{int(clean.sum())} rows")
+        if drift["differ"] == 0 and aux_err > MODEL_TOL:
+            raise AssertionError(f"{arch} card vs CPU: aux {aux_err}")
+        del cpu, card, params, logits, want
 
 
 class Forced:
@@ -1696,6 +2006,7 @@ def instrument(trainer: Trainer, record: dict) -> None:
         record["step_ms"].append((time.perf_counter() - t0) * 1e3)
         record["omegas"].append(state.omegas.cpu())
         record.setdefault("grad_norm", []).append(float(metrics["grad_norm"]))
+        record.setdefault("aux", []).append(float(metrics["aux"]))
         return state, loss, metrics
 
     trainer.step = timed_step
@@ -2048,6 +2359,8 @@ def phase_train_checkfree(spec: dict, phase: str) -> dict:
     check_run(phase, hist, launched, steps=CHECKFREE_STEPS, halves=1,
               merges=CHECKFREE_MERGES, schedule=CHECKFREE_SCHEDULE, spec=spec)
     check_finite_gradients(phase, record)
+    if cfg.arch_type == "moe":
+        check_aux(phase, cfg, record["aux"])
     free = [i for i in range(CHECKFREE_STEPS) if i not in CHECKFREE_SCHEDULE]
     step_ms = float(np.median([record["step_ms"][i] for i in free]))
     merge_ms = [ms for name, step, ms in record["recovery_ms"] if step == 2]
@@ -2055,10 +2368,11 @@ def phase_train_checkfree(spec: dict, phase: str) -> dict:
     emit(phase, arch=cfg.name, layers=cfg.num_layers,
          layers_published=get_config(spec["arch"]).num_layers,
          d_model=cfg.d_model, **model_shape(cfg),
-         stages=spec["stages"], params=cfg.param_count(), dtype=cfg.dtype,
+         stages=spec["stages"], params=cfg.param_count(),
+         state_gb=16 * cfg.param_count() / 1e9, dtype=cfg.dtype,
          masters="float32", strategy="checkfree", batch=spec["batch"],
          seq=spec["seq"], steps=CHECKFREE_STEPS, schedule=CHECKFREE_SCHEDULE,
-         loss=hist.loss, failures=hist.failures,
+         loss=hist.loss, aux=record["aux"], failures=hist.failures,
          recovery_errors=hist.recovery_errors, launches=launched,
          merge_check=record["merge_check"], step_ms=record["step_ms"],
          step_ms_median_failure_free=step_ms,
@@ -2122,17 +2436,82 @@ def phase_train_ssm() -> dict:
     return total
 
 
+def check_aux(phase: str, cfg, aux: list) -> None:
+    """Each step's aux (the layers' load-balance losses summed) finite and
+    of the order of 1 a layer (MOE_AUX_LOW, MOE_AUX_SPREAD)."""
+    hi = cfg.moe.num_experts / MOE_AUX_SPREAD
+    if not aux or not all(math.isfinite(a) and MOE_AUX_LOW
+                          <= a / cfg.num_layers <= hi for a in aux):
+        raise AssertionError(f"{phase}: aux {aux} over {cfg.num_layers} "
+                             f"layers")
+
+
+def phase_train_moe() -> dict:
+    """granite-moe-3b-a800m at full width and depth (TRAIN_MOE):
+    ``checkfree_plus`` for 6 eager steps under PLUS_SCHEDULE with train's
+    checks (launches, failures, the step-2 merge of a stage holding the
+    (4, 40, 1536, 512) expert tensors against its plain version, finite
+    gradients, aux of the order of 1 a layer), the backward kernels on one
+    step's own inputs at 24/8 x 64, then 16 steps in fused windows of 8 with
+    stage 3 failing at the window boundary, bit-equal to the same steps
+    eagerly.  Returns the launch counts of both counted runs."""
+    spec = TRAIN_MOE
+    cfg = train_model_config(spec)
+    tokens = spec["batch"] * spec["seq"]
+    hist, launched, record, peak = train_run(
+        "checkfree_plus", PLUS_STEPS, Forced(PLUS_SCHEDULE), spec=spec,
+        check_merge=(2, 3))
+    check_run("train_moe", hist, launched, steps=PLUS_STEPS, halves=2,
+              merges=PLUS_MERGES, schedule=PLUS_SCHEDULE, spec=spec)
+    check_finite_gradients("train_moe", record)
+    check_aux("train_moe", cfg, record["aux"])
+    free = [i for i in range(PLUS_STEPS) if i not in PLUS_SCHEDULE]
+    step_ms = float(np.median([record["step_ms"][i] for i in free]))
+    merge_ms = [ms for name, step, ms in record["recovery_ms"] if step == 2]
+    emit("train_moe", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, **model_shape(cfg),
+         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+         d_ff_expert=cfg.moe.d_ff_expert, stages=spec["stages"],
+         params=cfg.param_count(), state_gb=16 * cfg.param_count() / 1e9,
+         dtype=cfg.dtype, masters="float32", strategy="checkfree_plus",
+         batch=spec["batch"], seq=spec["seq"], steps=PLUS_STEPS,
+         schedule=PLUS_SCHEDULE, loss=hist.loss, aux=record["aux"],
+         failures=hist.failures, recovery_errors=hist.recovery_errors,
+         launches=launched, merge_check=record["merge_check"],
+         step_ms=record["step_ms"], step_ms_median_failure_free=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3, grad_norm=record["grad_norm"],
+         recovery_ms=record["recovery_ms"], merge_recovery_ms=merge_ms[0],
+         peak_memory_gib=peak, peak_reserved_gib=record["peak_reserved_gib"],
+         nvidia_smi=smi(),
+         timing="host clock around Trainer.step ending in "
+                "torch.cuda.synchronize(); median over the failure-free "
+                f"steps {free}; recovery_ms: the strategy's handler, "
+                "same clock")
+    total = dict(launched)
+    check_backward_on_path(spec, "checkfree_plus")
+    fused = phase_train_fused(dict(spec, batch=MOE_FUSED_BATCH),
+                              "train_moe_fused", steps=MOE_FUSED_STEPS,
+                              schedule=MOE_FUSED_SCHEDULE,
+                              sizes=MOE_FUSED_SIZES, merges=1, exact=True,
+                              kept_cache=None)
+    for k, n in fused.items():
+        total[k] += n
+    return total
+
+
 def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
                       steps: int = FUSED_STEPS, schedule: dict = FUSED_SCHEDULE,
                       sizes: list = FUSED_SIZES, merges: int = 2,
-                      exact: bool = False, kept_cache: bool = True) -> dict:
+                      exact: bool = False, kept_cache=True) -> dict:
     """``checkfree_plus`` at ``spec``'s full width in fused windows of 8
     (CUDA graphs replayed under ``set_sync_debug_mode("error")``) against
     the same run in eager steps; TRAIN's: the merge of stage 3 at wall 13
     cutting a window short and that of stage 2 at wall 25.  ``exact``: the
     fused losses, omegas and gradient norms must equal the eager ones bit
     for bit.  ``kept_cache``: whether the capture must keep the allocator's
-    cache (then merges may allocate nothing) or must have emptied it.
+    cache (then merges may allocate nothing) or must have emptied it; None:
+    either, as the card's free memory decides (reported).  The aux column
+    of the rings is reported beside the eager run's.
     Returns the launch counts of the fused run, with the graph's replays
     counted."""
     cfg = train_model_config(spec)
@@ -2211,7 +2590,8 @@ def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
     same_bits = (hist.loss == eager_hist.loss and all(
         np.array_equal(a, b.numpy()) for a, b in zip(omegas,
                                                      eager_record["omegas"]))
-        and grad_norm.tolist() == eager_record["grad_norm"])
+        and grad_norm.tolist() == eager_record["grad_norm"]
+        and rows[:, RECORD.index("aux")].tolist() == eager_record["aux"])
     emit(phase, arch=cfg.name, layers=cfg.num_layers,
          stages=spec["stages"], params=cfg.param_count(), dtype=cfg.dtype,
          masters="float32", strategy="checkfree_plus", batch=spec["batch"],
@@ -2224,6 +2604,8 @@ def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
                    else f"{FUSED_LOSS_TOL} * (1 + |loss|)"),
          omega_tol="bit for bit" if exact else TRAIN_OMEGA_TOL,
          grad_norm=grad_norm.tolist(), failures=hist.failures,
+         aux=rows[:, RECORD.index("aux")].tolist(),
+         aux_eager=eager_record["aux"],
          recovery_errors=hist.recovery_errors,
          recovery_errors_eager=eager_hist.recovery_errors,
          launches=launched, launches_counted_by_wrappers=counted,
@@ -2268,12 +2650,14 @@ def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
                         "the eager run's bits")
     if not (np.isfinite(grad_norm).all() and np.isfinite(omegas).all()):
         problems.append(f"gradient norms {grad_norm.tolist()}")
+    if cfg.arch_type == "moe":
+        check_aux(phase, cfg, rows[:, RECORD.index("aux")].tolist())
     if window_sizes != sizes:
         problems.append(f"window sizes {window_sizes}, want {sizes}")
-    if graph["kept_cache"] != kept_cache:
+    if kept_cache is not None and graph["kept_cache"] != kept_cache:
         problems.append(f"the capture kept the allocator's cache: "
                         f"{graph['kept_cache']}, want {kept_cache}")
-    if kept_cache and any(m["device_allocs"]
+    if graph["kept_cache"] and any(m["device_allocs"]
                           for m in record["recovery_device"]):
         problems.append(f"merges that allocated device memory anew after the "
                         f"capture: {record['recovery_device']}")
@@ -3207,11 +3591,15 @@ def main() -> int:
     hybrid = phase_serve(SERVE_HYBRID, "serve_hybrid")
     gemma = phase_serve(SERVE_GEMMA, "serve_gemma")
     danube = phase_serve(SERVE_DANUBE, "serve_danube")
+    phase_model_moe()
+    moe = phase_serve(SERVE_MOE, "serve_moe")
+    deepseek = phase_serve(SERVE_DEEPSEEK, "serve_deepseek")
     ssd["max_abs_err"] = max(ssd["max_abs_err"], ssm["ssd_err"],
                              hybrid["ssd_err"])
     fwd["max_abs_err"] = max(fwd["max_abs_err"], serve["attn_err"],
                              hybrid["attn_err"], gemma["attn_err"],
-                             danube["attn_err"])
+                             danube["attn_err"], moe["attn_err"],
+                             deepseek["attn_err"])
     phase_train_model()
     trained = {"train": phase_train(),
                "train_fused": phase_train_fused(),
@@ -3224,6 +3612,9 @@ def main() -> int:
                "train_ssm": phase_train_ssm(),
                "train_hybrid": phase_train_checkfree(TRAIN_HYBRID,
                                                      "train_hybrid"),
+               "train_moe": phase_train_moe(),
+               "train_deepseek": phase_train_checkfree(TRAIN_DEEPSEEK,
+                                                       "train_deepseek"),
                "train_ckpt": phase_train_ckpt(),
                "train_neighbor": phase_train_neighbor()}
     # launches: the training paths; by path: every path that ran it
@@ -3236,6 +3627,8 @@ def main() -> int:
         "serve_hybrid": hybrid["launches"]["flash_attention_fwd"],
         "serve_gemma": gemma["launches"]["flash_attention_fwd"],
         "serve_danube": danube["launches"]["flash_attention_fwd"],
+        "serve_moe": moe["launches"]["flash_attention_fwd"],
+        "serve_deepseek": deepseek["launches"]["flash_attention_fwd"],
         **fwd["launches_by_path"]}
     ssd["launches_by_path"] = {"serve_ssm": ssm["launches"]["ssd_scan"],
                                "serve_hybrid": hybrid["launches"]["ssd_scan"],

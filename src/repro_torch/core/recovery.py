@@ -160,7 +160,7 @@ def recover_consecutive(params: Params, part: StagePartition,
 
 def stage_sq_dist(a: Params, b: Params) -> torch.Tensor:
     """sum over leaves of ||a - b||^2 in fp32, for two stage trees."""
-    sq = [(x.float() - y.float()).square().sum()
+    sq = [(x.float() - y.float()).square_().sum()
           for x, y in zip(TR.leaves(a), TR.leaves(b))]
     return torch.stack(sq).sum()
 

@@ -16,7 +16,7 @@ parameters (cast to ``cfg.dtype`` inside the graph), the per-layer and total
 squared gradient norms in one pass (``ops.adam_sumsq``; the stages' omegas,
 Alg. 1, are their segment sums), and one in-place Adam update on device
 scalars (``optim.adam.adam_step``).  Every family the port trains (dense,
-ssm, hybrid) goes through ``Model.loss`` and evaluates through it.  On the
+MoE, ssm, hybrid) goes through ``Model.loss`` and evaluates through it.  On the
 card the attention forward and backward, the SSD scan and its backward,
 both Adam kernels and every merge run the hand-written CUDA kernels; on the
 CPU their plain versions.
@@ -92,6 +92,7 @@ from repro_torch.core.walltime import WallClockModel
 from repro_torch.core.window import OMEGAS, RECORD, FusedWindow
 from repro_torch.data.pipeline import WindowPrefetcher
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 from repro_torch.models.model import Model
 from repro_torch.optim.adam import OptState, adam_step, init_adam
 from repro_torch.recovery import FailureContext, RecoveryStrategy, make_strategy
@@ -101,15 +102,53 @@ Params = Any
 Batch = Dict[str, torch.Tensor]
 
 
+class _TwinCast(torch.autograd.Function):
+    """One cast of a leaf to the compute dtype, handed out twice (the two
+    halves of a CheckFree+ batch), sharing one copy.  Each half's gradient
+    comes back in fp32 and the two are summed in fp32, as two casts'
+    gradients accumulate into the leaf; autograd would sum two uses of one
+    cast in the compute dtype first."""
+
+    @staticmethod
+    def forward(ctx, p, dtype):
+        c = p.to(dtype)
+        return c, c.view_as(c)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        if g1 is None:
+            g1, g2 = g2, None
+        out = g1.float()
+        if g2 is not None:
+            out.add_(g2)            # in fp32: g2 is widened, then added
+        return out, None
+
+
+def twin_cast(tree: Params, dtype) -> Tuple[Params, Params]:
+    """Two trees of ``tree``'s leaves in ``dtype`` from one copy of each:
+    the same values and gradients as casting the tree once per half,
+    without holding the compute-dtype tree twice (granite-moe-3b-a800m: 6.1
+    GiB).  Leaves already in ``dtype`` are shared as they are."""
+    if isinstance(tree, dict):
+        pairs = {k: twin_cast(v, dtype) for k, v in tree.items()}
+        return ({k: a for k, (a, _) in pairs.items()},
+                {k: b for k, (_, b) in pairs.items()})
+    if torch.is_floating_point(tree) and tree.dtype != dtype:
+        return _TwinCast.apply(tree, dtype)
+    return tree, tree
+
+
 def make_loss_fn(model: Model, part: StagePartition, use_swap: bool,
                  ) -> Callable[[Params, Batch], Tuple[torch.Tensor, dict]]:
     """The (possibly swap-scheduled) loss shared by every step
-    (``_make_loss_fn`` of the JAX trainer)."""
+    (``_make_loss_fn`` of the JAX trainer).  The swapped half shares the
+    first half's cast of the masters (:func:`twin_cast`)."""
     if use_swap:
         order = swap_permutation(
             part.num_layers, part.num_stages,
             bounds=[part.stage_bounds(i) for i in range(part.num_stages)],
         ).tolist()
+    dtype = L.to_dtype(model.cfg.dtype)
 
     def loss_fn(params: Params, batch: Batch):
         if not use_swap:
@@ -117,8 +156,9 @@ def make_loss_fn(model: Model, part: StagePartition, use_swap: bool,
         half = batch["tokens"].shape[0] // 2
         first = {k: v[:half] for k, v in batch.items()}
         second = {k: v[half:] for k, v in batch.items()}
-        l1, m1 = model.loss(params, first)
-        l2, m2 = model.loss(params, second, order=order)
+        p1, p2 = twin_cast(params, dtype)
+        l1, m1 = model.loss(p1, first)
+        l2, m2 = model.loss(p2, second, order=order)
         # the metrics cover the whole batch: average both halves'
         metrics = {k: 0.5 * (m1[k] + m2[k]) for k in m1}
         return 0.5 * (l1 + l2), metrics

@@ -10,6 +10,9 @@
     PYTHONPATH=src python -m repro_torch.launch.profile --arch h2o-danube-3-4b \
         --full --layers 12 --batch 4 --train-steps 3 --strategy checkfree
     PYTHONPATH=src python -m repro_torch.launch.profile --arch mamba2-1.3b --full
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch granite-moe-3b-a800m --full --batch 4 --train-steps 16 \
+        --fuse-window 8
 
 Serving: builds the model and prompt as ``launch.serve`` does, warms up,
 then takes prefill and decode apart.  Training (``--train-steps``): builds
@@ -29,8 +32,9 @@ the profiler traces the device only), the device's idle share ``1 - busy /
 span``, both from the one traced run,
 the number of kernels launched, the device
 time by family (the port's kernels: flash attention, the stage merge, the
-SSD scan, its backward, Adam; cuBLAS matrix products; everything else), the device time of each
-of the port's kernels by name, and the kernels that take the most device
+SSD scan, its backward, Adam; cuBLAS matrix products; PyTorch's index
+kernels, where the MoE routing and dispatch run; everything else), the
+device time of each of the port's kernels by name, and the kernels that take the most device
 time.  Decode and training
 numbers are per step.  Needs a CUDA device.
 """
@@ -90,14 +94,18 @@ def _kernels(fn: Callable[[], None]) -> Tuple[dict, float]:
 
 # kernel families by name: the port's own kernels (the SSD scan's forward
 # and its backward apart), cuBLAS's matrix products (nvjet / gemm / cutlass
-# kernels), and everything else (PyTorch's element-wise, reduction and copy
-# kernels)
+# kernels), PyTorch's index kernels (gathers, scatters, sorts and scans:
+# the MoE layer's routing and its dispatch and combine by index, besides
+# the embedding's and the loss's gathers), and everything else (PyTorch's
+# element-wise, reduction and copy kernels)
 _FAMILIES = (("flash_attention", ("flash_fwd", "flash_bwd")),
              ("stage_merge", ("stage_merge",)),
              ("ssd_scan_bwd", ("ssd_bwd_",)),
              ("ssd_scan", ("ssd_scan",)),
              ("adam", ("adam_update_kernel", "sumsq_")),
-             ("matmul", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
+             ("matmul", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+             ("index", ("indexSelect", "index_select", "index_elementwise",
+                        "scatter_gather", "Sort", "sort", "scan", "Scan")))
 
 
 # the port's kernel names within the profiler's demangled signatures
@@ -125,7 +133,7 @@ def _report(phase: str, wall_s: float, traced: Tuple[dict, float], per: int,
         family = _family(name)
         families[family][0] += n
         families[family][1] += us
-        if family not in ("matmul", "other"):
+        if family not in ("matmul", "index", "other"):
             short = _OURS.search(name)
             key = short.group(0) if short else name
             ours[key][0] += n

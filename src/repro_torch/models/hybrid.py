@@ -33,9 +33,12 @@ def _nseg(cfg: ModelConfig) -> Tuple[int, int]:
     return cfg.num_layers // per, per
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    """Fresh parameters in ``cfg.param_dtype``, drawn from ``gen`` on ``device``."""
-    dtype = L.to_dtype(cfg.param_dtype)
+def init(gen: torch.Generator, cfg: ModelConfig, device,
+         dtype=None) -> Params:
+    """Fresh parameters drawn from ``gen`` on ``device``, in
+    ``cfg.param_dtype`` or each leaf cast to ``dtype`` as it is drawn
+    (``transformer.init``)."""
+    dtype = L.to_dtype(dtype or cfg.param_dtype)
     params: Params = {
         "embed": {"table": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                         dtype, device)},
@@ -62,8 +65,10 @@ def _attn_apply(bp: Params, x: torch.Tensor, positions: torch.Tensor,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            order: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """tokens: (B, T) -> logits (B, T, V).
+            order: Optional[Sequence[int]] = None,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, T) -> (logits (B, T, V), aux): the JAX family's
+    ``return_aux`` form, aux a 0-d fp32 0 (no MoE layer).
 
     ``order`` walks the ``"mamba"`` tower in that order (CheckFree+'s
     swapped stages); the shared block still runs after every
@@ -78,7 +83,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         for i in walk[seg * per:(seg + 1) * per]:
             x = x + S.mamba_block(mamba[i], x, cfg)
         x = _attn_apply(params["shared_attn"], x, positions, cfg)
-    return S.logits_from_hidden(params, cfg, x)
+    logits = S.logits_from_hidden(params, cfg, x)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,

@@ -249,15 +249,23 @@ def attention_decode(p: Params, x: torch.Tensor, pos: torch.Tensor,
 # MLPs (SwiGLU / GeGLU and plain)
 # ---------------------------------------------------------------------------
 
+def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, device,
+             layers: Optional[int]) -> Params:
+    """Gated MLP weights of width ``ff``, stacked on axis 0 as
+    ``init_attention``'s (also the MoE layer's shared experts)."""
+    n = _lead(layers)
+    return {"w_gate": dense_init(gen, (*n, d, ff), dtype, device),
+            "w_up": dense_init(gen, (*n, d, ff), dtype, device),
+            "w_down": dense_init(gen, (*n, ff, d), dtype, device)}
+
+
 def init_mlp_cfg(gen: torch.Generator, cfg: ModelConfig, dtype, device,
                  layers: Optional[int]) -> Params:
-    """MLP weights, stacked on axis 0 as ``init_attention``'s."""
+    """The config's MLP weights (``cfg.d_ff`` wide), gated or plain."""
     d, ff = cfg.d_model, cfg.d_ff
-    n = _lead(layers)
     if cfg.gated_mlp:
-        return {"w_gate": dense_init(gen, (*n, d, ff), dtype, device),
-                "w_up": dense_init(gen, (*n, d, ff), dtype, device),
-                "w_down": dense_init(gen, (*n, ff, d), dtype, device)}
+        return init_mlp(gen, d, ff, dtype, device, layers)
+    n = _lead(layers)
     return {"w_up": dense_init(gen, (*n, d, ff), dtype, device),
             "w_down": dense_init(gen, (*n, ff, d), dtype, device)}
 

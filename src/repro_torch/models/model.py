@@ -10,7 +10,7 @@ The parameters keep the JAX layout: the same nested keys, decoder blocks
 stacked on axis 0, so ``state_dict`` keys read ``tree.blocks.attn.wq`` and
 ``repro_torch.convert`` carries JAX parameters across one to one.
 
-The dense, ssm and hybrid families are ported, to serve and to train:
+The dense, MoE, ssm and hybrid families are ported, to serve and to train:
 ``loss`` dispatches by family as the JAX ``Model.loss`` does.  The others
 raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
@@ -31,12 +31,11 @@ Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
 
 _NOT_PORTED = {
-    "moe": "ROADMAP.md queue 1, item 11 (MoE family)",
-    "encdec": "ROADMAP.md queue 1, item 13 (encoder-decoder and VLM)",
-    "vlm": "ROADMAP.md queue 1, item 13 (encoder-decoder and VLM)",
+    "encdec": 'ROADMAP.md queue 1, "Encoder-decoder and VLM"',
+    "vlm": 'ROADMAP.md queue 1, "Encoder-decoder and VLM"',
 }
 # the family modules: init, forward, init_cache, prefill, decode_step
-_FAMILIES = {"dense": T, "ssm": S, "hybrid": H}
+_FAMILIES = {"dense": T, "moe": T, "ssm": S, "hybrid": H}
 
 
 def _to_module(tree: Params) -> nn.Module:
@@ -61,9 +60,12 @@ class Model(nn.Module):
 
     ``params`` is a nested dict of tensors (the family's ``init`` or
     ``repro_torch.convert.params_from_numpy``); without it the parameters are
-    drawn from ``generator`` (seed 0 on ``device`` when none is given).  They
-    are cast to ``cfg.dtype`` once, here: the JAX code recasts its fp32
-    parameters on every call (``L.cast_tree``), which gives the same values.
+    drawn from ``generator`` (seed 0 on ``device`` when none is given), each
+    leaf cast to ``cfg.dtype`` as soon as it is drawn, so that the whole tree
+    is never held in ``cfg.param_dtype`` (deepseek-moe-16b's fp32 tree, 67.5
+    GB, would not fit the card beside its bf16 copy).  They are cast to
+    ``cfg.dtype`` once, here: the JAX code recasts its fp32 parameters on
+    every call (``L.cast_tree``), which gives the same values.
     With ``weights=False`` the model holds no parameters: ``init`` and
     ``loss`` work, the serving methods need weights.
     """
@@ -88,7 +90,7 @@ class Model(nn.Module):
         if params is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
-            params = self.init(generator)
+            params = self.init(generator, dtype=cfg.dtype)
         params = L.cast_tree(params, cfg.dtype)
         self.tree = _to_module(_move(params, self.device))
 
@@ -102,9 +104,11 @@ class Model(nn.Module):
                                "weights to serve")
         return tree
 
-    def init(self, generator: torch.Generator) -> Params:
-        """A fresh parameter tree in ``cfg.param_dtype`` drawn from ``generator``."""
-        return self.family.init(generator, self.cfg, self.device)
+    def init(self, generator: torch.Generator, dtype=None) -> Params:
+        """A fresh parameter tree drawn from ``generator``, in
+        ``cfg.param_dtype``, or with each leaf cast to ``dtype`` as it is
+        drawn (the values of casting the whole tree afterwards)."""
+        return self.family.init(generator, self.cfg, self.device, dtype)
 
     def loss(self, params: Params, batch: Batch, *,
              order: Optional[Sequence[int]] = None,
@@ -115,24 +119,24 @@ class Model(nn.Module):
         cast to ``cfg.dtype`` inside the graph (as the JAX family forwards
         do), so their gradients land in fp32.  Runs with autograd.
         ``order`` walks the family's staged tower in that order (CheckFree+'s
-        swapped stages).  aux is 0 for the ported families.
+        swapped stages).  aux is the MoE layers' load-balance loss summed
+        over the layers (0 for the other families), added with weight
+        ``cfg.moe.router_aux_coef``.
         """
         cfg = self.cfg
-        logits = self.family.forward(L.cast_tree(params, cfg.dtype), cfg,
-                                     batch["tokens"], order=order)
+        logits, aux = self.family.forward(L.cast_tree(params, cfg.dtype), cfg,
+                                          batch["tokens"], order=order)
         ce = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + cfg.moe.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def apply(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward -> (logits, aux_loss); aux is 0 for the
-        ported families.
+        """Full-sequence forward -> (logits, aux_loss); aux is 0 but for
+        the MoE family.
 
         Named after the JAX ``Model.apply``; it shadows ``nn.Module.apply``.
         """
-        logits = self.family.forward(self.params, self.cfg, batch["tokens"])
-        return logits, torch.zeros((), dtype=torch.float32, device=self.device)
+        return self.family.forward(self.params, self.cfg, batch["tokens"])
 
     def init_cache(self, batch: int, capacity: int) -> Params:
         return self.family.init_cache(self.cfg, batch, capacity, self.device)

@@ -227,9 +227,12 @@ def logits_from_hidden(params: Params, cfg: ModelConfig,
     return L.unembed_w(params["head"], x)
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    """Fresh parameters in ``cfg.param_dtype``, drawn from ``gen`` on ``device``."""
-    dtype = L.to_dtype(cfg.param_dtype)
+def init(gen: torch.Generator, cfg: ModelConfig, device,
+         dtype=None) -> Params:
+    """Fresh parameters drawn from ``gen`` on ``device``, in
+    ``cfg.param_dtype`` or each leaf cast to ``dtype`` as it is drawn
+    (``transformer.init``)."""
+    dtype = L.to_dtype(dtype or cfg.param_dtype)
     params: Params = {
         "embed": {"table": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                         dtype, device)},
@@ -243,8 +246,10 @@ def init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            order: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """tokens: (B, T) -> logits (B, T, V).
+            order: Optional[Sequence[int]] = None,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, T) -> (logits (B, T, V), aux): the JAX family's
+    ``return_aux`` form, aux a 0-d fp32 0 (no MoE layer).
 
     ``order`` walks the ``"blocks"`` tower in that order (CheckFree+'s
     swapped stages), the counterpart of the JAX trainer's ``_permute_tower``
@@ -254,7 +259,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     blocks = unstack(params["blocks"], cfg.num_layers)
     for i in layer_order(cfg.num_layers, order):
         x = x + mamba_block(blocks[i], x, cfg)
-    return logits_from_hidden(params, cfg, x)
+    logits = logits_from_hidden(params, cfg, x)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,

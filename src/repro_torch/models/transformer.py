@@ -1,7 +1,9 @@
-"""Dense decoder-only transformer family, in PyTorch (llama / qwen3 / gemma /
-danube / deepseek-coder and the paper's LLaMa sizes).
+"""Decoder-only transformer family, in PyTorch: dense (llama / qwen3 /
+gemma / danube / deepseek-coder and the paper's LLaMa sizes) and MoE
+(granite-moe, deepseek-moe: ``models.moe`` in place of the MLP).
 
-The counterpart of ``repro.models.transformer`` for ``arch_type == "dense"``.
+The counterpart of ``repro.models.transformer`` for ``arch_type`` "dense"
+and "moe".
 Blocks are stacked on axis 0 as in the JAX package; where JAX scans the
 stack with ``jax.lax.scan``, a Python loop walks views of the stacked
 tensors (no copies).  Three entry points:
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 Params = Dict[str, Any]
 
@@ -40,13 +43,19 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
         "attn_norm": L.init_norm_cfg((*n, cfg.d_model), dtype, device, cfg),
         "attn": L.init_attention(gen, cfg, dtype, device, layers),
         "mlp_norm": L.init_norm_cfg((*n, cfg.d_model), dtype, device, cfg),
-        "mlp": L.init_mlp_cfg(gen, cfg, dtype, device, layers),
+        "mlp": (MOE.init_moe_layer(gen, cfg, dtype, device, layers)
+                if cfg.arch_type == "moe"
+                else L.init_mlp_cfg(gen, cfg, dtype, device, layers)),
     }
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    """Fresh parameters in ``cfg.param_dtype``, drawn from ``gen`` on ``device``."""
-    dtype = L.to_dtype(cfg.param_dtype)
+def init(gen: torch.Generator, cfg: ModelConfig, device,
+         dtype=None) -> Params:
+    """Fresh parameters drawn from ``gen`` on ``device``, in
+    ``cfg.param_dtype`` or, given ``dtype``, each leaf cast to it as soon as
+    it is drawn (the same values as casting the whole tree afterwards,
+    without ever holding the whole tree in ``cfg.param_dtype``)."""
+    dtype = L.to_dtype(dtype or cfg.param_dtype)
     params: Params = {
         "embed": {"table": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                         dtype, device)},
@@ -82,11 +91,11 @@ def unstack(tree: Any, n: int) -> List[Any]:
     return list(torch.unbind(tree, 0))
 
 
-def _mlp_or_moe(bp: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp_or_moe(bp: Params, h: torch.Tensor, cfg: ModelConfig):
+    """(out, aux): the MoE layer's load-balance loss, 0 for a dense MLP."""
     if cfg.arch_type == "moe":
-        raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP.md queue 1, item 11)")
-    return L.apply_mlp(bp["mlp"], h, cfg)
+        return MOE.moe_mlp(bp["mlp"], h, cfg)
+    return L.apply_mlp(bp["mlp"], h, cfg), 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -112,13 +121,14 @@ def logits_from_hidden(params: Params, cfg: ModelConfig,
 
 def _block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
            cfg: ModelConfig, window: int):
-    """One decoder block over a full sequence -> (x, (k, v))."""
+    """One decoder block over a full sequence -> (x, (k, v), aux)."""
     h = L.apply_norm(bp["attn_norm"], x, cfg)
     attn_out, kv = L.attention(bp["attn"], h, positions, cfg, window=window,
                                return_kv=True)
     x = x + attn_out
     h = L.apply_norm(bp["mlp_norm"], x, cfg)
-    return x + _mlp_or_moe(bp, h, cfg), kv
+    out, aux = _mlp_or_moe(bp, h, cfg)
+    return x + out, kv, aux
 
 
 def token_positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -139,8 +149,11 @@ def layer_order(num_layers: int,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            order: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V).
+            order: Optional[Sequence[int]] = None,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) -> (logits (B, S, V), aux): the JAX family's
+    ``return_aux`` form, aux the MoE layers' load-balance losses summed over
+    the layers in the order they ran (a 0-d fp32 0 for dense).
 
     ``order`` runs the tower's layers in that order (a permutation of
     ``range(num_layers)``); position i keeps its own sliding-window flag.
@@ -152,10 +165,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = token_positions(tokens)
     x = embed_tokens(params, cfg, tokens, positions)
     blocks = unstack(params["blocks"], cfg.num_layers)
+    aux = 0.0
     for i, swa in zip(layer_order(cfg.num_layers, order), swa_flags(cfg)):
-        x, _ = _block(blocks[i], x, positions, cfg,
-                      cfg.sliding_window if swa else 0)
-    return logits_from_hidden(params, cfg, x)
+        x, _, a = _block(blocks[i], x, positions, cfg,
+                         cfg.sliding_window if swa else 0)
+        aux = aux + a
+    logits = logits_from_hidden(params, cfg, x)
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +232,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(params, cfg, tokens, positions)
     blocks = unstack(params["blocks"], cfg.num_layers)
     for i, swa in enumerate(swa_flags(cfg)):
-        x, (k, v) = _block(blocks[i], x, positions, cfg,
-                           window if swa else 0)
+        x, (k, v), _ = _block(blocks[i], x, positions, cfg,
+                              window if swa else 0)
         store_kv(cache, i, k, v, slots)
     cache["pos"].fill_(s)
     return logits_from_hidden(params, cfg, x[:, -1:, :]), cache
@@ -239,6 +257,6 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                                        cache["v"][i], cfg, window=window)
         x = x + out
         h = L.apply_norm(bp["mlp_norm"], x, cfg)
-        x = x + _mlp_or_moe(bp, h, cfg)
+        x = x + _mlp_or_moe(bp, h, cfg)[0]
     logits = logits_from_hidden(params, cfg, x)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

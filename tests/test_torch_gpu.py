@@ -1447,3 +1447,189 @@ def test_recorder_installed_while_windows_replay_under_sync_error():
     windows = [e for e in rec.events if e["kind"] == "step_window"]
     assert len(windows) == hist.dispatches
     assert sum(e["k"] for e in windows) == hist.wall_iters
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: the index-form layer on the card, and the flash kernels at
+# granite-moe-3b-a800m's attention (24 query heads on 8 kv heads of 64)
+# ---------------------------------------------------------------------------
+
+def moe_case(arch, dtype, seed=0, **moe):
+    """(cfg, layer params on the CPU in ``dtype``, x (2, 64, d) on the CPU
+    with its first 3 tokens zero: tied gates)."""
+    import dataclasses
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    cfg = reduced(get_config(arch)).replace(dtype=str(dtype).split(".")[1])
+    if moe:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
+    p = L.cast_tree(M.init_moe_layer(torch.Generator().manual_seed(seed),
+                                     cfg, torch.float32, "cpu", None), dtype)
+    x = np.random.default_rng(seed + 1).standard_normal((2, 64, cfg.d_model))
+    x[:, :3] = 0.0
+    return cfg, p, torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+def to_card(tree):
+    from repro_torch import tree as TR
+    return TR.map(lambda t: t.cuda(), tree)
+
+
+def routing_of(p, x, cfg):
+    from repro_torch.models import moe as M
+    b, s, d = x.shape
+    tg = M._group_size(b * s, s)
+    return M.route(p, x.reshape(b * s // tg, tg, d), cfg, M.capacity(tg, cfg))
+
+
+MOE_CASES = [("granite-moe-3b-a800m", {}), ("deepseek-moe-16b", {}),
+             ("granite-moe-3b-a800m", dict(num_experts=8, top_k=3,
+                                           capacity_factor=0.5))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(MOE_CASES)))
+def test_moe_layer_on_card_matches_cpu(case, dtype):
+    """The index-form layer on the card against the CPU: the same routing
+    (``topi``, ``keep``, the slots; the router's products are fp32 on both),
+    out at the model tolerance (fp32 1e-4, bf16 3e-2 * (1 + |w|)), aux
+    within 1e-5."""
+    from repro_torch.models import moe as M
+    arch, moe = MOE_CASES[case]
+    cfg, p, x = moe_case(arch, dtype, **moe)
+    out, aux = M.moe_mlp(to_card(p), x.cuda(), cfg)
+    want, want_aux = M.moe_mlp(p, x, cfg)
+    r, want_r = routing_of(to_card(p), x.cuda(), cfg), routing_of(p, x, cfg)
+    for name in ("topi", "pos", "keep"):
+        assert torch.equal(getattr(r, name).cpu(), getattr(want_r, name)), name
+    assert out.dtype == dtype and out.is_cuda
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.cpu().float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(MOE_CASES)))
+def test_moe_index_form_matches_one_hot_form_on_card(case):
+    """On the card, bf16: the experts' inputs gathered by index bit-equal to
+    the one-hot einsum's, the output within one bf16 ulp of the one-hot
+    form's (the same k fp32 products summed in other orders, rounded
+    once)."""
+    from repro_torch.models import moe as M
+    arch, moe = MOE_CASES[case]
+    cfg, p, x = moe_case(arch, torch.bfloat16, **moe)
+    p, x = to_card(p), x.cuda()
+    b, s, d = x.shape
+    tg = M._group_size(b * s, s)
+    g, cap = b * s // tg, M.capacity(tg, cfg)
+    xg = x.reshape(g, tg, d)
+    r = M.route(p, xg, cfg, cap)
+    src, dst = M.slot_maps(r, cap)
+    ein = M._Dispatch.apply(x.reshape(-1, d), src, dst)
+    dispatch, _, _ = M.topk_dispatch(r.gates, cfg.moe.top_k, cap, x.dtype)
+    want = torch.einsum("gtd,gtec->gecd", xg, dispatch)
+    assert torch.equal(ein.view(cfg.moe.num_experts, g, cap, d)
+                       .transpose(0, 1), want)
+    out, _ = M.moe_mlp(p, x, cfg)
+    one_hot, _ = M.moe_mlp_onehot(p, x, cfg)
+    o, w = out.float(), one_hot.float()
+    big = torch.maximum(o.abs(), w.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert bool(((o - w).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-moe-16b"])
+def test_moe_forward_and_backward_give_the_same_bits_twice(arch):
+    """Two launches of the layer's forward and backward on the card (bf16,
+    40 experts top-8 and a capacity that bites): the dispatch's and the
+    combine's backwards are gathers summed in a fixed order, so the output,
+    the input's gradient and every leaf's gradient repeat bit for bit."""
+    from repro_torch import tree as TR
+    from repro_torch.models import moe as M
+    cfg, p, x = moe_case(arch, torch.bfloat16, num_experts=40, top_k=8,
+                         capacity_factor=0.75)
+    runs = []
+    for _ in range(2):
+        leaves = TR.map(lambda t: t.cuda().requires_grad_(), p)
+        xx = x.cuda().requires_grad_()
+        out, aux = M.moe_mlp(leaves, xx, cfg)
+        (out.float().square().sum() + aux).backward()
+        torch.cuda.synchronize()
+        runs.append([out, xx.grad] + [t.grad for t in TR.leaves(leaves)])
+    assert not routing_of(to_card(p), x.cuda(), cfg).keep.all()
+    for a, b in zip(*runs):
+        assert a is not None and torch.equal(a, b)
+
+
+def moe_run(device, window, params, cfg):
+    from repro_torch import tree as TR
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+    trainer = Trainer(Model(cfg, device=device, weights=False),
+                      fused_config(window), schedule=FusedForced())
+    state, hist = trainer.run(make_batches(cfg, batch=4, seq=64),
+                              params=TR.clone(params))
+    return trainer, TR.map(lambda t: t.detach().cpu(), state.params), hist
+
+
+@pytest.mark.gpu
+def test_moe_step_captures_and_replays_under_sync_debug_error():
+    """A 2-layer granite-shaped MoE (E 8, top-3), ``checkfree_plus`` in
+    windows of up to 8 on the card: each replay of the captured step runs
+    under ``set_sync_debug_mode("error")`` (the routing reads nothing back
+    and makes no shape from the data), and the windows equal the same steps
+    run eagerly on the card, and the CPU within 1e-3 * (1 + |w|)."""
+    import dataclasses
+    cfg = reduced(get_config("granite-moe-3b-a800m")).replace(
+        d_model=128, vocab_size=512, max_seq_len=64, dtype="float32")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=8,
+                                              top_k=3))
+    params = Model(cfg, device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+    modes = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def recording(self):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return replay(self)
+
+    torch.cuda.CUDAGraph.replay = recording
+    try:
+        trainer, p8, h8 = moe_run("cuda", 8, params, cfg)
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    assert trainer.window.captures == 1 and len(modes) == 9
+    assert set(modes) == {2}                          # 2: "error"
+    _, p1, h1 = moe_run("cuda", 1, params, cfg)
+    _, pc, hc = moe_run("cpu", 8, params, cfg)
+    assert h8.failures == h1.failures == hc.failures == [(5, 1)]
+    np.testing.assert_allclose(h8.loss, h1.loss, rtol=1e-5)
+    np.testing.assert_allclose(h8.loss, hc.loss, rtol=1e-3, atol=1e-3)
+    from repro_torch import tree as TR
+    for a, b, c in zip(TR.leaves(p8), TR.leaves(p1), TR.leaves(pc)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [512, 37])
+def test_flash_kernels_at_granite_attention_shape(dtype, s):
+    """Forward and both backward kernels at 24 query heads on 8 kv heads of
+    64 (a group of 3), causal, against their plain versions."""
+    q, k, v = qkv(11, 2, 24, 8, s, 64, dtype)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=True, window=0)
+    want, want_lse = ref.flash_attention_ref(q, k, v, causal=True, window=0)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    do = qkv(12, 2, 24, 24, s, 64, dtype)[0]
+    got = FA.flash_attention_bwd(q, k, v, want, want_lse, do, causal=True,
+                                 window=0)
+    grads = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, do, True, 0)
+    for g, w in zip(got, grads):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[dtype])
