@@ -17,10 +17,15 @@ result.  Phases:
              and the four serving shapes (paper-llama-1.5b 16 x 128,
              zamba2-2.7b's shared attention 32 x 80, h2o-danube-3-4b 32/8 x
              120 with its 4096 window, gemma-2b 8/1 x 256, granite-moe-3b-
-             a800m 24/8 x 64, also swept at S 512 and 333); then kernel,
+             a800m 24/8 x 64, also swept at S 512 and 333), and over
+             another key length than the query length (cross-attention,
+             full: 1, 65, 416 and 448 rows over 1500 keys, 100 over 37, 7
+             over 1; MHA and GQA, every head dim); then kernel,
              plain version and SDPA (as a yardstick only) timed at the
              serving shapes with CUDA events around back-to-back calls,
-             beside the bound.  The same for the two backward kernels
+             beside the bound (and at whisper-large-v3's encoder, B 8 x
+             1500 frames, 20 x 64, full, and its cross-attention, 416 rows
+             over the 1500 frames).  The same for the two backward kernels
              (bf16 on the tensor cores, fp32 on the CUDA cores; against
              ``flash_attention_bwd_ref`` and PyTorch's autograd through the
              plain forward over every head dim, MHA/GQA/MQA, masks, S 128,
@@ -29,8 +34,10 @@ result.  Phases:
              timed at four training shapes, B 4 x 512: paper-llama-1.5b
              16 x 128, gemma-2b 8/1 x 256, h2o-danube-3-4b 32/8 x 120 and
              zamba2-2.7b's attention 32 x 80, and at granite-moe-3b-a800m's
-             24/8 x 64, B 2 x 512, with SDPA's flash backward as the
-             yardstick) and for the stage merge (against
+             24/8 x 64, B 2 x 512, and whisper's encoder and cross-
+             attention at B 4, 1500 and 448 x 1500, with SDPA's flash
+             backward as the yardstick; the cross sweep as the forward's)
+             and for the stage merge (against
              ``stage_merge_ref``; timed on one 4-layer stage of
              paper-llama-1.5b, ``torch._foreach_lerp`` as the yardstick).
              The two Adam kernels (``adam_sumsq``, ``adam_update``) against
@@ -61,10 +68,12 @@ result.  Phases:
              beside its bound (and as a multiple of it) and the plain
              version (no PyTorch call computes it), and the fp32 check path
              at mamba2-1.3b's.
-4. model   — paper-llama-1.5b, mamba2-1.3b, zamba2-2.7b, gemma-2b and
-             h2o-danube-3-4b at full width cut to 2 layers, fp32: prefill
-             logits (and cache) on the card (kernels) against the port on the
-             CPU (plain versions).
+4. model   — paper-llama-1.5b, mamba2-1.3b, zamba2-2.7b, gemma-2b,
+             h2o-danube-3-4b, whisper-large-v3 (2 encoder and 2 decoder
+             layers over 1500 frames) and internvl2-76b (256 patches before
+             the prompt; drawn on the card) at full width cut to 2 layers,
+             fp32: prefill logits (and cache) on the card (kernels) against
+             the port on the CPU (plain versions).
 4b. model_moe — granite-moe-3b-a800m and deepseek-moe-16b the same way,
              batch 2: full-sequence logits, the (token, layer) routing
              decisions of card and CPU compared, the logits held on the
@@ -89,7 +98,12 @@ result.  Phases:
              drift of every comparison printed; the plain prefill is pinned
              to the kernel run's routing, and both bf16 prefills, pinned to
              an fp32 prefill's routing, are held against it
-             (SERVE_LOGITS_TOL says why).
+             (SERVE_LOGITS_TOL says why).  serve_whisper: whisper-large-v3
+             at full size, batch 8 of 1500 frames, a 416-token prompt (96
+             flash-forward launches a prefill: the encoder's, the decoder's
+             causal and its cross-attention over the frames); serve_vlm:
+             internvl2-76b cut to 26 of its 80 layers (SERVE_VLM says
+             why), 256 patches before a 512-token prompt.
 6. train_model — the same 2-layer fp32 cut, two Adam steps of the Trainer on
              the card (kernels) and on the CPU (plain versions) from the same
              parameters: loss and parameters agree.
@@ -172,6 +186,15 @@ result.  Phases:
              eagerly.  train_deepseek: deepseek-moe-16b cut to 4 of its 28
              layers (4 stages of 1, batch 4; TRAIN_DEEPSEEK says why),
              train_gemma's checks for ``checkfree``.
+8e. train_whisper — whisper-large-v3 at full size (8 stages of 4 encoder
+             layers, the staged tower; batch 8 x 448 with 1500 frames):
+             train_moe's checks for ``checkfree_plus`` (96 launches of each
+             flash kernel a pass, 64 of them over 1500 keys), the plain
+             comparison at batch 2, then 16 steps in fused windows of 8 at
+             batch 4 against the same steps eagerly.  train_vlm:
+             internvl2-76b cut to 2 of its 80 layers (TRAIN_VLM), 2 stages,
+             batch 2 x (256 patches + 256 tokens), ``checkfree`` with an
+             edge stage copied from its neighbour.
 9. train_ckpt — the checkpoint baseline at TRAIN's full width and depth
              (cut to 12 layers, and said so, if the host cannot hold the
              state in half its free memory, or two saves in half the free
@@ -228,6 +251,7 @@ from repro_torch.ckpt.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.config import (OptimizerConfig, RecoveryConfig,  # noqa: E402
                                 TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.stages import StagePartition  # noqa: E402
 from repro_torch.core.trainer import Trainer  # noqa: E402
 from repro_torch.core.window import OMEGAS, RECORD, FusedWindow  # noqa: E402
 from repro_torch.data.pipeline import (SyntheticLM, batch_for,  # noqa: E402
@@ -279,9 +303,17 @@ MODEL_TOL = 1e-3
 SERVE = dict(arch="paper-llama-1.5b", batch=8, prompt=512, new_tokens=32)
 # the 2-layer cuts held card vs CPU: (arch, prompt, config changes)
 # (gemma-2b and h2o-danube-3-4b: the fp32 kernel at head dims 256 and 120)
+# (whisper-large-v3: 2 encoder and 2 decoder layers at d 1280 over 1500
+# frames, the flash kernels at Sq != Sk; internvl2-76b: 2 layers at d 8192,
+# 3.9 B parameters, 256 patches before the prompt)
 MODEL_CHECKS = (("paper-llama-1.5b", 256, {}), ("mamba2-1.3b", 128, {}),
                 ("zamba2-2.7b", 128, {"attn_every": 1}), ("gemma-2b", 200, {}),
-                ("h2o-danube-3-4b", 200, {}))
+                ("h2o-danube-3-4b", 200, {}),
+                ("whisper-large-v3", 128, {"num_encoder_layers": 2}),
+                ("internvl2-76b", 64, {}))
+# cuts larger than this (parameters) are drawn on the card and copied to the
+# host (the CPU's generator draws about 20 M a second)
+MODEL_DRAW_ON_CARD = 1e9
 # the backward kernels: tests/test_kernels.py's VJP tolerance for fp32; bf16
 # gradients are rounded once from fp32 sums taken in different orders by the
 # kernel and the plain version: 3e-2 * (1 + |w|) (tests/test_kernels.py:16-17)
@@ -301,7 +333,13 @@ TRAIN_ATTN_SHAPES = {
     "d256": dict(b=4, h=8, hkv=1, s=512, d=256, window=0),
     "d120": dict(b=4, h=32, hkv=8, s=512, d=120, window=4096),
     "d80": dict(b=4, h=32, hkv=32, s=512, d=80, window=0),
-    "d64": dict(b=2, h=24, hkv=8, s=512, d=64, window=0)}
+    "d64": dict(b=2, h=24, hkv=8, s=512, d=64, window=0),
+    # whisper-large-v3's attentions at train_whisper's half batch of 4:
+    # the encoder's over its 1500 frames (full) and the decoder's 448 rows
+    # over them (cross-attention, full)
+    "enc": dict(b=4, h=20, hkv=20, s=1500, d=64, window=0, causal=False),
+    "cross": dict(b=4, h=20, hkv=20, s=448, sk=1500, d=64, window=0,
+                  causal=False)}
 # checkfree_plus: a merge, an edge twin copy, a consecutive run (two merges)
 PLUS_SCHEDULE = {2: [3], 4: [0], 5: [2, 3]}
 PLUS_STEPS, PLUS_MERGES = 6, 3
@@ -351,7 +389,18 @@ ATTN_SHAPES = {"d128": dict(b=8, h=16, hkv=16, s=512, d=128, window=0),
                "d80": dict(b=8, h=32, hkv=32, s=512, d=80, window=0),
                "d120": dict(b=8, h=32, hkv=8, s=512, d=120, window=4096),
                "d256": dict(b=8, h=8, hkv=1, s=512, d=256, window=0),
-               "d64": dict(b=8, h=24, hkv=8, s=512, d=64, window=0)}
+               "d64": dict(b=8, h=24, hkv=8, s=512, d=64, window=0),
+               # whisper-large-v3, batch 8: the encoder over 1500 frames
+               # (full) and the decoder's 416 prompt rows over them
+               "enc": dict(b=8, h=20, hkv=20, s=1500, d=64, window=0,
+                           causal=False),
+               "cross": dict(b=8, h=20, hkv=20, s=416, sk=1500, d=64,
+                             window=0, causal=False)}
+# cross-attention (Sq != Sk, full) in the kernel sweeps: whisper's decoder
+# rows (one, a ragged 65, the serving prompt 416, the training 448) over its
+# 1500 frames, and short key runs below one tile (a lone key, 37 keys)
+CROSS_LENGTHS = ((1, 1500), (65, 1500), (416, 1500), (448, 1500), (100, 37),
+                 (7, 1))
 SERVE_GEMMA = dict(arch="gemma-2b", batch=8, prompt=512, new_tokens=32)
 # the checkpoint baseline at TRAIN's shape: no save before wall 1 (restart
 # from the initial parameters at step 0), saves at steps 3 and 6, wall 5
@@ -494,6 +543,48 @@ MOE_FUSED_BATCH = 2
 # 44.3 GB of state.  checkfree, batch 4 x 512, stage 2 merged at step 2
 TRAIN_DEEPSEEK = dict(arch="deepseek-moe-16b", stages=4, batch=4, seq=512,
                       layers=4)
+# the encoder-decoder family: whisper-large-v3 at full size (32 encoder and
+# 32 decoder layers, d 1280, 20 x 64, 1.535 B parameters).  Serving: batch 8
+# of 1500 frames, a prompt of 416 tokens and 32 new ones (448 is whisper's
+# text context); a prefill launches the flash forward 96 times (32 over the
+# frames without a mask, 32 causal over the prompt, 32 cross from the prompt
+# to the frames).  Training: 8 stages of 4 encoder layers (the JAX trainer
+# stages the encoder, ``towers(cfg)[0]``), batch 8 x 448 tokens with 1500
+# frames, checkfree_plus under PLUS_SCHEDULE
+SERVE_WHISPER = dict(arch="whisper-large-v3", batch=8, prompt=416,
+                     new_tokens=32)
+TRAIN_WHISPER = dict(arch="whisper-large-v3", stages=8, batch=8, seq=448)
+# the plain attention's autograd keeps three fp32 (B, 20, 1500, 1500)
+# tensors an encoder layer: its two steps run at batch 2 (a sample a stage
+# order), beside the same steps with the kernels at batch 2
+WHISPER_PLAIN_BATCH = 2
+# the fused windows: 16 steps in windows of 8 at batch 4 (a capture takes
+# 1.6-2 times the eager working set, as granite-moe's and zamba2's did, and
+# at batch 8 the eager step alone peaks at 57.8 GiB), stage 3 failing at the
+# window boundary, against the same steps eagerly
+WHISPER_FUSED_BATCH = 4
+WHISPER_FUSED_STEPS, WHISPER_FUSED_SCHEDULE, WHISPER_FUSED_SIZES = \
+    16, {8: [3]}, [8, 8]
+# the VLM family: internvl2-76b (80 layers, d 8192, GQA 64/8 x 128, d_ff
+# 28672, vocab 128256 untied: 70.6 B parameters, 141 GB in bf16) cut in
+# depth.  Serving: 26 of 80 layers (48.9 GB of bf16 weights), the deepest
+# cut whose build fits the card with room to spare: the build draws each
+# stacked leaf in fp32 before it casts it, so the last MLP leaf's fp32 (0.94
+# GB a layer) sits beside the bf16 weights drawn so far (1.71 GB a layer,
+# and 4.4 GB of embedding, head and projector).  On an NVIDIA H100 80GB
+# HBM3 (700 W) 24 layers built at a 61.24 GiB peak; at 28 the cast of the
+# last MLP leaf (12.25 GiB) found 10.12 GiB free beside 58.90 GiB allocated
+# and 9.42 GiB of the allocator's split blocks.  Batch 8 of 256 patches and
+# a 512-token prompt, 32 new tokens (a cache of 800).
+# Training: 2 of 80 layers (3.89 B parameters, 62.2 GB of fp32 masters,
+# moments and gradients and a 7.8 GB bf16 cast; 3 layers would need ~85 GB),
+# 2 stages of 1, batch 2 x (256 patches + 256 tokens), checkfree with stage 1
+# failing at step 2: with 2 stages both are edges, and CheckFree copies the
+# neighbour there (repro/recovery/strategies.py:171-174)
+SERVE_VLM = dict(arch="internvl2-76b", batch=8, prompt=512, new_tokens=32,
+                 layers=26)
+TRAIN_VLM = dict(arch="internvl2-76b", stages=2, batch=2, seq=256, layers=2,
+                 schedule={2: [1]})
 # the load-balance loss of a layer is about 1 where the router spreads the
 # tokens evenly (E * sum of E shares of 1/E each) and E where one expert
 # takes every token's first choice; aux sums the layers.  A step's aux per
@@ -514,16 +605,21 @@ def smi() -> str:
     return out.strip().splitlines()[0]
 
 
-def qkv(gen, b, hq, hkv, s, d, dtype):
-    shapes = ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))
+def qkv(gen, b, hq, hkv, s, d, dtype, sk=None):
+    """q of ``s`` rows, k and v of ``sk`` (default ``s``)."""
+    sk = s if sk is None else sk
+    shapes = ((b, hq, s, d), (b, hkv, sk, d), (b, hkv, sk, d))
     return [torch.randn(sh, generator=gen, device="cuda").to(dtype)
             for sh in shapes]
 
 
-def visible_pairs(s: int, causal: bool, window: int) -> int:
+def visible_pairs(s: int, causal: bool, window: int, sk=None) -> int:
+    """The (query, key) pairs a mask lets through: ``s`` queries over ``sk``
+    keys (default ``s``)."""
+    sk = s if sk is None else sk
     q = np.arange(s)[:, None]
-    k = np.arange(s)[None, :]
-    m = np.ones((s, s), bool)
+    k = np.arange(sk)[None, :]
+    m = np.ones((s, sk), bool)
     if causal:
         m &= k <= q
     if window > 0:
@@ -628,35 +724,51 @@ def sweep_cases():
             yield (dtype, 2, hq, hkv, ss, dd, True, 0, TOL[dtype])
         # the serving shapes, where bf16 is held to one ulp
         for shape in ATTN_SHAPES.values():
+            if "sk" in shape or not shape.get("causal", True):
+                continue                  # in cross_cases
             yield (dtype, shape["b"], shape["h"], shape["hkv"], shape["s"],
                    shape["d"], True, shape["window"],
                    TOL[dtype] if dtype == torch.float32 else SERVE_TOL)
 
 
+def cross_cases():
+    """(dtype, b, hq, hkv, sq, sk, d) of the sweep over another key length
+    than the query length (cross-attention, full): whisper's decoder rows
+    over its 1500 frames (23 tiles of 64 and a ragged 28), MHA and GQA,
+    every head dim the kernels are built for, and short key runs."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv in ((4, 4), (8, 2)):
+            for d in FA.FWD_HEAD_DIMS:
+                for sq, sk in CROSS_LENGTHS:
+                    yield dtype, 1, hq, hkv, sq, sk, d
+
+
 def time_fwd(shape: dict, gen) -> dict:
-    """The forward kernel, its plain version and SDPA at a bf16 causal
-    serving shape, beside the bound."""
+    """The forward kernel, its plain version and SDPA at a bf16 serving
+    shape (causal unless ``shape["causal"]`` says otherwise; ``shape["sk"]``
+    keys when given), beside the bound."""
     b, h, hkv, s, d, window = (shape[x] for x in
                                ("b", "h", "hkv", "s", "d", "window"))
-    q, k, v = qkv(gen, b, h, hkv, s, d, torch.bfloat16)
-    ok, err, lse_err = compare(q, k, v, causal=True, window=window,
+    causal, sk = shape.get("causal", True), shape.get("sk", s)
+    q, k, v = qkv(gen, b, h, hkv, s, d, torch.bfloat16, sk)
+    ok, err, lse_err = compare(q, k, v, causal=causal, window=window,
                                tol=SERVE_TOL)
     if not ok:
         raise AssertionError(f"serving shape {shape}: out error {err}, lse "
                              f"error {lse_err}")
-    kernel_ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=True,
+    kernel_ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=causal,
                                                        window=window))
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True,
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                        window=window))
     # the yardstick computes the same function only where the window does
     # not cut the prompt
     assert window == 0 or window >= s, shape
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=hkv != h))
+        q, k, v, is_causal=causal, enable_gqa=hkv != h))
     # q, k, v read once; out (like q) and the fp32 lse written once
     nbytes = (2 * q.numel() * q.element_size() + k.numel() * k.element_size()
               + v.numel() * v.element_size() + b * h * s * 4)
-    flops = 4 * b * h * d * visible_pairs(s, True, window)
+    flops = 4 * b * h * d * visible_pairs(s, causal, window, sk)
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
     row = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -664,7 +776,8 @@ def time_fwd(shape: dict, gen) -> dict:
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": library_ms}
     emit("kernel_time", kernel="flash_attention_fwd",
-         shape=dict(shape, dtype="bfloat16", causal=True), bytes=nbytes,
+         shape=dict(shape, dtype="bfloat16", causal=causal, sk=sk),
+         bytes=nbytes,
          flops=flops, **row, lse_err=lse_err, tol=SERVE_TOL,
          library="scaled_dot_product_attention",
          timing="median of 21 groups of 20 back-to-back calls, CUDA events")
@@ -687,8 +800,20 @@ def phase_kernel() -> dict:
             failures += 1
             print(f"MISMATCH dtype={name} b={b} hq={hq} hkv={hkv} d={d} "
                   f"causal={causal} window={window} s={s}", file=sys.stderr)
+    for dtype, b, hq, hkv, sq, sk, d in cross_cases():
+        q, k, v = qkv(gen, b, hq, hkv, sq, d, dtype, sk)
+        ok, out_err, lse_err = compare(q, k, v, causal=False, window=0,
+                                       tol=TOL[dtype])
+        name = str(dtype).split(".")[1]
+        worst[name][0] = max(worst[name][0], out_err)
+        worst[name][1] = max(worst[name][1], lse_err)
+        cases += 1
+        if not ok:
+            failures += 1
+            print(f"MISMATCH cross dtype={name} hq={hq} hkv={hkv} d={d} "
+                  f"sq={sq} sk={sk}", file=sys.stderr)
     emit("kernel_check", kernel="flash_attention_fwd", cases=cases,
-         failures=failures,
+         failures=failures, cross_lengths=CROSS_LENGTHS,
          max_abs_err={k: {"out": v[0], "lse": v[1]} for k, v in worst.items()},
          tol={"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16],
               "bfloat16_serving_shape": SERVE_TOL, "lse": LSE_TOL})
@@ -703,7 +828,7 @@ def phase_kernel() -> dict:
            "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:39",
            **time_fwd(ATTN_SHAPES["d128"], gen)}
-    for name in ("d80", "d120", "d256", "d64"):
+    for name in ("d80", "d120", "d256", "d64", "enc", "cross"):
         row[name] = time_fwd(ATTN_SHAPES[name], gen)
     return row
 
@@ -737,6 +862,8 @@ def bwd_cases():
         for s in GRANITE_SWEEP_LENGTHS:
             yield (dtype, 2, hq, hkv, s, d, True, 0)
         for shape in TRAIN_ATTN_SHAPES.values():
+            if "sk" in shape or not shape.get("causal", True):
+                continue                  # in cross_cases
             yield (dtype, shape["b"], shape["h"], shape["hkv"], shape["s"],
                    shape["d"], True, shape["window"])
 
@@ -778,8 +905,19 @@ def phase_kernel_bwd() -> list:
             print(f"MISMATCH bwd dtype={name} b={b} hq={hq} hkv={hkv} d={d} "
                   f"causal={causal} window={window} s={s} err={err}",
                   file=sys.stderr)
+    for dtype, b, hq, hkv, sq, sk, d in cross_cases():
+        q, k, v = qkv(gen, b, hq, hkv, sq, d, dtype, sk)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        ok, err = compare_bwd(q, k, v, do, causal=False, window=0)
+        name = str(dtype).split(".")[1]
+        worst[name] = max(worst[name], err)
+        cases += 1
+        if not ok:
+            failures += 1
+            print(f"MISMATCH bwd cross dtype={name} hq={hq} hkv={hkv} d={d} "
+                  f"sq={sq} sk={sk} err={err}", file=sys.stderr)
     emit("kernel_check", kernel="flash_attention_bwd_dq+dkv", cases=cases,
-         failures=failures, max_abs_err=worst,
+         failures=failures, cross_lengths=CROSS_LENGTHS, max_abs_err=worst,
          tol={"float32": GRAD_TOL[torch.float32],
               "bfloat16": GRAD_TOL[torch.bfloat16]},
          oracles=["flash_attention_bwd_ref",
@@ -789,7 +927,7 @@ def phase_kernel_bwd() -> list:
                              f"versions in {failures} of {cases} cases")
 
     rows = time_bwd(TRAIN_ATTN_SHAPES["d128"], gen)
-    for name in ("d256", "d120", "d80", "d64"):
+    for name in ("d256", "d120", "d80", "d64", "enc", "cross"):
         for row, sub in zip(rows, time_bwd(TRAIN_ATTN_SHAPES[name], gen)):
             row[name] = {k: sub[k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
@@ -797,7 +935,7 @@ def phase_kernel_bwd() -> list:
     return rows
 
 
-def sdpa_backward(q, k, v, do, hkv: int):
+def sdpa_backward(q, k, v, do, hkv: int, causal: bool = True):
     """The yardstick: SDPA's flash backend (GQA and MQA through
     ``enable_gqa``, no copy of k and v) run forward once, then its backward
     under ``torch.autograd.grad``: dq, dk and dv together.  Timed here, never
@@ -808,11 +946,11 @@ def sdpa_backward(q, k, v, do, hkv: int):
     gqa = hkv != q.shape[1]
     try:
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                                  enable_gqa=gqa)
         backend = "flash"
     except RuntimeError:
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                              enable_gqa=gqa)
         backend = "default (flash refused the shape)"
 
@@ -823,34 +961,36 @@ def sdpa_backward(q, k, v, do, hkv: int):
 
 
 def time_bwd(shape: dict, gen) -> list:
-    """Both backward kernels at a bf16 causal training shape: checked against
-    the plain version, then timed beside their bounds, the plain version and
-    SDPA's backward.  Returns the dq and dkv rows."""
+    """Both backward kernels at a bf16 training shape (causal unless
+    ``shape["causal"]`` says otherwise; ``shape["sk"]`` keys when given):
+    checked against the plain version, then timed beside their bounds, the
+    plain version and SDPA's backward.  Returns the dq and dkv rows."""
     b, h, hkv, s, d, window = (shape[x] for x in
                                ("b", "h", "hkv", "s", "d", "window"))
-    q, k, v = qkv(gen, b, h, hkv, s, d, torch.bfloat16)
+    causal, sk = shape.get("causal", True), shape.get("sk", s)
+    q, k, v = qkv(gen, b, h, hkv, s, d, torch.bfloat16, sk)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    ok, err = compare_bwd(q, k, v, do, causal=True, window=window)
+    ok, err = compare_bwd(q, k, v, do, causal=causal, window=window)
     if not ok:
         raise AssertionError(f"training shape {shape}: backward error {err}")
-    out, lse = FA.flash_attention_fwd(q, k, v, causal=True, window=window)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
     delta = (do.float() * out.float()).sum(-1)
-    dq_ms = time_ms(lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                                      window=window))
-    dkv_ms = time_ms(lambda: FA.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                        delta, window=window))
+    dq_ms = time_ms(lambda: FA.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, causal=causal, window=window))
+    dkv_ms = time_ms(lambda: FA.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, causal=causal, window=window))
     plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, out, lse, do, True, window), groups=11, per_group=5)
+        q, k, v, out, lse, do, causal, window), groups=11, per_group=5)
     # the yardstick computes the same function only where the window does
     # not cut the sequence
     assert window == 0 or window >= s, shape
-    library, lib_grads, backend = sdpa_backward(q, k, v, do, hkv)
-    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True, window)
+    library, lib_grads, backend = sdpa_backward(q, k, v, do, hkv, causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
     library_ok = all(within(g, w, GRAD_TOL[torch.bfloat16])[0]
                      for g, w in zip(lib_grads, want))
     library_ms = time_ms(library)
 
-    pairs = h * b * visible_pairs(s, True, window)
+    pairs = h * b * visible_pairs(s, causal, window, sk)
     row_bytes = b * h * s * 4                       # one fp32 (B, Hq, S) row
     qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
     rows = []
@@ -874,7 +1014,7 @@ def time_bwd(shape: dict, gen) -> list:
                      "bound_by": "bytes" if tb >= to else "operations",
                      "library_ms": library_ms})
         emit("kernel_time", kernel=name,
-             shape=dict(shape, dtype="bfloat16", causal=True),
+             shape=dict(shape, dtype="bfloat16", causal=causal, sk=sk),
              bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
              **{k: rows[-1][k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
@@ -1516,9 +1656,13 @@ def phase_kernel_ssd_bwd() -> dict:
 
 def pass_launches(cfg) -> tuple:
     """(attention, SSD) launches of each direction in one forward and
-    backward pass of ``cfg``: a flash kernel a dense layer or a hybrid's
-    shared-block application, an SSD kernel an SSM layer."""
+    backward pass of ``cfg``: a flash kernel a dense or VLM layer or a
+    hybrid's shared-block application, three an encoder-decoder layer pair
+    (the encoder's, the decoder's self- and cross-attention), an SSD kernel
+    an SSM layer."""
     attention = {"dense": cfg.num_layers, "moe": cfg.num_layers,
+                 "vlm": cfg.num_layers,
+                 "encdec": cfg.num_encoder_layers + 2 * cfg.num_layers,
                  "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}
     ssd = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
     return attention.get(cfg.arch_type, 0), ssd
@@ -1532,22 +1676,34 @@ def path_launches(cfg) -> dict:
 
 def phase_model() -> None:
     """Each family at full width cut to 2 layers (zamba2: the shared block
-    after each), fp32: prefill logits and the whole cache on the card
-    (kernels) against the port on the CPU (plain versions)."""
+    after each; whisper: 2 encoder and 2 decoder layers over its 1500
+    frames; internvl2: 256 patches before the prompt), fp32: prefill logits
+    and the whole cache on the card (kernels) against the port on the CPU
+    (plain versions)."""
     for arch, prompt, kw in MODEL_CHECKS:
         cfg = get_config(arch).replace(num_layers=2, dtype="float32", **kw)
-        params = Model(cfg, device="cpu",
-                       generator=torch.Generator().manual_seed(0)).params
+        if cfg.param_count() > MODEL_DRAW_ON_CARD:
+            # drawn on the card: the CPU's generator would take minutes
+            drawn = Model(cfg, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+            params = TR.map(lambda t: t.detach().cpu(), drawn.params)
+            del drawn
+        else:
+            params = Model(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0)).params
         cpu = Model(cfg, params, device="cpu")
         card = Model(cfg, params, device="cuda")
         raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
             np.random.default_rng(1), 1, prompt)
-        toks = torch.from_numpy(batch_for(cfg, raw)["tokens"])
+        batch = {k: torch.from_numpy(v)
+                 for k, v in batch_for(cfg, raw).items() if k != "labels"}
+        capacity = cfg.num_patches + prompt
         zero_counts()
-        logits, cache = card.prefill({"tokens": toks.cuda()}, prompt)
+        logits, cache = card.prefill({k: t.cuda() for k, t in batch.items()},
+                                     capacity)
         torch.cuda.synchronize()
         launched = counts()
-        want, want_cache = cpu.prefill({"tokens": toks}, prompt)
+        want, want_cache = cpu.prefill(batch, capacity)
         err = float((logits.cpu() - want).abs().max())
         scale = float(want.abs().max())
         cache_err = max(float((cache[k].cpu().float()
@@ -1555,7 +1711,8 @@ def phase_model() -> None:
                         for k in want_cache if k != "pos")
         want_launches = {**dict.fromkeys(launched, 0), **path_launches(cfg)}
         emit("model", arch=cfg.name, layers=cfg.num_layers,
-             d_model=cfg.d_model, dtype=cfg.dtype, batch=1, prompt=prompt,
+             d_model=cfg.d_model, **model_shape(cfg), dtype=cfg.dtype,
+             batch=1, prompt=prompt,
              kernel_launches=launched, logits_max_abs_err=err,
              logits_max_abs=scale, cache_max_abs_err=cache_err, tol=MODEL_TOL)
         if launched != want_launches:
@@ -1566,6 +1723,8 @@ def phase_model() -> None:
             raise AssertionError(f"{arch} card vs CPU: logits {err}, cache "
                                  f"{cache_err}")
         del cpu, card, params, cache, want_cache
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_serve(spec: dict, phase: str) -> dict:
@@ -1573,28 +1732,34 @@ def phase_serve(spec: dict, phase: str) -> dict:
     through ``generate`` (every kernel of the path must launch as often as
     ``path_launches`` says, no other kernel at all), then the prefill with
     the kernels against the prefill with the plain versions, and each kernel
-    against its plain versions on the inputs the path gave it.  Returns the
-    launch counts of the counted run and the largest errors."""
-    cfg = get_config(spec["arch"])
+    against its plain versions on the inputs the path gave it.  The
+    encoder-decoder family takes its frames and the VLM its patches from
+    the same seeded draw as the prompt; ``spec["layers"]`` cuts the depth.
+    Returns the launch counts of the counted run and the largest errors."""
+    cfg = train_model_config(spec)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda",
                   generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
         np.random.default_rng(0), spec["batch"], spec["prompt"])
-    toks = torch.from_numpy(batch_for(cfg, raw)["tokens"]).cuda()
-    generate(model, toks, new_tokens=2)                  # warm-up
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in batch_for(cfg, raw).items() if k != "labels"}
+    toks = batch["tokens"]
+    generate(model, batch, new_tokens=2)                 # warm-up
     torch.cuda.reset_peak_memory_stats()
 
     zero_counts()
-    res = generate(model, toks, new_tokens=spec["new_tokens"])
+    res = generate(model, batch, new_tokens=spec["new_tokens"])
     launched = counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     # comparison runs, after the counted one: the prefill with the kernels,
     # recording what the path gives them, then with the plain versions
-    capacity = spec["prompt"] + spec["new_tokens"]
+    capacity = cfg.num_patches + spec["prompt"] + spec["new_tokens"]
     ssd_seen, attn_seen = [], []
     ssd_kernel, fwd_kernel = SSD.ssd_scan, FA.flash_attention_fwd
 
@@ -1617,10 +1782,10 @@ def phase_serve(spec: dict, phase: str) -> dict:
     try:
         SSD.ssd_scan, FA.flash_attention_fwd = ssd_recording, fwd_recording
         MOE.route = recording_routes(route_fn, routes["kernel"])
-        logits = model.prefill({"tokens": toks}, capacity)[0]
+        logits = model.prefill(batch, capacity)[0]
         SSD.ssd_scan, FA.flash_attention_fwd = ssd_plain, fwd_plain
         MOE.route = recording_routes(route_fn, routes["plain"])
-        want = model.prefill({"tokens": toks}, capacity)[0]
+        want = model.prefill(batch, capacity)[0]
     finally:
         SSD.ssd_scan, FA.flash_attention_fwd = ssd_kernel, fwd_kernel
         MOE.route = route_fn
@@ -1635,7 +1800,7 @@ def phase_serve(spec: dict, phase: str) -> dict:
             FA.flash_attention_fwd = fwd_plain
             MOE.route = pinned_routes(route_fn, routes["kernel"])
             want_free = want
-            want = model.prefill({"tokens": toks}, capacity)[0]
+            want = model.prefill(batch, capacity)[0]
         finally:
             FA.flash_attention_fwd, MOE.route = fwd_kernel, route_fn
         drift = routing_drift(routes["kernel"], routes["plain"])
@@ -1662,6 +1827,10 @@ def phase_serve(spec: dict, phase: str) -> dict:
     ssd_seen.clear()
     attn_checked, attn_fail, attn_err, attn_lse_err = len(attn_seen), 0, 0.0, 0.0
     head_dims = sorted({q.shape[-1] for q, *_ in attn_seen})
+    # the encoder's attentions run without a mask, the cross-attentions over
+    # another key length (Sq != Sk)
+    attn_full = sum(not causal for _, _, _, causal, _ in attn_seen)
+    attn_cross = sum(q.shape[2] != k.shape[2] for q, k, *_ in attn_seen)
     for q, k, v, causal, window in attn_seen:
         ok, err, lse_err = compare(q, k, v, causal=causal, window=window,
                                    tol=SERVE_TOL)
@@ -1683,10 +1852,15 @@ def phase_serve(spec: dict, phase: str) -> dict:
     want_launches = {**dict.fromkeys(launched, 0), **path_launches(cfg)}
     steps = spec["new_tokens"] - 1
     new = spec["batch"] * spec["new_tokens"]
-    emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         **model_shape(cfg), vocab=cfg.vocab_size, dtype=cfg.dtype,
+    emit(phase, arch=cfg.name, layers=cfg.num_layers,
+         layers_published=get_config(spec["arch"]).num_layers,
+         d_model=cfg.d_model, **model_shape(cfg), vocab=cfg.vocab_size,
+         dtype=cfg.dtype,
          params=n_params, batch=spec["batch"], prompt=spec["prompt"],
-         new_tokens=spec["new_tokens"], init_s=init_s,
+         new_tokens=spec["new_tokens"], capacity=capacity, init_s=init_s,
+         init_peak_memory_gib=init_peak_gib,
+         attention_launches_a_prefill=path_launches(cfg)[
+             "flash_attention_fwd"],
          prefill_ms=res.prefill_s * 1e3,
          decode_ms_per_token=res.decode_s / steps * 1e3,
          decode_tokens_per_s=spec["batch"] * steps / res.decode_s,
@@ -1700,6 +1874,7 @@ def phase_serve(spec: dict, phase: str) -> dict:
          ssd_max_abs_err=ssd_err, ssd_state_max_abs_err=ssd_state_err,
          ssd_tol={"y": SSD_TOL[torch.bfloat16], "state": SSD_STATE_TOL},
          attention_inputs_checked=attn_checked, attention_head_dims=head_dims,
+         attention_inputs_full=attn_full, attention_inputs_cross=attn_cross,
          attention_failures=attn_fail, attention_max_abs_err=attn_err,
          attention_lse_max_abs_err=attn_lse_err, attention_tol=SERVE_TOL,
          **moe)
@@ -1712,6 +1887,11 @@ def phase_serve(spec: dict, phase: str) -> dict:
                         f"{head_dims}")
     if ssd_checked != want_launches["ssd_scan"]:
         problems.append(f"{ssd_checked} SSD inputs")
+    if cfg.arch_type == "encdec" and (
+            attn_cross != cfg.num_layers
+            or attn_full != cfg.num_encoder_layers + cfg.num_layers):
+        problems.append(f"{attn_full} full attentions, {attn_cross} over "
+                        "another key length")
     if moe and moe["routing_kernel_vs_plain"]["layers"] != cfg.num_layers:
         problems.append(f"routing of {moe['routing_kernel_vs_plain']} "
                         "layers recorded")
@@ -2213,8 +2393,10 @@ def check_backward_on_path(spec: dict = TRAIN,
             worst = max(worst, err)
     calls = len(seen)
     head_dims = sorted({q.shape[-1] for (q, *_), _ in seen})
+    cross = sum(q.shape[2] != k.shape[2] for (q, k, *_), _ in seen)
     emit("train_backward_inputs", arch=cfg.name, strategy=strategy,
-         calls=calls, head_dims=head_dims, failures=failures,
+         calls=calls, calls_over_another_key_length=cross,
+         head_dims=head_dims, failures=failures,
          max_abs_err=worst, tol=GRAD_TOL[torch.bfloat16],
          ssd_calls=ssd["calls"], ssd_failures=ssd["failures"],
          ssd_max_abs_err=ssd["max_abs_err"])
@@ -2223,11 +2405,13 @@ def check_backward_on_path(spec: dict = TRAIN,
     torch.cuda.empty_cache()
     halves = 2 if strategy == "checkfree_plus" else 1
     attention, ssd_layers = pass_launches(cfg)
-    if calls != halves * attention or failures or head_dims != (
-            [cfg.resolved_head_dim] if attention else []):
+    cross_want = halves * cfg.num_layers if cfg.arch_type == "encdec" else 0
+    if calls != halves * attention or failures or cross != cross_want or \
+            head_dims != ([cfg.resolved_head_dim] if attention else []):
         raise AssertionError(f"the backward kernels on {calls} training-path "
-                             f"inputs at head dims {head_dims}: {failures} "
-                             "outputs disagree with the plain version")
+                             f"inputs ({cross} over another key length) at "
+                             f"head dims {head_dims}: {failures} outputs "
+                             "disagree with the plain version")
     if ssd["calls"] != halves * ssd_layers or ssd["failures"]:
         raise AssertionError(f"the SSD backward on {ssd['calls']} training-"
                              f"path inputs: {ssd['failures']} outputs "
@@ -2333,6 +2517,11 @@ def model_shape(cfg) -> dict:
                      state_dim=cfg.ssm.state_dim, chunk=cfg.ssm.chunk_size)
     if cfg.arch_type == "hybrid":
         shape.update(attn_every=cfg.attn_every)
+    if cfg.arch_type == "encdec":
+        shape.update(encoder_layers=cfg.num_encoder_layers,
+                     frames=cfg.encoder_seq_len)
+    if cfg.arch_type == "vlm":
+        shape.update(patches=cfg.num_patches)
     return shape
 
 
@@ -2347,21 +2536,28 @@ def check_finite_gradients(phase: str, record: dict) -> None:
 def phase_train_checkfree(spec: dict, phase: str) -> dict:
     """``checkfree`` at full width on a model whose backward runs kernels at
     shapes no other path runs (gemma-2b's and h2o-danube-3-4b's head dims,
-    zamba2-2.7b's SSD layers and shared attention at head dim 80): launch
-    counts, the failure, the step-2 merge against its plain version, finite
+    zamba2-2.7b's SSD layers and shared attention at head dim 80, the VLM's
+    64/8 x 128 over its patches and tokens): launch counts, the failure of
+    ``spec["schedule"]`` (default CHECKFREE_SCHEDULE: stage 2 at step 2),
+    an intermediate stage's merge against its plain version (an edge stage
+    is copied from its neighbour, as JAX's CheckFree does), finite
     gradients, the first two steps against the plain attention and SSD scan
     and the backward kernels on one step's own inputs.  Returns the launch
     counts of the counted run."""
     cfg = train_model_config(spec)
+    schedule = spec.get("schedule", CHECKFREE_SCHEDULE)
+    stage = schedule[2][0]
+    edge = stage in (0, spec["stages"] - 1)
     hist, launched, record, peak = train_run(
-        "checkfree", CHECKFREE_STEPS, Forced(CHECKFREE_SCHEDULE), spec=spec,
-        check_merge=(2, CHECKFREE_SCHEDULE[2][0]))
+        "checkfree", CHECKFREE_STEPS, Forced(schedule), spec=spec,
+        check_merge=None if edge else (2, stage))
     check_run(phase, hist, launched, steps=CHECKFREE_STEPS, halves=1,
-              merges=CHECKFREE_MERGES, schedule=CHECKFREE_SCHEDULE, spec=spec)
+              merges=0 if edge else CHECKFREE_MERGES, schedule=schedule,
+              spec=spec)
     check_finite_gradients(phase, record)
     if cfg.arch_type == "moe":
         check_aux(phase, cfg, record["aux"])
-    free = [i for i in range(CHECKFREE_STEPS) if i not in CHECKFREE_SCHEDULE]
+    free = [i for i in range(CHECKFREE_STEPS) if i not in schedule]
     step_ms = float(np.median([record["step_ms"][i] for i in free]))
     merge_ms = [ms for name, step, ms in record["recovery_ms"] if step == 2]
     tokens = spec["batch"] * spec["seq"]
@@ -2371,10 +2567,11 @@ def phase_train_checkfree(spec: dict, phase: str) -> dict:
          stages=spec["stages"], params=cfg.param_count(),
          state_gb=16 * cfg.param_count() / 1e9, dtype=cfg.dtype,
          masters="float32", strategy="checkfree", batch=spec["batch"],
-         seq=spec["seq"], steps=CHECKFREE_STEPS, schedule=CHECKFREE_SCHEDULE,
+         seq=spec["seq"], steps=CHECKFREE_STEPS, schedule=schedule,
+         recovery="copy of the neighbour (edge stage)" if edge else "merge",
          loss=hist.loss, aux=record["aux"], failures=hist.failures,
          recovery_errors=hist.recovery_errors, launches=launched,
-         merge_check=record["merge_check"], step_ms=record["step_ms"],
+         merge_check=record.get("merge_check"), step_ms=record["step_ms"],
          step_ms_median_failure_free=step_ms,
          tokens_per_s=tokens / step_ms * 1e3, grad_norm=record["grad_norm"],
          recovery_ms=record["recovery_ms"], merge_recovery_ms=merge_ms[0],
@@ -2389,53 +2586,6 @@ def phase_train_checkfree(spec: dict, phase: str) -> dict:
     return launched
 
 
-def phase_train_ssm() -> dict:
-    """mamba2-1.3b at full width and depth (TRAIN_SSM): ``checkfree_plus``
-    for 6 eager steps under PLUS_SCHEDULE (a merge, an edge twin copy, two
-    merges in one step) with train's checks, then 16 steps in fused windows
-    of 8 with stage 3 failing at the window boundary, beside the same steps
-    eagerly, equal bit for bit.  Returns the launch counts of both counted
-    runs."""
-    spec = TRAIN_SSM
-    cfg = train_model_config(spec)
-    tokens = spec["batch"] * spec["seq"]
-    hist, launched, record, peak = train_run(
-        "checkfree_plus", PLUS_STEPS, Forced(PLUS_SCHEDULE), spec=spec,
-        check_merge=(2, 3))
-    check_run("train_ssm", hist, launched, steps=PLUS_STEPS, halves=2,
-              merges=PLUS_MERGES, schedule=PLUS_SCHEDULE, spec=spec)
-    check_finite_gradients("train_ssm", record)
-    free = [i for i in range(PLUS_STEPS) if i not in PLUS_SCHEDULE]
-    step_ms = float(np.median([record["step_ms"][i] for i in free]))
-    merge_ms = [ms for name, step, ms in record["recovery_ms"] if step == 2]
-    emit("train_ssm", arch=cfg.name, layers=cfg.num_layers,
-         d_model=cfg.d_model, **model_shape(cfg), stages=spec["stages"],
-         params=cfg.param_count(), dtype=cfg.dtype, masters="float32",
-         strategy="checkfree_plus", batch=spec["batch"], seq=spec["seq"],
-         steps=PLUS_STEPS, schedule=PLUS_SCHEDULE, loss=hist.loss,
-         failures=hist.failures, recovery_errors=hist.recovery_errors,
-         launches=launched, merge_check=record["merge_check"],
-         step_ms=record["step_ms"], step_ms_median_failure_free=step_ms,
-         tokens_per_s=tokens / step_ms * 1e3, grad_norm=record["grad_norm"],
-         recovery_ms=record["recovery_ms"], merge_recovery_ms=merge_ms[0],
-         peak_memory_gib=peak, peak_reserved_gib=record["peak_reserved_gib"],
-         nvidia_smi=smi(),
-         timing="host clock around Trainer.step ending in "
-                "torch.cuda.synchronize(); median over the failure-free "
-                f"steps {free}; recovery_ms: the strategy's handler, "
-                "same clock")
-    total = dict(launched)
-    train_vs_plain(dict(spec, batch=SSM_PLAIN_BATCH), "checkfree_plus")
-    check_backward_on_path(spec, "checkfree_plus")
-    fused = phase_train_fused(spec, "train_ssm_fused", steps=SSM_FUSED_STEPS,
-                              schedule=SSM_FUSED_SCHEDULE,
-                              sizes=SSM_FUSED_SIZES, merges=1, exact=True,
-                              kept_cache=False)
-    for k, n in fused.items():
-        total[k] += n
-    return total
-
-
 def check_aux(phase: str, cfg, aux: list) -> None:
     """Each step's aux (the layers' load-balance losses summed) finite and
     of the order of 1 a layer (MOE_AUX_LOW, MOE_AUX_SPREAD)."""
@@ -2446,32 +2596,37 @@ def check_aux(phase: str, cfg, aux: list) -> None:
                              f"layers")
 
 
-def phase_train_moe() -> dict:
-    """granite-moe-3b-a800m at full width and depth (TRAIN_MOE):
-    ``checkfree_plus`` for 6 eager steps under PLUS_SCHEDULE with train's
-    checks (launches, failures, the step-2 merge of a stage holding the
-    (4, 40, 1536, 512) expert tensors against its plain version, finite
-    gradients, aux of the order of 1 a layer), the backward kernels on one
-    step's own inputs at 24/8 x 64, then 16 steps in fused windows of 8 with
-    stage 3 failing at the window boundary, bit-equal to the same steps
-    eagerly.  Returns the launch counts of both counted runs."""
-    spec = TRAIN_MOE
+def phase_train_plus(spec: dict, phase: str, *, fused: dict,
+                     plain_batch=None) -> dict:
+    """``checkfree_plus`` at ``spec``'s full width for 6 eager steps under
+    PLUS_SCHEDULE (a merge, an edge twin copy, two merges in one step) with
+    train's checks: launches, failures, the step-2 merge against its plain
+    version, finite gradients (MoE: aux of the order of 1 a layer); then,
+    at ``plain_batch`` where given, the first two steps against the same
+    steps with the plain attention and SSD scan; the backward kernels on one
+    step's own inputs; then the fused windows of ``phase_train_fused``
+    (``fused``: its keywords, and the ``batch`` they run at) against the
+    same steps eagerly.  Returns the launch counts of both counted runs."""
     cfg = train_model_config(spec)
     tokens = spec["batch"] * spec["seq"]
     hist, launched, record, peak = train_run(
         "checkfree_plus", PLUS_STEPS, Forced(PLUS_SCHEDULE), spec=spec,
         check_merge=(2, 3))
-    check_run("train_moe", hist, launched, steps=PLUS_STEPS, halves=2,
+    check_run(phase, hist, launched, steps=PLUS_STEPS, halves=2,
               merges=PLUS_MERGES, schedule=PLUS_SCHEDULE, spec=spec)
-    check_finite_gradients("train_moe", record)
-    check_aux("train_moe", cfg, record["aux"])
+    check_finite_gradients(phase, record)
+    if cfg.arch_type == "moe":
+        check_aux(phase, cfg, record["aux"])
     free = [i for i in range(PLUS_STEPS) if i not in PLUS_SCHEDULE]
     step_ms = float(np.median([record["step_ms"][i] for i in free]))
     merge_ms = [ms for name, step, ms in record["recovery_ms"] if step == 2]
-    emit("train_moe", arch=cfg.name, layers=cfg.num_layers,
-         d_model=cfg.d_model, **model_shape(cfg),
-         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
-         d_ff_expert=cfg.moe.d_ff_expert, stages=spec["stages"],
+    moe = (dict(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                d_ff_expert=cfg.moe.d_ff_expert)
+           if cfg.arch_type == "moe" else {})
+    emit(phase, arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, **model_shape(cfg), **moe,
+         stages=spec["stages"], staged_tower=StagePartition(
+             cfg, spec["stages"]).tower_key,
          params=cfg.param_count(), state_gb=16 * cfg.param_count() / 1e9,
          dtype=cfg.dtype, masters="float32", strategy="checkfree_plus",
          batch=spec["batch"], seq=spec["seq"], steps=PLUS_STEPS,
@@ -2488,15 +2643,58 @@ def phase_train_moe() -> dict:
                 f"steps {free}; recovery_ms: the strategy's handler, "
                 "same clock")
     total = dict(launched)
+    if plain_batch:
+        train_vs_plain(dict(spec, batch=plain_batch), "checkfree_plus")
     check_backward_on_path(spec, "checkfree_plus")
-    fused = phase_train_fused(dict(spec, batch=MOE_FUSED_BATCH),
-                              "train_moe_fused", steps=MOE_FUSED_STEPS,
-                              schedule=MOE_FUSED_SCHEDULE,
-                              sizes=MOE_FUSED_SIZES, merges=1, exact=True,
-                              kept_cache=None)
-    for k, n in fused.items():
+    fused = dict(fused)
+    batch = fused.pop("batch", spec["batch"])
+    counted = phase_train_fused(dict(spec, batch=batch), f"{phase}_fused",
+                                **fused)
+    for k, n in counted.items():
         total[k] += n
     return total
+
+
+def phase_train_ssm() -> dict:
+    """mamba2-1.3b at full width and depth (TRAIN_SSM): phase_train_plus,
+    the plain comparison at SSM_PLAIN_BATCH, then 16 steps in fused windows
+    of 8 with stage 3 failing at the window boundary, bit-equal to the same
+    steps eagerly (the capture empties the allocator's cache)."""
+    return phase_train_plus(TRAIN_SSM, "train_ssm", plain_batch=SSM_PLAIN_BATCH,
+                            fused=dict(steps=SSM_FUSED_STEPS,
+                                       schedule=SSM_FUSED_SCHEDULE,
+                                       sizes=SSM_FUSED_SIZES, merges=1,
+                                       exact=True, kept_cache=False))
+
+
+def phase_train_moe() -> dict:
+    """granite-moe-3b-a800m at full width and depth (TRAIN_MOE):
+    phase_train_plus (the step-2 merge of a stage holding the (4, 40, 1536,
+    512) expert tensors, the backward kernels at 24/8 x 64), then 16 steps
+    in fused windows of 8 at MOE_FUSED_BATCH, bit-equal to the same steps
+    eagerly."""
+    return phase_train_plus(TRAIN_MOE, "train_moe",
+                            fused=dict(batch=MOE_FUSED_BATCH,
+                                       steps=MOE_FUSED_STEPS,
+                                       schedule=MOE_FUSED_SCHEDULE,
+                                       sizes=MOE_FUSED_SIZES, merges=1,
+                                       exact=True, kept_cache=None))
+
+
+def phase_train_whisper() -> dict:
+    """whisper-large-v3 at full size (TRAIN_WHISPER): phase_train_plus on
+    the staged encoder tower (the encoder's 32 full attentions and the
+    decoder's 32 cross-attentions run the three flash kernels at Sq != Sk or
+    without a mask), the plain comparison at WHISPER_PLAIN_BATCH, then 16
+    steps in fused windows of 8 at WHISPER_FUSED_BATCH against the same
+    steps eagerly, at train_fused's gate (whether bit-equal is reported)."""
+    return phase_train_plus(TRAIN_WHISPER, "train_whisper",
+                            plain_batch=WHISPER_PLAIN_BATCH,
+                            fused=dict(batch=WHISPER_FUSED_BATCH,
+                                       steps=WHISPER_FUSED_STEPS,
+                                       schedule=WHISPER_FUSED_SCHEDULE,
+                                       sizes=WHISPER_FUSED_SIZES, merges=1,
+                                       exact=False, kept_cache=None))
 
 
 def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
@@ -3594,12 +3792,15 @@ def main() -> int:
     phase_model_moe()
     moe = phase_serve(SERVE_MOE, "serve_moe")
     deepseek = phase_serve(SERVE_DEEPSEEK, "serve_deepseek")
+    whisper = phase_serve(SERVE_WHISPER, "serve_whisper")
+    vlm = phase_serve(SERVE_VLM, "serve_vlm")
     ssd["max_abs_err"] = max(ssd["max_abs_err"], ssm["ssd_err"],
                              hybrid["ssd_err"])
     fwd["max_abs_err"] = max(fwd["max_abs_err"], serve["attn_err"],
                              hybrid["attn_err"], gemma["attn_err"],
                              danube["attn_err"], moe["attn_err"],
-                             deepseek["attn_err"])
+                             deepseek["attn_err"], whisper["attn_err"],
+                             vlm["attn_err"])
     phase_train_model()
     trained = {"train": phase_train(),
                "train_fused": phase_train_fused(),
@@ -3615,6 +3816,8 @@ def main() -> int:
                "train_moe": phase_train_moe(),
                "train_deepseek": phase_train_checkfree(TRAIN_DEEPSEEK,
                                                        "train_deepseek"),
+               "train_whisper": phase_train_whisper(),
+               "train_vlm": phase_train_checkfree(TRAIN_VLM, "train_vlm"),
                "train_ckpt": phase_train_ckpt(),
                "train_neighbor": phase_train_neighbor()}
     # launches: the training paths; by path: every path that ran it
@@ -3629,6 +3832,8 @@ def main() -> int:
         "serve_danube": danube["launches"]["flash_attention_fwd"],
         "serve_moe": moe["launches"]["flash_attention_fwd"],
         "serve_deepseek": deepseek["launches"]["flash_attention_fwd"],
+        "serve_whisper": whisper["launches"]["flash_attention_fwd"],
+        "serve_vlm": vlm["launches"]["flash_attention_fwd"],
         **fwd["launches_by_path"]}
     ssd["launches_by_path"] = {"serve_ssm": ssm["launches"]["ssd_scan"],
                                "serve_hybrid": hybrid["launches"]["ssd_scan"],

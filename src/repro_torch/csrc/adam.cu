@@ -45,7 +45,9 @@
 
 namespace {
 
-constexpr int MAX_LEAVES = 32;
+// leaves a launch takes: whisper-large-v3's tree has 33 (layernorms bring a
+// bias each); both tables stay under the 4 KB of a kernel's parameters
+constexpr int MAX_LEAVES = 64;
 constexpr int THREADS = 256;
 // elements one block of the sum-of-squares pass reads: 16 float4 a thread
 // (kernels/adam.py SUMSQ_CHUNK)

@@ -81,7 +81,10 @@
 // `lane + 32`), then columns `lane + 32 c` of dK and dV.  Only columns below
 // D are written.
 //
-// Rows and keys past S (a ragged sequence) load as zeros and are masked.
+// Queries and keys may differ in number (Sq and Sk: cross-attention, full
+// and non-causal): `dq`'s grid covers the Sq query rows and walks the Sk
+// keys, `dkv`'s covers the Sk keys and walks the Sq query rows.  Rows past
+// Sq and keys past Sk (ragged tails) load as zeros and are masked.
 // Strides are in elements for the batch, head and sequence axes (the last
 // axis is contiguous); every row starts on a 16-byte boundary, which the
 // Python wrapper checks.
@@ -103,12 +106,12 @@ struct Params {
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;                    // (B, Hq, S) contiguous
-  const float* delta;                  // (B, Hq, S) contiguous
+  const float* lse;                    // (B, Hq, Sq) contiguous
+  const float* delta;                  // (B, Hq, Sq) contiguous
   void* dq;
   void* dk;
   void* dv;
-  int B, Hq, Hkv, S;
+  int B, Hq, Hkv, Sq, Sk;              // query and key lengths
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -124,7 +127,7 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 }
 
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
-  return qpos < p.S && kpos < p.S && (!p.causal || kpos <= qpos) &&
+  return qpos < p.Sq && kpos < p.Sk && (!p.causal || kpos <= qpos) &&
          (p.window <= 0 || kpos > qpos - p.window);
 }
 
@@ -169,7 +172,7 @@ struct DkvTile : Dims<D> {
 
 // rows [row0, row0 + rows) of one head, `chunks` 16-byte chunks a row, into
 // a swizzled tile; chunks at or past `valid_chunks` and rows at or past S
-// are written as zeros
+// (the tile's sequence length, Sq or Sk) are written as zeros
 template <int CHUNKS>
 __device__ __forceinline__ void copy_tile(uint4* tile, const __nv_bfloat16* base,
                                           long long row_stride, int row0,
@@ -286,30 +289,30 @@ flash_bwd_dq_bf16_kernel(const Params p) {
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   // the TPU kernel's tile range [lo, hi) (flash_attention.py:133-140)
-  const int nkb = (p.S + BK - 1) / BK;
+  const int nkb = (p.Sk + BK - 1) / BK;
   const int hi = p.causal ? min((q0 + BQ + BK - 1) / BK, nkb) : nkb;
   const int lo = p.window > 0 ? max(floor_div(q0 - p.window + 1, BK), 0) : 0;
 
   auto load_kv = [&](int kt, int stage) {
     copy_tile<CH>(Ks + stage * BK * CH, kg, p.k_ss, kt * BK, BK, Tl::COPY, NT,
-                  p.S);
+                  p.Sk);
     copy_tile<CH>(Vs + stage * BK * CH, vg, p.v_ss, kt * BK, BK, Tl::COPY, NT,
-                  p.S);
+                  p.Sk);
   };
 
   // group 0: Q, dO and the first K/V tile
-  copy_tile<CH>(Qs, qg, p.q_ss, q0, BQ, Tl::COPY, NT, p.S);
-  copy_tile<CH>(dOs, og, p.o_ss, q0, BQ, Tl::COPY, NT, p.S);
+  copy_tile<CH>(Qs, qg, p.q_ss, q0, BQ, Tl::COPY, NT, p.Sq);
+  copy_tile<CH>(dOs, og, p.o_ss, q0, BQ, Tl::COPY, NT, p.Sq);
   load_kv(lo, 0);
   sm90::cp_async_commit();
 
   // lse (in log2 units) and delta of the lane's two rows
-  const long long row_base = ((long long)b * p.Hq + h) * p.S;
+  const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
   float lse2[2], dl[2];
-  lse2[0] = row_a < p.S ? p.lse[row_base + row_a] * LOG2E : 0.f;
-  lse2[1] = row_b < p.S ? p.lse[row_base + row_b] * LOG2E : 0.f;
-  dl[0] = row_a < p.S ? p.delta[row_base + row_a] : 0.f;
-  dl[1] = row_b < p.S ? p.delta[row_base + row_b] : 0.f;
+  lse2[0] = row_a < p.Sq ? p.lse[row_base + row_a] * LOG2E : 0.f;
+  lse2[1] = row_b < p.Sq ? p.lse[row_base + row_b] * LOG2E : 0.f;
+  dl[0] = row_a < p.Sq ? p.delta[row_base + row_a] : 0.f;
+  dl[1] = row_b < p.Sq ? p.delta[row_base + row_b] : 0.f;
   const float sl2 = p.scale * LOG2E;
 
   float acc[NT][4];
@@ -333,7 +336,7 @@ flash_bwd_dq_bf16_kernel(const Params p) {
     // this warp's rows
     const int k0 = kt * BK;
     const int w0 = q0 + wr;
-    const bool edge = k0 + BK > p.S || (p.causal && k0 + BK - 1 > w0) ||
+    const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > w0) ||
                       (p.window > 0 && k0 <= w0 + 15 - p.window);
 #pragma unroll
     for (int n = 0; n < SN; ++n)
@@ -372,7 +375,7 @@ flash_bwd_dq_bf16_kernel(const Params p) {
     const int r = i / NT;
     const int c = i % NT;
     const int row = q0 + wr + r;
-    if (row < p.S)
+    if (row < p.Sq)
       *reinterpret_cast<uint4*>(dqg + (long long)row * p.a_ss + c * 8) =
           Qs[sm90::swizzle<CH>(wr + r, c)];
   }
@@ -412,7 +415,7 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
 
   // the TPU kernel's query-tile range [lo, hi) (flash_attention.py:176-186),
   // walked for each query head of the group in turn
-  const int nqb = (p.S + BQ - 1) / BQ;
+  const int nqb = (p.Sq + BQ - 1) / BQ;
   const int lo = p.causal ? k0 / BQ : 0;
   const int hi = p.window > 0 ? min((k0 + BK + p.window - 2) / BQ + 1, nqb)
                               : nqb;
@@ -424,13 +427,13 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
     const int q0 = (lo + j % per_head) * BQ;
     const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
     const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    copy_tile<CH>(Qs + stage * BQ * CH, qg, p.q_ss, q0, BQ, Tl::COPY, NT, p.S);
+    copy_tile<CH>(Qs + stage * BQ * CH, qg, p.q_ss, q0, BQ, Tl::COPY, NT, p.Sq);
     copy_tile<CH>(dOs + stage * BQ * CH, og, p.o_ss, q0, BQ, Tl::COPY, NT,
-                  p.S);
-    const long long row_base = ((long long)b * p.Hq + h) * p.S;
+                  p.Sq);
+    const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
     for (int i = threadIdx.x; i < 2 * BQ; i += TC_THREADS) {
       const int r = i % BQ;
-      const bool ok = q0 + r < p.S;
+      const bool ok = q0 + r < p.Sq;
       const float* src = (i < BQ ? p.lse : p.delta) + (ok ? row_base + q0 + r : 0);
       sm90::cp_async_4(sm90::smem_addr((i < BQ ? Ls : Dl) + stage * BQ + r),
                        src, ok);
@@ -438,8 +441,8 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
   };
 
   // group 0: K, V and the first query tile
-  copy_tile<CH>(Ks, kg, p.k_ss, k0, BK, Tl::COPY, NT, p.S);
-  copy_tile<CH>(Vs, vg, p.v_ss, k0, BK, Tl::COPY, NT, p.S);
+  copy_tile<CH>(Ks, kg, p.k_ss, k0, BK, Tl::COPY, NT, p.Sk);
+  copy_tile<CH>(Vs, vg, p.v_ss, k0, BK, Tl::COPY, NT, p.Sk);
   if (total > 0) load_q(0, 0);
   sm90::cp_async_commit();
 
@@ -468,7 +471,7 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
 
     // P^T and dS^T in place: rows are keys, columns queries
     const int kw0 = k0 + kr;
-    const bool edge = q0 + BQ > p.S || kw0 + 16 > p.S ||
+    const bool edge = q0 + BQ > p.Sq || kw0 + 16 > p.Sk ||
                       (p.causal && kw0 + 15 > q0) ||
                       (p.window > 0 && kw0 <= q0 + BQ - 1 - p.window);
 #pragma unroll
@@ -523,7 +526,7 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
     const int r = i / NT;
     const int c = i % NT;
     const int row = k0 + r;
-    if (row < p.S) {
+    if (row < p.Sk) {
       *reinterpret_cast<uint4*>(dkg + (long long)row * p.a_ss + c * 8) =
           Ks[sm90::swizzle<CH>(r, c)];
       *reinterpret_cast<uint4*>(dvg + (long long)row * p.c_ss + c * 8) =
@@ -613,31 +616,31 @@ flash_bwd_dq_f32_kernel(const Params p) {
   const float* og = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const long long row_base = ((long long)b * p.Hq + h) * p.S;
+  const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
 
-  load_tile<D, DP, DP>(Qs, qg, p.q_ss, q0, T, p.S, p.scale);
-  load_tile<D, DP, DP>(dOs, og, p.o_ss, q0, T, p.S, 1.f);
+  load_tile<D, DP, DP>(Qs, qg, p.q_ss, q0, T, p.Sq, p.scale);
+  load_tile<D, DP, DP>(dOs, og, p.o_ss, q0, T, p.Sq, 1.f);
 
   float lse[ROWS], delta[ROWS], acc[ROWS][DPL];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int row = q0 + r0 + r;
-    lse[r] = row < p.S ? p.lse[row_base + row] : 0.f;
-    delta[r] = row < p.S ? p.delta[row_base + row] : 0.f;
+    lse[r] = row < p.Sq ? p.lse[row_base + row] : 0.f;
+    delta[r] = row < p.Sq ? p.delta[row_base + row] : 0.f;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
   }
 
   // the TPU kernel's tile range [lo, hi) (flash_attention.py:133-140)
-  const int nkb = (p.S + T - 1) / T;
+  const int nkb = (p.Sk + T - 1) / T;
   const int hi = p.causal ? min((q0 + 2 * T - 1) / T, nkb) : nkb;
   const int lo = p.window > 0 ? max(floor_div(q0 - p.window + 1, T), 0) : 0;
 
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * T;
     __syncthreads();                   // every warp is done with the last K, V
-    load_tile<D, DP, LD>(Ks, kg, p.k_ss, k0, T, p.S, 1.f);
-    load_tile<D, DP, LD>(Vs, vg, p.v_ss, k0, T, p.S, 1.f);
+    load_tile<D, DP, LD>(Ks, kg, p.k_ss, k0, T, p.Sk, 1.f);
+    load_tile<D, DP, LD>(Vs, vg, p.v_ss, k0, T, p.Sk, 1.f);
     __syncthreads();
 
     // s = (scale Q) K^T and dp = dO V^T for this warp's rows against keys
@@ -707,7 +710,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int row = q0 + r0 + r;
-    if (row >= p.S) continue;
+    if (row >= p.Sq) continue;
 #pragma unroll
     for (int c = 0; c < DPL; ++c)
       if (lane + 32 * c < D)
@@ -744,8 +747,8 @@ flash_bwd_dkv_f32_kernel(const Params p) {
 
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile<D, DP, DP>(Ks, kg, p.k_ss, k0, T, p.S, 1.f);
-  load_tile<D, DP, DP>(Vs, vg, p.v_ss, k0, T, p.S, 1.f);
+  load_tile<D, DP, DP>(Ks, kg, p.k_ss, k0, T, p.Sk, 1.f);
+  load_tile<D, DP, DP>(Vs, vg, p.v_ss, k0, T, p.Sk, 1.f);
 
   float dk[ROWS][DPL], dv[ROWS][DPL];
 #pragma unroll
@@ -755,7 +758,7 @@ flash_bwd_dkv_f32_kernel(const Params p) {
   }
 
   // the TPU kernel's query-tile range [lo, hi) (flash_attention.py:176-186)
-  const int nqb = (p.S + T - 1) / T;
+  const int nqb = (p.Sq + T - 1) / T;
   const int lo = p.causal ? k0 / T : 0;
   const int hi = p.window > 0 ? min((k0 + T + p.window - 2) / T + 1, nqb)
                               : nqb;
@@ -764,16 +767,16 @@ flash_bwd_dkv_f32_kernel(const Params p) {
     const int h = hk * group + g;
     const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
     const float* og = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    const long long row_base = ((long long)b * p.Hq + h) * p.S;
+    const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
     for (int it = lo; it < hi; ++it) {
       const int q0 = it * T;
       __syncthreads();                 // every warp is done with the last tile
-      load_tile<D, DP, LD>(Qs, qg, p.q_ss, q0, T, p.S, p.scale);
-      load_tile<D, DP, LD>(dOs, og, p.o_ss, q0, T, p.S, 1.f);
+      load_tile<D, DP, LD>(Qs, qg, p.q_ss, q0, T, p.Sq, p.scale);
+      load_tile<D, DP, LD>(dOs, og, p.o_ss, q0, T, p.Sq, 1.f);
       if (threadIdx.x < T) {
         const int row = q0 + threadIdx.x;
-        Ls[threadIdx.x] = row < p.S ? p.lse[row_base + row] : 0.f;
-        Dl[threadIdx.x] = row < p.S ? p.delta[row_base + row] : 0.f;
+        Ls[threadIdx.x] = row < p.Sq ? p.lse[row_base + row] : 0.f;
+        Dl[threadIdx.x] = row < p.Sq ? p.delta[row_base + row] : 0.f;
       }
       __syncthreads();
 
@@ -856,7 +859,7 @@ flash_bwd_dkv_f32_kernel(const Params p) {
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int row = k0 + r0 + r;
-    if (row >= p.S) continue;
+    if (row >= p.Sk) continue;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       if (lane + 32 * c < D) {
@@ -902,7 +905,7 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, bytes, smem_set);
   if (err != cudaSuccess) return err;
   // the query tile is the slowest grid axis (see the kernels)
-  const dim3 grid(p.Hq, p.B, (p.S + rows - 1) / rows);
+  const dim3 grid(p.Hq, p.B, (p.Sq + rows - 1) / rows);
   kernel<<<grid, threads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
@@ -919,7 +922,7 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, bytes, smem_set);
   if (err != cudaSuccess) return err;
   // the key tile is the slowest grid axis (see the kernels)
-  const dim3 grid(p.Hkv, p.B, (p.S + keys - 1) / keys);
+  const dim3 grid(p.Hkv, p.B, (p.Sk + keys - 1) / keys);
   kernel<<<grid, threads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
@@ -939,8 +942,9 @@ cudaError_t dispatch(const Params& p, int D, bool dkv, cudaStream_t stream) {
 
 int run(const Params& p, int dtype, int D, bool dkv, void* stream) {
   // the smallest tile is 32 rows: its count is the grid's z extent
-  if (p.B <= 0 || p.Hq <= 0 || p.Hkv <= 0 || p.S <= 0 || p.Hq % p.Hkv != 0 ||
-      p.B > 65535 || (p.S + 31) / 32 > 65535)
+  if (p.B <= 0 || p.Hq <= 0 || p.Hkv <= 0 || p.Sq <= 0 || p.Sk <= 0 ||
+      p.Hq % p.Hkv != 0 || p.B > 65535 || (p.Sq + 31) / 32 > 65535 ||
+      (p.Sk + 31) / 32 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -953,19 +957,21 @@ int run(const Params& p, int dtype, int D, bool dkv, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  Strides are
-// in elements; lse and delta are contiguous (B, Hq, S) fp32.  Each returns
+// in elements; q, dO (and dq) are Sq rows long, k, v (and dk, dv) Sk rows (the
+// wrapper allows Sq != Sk only without a causal or window mask); lse and
+// delta are contiguous (B, Hq, Sq) fp32.  Each returns
 // the cudaError_t of its launch (0 on success); nothing is synchronised.
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq,
-    int dtype, int B, int Hq, int Hkv, int S, int D,
+    int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     long long dq_sb, long long dq_sh, long long dq_ss,
     int causal, int window, float scale, void* stream) {
-  Params p{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, Hq, Hkv, S,
+  Params p{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, Hq, Hkv, Sq, Sk,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss, dq_sb, dq_sh, dq_ss, 0, 0, 0,
            causal, window, scale};
@@ -975,7 +981,7 @@ extern "C" int flash_attention_bwd_dq(
 extern "C" int flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
-    int dtype, int B, int Hq, int Hkv, int S, int D,
+    int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
@@ -983,7 +989,7 @@ extern "C" int flash_attention_bwd_dkv(
     long long dk_sb, long long dk_sh, long long dk_ss,
     long long dv_sb, long long dv_sh, long long dv_ss,
     int causal, int window, float scale, void* stream) {
-  Params p{q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, S,
+  Params p{q, k, v, dout, lse, delta, nullptr, dk, dv, B, Hq, Hkv, Sq, Sk,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss,
            causal, window, scale};

@@ -45,7 +45,10 @@
 // memory as fp32, P written over the K tile; a lane owns keys lane and
 // lane + 32 and the output columns lane + 32 c below D.
 //
-// Rows and keys past S (a ragged prompt) are loaded as zeros and masked.
+// Queries and keys may differ in number (Sq and Sk; cross-attention runs
+// full, non-causal attention of Sq decoder rows over Sk encoder keys): the
+// grid covers the Sq query rows, the tile loop the Sk keys.  Rows past Sq
+// and keys past Sk (ragged tails) are loaded as zeros and masked.
 // Strides are passed in elements for the batch, head and sequence axes (the
 // last axis is contiguous), so the model's (B, S, H, D) layout needs no copy.
 // Every row must start on a 16-byte boundary; the Python wrapper checks it.
@@ -70,7 +73,7 @@ struct Params {
   const void* v;
   void* out;
   float* lse;
-  int B, Hq, Hkv, S;
+  int B, Hq, Hkv, Sq, Sk;              // query and key lengths
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -84,7 +87,7 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 }
 
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
-  return kpos < p.S && (!p.causal || kpos <= qpos) &&
+  return qpos < p.Sq && kpos < p.Sk && (!p.causal || kpos <= qpos) &&
          (p.window <= 0 || kpos > qpos - p.window);
 }
 
@@ -112,7 +115,7 @@ struct Tile {
 
 // rows [row0, row0 + rows) of one head, `chunks` 16-byte chunks a row, into
 // a swizzled tile; chunks at or past `valid_chunks` and rows at or past S
-// are written as zeros
+// (the tile's sequence length, Sq or Sk) are written as zeros
 template <int CHUNKS>
 __device__ __forceinline__ void copy_tile(uint4* tile, const __nv_bfloat16* base,
                                           long long row_stride, int row0,
@@ -158,18 +161,18 @@ flash_fwd_bf16_kernel(const Params p) {
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   // the TPU kernel's tile range [lo, hi) (flash_attention.py:48-57)
-  const int nkb = (p.S + BK - 1) / BK;
+  const int nkb = (p.Sk + BK - 1) / BK;
   const int hi = p.causal ? min((q0 + BQ + BK - 1) / BK, nkb) : nkb;
   const int lo = p.window > 0 ? max(floor_div(q0 - p.window + 1, BK), 0) : 0;
 
   auto load_kv = [&](int kt, int stage) {
     copy_tile<CH>(Ks + stage * BK * CH, kg, p.k_ss, kt * BK, BK,
-                  Tl::QK_CHUNKS, NT, p.S);
-    copy_tile<CH>(Vs + stage * BK * CH, vg, p.v_ss, kt * BK, BK, NT, NT, p.S);
+                  Tl::QK_CHUNKS, NT, p.Sk);
+    copy_tile<CH>(Vs + stage * BK * CH, vg, p.v_ss, kt * BK, BK, NT, NT, p.Sk);
   };
 
   // group 0: Q and the first K/V tile
-  copy_tile<CH>(Qs, qg, p.q_ss, q0, BQ, Tl::QK_CHUNKS, NT, p.S);
+  copy_tile<CH>(Qs, qg, p.q_ss, q0, BQ, Tl::QK_CHUNKS, NT, p.Sq);
   load_kv(lo, 0);
   sm90::cp_async_commit();
 
@@ -212,7 +215,7 @@ flash_fwd_bf16_kernel(const Params p) {
     // the mask, only on tiles that cross an edge for this warp's rows
     const int k0 = kt * BK;
     const int w0 = q0 + wr;
-    const bool edge = k0 + BK > p.S || (p.causal && k0 + BK - 1 > w0) ||
+    const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > w0) ||
                       (p.window > 0 && k0 <= w0 + 15 - p.window);
     if (edge) {
 #pragma unroll
@@ -309,15 +312,15 @@ flash_fwd_bf16_kernel(const Params p) {
     const int r = i / NT;
     const int c = i % NT;
     const int row = q0 + wr + r;
-    if (row < p.S)
+    if (row < p.Sq)
       *reinterpret_cast<uint4*>(og + (long long)row * p.o_ss + c * 8) =
           Qs[sm90::swizzle<CH>(wr + r, c)];
   }
   // lse = m + log(l) in the scaled units, as flash_attention.py:85
-  float* lg = p.lse + ((long long)b * p.Hq + h) * p.S;
+  float* lg = p.lse + ((long long)b * p.Hq + h) * p.Sq;
   if (t == 0) {
-    if (row_a < p.S) lg[row_a] = m[0] * p.scale + logf(l[0] + 1e-30f);
-    if (row_b < p.S) lg[row_b] = m[1] * p.scale + logf(l[1] + 1e-30f);
+    if (row_a < p.Sq) lg[row_a] = m[0] * p.scale + logf(l[0] + 1e-30f);
+    if (row_b < p.Sq) lg[row_b] = m[1] * p.scale + logf(l[1] + 1e-30f);
   }
 }
 
@@ -398,7 +401,7 @@ flash_fwd_f32_kernel(const Params p) {
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_tile<D, D>(Qs, qg, p.q_ss, q0, p.S, p.scale);
+  load_tile<D, D>(Qs, qg, p.q_ss, q0, p.Sq, p.scale);
 
   float m[ROWS], l[ROWS], acc[ROWS][DPL];
 #pragma unroll
@@ -410,15 +413,15 @@ flash_fwd_f32_kernel(const Params p) {
   }
 
   // the TPU kernel's tile range [lo, hi) (flash_attention.py:48-57)
-  const int nkb = (p.S + BK - 1) / BK;
+  const int nkb = (p.Sk + BK - 1) / BK;
   const int hi = p.causal ? min((q0 + BQ + BK - 1) / BK, nkb) : nkb;
   const int lo = p.window > 0 ? max(floor_div(q0 - p.window + 1, BK), 0) : 0;
 
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                   // last tile's P and V are consumed
-    load_tile<D, LDK>(Ks, kg, p.k_ss, k0, p.S, 1.f);
-    load_tile<D, D>(Vs, vg, p.v_ss, k0, p.S, 1.f);
+    load_tile<D, LDK>(Ks, kg, p.k_ss, k0, p.Sk, 1.f);
+    load_tile<D, D>(Vs, vg, p.v_ss, k0, p.Sk, 1.f);
     __syncthreads();
 
     // logits of this warp's rows against keys lane and lane + 32
@@ -501,11 +504,11 @@ flash_fwd_f32_kernel(const Params p) {
 
   // out = acc / l and lse = m + log(l), as flash_attention.py:84-85
   float* og = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh;
-  float* lg = p.lse + ((long long)b * p.Hq + h) * p.S;
+  float* lg = p.lse + ((long long)b * p.Hq + h) * p.Sq;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int row = q0 + r0 + r;
-    if (row >= p.S) continue;
+    if (row >= p.Sq) continue;
     const float denom = l[r] + 1e-30f;
 #pragma unroll
     for (int c = 0; c < DPL; ++c)
@@ -542,7 +545,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   }
   // the query tile is the slowest grid axis: blocks are dispatched in order,
   // so every block of the longest causal rows starts in the first waves
-  const dim3 grid(p.Hq, p.B, (p.S + BQ - 1) / BQ);
+  const dim3 grid(p.Hq, p.B, (p.Sq + BQ - 1) / BQ);
   kernel<<<grid, threads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
@@ -562,21 +565,22 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  Strides are
-// in elements.  Returns the cudaError_t of the launch (0 on success); nothing
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q is Sq rows
+// long, k and v Sk rows (the wrapper allows Sq != Sk only without a causal
+// or window mask).  Strides are in elements.  Returns the cudaError_t of the launch (0 on success); nothing
 // is synchronised.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
-    int dtype, int B, int Hq, int Hkv, int S, int D,
+    int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     int causal, int window, float scale, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || Hq % Hkv != 0 ||
-      B > 65535 || (S + BQ - 1) / BQ > 65535)
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || Hq % Hkv != 0 ||
+      B > 65535 || (Sq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, out, lse, B, Hq, Hkv, S,
+  Params p{q, k, v, out, lse, B, Hq, Hkv, Sq, Sk,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

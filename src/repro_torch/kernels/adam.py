@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_LEAVES = 32                       # csrc/adam.cu's table size
+MAX_LEAVES = 64                       # csrc/adam.cu's table size
 SUMSQ_CHUNK = 16384                   # csrc/adam.cu's CHUNK
 
 launches_sumsq = 0

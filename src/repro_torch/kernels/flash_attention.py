@@ -14,6 +14,10 @@ forward launches the forward kernel and saves ``(q, k, v, out, lse)``; its
 backward computes ``delta = rowsum(dO * O)`` in fp32 outside the kernels, as
 the JAX code does, and launches the dq and dkv kernels.
 
+k and v may be longer or shorter than q (Sk != Sq) for cross-attention,
+which is full attention (``causal=False, window=0``); any other mask over
+Sq != Sk is refused, as no path needs it and the JAX code defines none.
+
 ``launches``, ``launches_dq`` and ``launches_dkv`` count each kernel's
 launches in this process.
 """
@@ -40,9 +44,9 @@ launches_dkv = 0
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # without argtypes ctypes passes each pointer as a 32-bit int and cuts it
 _ARGTYPES = {
-    "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P],
-    "flash_attention_bwd_dq": [_P] * 7 + [_I] * 6 + [_LL] * 15 + [_I, _I, _F, _P],
-    "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_LL] * 18 + [_I, _I, _F, _P],
+    "flash_attention_fwd": [_P] * 5 + [_I] * 7 + [_LL] * 12 + [_I, _I, _F, _P],
+    "flash_attention_bwd_dq": [_P] * 7 + [_I] * 7 + [_LL] * 15 + [_I, _I, _F, _P],
+    "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 7 + [_LL] * 18 + [_I, _I, _F, _P],
 }
 
 
@@ -62,9 +66,11 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int, dims=FWD_HEAD_DIMS, **more: torch.Tensor) -> None:
+           window: int, dims=FWD_HEAD_DIMS, *, causal: bool = True,
+           **more: torch.Tensor) -> None:
     """Refuse what the kernel named ``what`` was not built for; the head dim
-    first, against ``dims``, the head dims of that direction."""
+    first, against ``dims``, the head dims of that direction.  k/v of
+    another length than q only for full attention (cross-attention)."""
     if q.shape[-1] not in dims:
         raise NotImplementedError(
             f"{what}: head dim {q.shape[-1]} is not built (supported: "
@@ -89,9 +95,14 @@ def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{what}: {name} needs a contiguous last axis and rows that "
                 f"start on 16-byte boundaries, got strides {t.stride()}")
     b, hq, s, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d):
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
+    if k.shape[2] != s and (causal or window):
+        raise ValueError(
+            f"{what}: q of {s} rows over k/v of {k.shape[2]} takes no causal "
+            f"or window mask (causal={causal}, window={window}); a query "
+            "length other than the key length is cross-attention, full")
     if k.shape[1] == 0 or hq % k.shape[1]:
         raise ValueError(f"{what}: {hq} query heads are not a multiple of "
                          f"{k.shape[1]} kv heads")
@@ -99,8 +110,8 @@ def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.shape != q.shape:
             raise ValueError(f"{what}: {name} {tuple(t.shape)} is not shaped "
                              f"like q {tuple(q.shape)}")
-    if s == 0 or window < 0:
-        raise ValueError(f"{what}: S={s}, window={window}")
+    if s == 0 or k.shape[2] == 0 or window < 0:
+        raise ValueError(f"{what}: Sq={s}, Sk={k.shape[2]}, window={window}")
 
 
 def _like(t: torch.Tensor) -> torch.Tensor:
@@ -124,7 +135,7 @@ def _rows(t: torch.Tensor, name: str, like: torch.Tensor) -> torch.Tensor:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q: (B, Hq, S, D); k/v: (B, Hkv, S, D) -> (out like q, lse (B, Hq, S)).
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (out like q, lse (B, Hq, Sq)).
 
     Any strides with a contiguous last axis: ``out`` takes q's memory layout,
     so a transposed view of the model's (B, S, H, D) tensors goes in and
@@ -132,14 +143,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     synchronise.  No autograd: :class:`FlashAttention` carries the gradient.
     """
     global launches
-    _check("flash_attention_fwd", q, k, v, window)
+    _check("flash_attention_fwd", q, k, v, window, causal=causal)
     b, hq, s, d = q.shape
     out = _like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     lib, fn = _entry("flash_attention_fwd", "flash_attention_fwd")
     with torch.cuda.device(q.device):      # the C side launches on the current device
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), _DTYPE_CODES[q.dtype], b, hq, k.shape[1], s, d,
+                 lse.data_ptr(), _DTYPE_CODES[q.dtype], b, hq, k.shape[1], s,
+                 k.shape[2], d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], int(causal), int(window),
                  1.0 / math.sqrt(d),
@@ -151,9 +163,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                            window: int = 0) -> torch.Tensor:
-    """dQ (like q) from q, k, v, dO and the fp32 (B, Hq, S) lse and delta."""
+    """dQ (like q) from q, k, v, dO and the fp32 (B, Hq, Sq) lse and delta."""
     global launches_dq
-    _check("flash_attention_bwd_dq", q, k, v, window, BWD_HEAD_DIMS, do=do)
+    _check("flash_attention_bwd_dq", q, k, v, window, BWD_HEAD_DIMS,
+           causal=causal, do=do)
     b, hq, s, d = q.shape
     lse, delta = _rows(lse, "lse", q), _rows(delta, "delta", q)
     dq = _like(q)
@@ -161,7 +174,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 _DTYPE_CODES[q.dtype], b, hq, k.shape[1], s, d,
+                 _DTYPE_CODES[q.dtype], b, hq, k.shape[1], s, k.shape[2], d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *do.stride()[:3], *dq.stride()[:3], int(causal), int(window),
                  1.0 / math.sqrt(d),
@@ -176,7 +189,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK like k, dV like v), each summed over its GQA group of query heads."""
     global launches_dkv
-    _check("flash_attention_bwd_dkv", q, k, v, window, BWD_HEAD_DIMS, do=do)
+    _check("flash_attention_bwd_dkv", q, k, v, window, BWD_HEAD_DIMS,
+           causal=causal, do=do)
     b, hq, s, d = q.shape
     lse, delta = _rows(lse, "lse", q), _rows(delta, "delta", q)
     dk, dv = _like(k), _like(v)
@@ -184,7 +198,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 _DTYPE_CODES[q.dtype], b, hq, k.shape[1], s, d,
+                 _DTYPE_CODES[q.dtype], b, hq, k.shape[1], s, k.shape[2], d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
                  int(causal), int(window), 1.0 / math.sqrt(d),
@@ -213,7 +227,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
 
 
 class FlashAttention(torch.autograd.Function):
-    """Kernel layout: q (B, Hq, S, D), k/v (B, Hkv, S, D) -> out like q."""
+    """Kernel layout: q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) -> out like q;
+    the backward gives dk/dv like k/v (Sk rows)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):

@@ -27,12 +27,17 @@ from repro_torch.kernels import stage_merge as SM
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Model layout (B, S, H, D) in and out; k/v may have fewer heads (GQA).
+    """Model layout (B, S, H, D) in and out; k/v may have fewer heads (GQA)
+    and another length than q (cross-attention: ``causal=False, window=0``
+    only, on both devices).
 
     Differentiable on both devices: on the CPU through PyTorch's autograd of
     the plain version, on CUDA through :class:`FA.FlashAttention`, whose
     backward launches the two backward kernels.
     """
+    if k.shape[1] != q.shape[1] and (causal or window):
+        raise ValueError(f"flash_attention: {q.shape[1]} queries over "
+                         f"{k.shape[1]} keys take no causal or window mask")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if q.device.type == "cpu":
         out, _ = ref.flash_attention_ref(qt, kt, vt, causal=causal,

@@ -13,10 +13,14 @@ import torch
 NEG_INF = -1e30
 
 
-def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
-    qpos = torch.arange(s, device=device)[:, None]
-    kpos = torch.arange(s, device=device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+def _mask(sq: int, sk: int, causal: bool, window: int,
+          device) -> torch.Tensor:
+    """(Sq, Sk), True = attend: the JAX masks' meaning (``causal_mask(s,
+    t)`` is ``kpos <= qpos``, ``swa_mask`` adds ``kpos > qpos - window``);
+    cross-attention (Sq != Sk) is ``causal=False, window=0``, all true."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask = mask & (kpos <= qpos)
     if window > 0:
@@ -27,19 +31,21 @@ def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q: (B, Hq, S, D); k/v: (B, Hkv, S, D) -> (out in q's dtype, lse fp32).
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (out in q's dtype, lse fp32).
 
     The function of ``repro.kernels.ref.flash_attention_ref``, plus the
-    per-row logsumexp ``lse`` (B, Hq, S) that the forward kernel writes.
+    per-row logsumexp ``lse`` (B, Hq, Sq) that the forward kernel writes.
+    Sk may differ from Sq (cross-attention) with ``causal=False, window=0``.
     GQA: query head h reads kv head h // (Hq // Hkv).  Differentiable by
     PyTorch's own autograd.
     """
-    s, d = q.shape[2], q.shape[3]
+    d = q.shape[3]
     g = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(g, dim=1)
     v = v.repeat_interleave(g, dim=1)
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) / math.sqrt(d)
-    logits = torch.where(_mask(s, causal, window, q.device), logits, NEG_INF)
+    mask = _mask(q.shape[2], k.shape[2], causal, window, q.device)
+    logits = torch.where(mask, logits, NEG_INF)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhst,bhtd->bhsd", probs, v.float())
@@ -57,17 +63,18 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (module docstring), in fp32 from the forward's ``lse``:
     P = exp(s - lse) (masked -> 0), D = rowsum(dO * O),
     dV = P^T dO, dS = P (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q,
-    with dK and dV summed over each kv head's group of query heads.
+    with dK and dV summed over each kv head's group of query heads.  k/v may
+    be Sk long (cross-attention, ``causal=False, window=0``).
     """
     b, hq, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = 1.0 / math.sqrt(d)
     kk = k.float().repeat_interleave(g, dim=1)
     vv = v.float().repeat_interleave(g, dim=1)
     qf, dof = q.float(), do.float()
     logits = torch.einsum("bhsd,bhtd->bhst", qf * scale, kk)
-    mask = _mask(s, causal, window, q.device)
+    mask = _mask(s, sk, causal, window, q.device)
     p = torch.where(mask, torch.exp(logits - lse[..., None]), 0.0)
     delta = (dof * out.float()).sum(-1)
     dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
@@ -75,8 +82,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhst,bhtd->bhsd", ds, kk) * scale
     dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
-    dk = dk.reshape(b, hkv, g, s, d).sum(2)
-    dv = dv.reshape(b, hkv, g, s, d).sum(2)
+    dk = dk.reshape(b, hkv, g, sk, d).sum(2)
+    dv = dv.reshape(b, hkv, g, sk, d).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -190,12 +190,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         generator=torch.Generator("cuda").manual_seed(args.seed))
     raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
         np.random.default_rng(args.seed), args.batch, args.prompt_len)
-    toks = torch.from_numpy(batch_for(cfg, raw)["tokens"]).cuda()
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in batch_for(cfg, raw).items() if k != "labels"}
     steps = args.decode_steps
-    capacity = args.prompt_len + 3 * steps + 2
+    # the VLM's patches sit in the cache before the prompt
+    capacity = cfg.num_patches + args.prompt_len + 3 * steps + 2
 
     def prefill():
-        return model.prefill({"tokens": toks}, capacity)
+        return model.prefill(batch, capacity)
 
     state = {}
 

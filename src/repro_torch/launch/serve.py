@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-llama-1.5b \
         --full --batch 8 --prompt-len 512 --new-tokens 32
 
-The PyTorch counterpart of ``repro.launch.serve``, for the dense, ssm and
-hybrid families.  It runs on the card (``--device cuda``, the default),
+The PyTorch counterpart of ``repro.launch.serve``, for every family (the
+encoder-decoder's frames and the VLM's patches come from the same seeded
+draw as JAX's).  It runs on the card (``--device cuda``, the default),
 where prefill goes through the flash-attention kernel and, for the ssm and
 hybrid families, the SSD scan kernel; ``--device cpu`` runs the plain
 versions.
@@ -17,7 +18,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -40,20 +41,27 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: Model, tokens: torch.Tensor, *, new_tokens: int,
-             window: int = 0) -> Generation:
-    """Greedy generation of ``new_tokens`` tokens after the (B, S) prompt.
+def generate(model: Model, batch: Union[torch.Tensor, Dict[str, torch.Tensor]],
+             *, new_tokens: int, window: int = 0) -> Generation:
+    """Greedy generation of ``new_tokens`` tokens after the prompt: a batch
+    dict with the (B, S) ``tokens`` and the family's other inputs (``frames``,
+    ``patches``), or the (B, S) tokens alone.
 
-    ``window`` > 0 serves from a ring KV cache of that capacity.  The argmax
-    stays on the device: the generated tokens cross to the host in one copy
-    at the end.  The two synchronisations only time the phases.
+    ``window`` > 0 serves from a ring KV cache of that capacity; otherwise
+    the cache holds the prompt, the VLM's P patch positions before it, and
+    the new tokens.  The argmax stays on the device: the generated tokens
+    cross to the host in one copy at the end.  The two synchronisations only
+    time the phases.
     """
     if new_tokens < 1:
         raise ValueError(f"new_tokens must be >= 1, got {new_tokens}")
-    b, s = tokens.shape
-    capacity = window or (s + new_tokens)
+    if torch.is_tensor(batch):
+        batch = {"tokens": batch}
+    s = batch["tokens"].shape[1]
+    prefix = batch["patches"].shape[1] if "patches" in batch else 0
+    capacity = window or (prefix + s + new_tokens)
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": tokens}, capacity)
+    logits, cache = model.prefill(batch, capacity)
     next_tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
     _sync(model.device)
     t_prefill = time.perf_counter() - t0
@@ -104,8 +112,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Generation:
     src = SyntheticLM(cfg.vocab_size, seed=7)
     rng = np.random.default_rng(args.seed)
     raw = src.sample(rng, args.batch, args.prompt_len)
-    tokens = torch.from_numpy(batch_for(cfg, raw, rng)["tokens"]).to(device)
-    res = generate(model, tokens, new_tokens=args.new_tokens,
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in batch_for(cfg, raw, rng).items() if k != "labels"}
+    res = generate(model, batch, new_tokens=args.new_tokens,
                    window=args.window)
     steps = args.new_tokens - 1
     log(f"prefill: {res.prefill_s * 1e3:.1f} ms "

@@ -4,10 +4,11 @@ The counterpart of ``repro.models.layers``: parameters are nested dicts of
 tensors with the JAX package's keys and shapes, and each layer is a plain
 function on tensors.  Full-sequence attention runs through
 ``kernels.ops.flash_attention`` (the CUDA kernel on the card) where the JAX
-code runs ``_sdpa`` with a causal or sliding-window mask; single-token decode
-attention stays plain PyTorch, as the JAX package computes it outside any
-kernel.  ``cross_entropy`` is plain PyTorch with a memory-lean backward, as
-the JAX package computes it outside any kernel.
+code runs ``_sdpa`` with a causal, sliding-window or no mask, cross-attention
+over another sequence's keys included; single-token decode attention stays
+plain PyTorch, as the JAX package computes it outside any kernel.
+``cross_entropy`` is plain PyTorch with a memory-lean backward, as the JAX
+package computes it outside any kernel.
 """
 from __future__ import annotations
 
@@ -159,32 +160,47 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device,
 
 
 def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
-         cfg: ModelConfig):
+         cfg: ModelConfig, *, use_rope: bool = True,
+         kv: Optional[torch.Tensor] = None):
+    """q from ``x``; k, v from ``kv`` (another sequence: cross-attention,
+    no rope) or from ``x``.  Rope is the caller's choice, as in the JAX
+    layer: every decoder-only family passes ``use_rope=True`` whatever
+    cfg.use_rope says (use_rope=False there only adds the learned
+    pos_embed); the encoder-decoder family passes False."""
     hd = cfg.resolved_head_dim
     b, s, _ = x.shape
+    src = x if kv is None else kv
+    t = src.shape[1]
     q = (x @ p["wq"]).view(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"]).view(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).view(b, s, cfg.num_kv_heads, hd)
+    k = (src @ p["wk"]).view(b, t, cfg.num_kv_heads, hd)
+    v = (src @ p["wv"]).view(b, t, cfg.num_kv_heads, hd)
     if cfg.use_qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.rmsnorm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.rmsnorm_eps)
-    # rope on every self-attention call, as the JAX decoder does whatever
-    # cfg.use_rope says (use_rope=False only adds the learned pos_embed)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope and kv is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
-              cfg: ModelConfig, *, window: int = 0, return_kv: bool = False):
-    """Causal full-sequence attention (forward / prefill).
+              cfg: ModelConfig, *, causal: bool = True, window: int = 0,
+              kv: Optional[torch.Tensor] = None, use_rope: bool = True,
+              return_kv: bool = False):
+    """Full-sequence attention (forward / prefill).
 
-    ``window`` > 0 limits each query to the last ``window`` keys (SWA).
-    ``return_kv``: also return the (k, v) tensors (prefill cache building).
+    ``causal``: each query sees the keys up to its own position (False: the
+    encoder's bidirectional attention).  ``window`` > 0 limits each query to
+    the last ``window`` keys (SWA).  ``kv``: (B, T, d) states of another
+    sequence (the encoder's), the source of k and v: cross-attention, full
+    and without rope.  ``return_kv``: also return the (k, v) tensors
+    (prefill cache building).
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, positions, cfg)
-    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    q, k, v = _qkv(p, x, positions, cfg, use_rope=use_rope, kv=kv)
+    if kv is not None:
+        causal, window = False, 0
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
     out = out.reshape(b, s, -1) @ p["wo"]
     if return_kv:
         return out, (k, v)
@@ -210,6 +226,7 @@ def _sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_decode(p: Params, x: torch.Tensor, pos: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      cfg: ModelConfig, *, window: int = 0,
+                     use_rope: bool = True,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token decode against a KV cache.
 
@@ -218,12 +235,13 @@ def attention_decode(p: Params, x: torch.Tensor, pos: torch.Tensor,
     ``window`` > 0.  The new k/v are written into the cache IN PLACE at slot
     ``pos`` (``pos % C`` for a ring); the JAX code blends a one-hot row in,
     ``cache * (1 - oh) + oh * k``, which gives the same values for finite
-    caches.  Returns (out, cache_k, cache_v).
+    caches.  ``use_rope=False``: no rotation (the encoder-decoder family's
+    decoder).  Returns (out, cache_k, cache_v).
     """
     hd = cfg.resolved_head_dim
     b = x.shape[0]
     cap = cache_k.shape[1]
-    q, k, v = _qkv(p, x, pos[:, None], cfg)
+    q, k, v = _qkv(p, x, pos[:, None], cfg, use_rope=use_rope)
 
     slot = pos % cap if window > 0 else pos
     rows = torch.arange(b, device=x.device)
@@ -243,6 +261,19 @@ def attention_decode(p: Params, x: torch.Tensor, pos: torch.Tensor,
     out = _sdpa_decode(q, cache_k, cache_v, valid[:, None, :],
                        1.0 / math.sqrt(hd))
     return out.reshape(b, 1, -1) @ p["wo"], cache_k, cache_v
+
+
+def cross_attention_decode(p: Params, x: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One decoder token against the cached cross K/V: x (B, 1, d); ck/cv
+    (B, F, nkv, hd), computed once at prefill.  Every key is visible and
+    there is no rope (``repro/models/encdec.py`` ``decode_step``)."""
+    hd = cfg.resolved_head_dim
+    b = x.shape[0]
+    q = (x @ p["wq"]).view(b, 1, cfg.num_heads, hd)
+    mask = torch.ones((b, 1, ck.shape[1]), dtype=torch.bool, device=x.device)
+    out = _sdpa_decode(q, ck, cv, mask, 1.0 / math.sqrt(hd))
+    return out.reshape(b, 1, -1) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

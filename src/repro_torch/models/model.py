@@ -3,16 +3,18 @@
 ``build_model(cfg, ...)`` returns a :class:`Model`, an ``nn.Module`` that owns
 the serving parameters and exposes init / apply / loss / init_cache /
 prefill / decode_step with the JAX package's batch convention
-(``{"tokens": (B, S) int, "labels": (B, S) int}``).  ``loss`` takes an
+(``{"tokens": (B, S) int, "labels": (B, S) int}``, with ``"frames"`` (B, F,
+d) for the encoder-decoder family and ``"patches"`` (B, P, D_PATCH) for the
+VLM family).  ``loss`` takes an
 explicit tree of fp32 master parameters (training); a trainer builds the
 facade with ``weights=False`` so that no second copy of the weights is made.
 The parameters keep the JAX layout: the same nested keys, decoder blocks
 stacked on axis 0, so ``state_dict`` keys read ``tree.blocks.attn.wq`` and
 ``repro_torch.convert`` carries JAX parameters across one to one.
 
-The dense, MoE, ssm and hybrid families are ported, to serve and to train:
-``loss`` dispatches by family as the JAX ``Model.loss`` does.  The others
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Every family of the configs is ported, to serve and to train: dense, MoE,
+ssm, hybrid, encoder-decoder and VLM.  ``loss`` dispatches by family as the
+JAX ``Model.loss`` does.
 """
 from __future__ import annotations
 
@@ -22,20 +24,21 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as H
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
+from repro_torch.models import vlm as V
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
 
-_NOT_PORTED = {
-    "encdec": 'ROADMAP.md queue 1, "Encoder-decoder and VLM"',
-    "vlm": 'ROADMAP.md queue 1, "Encoder-decoder and VLM"',
-}
 # the family modules: init, forward, init_cache, prefill, decode_step
-_FAMILIES = {"dense": T, "moe": T, "ssm": S, "hybrid": H}
+_FAMILIES = {"dense": T, "moe": T, "ssm": S, "hybrid": H, "encdec": ED,
+             "vlm": V}
+# the batch keys a family's forward and prefill take beside the tokens
+_INPUTS = {"encdec": ("frames",), "vlm": ("patches",)}
 
 
 def _to_module(tree: Params) -> nn.Module:
@@ -75,10 +78,6 @@ class Model(nn.Module):
                  weights: bool = True):
         super().__init__()
         cfg.validate()
-        if cfg.arch_type not in _FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.arch_type} models are not ported yet: "
-                f"{_NOT_PORTED[cfg.arch_type]}")
         self.cfg = cfg
         self.family = _FAMILIES[cfg.arch_type]
         self.device = torch.device(device)
@@ -110,6 +109,11 @@ class Model(nn.Module):
         drawn (the values of casting the whole tree afterwards)."""
         return self.family.init(generator, self.cfg, self.device, dtype)
 
+    def inputs(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """The batch's inputs beside the tokens that the family takes: the
+        encoder-decoder's ``frames``, the VLM's ``patches``."""
+        return {k: batch[k] for k in _INPUTS.get(self.cfg.arch_type, ())}
+
     def loss(self, params: Params, batch: Batch, *,
              order: Optional[Sequence[int]] = None,
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -121,11 +125,15 @@ class Model(nn.Module):
         ``order`` walks the family's staged tower in that order (CheckFree+'s
         swapped stages).  aux is the MoE layers' load-balance loss summed
         over the layers (0 for the other families), added with weight
-        ``cfg.moe.router_aux_coef``.
+        ``cfg.moe.router_aux_coef``.  The VLM's P patch positions carry no
+        loss: as JAX drops their logits, they are not unembedded.
         """
         cfg = self.cfg
+        kw = self.inputs(batch)
+        if cfg.arch_type == "vlm":
+            kw["prefix_logits"] = False
         logits, aux = self.family.forward(L.cast_tree(params, cfg.dtype), cfg,
-                                          batch["tokens"], order=order)
+                                          batch["tokens"], order=order, **kw)
         ce = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
         return ce + cfg.moe.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
@@ -136,7 +144,8 @@ class Model(nn.Module):
 
         Named after the JAX ``Model.apply``; it shadows ``nn.Module.apply``.
         """
-        return self.family.forward(self.params, self.cfg, batch["tokens"])
+        return self.family.forward(self.params, self.cfg, batch["tokens"],
+                                   **self.inputs(batch))
 
     def init_cache(self, batch: int, capacity: int) -> Params:
         return self.family.init_cache(self.cfg, batch, capacity, self.device)
@@ -144,7 +153,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: Batch, capacity: int) -> Tuple[torch.Tensor, Params]:
         return self.family.prefill(self.params, self.cfg, batch["tokens"],
-                                   capacity)
+                                   capacity, **self.inputs(batch))
 
     @torch.no_grad()
     def decode_step(self, cache: Params, tokens: torch.Tensor, *,

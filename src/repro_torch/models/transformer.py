@@ -11,6 +11,9 @@ tensors (no copies).  Three entry points:
 * :func:`forward`      — full-sequence forward (causal), in an optional
                          layer order (CheckFree+'s swapped stages).
 * :func:`prefill`      — full-sequence forward that also fills the KV cache.
+
+Both take optional ``inputs_embeds``, a (B, P, d) prefix of embeddings
+prepended to the tokens' (the VLM family's projected patches).
 * :func:`decode_step`  — one-token decode against a (possibly ring) KV cache.
 
 Parameters arrive already in ``cfg.dtype``: ``models.model.Model`` casts its
@@ -137,6 +140,22 @@ def token_positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=tokens.device).expand(b, s)
 
 
+def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 inputs_embeds: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x (B, P + S, d), positions (B, P + S)): the tokens' embeddings
+    after the ``inputs_embeds`` prefix of P positions (none by default);
+    the tokens sit at positions P..P+S-1, as in the JAX ``forward``."""
+    if inputs_embeds is None:
+        positions = token_positions(tokens)
+        return embed_tokens(params, cfg, tokens, positions), positions
+    b, s = tokens.shape
+    pfx = inputs_embeds.shape[1]
+    positions = torch.arange(s + pfx, device=tokens.device).expand(b, s + pfx)
+    x = embed_tokens(params, cfg, tokens, positions[:, pfx:])
+    return torch.cat([inputs_embeds.to(x.dtype), x], dim=1), positions
+
+
 def layer_order(num_layers: int,
                 order: Optional[Sequence[int]]) -> List[int]:
     """The layers a forward walks: ``order``, a permutation of
@@ -150,6 +169,8 @@ def layer_order(num_layers: int,
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             order: Optional[Sequence[int]] = None,
+            inputs_embeds: Optional[torch.Tensor] = None,
+            prefix_logits: bool = True,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (logits (B, S, V), aux): the JAX family's
     ``return_aux`` form, aux the MoE layers' load-balance losses summed over
@@ -160,16 +181,18 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     It is the counterpart of gathering a permuted tower
     (``repro/core/trainer.py:_permute_tower``): the same values without
     copying the tower, and autograd sums each layer's gradients into its own
-    slice whichever position ran it.
+    slice whichever position ran it.  With ``inputs_embeds`` the logits
+    cover the prefix too, (B, P + S, V), unless ``prefix_logits`` is False.
     """
-    positions = token_positions(tokens)
-    x = embed_tokens(params, cfg, tokens, positions)
+    x, positions = embed_inputs(params, cfg, tokens, inputs_embeds)
     blocks = unstack(params["blocks"], cfg.num_layers)
     aux = 0.0
     for i, swa in zip(layer_order(cfg.num_layers, order), swa_flags(cfg)):
         x, _, a = _block(blocks[i], x, positions, cfg,
                          cfg.sliding_window if swa else 0)
         aux = aux + a
+    if inputs_embeds is not None and not prefix_logits:
+        x = x[:, inputs_embeds.shape[1]:]
     logits = logits_from_hidden(params, cfg, x)
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -216,20 +239,22 @@ def store_kv(cache: Params, i: int, k: torch.Tensor, v: torch.Tensor,
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            capacity: int) -> Tuple[torch.Tensor, Params]:
+            capacity: int, *, inputs_embeds: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, Params]:
     """Causal forward over the prompt -> (last-token logits (B, 1, V), cache).
 
     Each layer's K/V go straight into a fixed-capacity cache.  When the
     capacity equals the sliding window and the prompt is longer, the cache is
     a ring holding the last ``window`` positions, absolute position p at slot
-    p % window.
+    p % window.  ``inputs_embeds``: a (B, P, d) prefix; the cache then covers
+    P + S positions.
     """
-    b, s = tokens.shape
+    b = tokens.shape[0]
+    x, positions = embed_inputs(params, cfg, tokens, inputs_embeds)
+    s = x.shape[1]
     window = cfg.sliding_window
     slots = kv_slots(s, capacity, window, tokens.device)
-    positions = token_positions(tokens)
     cache = init_cache(cfg, b, capacity, tokens.device)
-    x = embed_tokens(params, cfg, tokens, positions)
     blocks = unstack(params["blocks"], cfg.num_layers)
     for i, swa in enumerate(swa_flags(cfg)):
         x, (k, v), _ = _block(blocks[i], x, positions, cfg,

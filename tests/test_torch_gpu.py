@@ -1633,3 +1633,185 @@ def test_flash_kernels_at_granite_attention_shape(dtype, s):
     for g, w in zip(got, grads):
         assert g.dtype == dtype and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (Sq != Sk) and the encoder-decoder and VLM families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", FA.FWD_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("sq", [1, 65, 416, 448])
+def test_flash_kernels_over_another_key_length(d, dtype, hq, hkv, sq):
+    """Cross-attention: Sq query rows over 1500 keys (whisper's frames,
+    23 tiles of 64 and a ragged 28), full; the forward and both backward
+    kernels against their plain versions, dk and dv Sk rows long."""
+    sk = 1500
+    rng = np.random.default_rng(sq + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(device="cuda", dtype=dtype)
+               for shape in ((1, hq, sq, d), (1, hkv, sk, d), (1, hkv, sk, d)))
+    before = (FA.launches, FA.launches_dq, FA.launches_dkv)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=False)
+    want, want_lse = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    do = torch.from_numpy(rng.standard_normal((1, hq, sq, d)).astype(
+        np.float32)).to(device="cuda", dtype=dtype)
+    got = FA.flash_attention_bwd(q, k, v, want, want_lse, do, causal=False)
+    torch.cuda.synchronize()
+    assert (FA.launches, FA.launches_dq, FA.launches_dkv) == tuple(
+        n + 1 for n in before)
+    grads = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, do, False, 0)
+    for g, w, name in zip(got, grads, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[dtype],
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.gpu
+def test_flash_kernels_refuse_a_mask_over_another_key_length():
+    q = torch.zeros((1, 2, 16, 64), device="cuda", dtype=torch.bfloat16)
+    k = v = torch.zeros((1, 2, 40, 64), device="cuda", dtype=torch.bfloat16)
+    lse = delta = torch.zeros((1, 2, 16), device="cuda")
+    before = (FA.launches, FA.launches_dq, FA.launches_dkv)
+    for kw in (dict(causal=True), dict(causal=False, window=8)):
+        with pytest.raises(ValueError, match="no causal or window mask"):
+            FA.flash_attention_fwd(q, k, v, **kw)
+        with pytest.raises(ValueError, match="no causal or window mask"):
+            FA.flash_attention_bwd_dq(q, k, v, q, lse, delta, **kw)
+        with pytest.raises(ValueError, match="no causal or window mask"):
+            FA.flash_attention_bwd_dkv(q, k, v, q, lse, delta, **kw)
+    assert (FA.launches, FA.launches_dq, FA.launches_dkv) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-76b"])
+def test_encdec_and_vlm_on_card_match_cpu(arch):
+    """The reduced models, fp32: prefill (logits and every cache tensor),
+    two decode steps and the loss's gradients on the card against the CPU;
+    the prefill launches the forward kernel 3 times a decoder layer pair
+    (encoder, self, cross) for whisper, once a layer for the VLM."""
+    from repro_torch import tree as TR
+    from repro_torch.data.pipeline import batch_for
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
+    params = Model(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(0)).params
+    cpu = Model(cfg, params, device="cpu")
+    card = Model(cfg, params, device="cuda")
+    raw = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(2, 38))
+    batch = {k: torch.from_numpy(v) for k, v in
+             batch_for(cfg, raw, np.random.default_rng(4)).items()}
+    on_card = {k: t.cuda() for k, t in batch.items()}
+    cap = cfg.num_patches + 37 + 4
+    before = FA.launches
+    logits, cache = card.prefill(on_card, cap)
+    torch.cuda.synchronize()
+    per = (cfg.num_encoder_layers + 2 * cfg.num_layers
+           if cfg.arch_type == "encdec" else cfg.num_layers)
+    assert FA.launches == before + per
+    want, want_cache = cpu.prefill(batch, cap)
+    torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+    for key in want_cache:
+        torch.testing.assert_close(cache[key].cpu(), want_cache[key],
+                                   atol=1e-4, rtol=1e-4)
+    nxt = want[:, -1].argmax(-1).to(torch.int32)
+    for _ in range(2):
+        logits, cache = card.decode_step(cache, nxt.cuda())
+        want, want_cache = cpu.decode_step(want_cache, nxt)
+        torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+        nxt = want[:, -1].argmax(-1).to(torch.int32)
+    grads = []
+    for device, b in (("cuda", on_card), ("cpu", batch)):
+        leaves = TR.map(lambda t: t.detach().to(device).requires_grad_(),
+                        params)
+        loss, _ = Model(cfg, device=device, weights=False).loss(leaves, b)
+        loss.backward()
+        grads.append((loss, TR.leaves(TR.map(lambda t: t.grad, leaves))))
+    (card_loss, card_g), (cpu_loss, cpu_g) = grads
+    torch.testing.assert_close(card_loss.cpu(), cpu_loss, atol=1e-4, rtol=1e-4)
+    for a, b in zip(card_g, cpu_g):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_adam_kernels_take_every_leaf_of_a_whisper_tree():
+    """whisper-large-v3's tree has 33 leaves (its layernorms bring a bias
+    each): one launch of each Adam kernel takes them all, against the plain
+    versions as above; more than the table holds is refused."""
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.kernels import adam as AD
+    from repro_torch.optim import adam as A
+    cfg = reduced(get_config("whisper-large-v3")).replace(dtype="float32")
+    tree = Model(cfg, device="cuda", weights=False).init(
+        torch.Generator("cuda").manual_seed(0))
+    from repro_torch import tree as TR
+    from repro_torch.core.stages import StagePartition
+    params = TR.leaves(tree)
+    assert len(params) == 33 <= AD.MAX_LEAVES
+    part = StagePartition(cfg, 2)
+    tower = part.tower_flags(tree)
+    grads = [torch.randn_like(p) for p in params]
+    per_layer, total = AD.adam_sumsq(grads, tower, part.num_layers)
+    want_layer, want_total = ref.adam_sumsq_ref(grads, tower, part.num_layers)
+    torch.testing.assert_close(per_layer, want_layer, rtol=1e-6, atol=0)
+    torch.testing.assert_close(total, want_total, rtol=1e-6, atol=0)
+    opt = OptimizerConfig(lr=1e-2, warmup_steps=2, total_steps=20)
+    scalars = A.adam_scalars(opt, torch.tensor(5, device="cuda"),
+                             torch.tensor(1.0, device="cuda"), total.sqrt())
+    m = [0.1 * g for g in grads]
+    v = [0.01 * g.square() for g in grads]
+    got = ([t.clone() for t in params], [t.clone() for t in m],
+           [t.clone() for t in v])
+    AD.adam_update(got[0], grads, got[1], got[2], scalars,
+                   **A.update_options(opt))
+    want = ([t.clone() for t in params], [t.clone() for t in m],
+            [t.clone() for t in v])
+    ref.adam_update_ref(want[0], grads, want[1], want[2], scalars,
+                        **A.update_options(opt))
+    for gs, ws in zip(got, want):
+        for a, w in zip(gs, ws):
+            assert bool(((a - w).abs() <= 1e-6 * (1 + w.abs())).all())
+    many = grads * 2
+    with pytest.raises(ValueError, match="table holds"):
+        AD.adam_sumsq(many, tower * 2, part.num_layers)
+
+
+def encdec_run(device, window, params):
+    from repro_torch import tree as TR
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+    cfg = reduced(get_config("whisper-large-v3")).replace(
+        num_encoder_layers=4, dtype="float32")
+    trainer = Trainer(Model(cfg, device=device, weights=False),
+                      fused_config(window), schedule=FusedForced())
+    state, hist = trainer.run(make_batches(cfg, batch=4, seq=64),
+                              params=TR.clone(params))
+    return trainer, TR.map(lambda t: t.detach().cpu(), state.params), hist
+
+
+@pytest.mark.gpu
+def test_whisper_captured_windows_match_eager_steps_on_card():
+    """Reduced whisper (4 encoder layers in 2 stages), ``checkfree_plus``,
+    windows of 8 (graph replays) against eager steps on the card, within
+    1e-5 relative; each captured step launches the forward, dq and dkv
+    kernels 16 times (two halves of 4 encoder, 2 self and 2 cross)."""
+    from repro_torch import tree as TR
+    cfg = reduced(get_config("whisper-large-v3")).replace(
+        num_encoder_layers=4, dtype="float32")
+    params = Model(cfg, device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+    trainer, p8, h8 = encdec_run("cuda", 8, params)
+    _, p1, h1 = encdec_run("cuda", 1, params)
+    assert h8.failures == h1.failures == [(5, 1)]
+    assert h8.dispatches < h1.dispatches
+    np.testing.assert_allclose(h8.loss, h1.loss, rtol=1e-5)
+    for a, b in zip(TR.leaves(p8), TR.leaves(p1)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    recorded = trainer.window.recorded_launches
+    assert trainer.window.captures == 1
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert recorded[name] == 16, (name, recorded)

@@ -250,16 +250,6 @@ def test_model_owns_parameters_in_jax_layout():
     assert abs(std * np.sqrt(cfg.d_ff) - 0.987) < 0.02   # cut at 3 sigma
 
 
-def test_non_dense_families_name_their_roadmap_item():
-    """The families still to port (encoder-decoder and VLM) refuse by the
-    title of their ROADMAP.md item."""
-    for arch in ("whisper-large-v3", "internvl2-76b"):
-        with pytest.raises(NotImplementedError,
-                           match='ROADMAP.md queue 1, "Encoder-decoder and '
-                                 'VLM"'):
-            Model(C.reduced(C.get_config(arch)), device="cpu")
-
-
 def test_package_imports_no_jax_and_nothing_of_repro():
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
@@ -275,7 +265,8 @@ def test_package_imports_no_jax_and_nothing_of_repro():
         "for m in ('launch.serve', 'launch.train', 'core.trainer', "
         "'core.recovery', 'core.stages', 'core.failures', 'core.walltime', "
         "'recovery.strategies', 'optim.adam', 'kernels.stage_merge', "
-        "'models.ssm', 'models.hybrid', 'models.moe', 'kernels.ssd_scan', "
+        "'models.ssm', 'models.hybrid', 'models.moe', 'models.encdec', "
+        "'models.vlm', 'kernels.ssd_scan', "
         "'statestore', "
         "'statestore.codec', 'statestore.tiers', 'statestore.store', "
         "'statestore.snapshot', 'statestore.policy', 'statestore.faults', "

@@ -4,6 +4,7 @@ time, in alternating order.
     python3 tools/chip_compare.py serve A B
     python3 tools/chip_compare.py profile A B
     python3 tools/chip_compare.py ssd A B
+    python3 tools/chip_compare.py flash-bits A B
     python3 tools/chip_compare.py single-rounding SRC DST
 
 A and B are checkouts that hold ``chip_smoke.py`` and ``src/`` (``.`` for
@@ -26,6 +27,12 @@ its own code.  Every process prints JSON lines labelled with its checkout.
   and the serve phases of mamba2-1.3b and zamba2-2.7b (logits against the
   plain-version prefill).  Both checkouts need a chip_smoke whose
   ``ssd_cases`` yields the B and C offset as a sixth field.
+* ``flash-bits``: A, B; each process runs the three flash kernels (forward
+  out and lse, dq, dk and dv) over a sweep at equal query and key lengths
+  (fp32 and bf16, every head dim, MHA, GQA and MQA, causal, windowed and
+  full, S 1 to 1000) on the same seeded inputs and prints a SHA-256 of each
+  output's bytes; the comparison passes (exit 0) only where B's bits equal
+  A's in every case.
 * ``single-rounding``: copies checkout SRC (``chip_smoke.py`` and ``src/``)
   to DST with the bf16 SSD kernel rounding att and the state copy to bf16
   once instead of splitting them into hi and lo parts (x w stays split):
@@ -44,7 +51,42 @@ import time
 import traceback
 
 HERE = os.path.abspath(__file__)
-ORDERS = {"serve": "AB" * 4, "profile": "ABBA", "ssd": "ABBA"}
+ORDERS = {"serve": "AB" * 4, "profile": "ABBA", "ssd": "ABBA",
+          "flash-bits": "AB"}
+
+
+def _flash_bits(CS, torch, out) -> None:
+    """SHA-256 of every output of the flash kernels over the equal-length
+    sweep (the wrappers' signatures at Sq == Sk are the same before and
+    after keys of another length were allowed)."""
+    import hashlib
+    FA = CS.FA
+    gen = torch.Generator("cuda").manual_seed(5)
+    digests = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in FA.FWD_HEAD_DIMS:
+            for hq, hkv in ((16, 16), (8, 2), (8, 1)):
+                for causal, window in ((True, 0), (True, 100), (False, 0)):
+                    for s in (1, 63, 200, 1000):
+                        q, k, v = CS.qkv(gen, 2, hq, hkv, s, d, dtype)
+                        do = torch.randn(q.shape, generator=gen,
+                                         device="cuda").to(dtype)
+                        o, lse = FA.flash_attention_fwd(
+                            q, k, v, causal=causal, window=window)
+                        delta = (do.float() * o.float()).sum(-1)
+                        dq = FA.flash_attention_bwd_dq(
+                            q, k, v, do, lse, delta, causal=causal,
+                            window=window)
+                        dk, dv = FA.flash_attention_bwd_dkv(
+                            q, k, v, do, lse, delta, causal=causal,
+                            window=window)
+                        torch.cuda.synchronize()
+                        h = hashlib.sha256()
+                        for t in (o, lse, dq, dk, dv):
+                            h.update(t.contiguous().view(torch.uint8).cpu()
+                                     .numpy().tobytes())
+                        digests.append(h.hexdigest())
+    out(flash_bits=digests)
 
 
 def _worker(mode: str, tree: str, label: str) -> None:
@@ -92,6 +134,8 @@ def _worker(mode: str, tree: str, label: str) -> None:
                 d = json.loads(ln)
                 d.pop("top", None)
                 out(profile=d)
+    elif mode == "flash-bits":
+        _flash_bits(CS, torch, out)
     elif mode == "ssd":
         gen = torch.Generator("cuda").manual_seed(3)
         cases = failures = 0
@@ -198,7 +242,7 @@ def single_rounding(src: str, dst: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=["serve", "profile", "ssd",
-                                     "single-rounding"])
+                                     "flash-bits", "single-rounding"])
     ap.add_argument("a")
     ap.add_argument("b")
     ap.add_argument("--worker", nargs=2, metavar=("TREE", "LABEL"),
@@ -212,10 +256,25 @@ def main() -> int:
         return 0
     trees = {"A": args.a, "B": args.b}
     rc = 0
+    bits = {}
     for key in ORDERS[args.mode]:
-        rc |= subprocess.run(
+        res = subprocess.run(
             [sys.executable, HERE, args.mode, args.a, args.b, "--worker",
-             trees[key], key], timeout=900).returncode
+             trees[key], key], timeout=900, capture_output=True, text=True)
+        sys.stdout.write(res.stdout)
+        sys.stderr.write(res.stderr)
+        rc |= res.returncode
+        for ln in res.stdout.splitlines():
+            if ln.startswith("{") and "flash_bits" in ln:
+                bits[key] = json.loads(ln)["flash_bits"]
+    if args.mode == "flash-bits":
+        same = len(bits) == 2 and bits["A"] == bits["B"]
+        print(json.dumps({"mode": "flash-bits", "cases": len(bits.get("A",
+                          [])), "equal": same, "differing": [
+                              i for i, (a, b) in enumerate(zip(
+                                  bits.get("A", []), bits.get("B", [])))
+                              if a != b]}), flush=True)
+        rc |= not same
     return rc
 
 
