@@ -216,6 +216,23 @@ result.  Phases:
              schema-valid ``snapshot_save`` event for each snapshot, with its
              bytes, and the one ``snapshot_restore`` with those of the shard
              it served.
+10b. train_spmd — the pipeline-parallel backend (``Trainer(backend=
+             "spmd")``) at TRAIN's full width and depth: six ranks, one a
+             stage, all on the one card (gloo between them, staged through
+             pinned host memory; no CUDA graph), ``checkfree_plus`` without
+             edge protection for 12 steps in windows of up to 4, batch 8 x
+             512 in microbatches of 4 (2 a half), stage 2 merged at wall 5
+             by its neighbours' slices sent to its rank and stage 0 copied
+             from its twin at wall 9.  First the same steps on the host
+             backend (fused windows).  Every rank must exit 0; the failures
+             equal the host run's, the losses within FUSED_LOSS_TOL * (1 +
+             |loss|), the omegas within TRAIN_OMEGA_TOL, the recovery errors
+             within SPMD_RECOVERY_TOL; each rank's flash forward, dq, dkv
+             and Adam launches as the schedule implies and no plain-version
+             call; rank 2's one merge launch.  ms a step (median of the full
+             windows) and tokens/s beside the host run's, bytes sent a step
+             by kind, host ms a step in transfers, each rank's peak memory,
+             the merge's device ms on rank 2.
 11. kernels — one line for every kernel: launches (the training paths and
              for the SSD scan the serving ones, and by path), error, times,
              bound.
@@ -225,6 +242,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -263,6 +281,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels import stage_merge as SM  # noqa: E402
+from repro_torch.launch.mesh import spawn_stages  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -3770,6 +3789,246 @@ def train_neighbor(spec: dict, work: str) -> dict:
     return launched
 
 
+# train_spmd: TRAIN on the pipeline backend, six ranks on the one card;
+# checkfree_plus (edges unprotected) for 12 steps in windows of up to 4, batch
+# 8 in microbatches of 4 (M 2 a half), a merge at wall 5 and an edge copy at
+# 9.  Against the host backend's run of the same steps: both compute in bf16
+# and sum each weight's gradient over other splits of the batch (one matmul
+# a half on the host, one a microbatch here), so the losses are held as the
+# fused run's (FUSED_LOSS_TOL), the omegas as TRAIN_OMEGA_TOL, and the
+# recovery errors, squared distances between stages that differ by O(1)
+# elementwise, at 1e-3 relative
+SPMD = dict(TRAIN, microbatch=4, steps=12, window=4)
+SPMD_SCHEDULE = {5: [2], 9: [0]}
+SPMD_RECOVERY_TOL = 1e-3
+SPMD_RANK_TIMEOUT_S = 600.0
+# the plain versions that ops would call for CPU tensors: none may run on a
+# rank on the card
+PLAIN_FUNCTIONS = ("flash_attention_ref", "stage_merge_ref", "ssd_chunked",
+                   "adam_sumsq_ref", "adam_update_ref")
+
+
+def record_windows(trainer: Trainer, record: dict) -> None:
+    """Each window's size, host ms from its dispatch (after a synchronize)
+    to the end of its drain, and its ring, into ``record``; on the pipeline
+    backend also the transport's host seconds by kind up to each drain."""
+    record.update(window_ms=[], rings=[], transfer_s=[])
+    runner = trainer.window
+    transport = getattr(trainer, "transport", None)
+    dispatch, drain = runner.dispatch, runner.drain
+
+    def timed_dispatch(state, stacked, **kw):
+        torch.cuda.synchronize()
+        record["t0"] = time.perf_counter()
+        return dispatch(state, stacked, **kw)
+
+    def timed_drain(pending):
+        state, ring = drain(pending)
+        record["window_ms"].append(
+            (pending.k, (time.perf_counter() - record["t0"]) * 1e3))
+        record["rings"].append(ring)
+        if transport is not None:
+            record["transfer_s"].append(dict(transport.seconds))
+        return state, ring
+
+    runner.dispatch, runner.drain = timed_dispatch, timed_drain
+
+
+def full_window_step_ms(record: dict, k: int) -> float:
+    """ms a step: the median over the full windows after the first (whose
+    first step warms every process up) of their ms / k."""
+    return float(np.median([ms / n for n, ms in record["window_ms"][1:]
+                            if n == k]))
+
+
+def transfer_ms_per_step(record: dict, skip: int = 1) -> dict:
+    """The transport's host ms a step by kind over the windows after the
+    first ``skip`` (waiting for a peer included)."""
+    if len(record["transfer_s"]) <= skip:
+        return {}
+    before = record["transfer_s"][skip - 1]
+    after = record["transfer_s"][-1]
+    steps = sum(n for n, _ in record["window_ms"][skip:])
+    return {kind: (after.get(kind, 0.0) - before.get(kind, 0.0)) / steps * 1e3
+            for kind in after}
+
+
+def spmd_rank(rank: int, spec: dict) -> dict:
+    """One rank of train_spmd (a spawned process): the run, its launch
+    counts, plain-version calls, rings, window times, transfers, memory and
+    the merge's device ms."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    plain = dict.fromkeys(PLAIN_FUNCTIONS, 0)
+    for name in PLAIN_FUNCTIONS:
+        def counted(*a, _fn=getattr(ref, name), _name=name, **k):
+            plain[_name] += 1
+            return _fn(*a, **k)
+        setattr(ref, name, counted)
+    cfg = train_model_config(spec)
+    tcfg = dataclasses.replace(
+        train_config("checkfree_plus", spec["steps"], stages=spec["stages"],
+                     batch=spec["batch"], seq=spec["seq"],
+                     window=spec["window"]),
+        microbatch=spec["microbatch"])
+    trainer = Trainer(Model(cfg, device="cuda", weights=False), tcfg,
+                      schedule=Forced(SPMD_SCHEDULE), backend="spmd")
+    record = {"recovery_ms": [], "merge_ms": []}
+    time_recoveries(trainer, record)
+    record_windows(trainer, record)
+    merge = ops.stage_merge
+
+    def timed_merge(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = merge(*a, **k)
+        end.record()
+        end.synchronize()
+        record["merge_ms"].append(start.elapsed_time(end))
+        return out
+
+    ops.stage_merge = timed_merge
+    batches = make_batches(cfg, batch=spec["batch"], seq=spec["seq"], seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    trainer.transport.reset_counts()
+    t0 = time.perf_counter()
+    state, hist = trainer.run(batches)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    return {"hist": hist, "launched": counts(), "plain": plain,
+            "rings": record["rings"], "window_ms": record["window_ms"],
+            "transfer_ms_per_step": transfer_ms_per_step(record),
+            "recovery_ms": record["recovery_ms"],
+            "recovery_device": record["recovery_device"],
+            "merge_ms": record["merge_ms"], "run_s": run_s,
+            "sent": dict(trainer.transport.sent),
+            "transfer_s": dict(trainer.transport.seconds),
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+            "effective_step": state.effective_step}
+
+
+def phase_train_spmd() -> dict:
+    """TRAIN on the pipeline backend: six ranks on the card against the
+    host backend's run of the same steps.  Returns the launches of every
+    rank, summed."""
+    spec = SPMD
+    cfg = train_model_config(spec)
+    steps, k = spec["steps"], spec["window"]
+    tokens = spec["batch"] * spec["seq"]
+    host_hist, host_launched, host_record, host_peak = train_run(
+        "checkfree_plus", steps, Forced(SPMD_SCHEDULE), spec=spec,
+        setup=record_windows, window=k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_stages(spmd_rank, spec["stages"], spec, cuda=True,
+                         timeout_s=SPMD_RANK_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    hist = ranks[0]["hist"]
+    host_omegas = np.concatenate(host_record["rings"])[:, OMEGAS:]
+    omegas = np.concatenate(ranks[0]["rings"])[:, OMEGAS:]
+    omega_err = float(np.max(np.abs(omegas - host_omegas) /
+                             np.abs(host_omegas)))
+    loss_err = max(abs(a - b) / (1 + abs(b))
+                   for a, b in zip(hist.loss, host_hist.loss))
+    rec_err = [abs(a - b) / abs(b) for (_, a), (_, b) in
+               zip(hist.recovery_errors, host_hist.recovery_errors)]
+    layers = cfg.num_layers // spec["stages"]
+    # a flash launch a local layer and microbatch: two halves of M each
+    per_step = layers * 2 * (spec["batch"] // spec["microbatch"])
+    want = {"flash_attention_fwd": per_step * steps,
+            "flash_attention_bwd_dq": per_step * steps,
+            "flash_attention_bwd_dkv": per_step * steps, "stage_merge": 0,
+            "ssd_scan": 0, "ssd_scan_bwd": 0, "adam_sumsq": steps,
+            "adam_update": steps}
+    problems = []
+    for r, res in enumerate(ranks):
+        need = dict(want, stage_merge=1 if r == 2 else 0)
+        if res["launched"] != need:
+            problems.append(f"rank {r} launches {res['launched']}, want "
+                            f"{need}")
+        if any(res["plain"].values()):
+            problems.append(f"rank {r} called plain versions {res['plain']}")
+        if res["hist"] != hist or res["effective_step"] != steps:
+            problems.append(f"rank {r}'s history differs from rank 0's")
+    failures = [(s, st) for s in sorted(SPMD_SCHEDULE)
+                for st in SPMD_SCHEDULE[s]]
+    if [tuple(f) for f in hist.failures] != failures or \
+            hist.failures != host_hist.failures:
+        problems.append(f"failures {hist.failures}, host "
+                        f"{host_hist.failures}, want {failures}")
+    if len(hist.loss) != steps or not all(math.isfinite(x)
+                                          for x in hist.loss) or \
+            loss_err > FUSED_LOSS_TOL:
+        problems.append(f"losses {hist.loss} against the host's "
+                        f"{host_hist.loss}: {loss_err}")
+    if omega_err > TRAIN_OMEGA_TOL:
+        problems.append(f"omegas off the host's by {omega_err}")
+    if len(rec_err) != len(failures) or max(rec_err) > SPMD_RECOVERY_TOL:
+        problems.append(f"recovery errors {hist.recovery_errors}, host "
+                        f"{host_hist.recovery_errors}")
+    step_ms = [full_window_step_ms(res, k) for res in ranks]
+    host_step_ms = full_window_step_ms(host_record, k)
+    sent = {kind: [res["sent"].get(kind, 0) / steps for res in ranks]
+            for kind in ("activation", "gradient", "allreduce", "scalars")}
+    transfer_ms = [res["transfer_ms_per_step"] for res in ranks]
+    emit("train_spmd", arch=cfg.name, layers=cfg.num_layers,
+         stages=spec["stages"], ranks=len(ranks), batch=spec["batch"],
+         seq=spec["seq"], microbatch=spec["microbatch"],
+         num_microbatches=spec["batch"] // spec["microbatch"],
+         microbatch_rows=spec["microbatch"] // 2,
+         strategy="checkfree_plus", steps=steps, window=k,
+         schedule=SPMD_SCHEDULE, loss=hist.loss, loss_host=host_hist.loss,
+         loss_max_rel_err=loss_err, loss_tol=FUSED_LOSS_TOL,
+         omega_max_rel_err=omega_err, omega_tol=TRAIN_OMEGA_TOL,
+         failures=hist.failures, recovery_errors=hist.recovery_errors,
+         recovery_errors_host=host_hist.recovery_errors,
+         recovery_rel_err=rec_err,
+         launches_by_rank=[res["launched"] for res in ranks],
+         plain_calls_by_rank=[res["plain"] for res in ranks],
+         window_ms_rank0=ranks[0]["window_ms"],
+         step_ms_by_rank=step_ms, step_ms=step_ms[0],
+         tokens_per_s=tokens / step_ms[0] * 1e3,
+         host_window_ms=host_record["window_ms"], host_step_ms=host_step_ms,
+         host_tokens_per_s=tokens / host_step_ms * 1e3,
+         host_peak_allocated_gib=host_peak,
+         bytes_sent_per_step_by_rank=sent,
+         transfer_host_ms_per_step_by_rank=transfer_ms,
+         transfer_host_s_whole_run_by_rank=[res["transfer_s"]
+                                            for res in ranks],
+         recovery_bytes_by_rank=[res["sent"].get("recovery", 0)
+                                 for res in ranks],
+         peak_allocated_gib_by_rank=[res["peak_allocated_gib"]
+                                     for res in ranks],
+         peak_reserved_gib_by_rank=[res["peak_reserved_gib"]
+                                    for res in ranks],
+         merge_device_ms_rank2=ranks[2]["merge_ms"],
+         recovery_ms_by_rank=[res["recovery_ms"] for res in ranks],
+         run_s_by_rank=[res["run_s"] for res in ranks], spawn_s=spawn_s,
+         nvidia_smi=smi(),
+         timing="host clock from each window's dispatch (after a "
+                "synchronize) to the end of its drain, a step's ms the "
+                f"median over the windows of {k} after the first of their "
+                f"ms / {k}; bytes: what the rank sent a step by kind "
+                "(allreduce: the payload reduced, the replicated leaves' "
+                "fp32 gradients); transfer ms: host time in the "
+                "transport's calls a step over the windows after the "
+                "first, staging and waiting for the peer included; merge: "
+                "CUDA events around ops.stage_merge, the kernel's first "
+                "launch in that process")
+    if problems:
+        raise AssertionError("train_spmd: " + "; ".join(problems))
+    total = dict.fromkeys(want, 0)
+    for res in ranks:
+        for name, n in res["launched"].items():
+            total[name] += n
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs the "
@@ -3819,7 +4078,8 @@ def main() -> int:
                "train_whisper": phase_train_whisper(),
                "train_vlm": phase_train_checkfree(TRAIN_VLM, "train_vlm"),
                "train_ckpt": phase_train_ckpt(),
-               "train_neighbor": phase_train_neighbor()}
+               "train_neighbor": phase_train_neighbor(),
+               "train_spmd": phase_train_spmd()}
     # launches: the training paths; by path: every path that ran it
     for row in (fwd, dq, dkv, merge, ssd, ssd_bwd, *adam_rows):
         by_path = {path: n[row["name"]] for path, n in trained.items()}

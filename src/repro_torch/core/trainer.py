@@ -1,7 +1,8 @@
 """Failure-aware trainer: the paper's training loop with pluggable recovery
-strategies, on the host backend, in fused windows.
+strategies, in fused windows, on the host backend or the pipeline-parallel
+one.
 
-The counterpart of ``repro.core.trainer`` on its host backend.  The trainer
+The counterpart of ``repro.core.trainer``.  The trainer
 executes *wall iterations*; a :class:`~repro_torch.recovery.base.
 RecoveryStrategy` (made from ``RecoveryConfig`` through the registry) reacts
 to the failure events of a schedule (any object with ``.at(step) ->
@@ -68,8 +69,25 @@ windows of one step, as JAX's ``fuse_window=1`` does.  They take only host
 values (python numbers, the drained ring), so a run with a recorder
 installed makes no host read and no synchronize that a dark run does not.
 
-Not ported yet: the pipeline-parallel backend (ROADMAP.md queue 1,
-"Pipeline-parallel backend").
+**The pipeline-parallel backend** (``backend="spmd"``,
+:mod:`repro_torch.pipeline.spmd`): one ``torch.distributed`` rank per stage
+(``group``, or the default process group; ``launch.mesh.spawn_stages``
+starts them), each running this loop on the same batches and schedule and
+holding its slice of the tower, full copies of the other leaves and their
+Adam moments.  A step is a GPipe schedule whose activations and their
+gradients hop between the ranks, one all-reduce of the replicated leaves'
+gradients and Adam on the rank's leaves; the ring's values are reduced over
+the group, so every rank holds the same ones and makes the same decisions.
+Windows run their steps eagerly: there is **no CUDA graph** on this
+backend, since gloo's transfers run on the host (through pinned host
+buffers on the card).  The CheckFree family recovers by neighbour transfers
+into the failed rank, merged there by ``ops.stage_merge``.  A repartitioning
+strategy degrades to in-place recovery (the stage group is fixed); the
+backend refuses other families than dense and MoE, a sliding window, a
+layer count the stages do not divide and the strategies that snapshot the
+whole state (``pipeline.spmd.refusal``).  Only a rank that installed a
+recorder records telemetry (rank 0, in the launcher), with
+``backend="spmd"``.
 """
 from __future__ import annotations
 
@@ -208,14 +226,26 @@ class Trainer:
     """
 
     def __init__(self, model: Model, tcfg: TrainConfig,
-                 wall: Optional[WallClockModel] = None, schedule=None):
+                 wall: Optional[WallClockModel] = None, schedule=None, *,
+                 backend: str = "host", group=None):
         self.model = model
         self.device = model.device
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; build the model with "
                                "device='cpu' to train on the CPU")
+        if backend not in ("host", "spmd"):
+            raise ValueError(f"unknown backend {backend!r}; expected 'host' "
+                             "or 'spmd'")
+        self.backend = backend
         self.tcfg = tcfg
         self.rcfg = tcfg.recovery
+        if backend == "spmd":
+            # deferred: only pipeline runs load the backend
+            from repro_torch.pipeline import spmd
+            why = spmd.refusal(model.cfg, self.rcfg.num_stages,
+                               self.rcfg.strategy)
+            if why:
+                raise ValueError(why)
         self.part = StagePartition(model.cfg, self.rcfg.num_stages)
         self.strategy: RecoveryStrategy = make_strategy(self.rcfg, wall=wall)
         self.wall = self.strategy.wall
@@ -230,15 +260,18 @@ class Trainer:
         # the run's starting parameters as a host copy, when the caller gave
         # them (run(params=...)); fresh_init re-draws from the seed otherwise
         self._init_host: Optional[Params] = None
-        self.strategy.bind(self.part, init_fn=self.fresh_init)
-        self.loss_fn = make_loss_fn(model, self.part,
-                                    self.strategy.uses_swap_schedule)
         self._buckets = _window_buckets(max(int(tcfg.fuse_window), 1))
         # window sizes dispatched, as the JAX trainer keeps them
         self.dispatched_buckets: set = set()
         self._evals: Optional[List[Batch]] = None
-        #: runs the fused windows of the current layout
-        self.window = FusedWindow(self._body, self.device, self.part)
+        if backend == "spmd":
+            self._init_spmd(group)
+        else:
+            self.strategy.bind(self.part, init_fn=self.fresh_init)
+            self.loss_fn = make_loss_fn(model, self.part,
+                                        self.strategy.uses_swap_schedule)
+            #: runs the fused windows of the current layout
+            self.window = FusedWindow(self._body, self.device, self.part)
 
         # ---- elastic repartitioning ---------------------------------------
         # partition stage index -> cluster slot: the identity until a
@@ -246,15 +279,53 @@ class Trainer:
         # identity in the schedule; the partition re-cuts over survivors)
         self._slots: List[int] = list(range(self.rcfg.num_stages))
         self._hooks = ScheduleHooks.of(
-            schedule, bool(self.strategy.recover_by_repartition))
+            schedule, backend == "host" and
+            bool(self.strategy.recover_by_repartition))
         #: (wall_step, direction, from_k, to_k, moved_layers, cost_s)
         self.repartition_log: List[Tuple[int, str, int, int, int, float]] = []
+
+    def _init_spmd(self, group) -> None:
+        """The pipeline backend: the stage group, the rank's view of its
+        shard for the strategy, the in-mesh recovery, the step and its
+        window (``repro/core/trainer.py:256-269, 290-299``)."""
+        from repro_torch.launch.mesh import make_stage_group
+        from repro_torch.pipeline import spmd
+        from repro_torch.pipeline.transport import Transport
+        sg = make_stage_group(self.rcfg.num_stages, group)
+        self.rank = sg.rank
+        self.transport = Transport(sg, self.device)
+        self.strategy.bind(spmd.ShardPartition(self.model.cfg,
+                                               self.part.num_stages, sg.rank),
+                           init_fn=self.fresh_init)
+        if self.strategy.recover_by_repartition:
+            log(f"strategy {self.strategy.name!r} advertises repartition but "
+                "the spmd backend has a fixed mesh: permanent departures "
+                "degrade to in-place recovery on a spare")
+        if self.strategy.recover_in_mesh:
+            self.strategy.bind_in_mesh(
+                spmd.make_in_mesh_recover(self.transport, self.part))
+        self.pipeline = spmd.SpmdStep(
+            self.model.cfg, self.part, self.transport, self.tcfg.optimizer,
+            self.tcfg.num_microbatches,
+            use_swap=self.strategy.uses_swap_schedule,
+            lr_decay=self.rcfg.lr_boost_decay)
+        # the step body of both loops: the rank's part of the schedule
+        self._body = self.pipeline.body
+        self._eval_fn = spmd.pipeline_loss(
+            self.model.cfg, self.part, self.transport,
+            self.tcfg.num_microbatches, ce_only=True)
+        self.window = spmd.SpmdWindow(self._body, self.device, self.part)
 
     # ---- parameters and batches ---------------------------------------
     def init_params(self) -> Params:
         """Fresh fp32 masters from a generator seeded with ``tcfg.seed`` on
-        the device (not JAX's draws: ``run(params=...)`` takes those)."""
+        the device (not JAX's draws: ``run(params=...)`` takes those).  On
+        the pipeline backend the rank's shard of the same draws."""
         gen = torch.Generator(self.device).manual_seed(self.tcfg.seed)
+        if self.backend == "spmd":
+            from repro_torch.pipeline.spmd import init_shard
+            return init_shard(self.model.cfg, gen, self.device, self.part,
+                              self.rank)
         return self.model.init(gen)
 
     def fresh_init(self) -> Tuple[Params, Any]:
@@ -339,7 +410,10 @@ class Trainer:
     @torch.no_grad()
     def eval_loss(self, params: Params, batch: Batch) -> torch.Tensor:
         """The cross-entropy of ``batch`` through the family's forward (JAX's
-        ``make_eval_step`` through ``model.apply``)."""
+        ``make_eval_step`` through ``model.apply``); on the pipeline backend
+        through the pipeline, the same on every rank."""
+        if self.backend == "spmd":
+            return self._eval_fn(params, batch)
         return self.model.loss(params, batch)[1]["ce"]
 
     # ---- window sizing -------------------------------------------------
@@ -461,9 +535,13 @@ class Trainer:
         in fused windows when ``tcfg.fuse_window`` > 1, else eagerly.
 
         ``params`` (default: :meth:`init_params`) are the initial parameters,
-        e.g. JAX's ``model.init`` through ``convert.params_from_numpy``.
+        e.g. JAX's ``model.init`` through ``convert.params_from_numpy``; on
+        the pipeline backend each rank keeps its shard of them.
         """
         tcfg = self.tcfg
+        if params is not None and self.backend == "spmd":
+            from repro_torch.pipeline.spmd import shard_params
+            params = shard_params(params, self.part, self.rank)
         # taken before init_state, which trains tensors already on the
         # device in place
         self._init_host = (None if params is None else
@@ -482,12 +560,15 @@ class Trainer:
         tokens = tcfg.global_batch * tcfg.seq_len
         telemetry.emit(
             "run_start", arch=self.model.cfg.name,
-            strategy=self.strategy.name, backend="host", steps=tcfg.steps,
+            strategy=self.strategy.name, backend=self.backend,
+            steps=tcfg.steps,
             num_stages=self.rcfg.num_stages,
             flops_per_step=6 * self.model.cfg.active_param_count() * tokens,
             tokens_per_step=tokens)
         max_wall = tcfg.steps * 10  # safety bound for rollback-heavy runs
-        fused = tcfg.fuse_window > 1
+        # the pipeline backend runs windows of one for fuse_window 1, as
+        # JAX's fused loop does (each dispatch in its pipeline span)
+        fused = tcfg.fuse_window > 1 or self.backend == "spmd"
         loop = self._loop_fused if fused else self._loop
         try:
             # on the card a fused run's work between windows runs on the
@@ -639,7 +720,7 @@ class Trainer:
             t0 = telemetry.clock()
             state, loss, _ = self.step(state, self.device_batch(batch))
             telemetry.complete("window_dispatch", t0, cat="trainer", k=1,
-                               wall_step=wall_step, backend="host")
+                               wall_step=wall_step, backend=self.backend)
             hist.dispatches += 1
             self.dispatched_buckets.add(1)
             # the step's one read of its loss
@@ -681,7 +762,7 @@ class Trainer:
             t0 = telemetry.clock()
             pending = runner.dispatch(state, stacked, part=self.part)
             telemetry.complete("window_dispatch", t0, cat="trainer", k=k,
-                               wall_step=wall_step, backend="host")
+                               wall_step=wall_step, backend=self.backend)
             hist.dispatches += 1
             self.dispatched_buckets.add(k)
             # while the card runs this window, line up the next one (a

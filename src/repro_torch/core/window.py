@@ -25,7 +25,9 @@ scalars, the ``lr_scale`` decay) K times on one stacked window:
   beside them (mamba2-1.3b at batch 8 on an 80 GB card), the capture
   empties the cache first, and the work between windows allocates anew
   (:attr:`FusedWindow.kept_cache`).
-* On the CPU the same body runs K times without capture.
+* On the CPU the same body runs K times without capture, and so it does on
+  the card for a window built with ``graphs=False`` (the pipeline backend,
+  whose gloo transfers run on the host, outside any graph).
 
 A graph replays fixed addresses, so the window binds the state's leaves
 (parameters, moments) at its first window; before each later window a leaf
@@ -96,15 +98,18 @@ class Pending:
 
 
 class FusedWindow:
-    """Runs windows of ``body`` on ``device`` (graph replays on the card),
-    for the stage partition ``part`` that the body sums the omegas over."""
+    """Runs windows of ``body`` on ``device`` (graph replays on the card
+    unless ``graphs`` is False), for the stage partition ``part`` that the
+    body sums the omegas over."""
 
     def __init__(self, body: Body, device: torch.device,
                  part: StagePartition,
-                 stream: Optional["torch.cuda.Stream"] = None):
+                 stream: Optional["torch.cuda.Stream"] = None, *,
+                 graphs: bool = True):
         self.body = body
         self.device = device
         self.part = part
+        self.graphs = graphs and device.type == "cuda"
         self.width = OMEGAS + part.num_stages
         # the device mirror of the host step, baked into the graph
         self.step = torch.zeros((), dtype=torch.int32, device=device)
@@ -113,7 +118,7 @@ class FusedWindow:
         self.graph = None
         self.static_batch: Batch = {}
         self.static_record = None
-        if stream is None and device.type == "cuda":
+        if stream is None and self.graphs:
             stream = torch.cuda.Stream(device)
         self.stream = stream
         #: graphs captured, replays run, and the kernel launches that the
@@ -204,7 +209,7 @@ class FusedWindow:
         ring = torch.empty((k, self.width), dtype=torch.float32,
                            device=self.device)
         slot = lambda i: {key: t[i] for key, t in window.items()}  # noqa: E731
-        if self.device.type != "cuda":
+        if not self.graphs:
             for i in range(k):
                 ring[i].copy_(self._run_body(slot(i)))
             return Pending(state, k, ring)

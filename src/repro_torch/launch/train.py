@@ -9,6 +9,8 @@
         --stages 4 --strategy elastic --scenario spot_shrink --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
         --reduced --device cpu --strategy checkfree_plus
+    PYTHONPATH=src python -m repro_torch.launch.train --backend spmd \
+        --reduced --layers 4 --stages 2 --device cpu --strategy checkfree_plus
 
 Every family the port trains goes through it: the dense decoders, mamba2-1.3b
 (ssm) and zamba2-2.7b (hybrid).
@@ -35,9 +37,14 @@ events into ``events.jsonl`` there (the recorder is installed before the
 schedule is simulated, so the simulator's events are in the stream; read
 the run with ``python -m repro_torch.telemetry.report DIR``), and
 ``--trace`` also writes a Chrome trace (``trace.json``) there; the recorder
-is closed and uninstalled when the run ends, also when it raises.  The flag
-of the JAX launcher that needs a part not ported yet is refused by name:
-``--backend spmd``.
+is closed and uninstalled when the run ends, also when it raises.
+``--backend spmd`` trains the dense and MoE families as a pipeline: one rank
+a stage (``launch.mesh.spawn_stages``; the stages snapped to a divisor of
+the layers, as in JAX), every rank on the card (or the CPU with ``--device
+cpu``), gloo between them.  Rank 0 alone logs, records the telemetry and
+writes ``--out``; its History is the run's.  The backend's refusals (another
+family, a sliding window, the strategies that snapshot the whole state) are
+made here, before any rank starts or any run directory is made.
 """
 from __future__ import annotations
 
@@ -59,10 +66,11 @@ from repro_torch.core.state import History
 from repro_torch.core.trainer import Trainer
 from repro_torch.core.walltime import WallClockModel
 from repro_torch.data.pipeline import SyntheticLM, batch_for, make_batches
+from repro_torch.launch.mesh import spawn_stages
 from repro_torch.models.model import build_model
 from repro_torch.recovery import available_strategies, default_protect_edges
 from repro_torch.sim import get_scenario, simulate
-from repro_torch.telemetry import log
+from repro_torch.telemetry import log, set_verbosity
 
 
 def main(argv: Optional[Sequence[str]] = None) -> History:
@@ -110,18 +118,41 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
                     help="also export a Chrome trace_event JSON "
                          "(trace.json, loadable in Perfetto) into "
                          "--telemetry-dir")
-    # the flag of the JAX launcher that is refused by name
-    ap.add_argument("--backend", default="host", choices=["host", "spmd"])
+    ap.add_argument("--backend", default="host", choices=["host", "spmd"],
+                    help="'spmd' runs the pipeline-parallel backend: one "
+                         "process per stage, gloo between them")
     args = ap.parse_args(argv)
-    if args.backend == "spmd":
-        ap.error("--backend spmd: not ported yet (the port trains on the "
-                 "host backend; see ROADMAP.md queue 1)")
     if args.trace and not args.telemetry_dir:
         ap.error("--trace needs --telemetry-dir")
     if (args.depart_prob is not None or args.regrow_h is not None) \
             and not args.scenario:
         ap.error("--depart-prob/--regrow-h need --scenario (repro_torch.sim)")
+    if args.backend == "spmd":
+        from repro_torch.pipeline.spmd import refusal
+        cfg, stages = _model_and_stages(args)
+        why = refusal(cfg, stages, args.strategy)
+        if why:
+            ap.error(f"--backend spmd: {why}")
+        _device(args)
+        # one rank a stage; rank 0's History is the run's
+        return spawn_stages(_spmd_rank, stages, args,
+                            cuda=args.device.startswith("cuda"),
+                            timeout_s=None)[0]
+    return _run(args)
 
+
+def _spmd_rank(rank: int, args: argparse.Namespace) -> History:
+    """One rank of ``--backend spmd``: rank 0 logs, records and writes
+    ``--out``; the others run silent."""
+    if rank:
+        set_verbosity(-1)
+        args = argparse.Namespace(**{**vars(args), "out": "",
+                                     "telemetry_dir": "", "trace": False})
+    return _run(args)
+
+
+def _run(args: argparse.Namespace) -> History:
+    """The run, with the telemetry recorder of ``--telemetry-dir``."""
     rec = (telemetry.configure(run_dir=args.telemetry_dir)
            if args.telemetry_dir else None)
     try:
@@ -140,13 +171,18 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     return hist
 
 
-def _train(args: argparse.Namespace) -> History:
-    """The run of ``main``'s parsed and checked arguments."""
+def _device(args: argparse.Namespace) -> torch.device:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("launch.train: no CUDA device; pass --device cpu "
                            "to train on the CPU with the kernels' plain "
                            "versions")
+    return device
+
+
+def _model_and_stages(args: argparse.Namespace):
+    """(config, stages) of the arguments; on the spmd backend the stages
+    snapped to a divisor of the layers (``repro/launch/train.py:106-116``)."""
     cfg = get_config(args.arch)
     stages = args.stages or get_stages(args.arch)
     if args.reduced:
@@ -156,6 +192,16 @@ def _train(args: argparse.Namespace) -> History:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
         stages = args.stages or stages
     stages = min(max(stages, 1), cfg.num_layers)
+    if args.backend == "spmd" and cfg.num_layers % stages:
+        stages = max(d for d in range(1, stages + 1)
+                     if cfg.num_layers % d == 0)
+    return cfg, stages
+
+
+def _train(args: argparse.Namespace) -> History:
+    """The run of ``main``'s parsed and checked arguments."""
+    device = _device(args)
+    cfg, stages = _model_and_stages(args)
     seq = args.seq or min(cfg.max_seq_len, 512)
     lr = args.lr or 3e-4
 
@@ -174,7 +220,8 @@ def _train(args: argparse.Namespace) -> History:
     model = build_model(cfg, device=device, weights=False)
     n = cfg.param_count()
     log(f"arch={cfg.name} ({n / 1e6:.0f}M params) strategy={args.strategy} "
-        f"device={device} stages={stages} steps={args.steps} "
+        f"backend={args.backend} device={device} stages={stages} "
+        f"steps={args.steps} "
         f"rate={args.rate:.0%}/h seq={seq} batch={args.batch}")
 
     wall = WallClockModel(model_bytes=4 * n * 2)
@@ -209,7 +256,8 @@ def _train(args: argparse.Namespace) -> History:
         tcfg = dataclasses.replace(tcfg, recovery=dataclasses.replace(
             rcfg, checkpoint_dir=os.path.join(run_dir, "ckpt"),
             store_dir=os.path.join(run_dir, "statestore")))
-        trainer = Trainer(model, tcfg, wall=wall, schedule=schedule)
+        trainer = Trainer(model, tcfg, wall=wall, schedule=schedule,
+                          backend=args.backend)
         state, hist = trainer.run(batches, evals, verbose=not args.quiet)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)

@@ -12,8 +12,9 @@ package computes it outside any kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,11 +50,30 @@ def cast_tree(tree: Any, dtype) -> Any:
 # initializers
 # ---------------------------------------------------------------------------
 
+# applied to each weight as soon as it is drawn, within keep_drawn
+_DRAWN: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def keep_drawn(fn: Callable[[torch.Tensor], torch.Tensor]) -> Iterator[None]:
+    """Within: every weight the initializers draw goes through ``fn`` as
+    soon as it is drawn, before the next draw (a pipeline rank keeps its
+    stage's slice of each stacked weight, ``pipeline.spmd.init_shard``).
+    The draws themselves do not change."""
+    global _DRAWN
+    prev, _DRAWN = _DRAWN, fn
+    try:
+        yield
+    finally:
+        _DRAWN = prev
+
+
 def _trunc_normal(gen: torch.Generator, shape, std: float, dtype,
                   device) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return t.mul_(std).to(dtype)
+    t = t.mul_(std).to(dtype)
+    return t if _DRAWN is None else _DRAWN(t)
 
 
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,

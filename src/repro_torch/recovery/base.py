@@ -31,6 +31,8 @@ capability flags (the trainer never looks at names)
                              order on half the batch
   ``recover_by_repartition`` — wants the layout shrunk on a permanent
                              departure and grown back on a regrow (elastic)
+  ``recover_in_mesh``      — repairs stages with the pipeline backend's
+                             neighbour transfers when it offers them
 
 horizons
   ``after_step_horizon(step)`` — how many iterations may run before
@@ -43,9 +45,11 @@ horizons
 
 ``bind(part, init_fn)`` gives a strategy the stage partition and a
 from-scratch init (``() -> (params, opt_state)``, fresh tensors on the
-trainer's device), for policies that may have to restart.  The in-mesh
-recovery of the pipeline backend comes with the part of the port that uses
-it.
+trainer's device), for policies that may have to restart.  On the pipeline
+backend (``Trainer(backend="spmd")``) the partition is the rank's view of
+its shard (``pipeline.spmd.ShardPartition``), and ``bind_in_mesh`` gives a
+strategy that advertises ``recover_in_mesh`` the backend's recovery by
+neighbour transfers (``pipeline.spmd.InMeshRecover``).
 
 Strategies are made through the registry
 (:func:`repro_torch.recovery.registry.make_strategy`).
@@ -87,12 +91,14 @@ class RecoveryStrategy:
     handles_consecutive: ClassVar[bool] = False
     uses_swap_schedule: ClassVar[bool] = False
     recover_by_repartition: ClassVar[bool] = False
+    recover_in_mesh: ClassVar[bool] = False
 
     def __init__(self, rcfg: "RecoveryConfig", wall: "WallClockModel"):
         self.rcfg = rcfg
         self.wall = wall
         self.part: Optional["StagePartition"] = None
         self.init_fn: Optional[InitFn] = None
+        self._in_mesh_recover: Optional[Callable] = None
 
     # ---- trainer wiring ----------------------------------------------
     def bind(self, part: "StagePartition",
@@ -101,6 +107,15 @@ class RecoveryStrategy:
         that may have to restart).  Called once by the trainer."""
         self.part = part
         self.init_fn = init_fn
+        return self
+
+    def bind_in_mesh(self, recover_fn: Callable) -> "RecoveryStrategy":
+        """Attach the pipeline backend's recovery by neighbour transfers,
+        ``recover(params, omegas, failed, reinit) -> params`` (with
+        ``gathered`` and ``total``: ``pipeline.spmd.InMeshRecover``).
+        Called by the trainer only when the backend offers one and the
+        strategy advertises ``recover_in_mesh``."""
+        self._in_mesh_recover = recover_fn
         return self
 
     # ---- instrumented entry points (what the trainer calls) ----------

@@ -20,6 +20,13 @@ All recovery math
 lives in ``repro_torch.core.recovery``; it updates the parameters in place,
 so each strategy copies the failed stages first to measure the recovery
 error, and a rollback copies the saved state into the live tensors.
+
+On the pipeline backend the CheckFree family is bound to the backend's
+in-mesh recovery (``bind_in_mesh``): the reinits of ``IN_MESH_REINITS`` run
+as neighbour transfers into the failed rank; ``random`` and runs of
+consecutive stages keep the host math, on the tower gathered from every
+rank, as in JAX; each recovery error is taken on the failed rank and summed
+over the group, so every rank records the same value.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from repro_torch.core.recovery import (recover_consecutive, recover_stage,
                                        stage_sq_dist)
 from repro_torch.core.state import History, TrainState
 from repro_torch.optim.adam import OptState
+from repro_torch.pipeline.spmd import IN_MESH_REINITS
 from repro_torch.recovery.base import FailureContext, RecoveryStrategy
 from repro_torch.recovery.registry import register_strategy
 from repro_torch.statestore.codec import copy_into
@@ -133,8 +141,13 @@ class Checkpointing(RecoveryStrategy):
 
 class MergeRecovery(RecoveryStrategy):
     """Shared CheckFree-family machinery: neighbour-merge reinit of the failed
-    stage, zeroed optimizer moments for that stage, Alg. 1's LR boost."""
+    stage, zeroed optimizer moments for that stage, Alg. 1's LR boost.
 
+    On the pipeline backend the deterministic reinits run as neighbour
+    transfers into the failed rank (``bind_in_mesh``); ``random`` and
+    consecutive runs keep the host math on the gathered tower."""
+
+    recover_in_mesh = True
     reinit: ClassVar[str] = "grad_norm"
 
     def _omegas(self, state: TrainState) -> torch.Tensor:
@@ -160,10 +173,20 @@ class MergeRecovery(RecoveryStrategy):
     def _recovery_errors(self, before, params, stages: List[int],
                          event: FailureContext) -> None:
         # one copy to the host per failed stage: the recovery error is a
-        # host-side metric
+        # host-side metric (on the pipeline backend taken on the failed rank,
+        # the others' empty slices adding 0)
         for stage, saved in zip(stages, before):
             err = stage_sq_dist(saved, self.part.get_stage(params, stage))
+            if self._in_mesh_recover is not None:
+                err = self._in_mesh_recover.total(err)
             event.hist.recovery_errors.append((event.wall_step, err.item()))
+
+    def _host_math(self, params, fn):
+        """``fn(params, part)``, one of ``core.recovery``'s functions: on the
+        pipeline backend over the tower gathered from every rank."""
+        if self._in_mesh_recover is None:
+            return fn(params, self.part)
+        return self._in_mesh_recover.gathered(params, fn)
 
     def on_failure(self, state: TrainState,
                    event: FailureContext) -> TrainState:
@@ -174,9 +197,14 @@ class MergeRecovery(RecoveryStrategy):
             # protects them; if an event still arrives, degrade to copy.
             reinit = "copy_prev"
         before = TR.clone(self.part.get_stage(state.params, event.stage))
-        params = recover_stage(state.params, self.part, event.stage,
-                               self._omegas(state), strategy=reinit,
-                               generator=event.generator)
+        omegas = self._omegas(state)
+        if self._in_mesh_recover is not None and reinit in IN_MESH_REINITS:
+            params = self._in_mesh_recover(state.params, omegas, event.stage,
+                                           reinit)
+        else:
+            params = self._host_math(state.params, lambda p, part: (
+                recover_stage(p, part, event.stage, omegas, strategy=reinit,
+                              generator=event.generator)))
         self._recovery_errors([before], params, [event.stage], event)
         opt_state = self._zero_stage_moments(state.opt_state, [event.stage])
         return TrainState(params, opt_state, self._boosted(state.lr_scale),
@@ -187,8 +215,9 @@ class MergeRecovery(RecoveryStrategy):
         """Beyond-paper: a run of consecutive stages died together —
         distance-weighted interpolation between the surviving flanks."""
         before = [TR.clone(self.part.get_stage(state.params, s)) for s in run]
-        params = recover_consecutive(state.params, self.part, run,
-                                     self._omegas(state))
+        omegas = self._omegas(state)
+        params = self._host_math(state.params, lambda p, part: (
+            recover_consecutive(p, part, run, omegas)))
         self._recovery_errors(before, params, run, event)
         opt_state = self._zero_stage_moments(state.opt_state, run)
         return TrainState(params, opt_state, self._boosted(state.lr_scale),

@@ -1815,3 +1815,130 @@ def test_whisper_captured_windows_match_eager_steps_on_card():
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         assert recorded[name] == 16, (name, recorded)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline backend: four ranks of the card
+# ---------------------------------------------------------------------------
+
+SPMD_STAGES, SPMD_STEPS = 4, 4
+SPMD_RECOVERIES = ((2, "grad_norm"), (0, "grad_norm"), (1, "copy_prev"))
+
+
+def _spmd_config():
+    return reduced(get_config("paper-llama-124m")).replace(
+        num_layers=2 * SPMD_STAGES, dtype="float32")
+
+
+def _spmd_rank(rank, device, params):
+    """One rank: a ``checkfree_plus`` run on ``device`` (a merge of stage 2
+    at wall 2) from ``params``, and on the card the in-mesh recoveries of
+    SPMD_RECOVERIES from the same parameters."""
+    from repro_torch import tree as TR
+    from repro_torch.config import (OptimizerConfig, RecoveryConfig,
+                                    TrainConfig)
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.stages import StagePartition
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+    from repro_torch.pipeline import spmd
+
+    class Forced:
+        def at(self, step):
+            return [2] if step == 2 else []
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _spmd_config()
+    tcfg = TrainConfig(global_batch=8, microbatch=4, seq_len=32,
+                       steps=SPMD_STEPS, fuse_window=2,
+                       optimizer=OptimizerConfig(lr=1e-3,
+                                                 total_steps=SPMD_STEPS),
+                       recovery=RecoveryConfig(strategy="checkfree_plus",
+                                               num_stages=SPMD_STAGES))
+    before = ops.launch_counts()
+    trainer = Trainer(Model(cfg, device=device, weights=False), tcfg,
+                      schedule=Forced(), backend="spmd")
+    state, hist = trainer.run(make_batches(cfg, batch=8, seq=32, seed=0),
+                              params=params_from_numpy(params, device=device))
+    after = ops.launch_counts()
+    out = {"hist": hist,
+           "params": TR.map(lambda t: t.detach().cpu().numpy(), state.params),
+           "launches": {k: after[k] - before[k] for k in after}}
+    if device == "cuda":
+        part = StagePartition(cfg, SPMD_STAGES)
+        rec = spmd.make_in_mesh_recover(trainer.transport, part)
+        omegas = torch.tensor([1.0, 3.0, 0.5, 2.0], device="cuda")
+        out["recovered"] = []
+        for failed, reinit in SPMD_RECOVERIES:
+            shard = spmd.shard_params(params_from_numpy(params,
+                                                        device="cuda"),
+                                      part, rank)
+            rec(shard, omegas, failed, reinit)
+            out["recovered"].append(
+                TR.map(lambda t: t.cpu().numpy(), shard["blocks"]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def spmd_runs(tmp_path_factory):
+    if not torch.cuda.is_available():        # runs before _gpu_marker
+        pytest.skip("gpu test: no CUDA device")
+    from repro_torch import tree as TR
+    from repro_torch.launch.mesh import spawn_stages
+    params = TR.map(lambda t: t.numpy(), Model(
+        _spmd_config(), device="cpu", weights=False).init(
+            torch.Generator().manual_seed(0)))
+    return params, {device: spawn_stages(
+        _spmd_rank, SPMD_STAGES, device, params, cuda=device == "cuda",
+        timeout_s=600,
+        workdir=str(tmp_path_factory.mktemp(device)))
+        for device in ("cuda", "cpu")}
+
+
+@pytest.mark.gpu
+def test_spmd_on_the_card_matches_the_cpu(spmd_runs):
+    """Four ranks on the card (kernels, gloo through pinned host memory)
+    against four on the CPU (plain versions): the same failures, losses and
+    parameters at 1e-3 * (1 + |w|); every rank on the card launched the
+    flash and Adam kernels, rank 2 the merge."""
+    _, runs = spmd_runs
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card[0]["hist"].failures == cpu[0]["hist"].failures == [(2, 2)]
+    for a, b in zip(card[0]["hist"].loss, cpu[0]["hist"].loss):
+        assert abs(a - b) <= 1e-3 * (1 + abs(b))
+    for r, (x, y) in enumerate(zip(card, cpu)):
+        for a, b in zip(_leaves(x["params"]), _leaves(y["params"])):
+            assert np.all(np.abs(a - b) <= 1e-3 * (1 + np.abs(b))), r
+        n = x["launches"]
+        assert n["flash_attention_fwd"] == n["flash_attention_bwd_dq"] == \
+            n["flash_attention_bwd_dkv"] == 2 * 2 * 2 * SPMD_STEPS
+        assert n["adam_sumsq"] == n["adam_update"] == SPMD_STEPS
+        assert n["stage_merge"] == (1 if r == 2 else 0)
+        assert not any(y["launches"].values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(SPMD_RECOVERIES)))
+def test_spmd_in_mesh_recovery_is_bit_equal_on_the_card(spmd_runs, case):
+    """Neighbour transfers into the failed rank, merged there by the merge
+    kernel, against ``recover_stage`` on the whole tree on the card."""
+    from repro_torch import tree as TR
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.recovery import recover_stage
+    from repro_torch.core.stages import StagePartition
+    params, runs = spmd_runs
+    failed, reinit = SPMD_RECOVERIES[case]
+    want = recover_stage(params_from_numpy(params, device="cuda"),
+                         StagePartition(_spmd_config(), SPMD_STAGES), failed,
+                         torch.tensor([1.0, 3.0, 0.5, 2.0], device="cuda"),
+                         strategy=reinit)
+    got = TR.map(lambda *xs: np.concatenate(xs),
+                 *[r["recovered"][case] for r in runs["cuda"]])
+    for a, b in zip(_leaves(got), _leaves(TR.map(lambda t: t.cpu().numpy(),
+                                                 want["blocks"]))):
+        np.testing.assert_array_equal(a, b)
+
+
+def _leaves(tree):
+    from repro_torch import tree as TR
+    return TR.leaves(tree)

@@ -275,7 +275,8 @@ def test_package_imports_no_jax_and_nothing_of_repro():
         "'sim.scenario', 'sim.processes', 'sim.cluster', 'sim.adapters', "
         "'telemetry', 'telemetry.events', 'telemetry.recorder', "
         "'telemetry.trace', 'telemetry.metrics', 'telemetry.report', "
-        "'telemetry.log'):\n"
+        "'telemetry.log', 'pipeline', 'pipeline.spmd', "
+        "'pipeline.transport', 'launch.mesh'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

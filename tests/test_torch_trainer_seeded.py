@@ -42,14 +42,16 @@ def test_train_cli_on_cpu(tmp_path):
     assert History.from_json(out.read_text()) == hist
 
 
-@pytest.mark.parametrize("flags", [["--backend", "spmd"],
+@pytest.mark.parametrize("flags", [["--backend", "spmd", "--arch",
+                                    "mamba2-1.3b"],
                                    ["--trace"],
                                    ["--depart-prob", "0.1"],
-                                   ["--backend", "spmd", "--telemetry-dir",
-                                    "x"]])
+                                   ["--backend", "spmd", "--strategy",
+                                    "checkpoint", "--telemetry-dir", "x"]])
 def test_train_cli_refuses_unported_flags_by_name(flags, capsys, tmp_path,
                                                   monkeypatch):
-    """``--backend spmd`` is not ported; ``--trace`` needs
+    """``--backend spmd`` refuses the ssm family and the strategies that
+    snapshot the whole state, by name; ``--trace`` needs
     ``--telemetry-dir``; ``--depart-prob`` needs ``--scenario``.  A refused
     run makes no run directory."""
     monkeypatch.chdir(tmp_path)
@@ -57,6 +59,18 @@ def test_train_cli_refuses_unported_flags_by_name(flags, capsys, tmp_path,
         train.main(["--reduced", "--device", "cpu", *flags])
     assert flags[0] in capsys.readouterr().err
     assert os.listdir(tmp_path) == []
+
+
+def test_train_cli_runs_spmd_on_cpu(tmp_path):
+    """``--backend spmd`` on two gloo ranks of the CPU: finite losses, and
+    rank 0's History in ``--out``."""
+    out = tmp_path / "history.json"
+    hist = train.main(["--backend", "spmd", "--reduced", "--layers", "4",
+                       "--stages", "2", "--device", "cpu", "--strategy",
+                       "checkfree_plus", "--steps", "4", "--seq", "32",
+                       "--batch", "4", "--quiet", "--out", str(out)])
+    assert hist.steps == [1, 2, 3, 4] and all(np.isfinite(hist.loss))
+    assert History.from_json(out.read_text()) == hist
 
 
 def test_training_defaults_to_cuda_and_raises_without_it(monkeypatch):
