@@ -233,6 +233,34 @@ result.  Phases:
              windows) and tokens/s beside the host run's, bytes sent a step
              by kind, host ms a step in transfers, each rank's peak memory,
              the merge's device ms on rank 2.
+10c. train_spmd_store — the strategies that snapshot or restore state on
+             the pipeline backend, in one spawn of six ranks on the card
+             (SPMD's batch 8 in microbatches of 4, windows of up to 4), each
+             schedule also run on the host backend, eagerly.
+             paper-llama-1.5b at full width cut to 12 of its 24 layers
+             (SPMD_STORE_LAYERS: at 24 the phase outgrew the host's memory
+             and the script's time), said so with the host's readings, and
+             the phase's lowest free host memory printed: ``checkpoint``
+             (rollbacks from steps 5 and 6 to
+             the save at 4, the second for the edge stage 0), ``neighbor``
+             (a hot restore, then a consecutive pair whose replica holder
+             dies with it, so the disk tier serves), ``tiered_ckpt``, and
+             ``adaptive`` (``checkfree`` merging stage 2, switched to
+             ``checkpoint`` by an observed failure rate and back, with a
+             rollback while high).  Then the gathered path (a consecutive
+             run merged on the tower gathered from every rank; a ``random``
+             reinit) and the MoE pipeline (granite-moe-3b-a800m cut to 24
+             of 32 layers, ``checkfree_plus``, batch 4 in one microbatch a
+             half).  Gates: failures, effective-step trace, restore log and
+             switches equal to the host run's; losses within
+             FUSED_LOSS_TOL * (1 + |loss|), omegas within TRAIN_OMEGA_TOL;
+             hot restores' recovery errors exactly 0, rollbacks NaN on both
+             sides, the others within SPMD_RECOVERY_TOL; every rank's
+             History equal to rank 0's; no plain-version call on any rank;
+             each rank's flash and Adam launches as its walls say, the
+             merge on the failed rank (every rank for the gathered run).
+             ms a step, each rank's host ms of a save and a restore, peak
+             memory by rank.
 11. kernels — one line for every kernel: launches (the training paths and
              for the SSD scan the serving ones, and by path), error, times,
              bound.
@@ -260,6 +288,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+LOADED = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -614,7 +643,10 @@ MOE_AUX_LOW, MOE_AUX_SPREAD = 0.5, 2.0
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line of a phase, with ``t_s``: the seconds since this
+    module was loaded (the script's clock, for the phases' durations)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - LOADED}), flush=True)
 
 
 def smi() -> str:
@@ -3389,13 +3421,18 @@ def phase_train_elastic() -> dict:
     return launched
 
 
+def mem_available() -> int:
+    """The host's available memory in bytes (``MemAvailable``)."""
+    with open("/proc/meminfo") as f:
+        meminfo = dict(line.split(":", 1) for line in f)
+    return int(meminfo["MemAvailable"].split()[0]) * 1024
+
+
 def host_report(phase: str, directory: str, need: dict) -> dict:
     """The card, the host's free memory and the free space of ``directory``
     before a phase that keeps the training state on the host or the disk;
     ``need`` is the phase's need in bytes ("ram", "disk")."""
-    with open("/proc/meminfo") as f:
-        meminfo = dict(line.split(":", 1) for line in f)
-    ram = int(meminfo["MemAvailable"].split()[0]) * 1024
+    ram = mem_available()
     disk = shutil.disk_usage(directory).free
     fits = need.get("ram", 0) <= ram / 2 and need.get("disk", 0) <= disk / 2
     report = dict(nvidia_smi=smi(), mem_available_gb=ram / 1e9,
@@ -3436,9 +3473,10 @@ def state_bytes(cfg) -> int:
 
 def cut_if_needed(phase: str, spec: dict, directory: str, ram: float,
                   disk: float) -> dict:
-    """``spec`` at full depth when the phase's need (``ram`` and ``disk``
-    times the training state) fits half of the host's free memory and of
-    ``directory``'s free space, else cut to CKPT_CUT_LAYERS layers."""
+    """``spec`` as it is when the phase's need (``ram`` and ``disk`` times
+    the training state) fits half of the host's free memory and of
+    ``directory``'s free space, else cut to CKPT_CUT_LAYERS layers (said
+    so, with the readings that forced it)."""
     need = state_bytes(train_model_config(spec))
     report = host_report(phase, directory, {"ram": ram * need,
                                             "disk": disk * need})
@@ -3446,8 +3484,40 @@ def cut_if_needed(phase: str, spec: dict, directory: str, ram: float,
         return spec
     emit(phase + "_cut", layers=CKPT_CUT_LAYERS,
          reason="the phase's need does not fit half of the host's free "
-                "memory or disk")
+                "memory or disk", need_gb=report["need_gb"],
+         mem_available_gb=report["mem_available_gb"],
+         disk_free_gb=report["disk_free_gb"])
     return dict(spec, layers=CKPT_CUT_LAYERS)
+
+
+class HostMemoryLow:
+    """The host's lowest available memory while the ``with`` block runs,
+    sampled every ``every_s`` seconds on a thread (``low_gb``, beside
+    ``start_gb`` at entry)."""
+
+    def __init__(self, every_s: float = 0.25):
+        import threading
+        self.every_s, self.done = every_s, threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _sample(self) -> None:
+        while not self.done.wait(self.every_s):
+            self.low = min(self.low, mem_available())
+
+    def __enter__(self) -> "HostMemoryLow":
+        self.start = self.low = mem_available()
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.done.set()
+        self.thread.join()
+        self.low = min(self.low, mem_available())
+
+    def report(self) -> dict:
+        return dict(mem_available_start_gb=self.start / 1e9,
+                    mem_available_low_gb=self.low / 1e9,
+                    host_used_peak_gb=(self.start - self.low) / 1e9)
 
 
 def timed_snapshots(record: dict) -> None:
@@ -4029,6 +4099,419 @@ def phase_train_spmd() -> dict:
     return total
 
 
+# train_spmd_store: the strategies that snapshot or restore state on the
+# pipeline backend, SPMD's six ranks on the one card (batch 8 in
+# microbatches of 4, windows of up to 4), every run of the phase inside one
+# spawn so that six processes warm up once; each schedule also runs on the
+# host backend, eagerly (the JAX trainer's fuse_window=1 order of
+# decisions).  The dense runs take paper-llama-1.5b at full width, cut in
+# depth to SPMD_STORE_LAYERS.  Runs:
+# name -> (strategy, steps, schedule, RecoveryConfig fields, walls whose
+# observed failure rate is SPMD_STORMY_RATE)
+SPMD_STORE_RUNS = {
+    # stage 2 rolled back from step 5 to the save at 4 (wall 5), then the
+    # edge stage 0 from step 6 to 4 (wall 7)
+    "checkpoint": ("checkpoint", 7, {5: [2], 7: [0]},
+                   dict(checkpoint_every=4), ()),
+    # stage 3 served by its neighbour's memory at wall 2; stages 1 and 2
+    # together at wall 4: stage 1's replica lived on stage 2's host, so the
+    # disk copy of step 3 serves it
+    "neighbor": ("neighbor", 6, {2: [3], 4: [1, 2]},
+                 dict(checkpoint_every=3), ()),
+    "tiered_ckpt": ("tiered_ckpt", 4, {2: [4]}, {}, ()),
+    # checkfree merges stage 2 at wall 1; the observed rate on walls 3-5
+    # switches to checkpoint (shadow-saving at 4 all along), which rolls
+    # the failure at wall 5 back from step 5 to 4; calm again at wall 6
+    "adaptive": ("adaptive", 7, {1: [2], 5: [3]},
+                 dict(checkpoint_every=4), (3, 4, 5)),
+}
+SPMD_STORE_TRACES = {"checkpoint": [1, 2, 3, 4, 5, 5, 6, 5, 6, 7],
+                     "neighbor": [1, 2, 3, 4, 5, 6],
+                     "tiered_ckpt": [1, 2, 3, 4],
+                     "adaptive": [1, 2, 3, 4, 5, 5, 6, 7]}
+SPMD_STORE_LOGS = {"neighbor": [(2, 3, 2, "mem"), (4, 1, 3, "disk"),
+                                (4, 2, 4, "mem")],
+                   "tiered_ckpt": [(2, 4, 2, "mem")]}
+SPMD_STORE_SWITCHES = [(4, "checkfree", "checkpoint"),
+                       (6, "checkpoint", "checkfree")]
+SPMD_STORMY_RATE = 0.5
+# the dense runs' depth: 12 of paper-llama-1.5b's 24 layers.  At 24 (on an
+# NVIDIA H100 80GB HBM3, 700 W, with a host of 96 GiB) the phase had run
+# 485 s of the script's 1,108 without ending when the host's memory ran
+# out: the six ranks share one host, where each stage of a deployment has
+# its own, and keep their snapshots and stage every transfer through its
+# pinned memory; and the script must end within 1,200 s.  Beside the cut,
+# cut_if_needed still checks that half the host's free memory and disk
+# hold the most saves of the whole state (fp32 masters and moments) that
+# the runs keep at once, one run at a time (each removes its files when it
+# ends): in memory, ``neighbor``'s and ``tiered_ckpt``'s tiers keep_hot = 2
+# snapshots of every stage while they take the next a stage at a time (3
+# bounds it); on disk, ``neighbor``'s saves at steps 3 and 6 (``checkpoint``
+# and ``adaptive`` save once, at 4 of 7 steps; ``tiered_ckpt``'s disk
+# cadence, checkpoint_every 100, never fires)
+SPMD_STORE_LAYERS = 12
+SPMD_STORE_HELD = dict(ram=3, disk=2)
+# the gathered path (InMeshRecover.gathered: host math on the tower
+# gathered from every rank) at the store runs' depth: a consecutive run
+# merged by recover_consecutive, and a random reinit
+SPMD_GATHERED_RUNS = {
+    "checkfree-consecutive": ("checkfree", 3, {1: [2, 3]}, {}, ()),
+    "random": ("random", 3, {1: [3]}, {}, ()),
+}
+# the MoE pipeline: granite-moe-3b-a800m cut to 24 of 32 layers (six ranks
+# of 4: 7.65 GB of fp32 state and gradients a rank), batch 4 in one
+# microbatch a half, so that routing and capacity are the host run's
+SPMD_MOE = dict(arch="granite-moe-3b-a800m", stages=6, layers=24, batch=4,
+                seq=512, microbatch=4, window=4)
+SPMD_MOE_RUNS = {"granite-checkfree_plus": ("checkfree_plus", 4, {2: [2]},
+                                            {}, ())}
+SPMD_STORE_TIMEOUT_S = 1000.0
+
+
+class Stormy(Forced):
+    """Fixed events, and an observed failure rate of SPMD_STORMY_RATE on
+    the walls ``stormy`` (0 elsewhere)."""
+
+    def __init__(self, events: dict, stormy=()):
+        super().__init__(events)
+        self.stormy = set(stormy)
+
+    def observed_rate(self, step: int) -> float:
+        return SPMD_STORMY_RATE if step in self.stormy else 0.0
+
+
+def store_config(spec: dict, run: tuple, directory: str) -> TrainConfig:
+    """The training config of one run of the phase: ``spec``'s shape, the
+    run's strategy and settings, its checkpoints and stores under
+    ``directory``."""
+    strategy, steps, _, rcfg, _ = run
+    return dataclasses.replace(
+        train_config(strategy, steps, stages=spec["stages"],
+                     batch=spec["batch"], seq=spec["seq"],
+                     window=spec.get("window", 1),
+                     checkpoint_dir=os.path.join(directory, "ckpt"),
+                     store_dir=os.path.join(directory, "store"), **rcfg),
+        microbatch=spec.get("microbatch", spec["batch"]))
+
+
+def record_store(trainer: Trainer, record: dict) -> None:
+    """The strategy's after_step host ms by effective step (a save, where
+    one fires; host clock ending in a synchronize), and at the run's end
+    its restore log and switches (the trainer itself is not kept)."""
+    strategy = trainer.strategy
+    after_step, run_end = strategy.after_step, strategy.on_run_end
+    record.update(after_step_ms=[])
+
+    def timed(state, hist):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        after_step(state, hist)
+        torch.cuda.synchronize()
+        record["after_step_ms"].append(
+            (state.effective_step, (time.perf_counter() - t0) * 1e3))
+
+    def ended():
+        run_end()
+        record["restore_log"] = list(getattr(strategy, "restore_log", []))
+        record["switches"] = list(getattr(strategy, "switches", []))
+
+    strategy.after_step, strategy.on_run_end = timed, ended
+
+
+def spmd_store_rank(rank: int, runs: list) -> dict:
+    """One rank of train_spmd_store (a spawned process): each run of
+    ``runs`` ((name, spec, run, directory)) in turn, with its launch counts,
+    plain-version calls, window, save and restore times and peak memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    plain = dict.fromkeys(PLAIN_FUNCTIONS, 0)
+    for name in PLAIN_FUNCTIONS:
+        def counted(*a, _fn=getattr(ref, name), _name=name, **k):
+            plain[_name] += 1
+            return _fn(*a, **k)
+        setattr(ref, name, counted)
+    out = {}
+    for name, spec, run, directory in runs:
+        cfg = train_model_config(spec)
+        trainer = Trainer(Model(cfg, device="cuda", weights=False),
+                          store_config(spec, run, directory),
+                          schedule=Stormy(run[2], run[4]), backend="spmd")
+        record = {"recovery_ms": []}
+        time_recoveries(trainer, record)
+        record_windows(trainer, record)
+        record_store(trainer, record)
+        batches = make_batches(cfg, batch=spec["batch"], seq=spec["seq"],
+                               seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        plain.update(dict.fromkeys(plain, 0))
+        trainer.transport.reset_counts()
+        t0 = time.perf_counter()
+        state, hist = trainer.run(batches)
+        torch.cuda.synchronize()
+        out[name] = {
+            "hist": hist, "launched": counts(), "plain": dict(plain),
+            "effective_step": state.effective_step,
+            "omegas": [row[OMEGAS:].tolist()
+                       for ring in record["rings"] for row in ring],
+            "window_ms": record["window_ms"],
+            "recovery_ms": record["recovery_ms"],
+            "after_step_ms": record["after_step_ms"],
+            "restore_log": record["restore_log"],
+            "switches": record["switches"],
+            "sent": dict(trainer.transport.sent),
+            "run_s": time.perf_counter() - t0,
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+        del trainer, state
+        gc.collect()                 # the instrumented trainer holds a cycle
+        torch.cuda.empty_cache()
+        remove_rank_files(directory, rank)
+    return out
+
+
+def store_host_run(spec: dict, run: tuple, directory: str) -> dict:
+    """A run of the phase on the host backend, eagerly."""
+    strategy, steps, events, rcfg, stormy = run
+    try:
+        hist, launched, record, peak = train_run(
+            strategy, steps, Stormy(events, stormy), spec=spec,
+            rcfg=dict(rcfg, checkpoint_dir=os.path.join(directory, "ckpt"),
+                      store_dir=os.path.join(directory, "store")),
+            setup=record_store)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        empty_host_cache()
+    return {"hist": hist, "launched": launched, "record": record,
+            "peak_allocated_gib": peak}
+
+
+def remove_rank_files(directory: str, rank: int) -> None:
+    """A rank's checkpoints and stores under a run's ``directory`` (rank 0
+    also the replicated shards): each rank removes its own, so that none
+    removes a file another rank still writes."""
+    mine = set(store_mod.rank_dirs(rank))
+    for root, dirs, _ in os.walk(directory):
+        for d in [d for d in dirs if d in mine]:
+            shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+            dirs.remove(d)
+
+
+def spmd_merges(name: str, rank=None) -> int:
+    """Merge launches of a run of the phase on rank ``rank`` (None: the
+    host run): the in-mesh merges on the failed rank (stage 2), every rank
+    merging a consecutive run on its gathered tower."""
+    if name == "checkfree-consecutive":
+        return 2
+    if name in ("adaptive", "granite-checkfree_plus"):
+        return int(rank in (None, 2))
+    return 0
+
+
+def check_store_run(name: str, spec: dict, run: tuple, host: dict,
+                    ranks: list) -> tuple:
+    """The gates of one run of the phase -> (problems, its report)."""
+    strategy, steps, events, _, _ = run
+    cfg = train_model_config(spec)
+    got = [r[name] for r in ranks]
+    hist, hhist = got[0]["hist"], host["hist"]
+    walls = len(hhist.loss)
+    problems = []
+    for r, res in enumerate(got):
+        if res["hist"].to_json() != hist.to_json() or \
+                res["effective_step"] != steps or \
+                res["restore_log"] != got[0]["restore_log"] or \
+                res["switches"] != got[0]["switches"]:
+            problems.append(f"rank {r}'s history differs from rank 0's")
+        if any(res["plain"].values()):
+            problems.append(f"rank {r} called plain versions {res['plain']}")
+        halves = 2 if strategy == "checkfree_plus" else 1
+        per_wall = (cfg.num_layers // spec["stages"] * halves
+                    * (spec["batch"] // spec["microbatch"]))
+        want = {"flash_attention_fwd": per_wall * walls,
+                "flash_attention_bwd_dq": per_wall * walls,
+                "flash_attention_bwd_dkv": per_wall * walls,
+                "stage_merge": spmd_merges(name, r), "ssd_scan": 0,
+                "ssd_scan_bwd": 0, "adam_sumsq": walls, "adam_update": walls}
+        if res["launched"] != want:
+            problems.append(f"rank {r} launches {res['launched']}, want "
+                            f"{want}")
+    halves = 2 if strategy == "checkfree_plus" else 1
+    host_want = {"flash_attention_fwd": cfg.num_layers * halves * walls,
+                 "flash_attention_bwd_dq": cfg.num_layers * halves * walls,
+                 "flash_attention_bwd_dkv": cfg.num_layers * halves * walls,
+                 "stage_merge": spmd_merges(name), "ssd_scan": 0,
+                 "ssd_scan_bwd": 0, "adam_sumsq": walls, "adam_update": walls}
+    if host["launched"] != host_want:
+        problems.append(f"host launches {host['launched']}, want "
+                        f"{host_want}")
+    failures = [(s, st) for s in sorted(events) for st in events[s]]
+    if [tuple(f) for f in hist.failures] != failures or \
+            hist.failures != hhist.failures:
+        problems.append(f"failures {hist.failures}, host {hhist.failures}, "
+                        f"want {failures}")
+    if hist.steps != hhist.steps or hist.wall_iters != walls or \
+            hist.steps != SPMD_STORE_TRACES.get(name, hhist.steps):
+        problems.append(f"trace {hist.steps}, host {hhist.steps}")
+    log, host_log = got[0]["restore_log"], host["record"]["restore_log"]
+    if log != host_log or log != SPMD_STORE_LOGS.get(name, log):
+        problems.append(f"restore log {log}, host {host_log}")
+    switches = got[0]["switches"]
+    if switches != host["record"]["switches"] or (
+            strategy == "adaptive" and switches != SPMD_STORE_SWITCHES):
+        problems.append(f"switches {switches}, host "
+                        f"{host['record']['switches']}")
+    loss_err = max(abs(a - b) / (1 + abs(b))
+                   for a, b in zip(hist.loss, hhist.loss))
+    if len(hist.loss) != walls or not all(math.isfinite(x)
+                                          for x in hist.loss) or \
+            loss_err > FUSED_LOSS_TOL:
+        problems.append(f"losses {hist.loss} against the host's "
+                        f"{hhist.loss}: {loss_err}")
+    host_omegas = np.stack([o.numpy() for o in host["record"]["omegas"]])
+    omegas = np.asarray(got[0]["omegas"])
+    omega_err = (float(np.max(np.abs(omegas - host_omegas) /
+                              np.abs(host_omegas)))
+                 if omegas.shape == host_omegas.shape else math.inf)
+    if omega_err > TRAIN_OMEGA_TOL:
+        problems.append(f"omegas off the host's by {omega_err}")
+    hot = {i for i, row in enumerate(log) if row[3] == "mem"}
+    rec_err = []
+    for i, ((w, a), (hw, b)) in enumerate(zip(hist.recovery_errors,
+                                              hhist.recovery_errors)):
+        if strategy in ("checkpoint", "adaptive") and w in events and \
+                math.isnan(b):
+            ok = math.isnan(a)               # a rollback: NaN on both sides
+        elif i in hot:
+            ok = a == 0.0 and b == 0.0       # a hot restore loses nothing
+        else:
+            ok = math.isfinite(a) and abs(a - b) <= SPMD_RECOVERY_TOL * abs(b)
+        rec_err.append(None if math.isnan(b) else
+                       (abs(a - b) / abs(b) if b else abs(a)))
+        if not ok or w != hw:
+            problems.append(f"recovery error {i}: {a} at wall {w}, host {b} "
+                            f"at {hw}")
+    if len(hist.recovery_errors) != len(failures) or \
+            len(hhist.recovery_errors) != len(failures):
+        problems.append(f"recovery errors {hist.recovery_errors}, host "
+                        f"{hhist.recovery_errors}")
+    if strategy in ("checkpoint", "adaptive"):
+        nans = [math.isnan(e) for _, e in hist.recovery_errors]
+        if not any(nans) or nans != [math.isnan(e) for _, e in
+                                     hhist.recovery_errors]:
+            problems.append(f"rollbacks {hist.recovery_errors}, host "
+                            f"{hhist.recovery_errors}")
+    steady = [ms / k for k, ms in got[0]["window_ms"][1:]]
+    report = dict(
+        strategy=strategy, steps=steps, schedule=events, trace=hist.steps,
+        failures=hist.failures, loss=hist.loss, loss_host=hhist.loss,
+        loss_max_rel_err=loss_err, omega_max_rel_err=omega_err,
+        recovery_errors=hist.recovery_errors,
+        recovery_errors_host=hhist.recovery_errors,
+        recovery_rel_err=rec_err, restore_log=log, switches=switches,
+        launches_by_rank=[res["launched"] for res in got],
+        host_launches=host["launched"],
+        step_ms_rank0=float(np.median(steady)) if steady else None,
+        window_ms_rank0=got[0]["window_ms"],
+        host_step_ms=float(np.median(host["record"]["step_ms"])),
+        after_step_ms_by_rank=[res["after_step_ms"] for res in got],
+        host_after_step_ms=host["record"]["after_step_ms"],
+        recovery_ms_by_rank=[res["recovery_ms"] for res in got],
+        host_recovery_ms=host["record"]["recovery_ms"],
+        decisions_bytes_by_rank=[res["sent"].get("decisions", 0)
+                                 for res in got],
+        recovery_bytes_by_rank=[res["sent"].get("recovery", 0)
+                                for res in got],
+        peak_allocated_gib_by_rank=[res["peak_allocated_gib"] for res in got],
+        peak_reserved_gib_by_rank=[res["peak_reserved_gib"] for res in got],
+        host_peak_allocated_gib=host["peak_allocated_gib"],
+        run_s_by_rank=[res["run_s"] for res in got])
+    return problems, report
+
+
+def phase_train_spmd_store() -> dict:
+    """The strategies that snapshot or restore state, the gathered path and
+    the MoE pipeline on the pipeline backend: one spawn of six ranks on the
+    card against the host backend's runs of the same schedules.  Returns
+    each path's launches, summed over the ranks."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_spmd_store_")
+    try:
+        dense = dict(SPMD, layers=SPMD_STORE_LAYERS)
+        emit("train_spmd_store_cut", layers=SPMD_STORE_LAYERS,
+             layers_published=get_config(SPMD["arch"]).num_layers,
+             reason="at full depth the phase outgrew the host's memory and "
+                    "the script's time (SPMD_STORE_LAYERS)")
+        dense = cut_if_needed("train_spmd_store", dense, work,
+                              **SPMD_STORE_HELD)
+        moe_cfg = train_model_config(SPMD_MOE)
+        emit("train_spmd_moe_cut", arch=moe_cfg.name,
+             layers=moe_cfg.num_layers,
+             layers_published=get_config(SPMD_MOE["arch"]).num_layers,
+             reason="six ranks of its fp32 state, gradients and "
+                    "activations share the one card")
+        groups = {"train_spmd_store": (dense, SPMD_STORE_RUNS),
+                  "train_spmd_gathered": (dense, SPMD_GATHERED_RUNS),
+                  "train_spmd_moe": (SPMD_MOE, SPMD_MOE_RUNS)}
+        host, runs = {}, []
+        t0 = time.perf_counter()
+        with HostMemoryLow() as host_mem:
+            for spec, table in groups.values():
+                for name, run in table.items():
+                    host[name] = store_host_run(
+                        spec, run, os.path.join(work, "host", name))
+                    runs.append((name, spec, run,
+                                 os.path.join(work, "spmd", name)))
+        host_runs_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with HostMemoryLow() as spawn_mem:
+            ranks = spawn_stages(spmd_store_rank, SPMD["stages"], runs,
+                                 cuda=True, timeout_s=SPMD_STORE_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        problems, totals = [], {}
+        for group, (spec, table) in groups.items():
+            cfg = train_model_config(spec)
+            reports = {}
+            for name, run in table.items():
+                bad, reports[name] = check_store_run(name, spec, run,
+                                                     host[name], ranks)
+                problems += [f"{name}: {p}" for p in bad]
+            emit(group, arch=cfg.name, layers=cfg.num_layers,
+                 layers_published=get_config(spec["arch"]).num_layers,
+                 stages=spec["stages"], ranks=len(ranks),
+                 batch=spec["batch"], seq=spec["seq"],
+                 microbatch=spec["microbatch"], window=spec["window"],
+                 runs=reports, spawn_s=spawn_s, host_runs_s=host_runs_s,
+                 host_memory={"host_runs": host_mem.report(),
+                              "spawn": spawn_mem.report()},
+                 nvidia_smi=smi(),
+                 timing="host clock: a step's ms the median over the "
+                        "windows after the first of their ms (from the "
+                        "dispatch, after a synchronize, to the end of the "
+                        "drain) over their steps; after_step_ms around the "
+                        "strategy's after_step (a save, where one fires: "
+                        "the snapshot's device-to-host copy, then the "
+                        "file or the memory tier) and recovery_ms around "
+                        "its failure handler, each ending in a "
+                        "synchronize; the host runs eager, host_step_ms "
+                        "their median step")
+            totals[group] = {}
+            for name in table:
+                for res in ranks:
+                    for kernel, n in res[name]["launched"].items():
+                        totals[group][kernel] = \
+                            totals[group].get(kernel, 0) + n
+        if problems:
+            raise AssertionError("train_spmd_store: " + "; ".join(problems))
+        return totals
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        empty_host_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs the "
@@ -4079,7 +4562,8 @@ def main() -> int:
                "train_vlm": phase_train_checkfree(TRAIN_VLM, "train_vlm"),
                "train_ckpt": phase_train_ckpt(),
                "train_neighbor": phase_train_neighbor(),
-               "train_spmd": phase_train_spmd()}
+               "train_spmd": phase_train_spmd(),
+               **phase_train_spmd_store()}
     # launches: the training paths; by path: every path that ran it
     for row in (fwd, dq, dkv, merge, ssd, ssd_bwd, *adam_rows):
         by_path = {path: n[row["name"]] for path, n in trained.items()}

@@ -16,14 +16,15 @@ records, recovered by reinterpreting their bytes through the template's
 dtype.
 
 Loads return trees of host tensors; the checkpoint strategy copies them
-into the live training state.
+into the live training state.  On the pipeline backend each rank saves and
+restores its shard through a :class:`ShardCheckpointer`.
 """
 from __future__ import annotations
 
 import os
 import re
 import shutil
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,17 +146,19 @@ class Checkpointer:
     ``maybe_save`` is called every iteration; ``rollback`` returns the last
     saved state and the number of lost iterations.  Saves stay synchronous
     (the asynchronous path belongs to ``tiered_ckpt``): this class *is* the
-    strawman being compared against.  Construction wipes ``directory``.
+    strawman being compared against.  Construction wipes ``directory``
+    unless ``wipe`` is False (a reader of another process's checkpoints).
     """
 
     SHARD = "full"
     DEFAULT_KEEP = 3
 
-    def __init__(self, directory: str, every: int, keep: int = DEFAULT_KEEP):
+    def __init__(self, directory: str, every: int, keep: int = DEFAULT_KEEP,
+                 *, wipe: bool = True):
         self.dir = directory
         self.every = max(every, 1)
         self.keep = keep
-        if os.path.isdir(directory):
+        if wipe and os.path.isdir(directory):
             shutil.rmtree(directory)
         os.makedirs(directory, exist_ok=True)
         self.store = StateStore(
@@ -174,12 +177,85 @@ class Checkpointer:
         return self.store.latest_step(self.SHARD) is not None
 
     def rollback(self, current_step: int, template: Pytree,
-                 ) -> Tuple[int, Pytree, int]:
-        """Returns (ckpt_step, tree of host tensors, lost_iterations); a
+                 max_step: Optional[int] = None) -> Tuple[int, Pytree, int]:
+        """Returns (ckpt_step, tree of host tensors, lost_iterations) of the
+        newest intact checkpoint (at or below ``max_step`` when given): a
         corrupted newest checkpoint falls back to the previous intact one."""
         try:
-            res = self.store.restore(self.SHARD, template)
+            res = self.store.restore(self.SHARD, template, max_step=max_step)
         except StoreError as e:
             raise CheckpointError(f"no checkpoint to roll back to: {e}") \
                 from e
         return res.step, res.tree, current_step - res.step
+
+
+class ShardCheckpointer:
+    """The checkpoints of one rank of the pipeline backend: the rank's own
+    shard (its slice of the tower with that slice's Adam moments) in
+    ``own_dir``, which this rank alone wipes, and the replicated leaves (the
+    embedding, final norm, head and ``pos_embed``, their moments and Adam's
+    step count) in ``replicated_dir``, written once, by the rank that
+    ``writes_replicated``.  A save so holds each byte of the model once.
+    Every rank reads the replicated shard from there on a rollback: the
+    checkpoints stand for storage that every node reaches (the paper's
+    remote tier), as one directory does on one machine.
+
+    The rollback is the group's (``Checkpointing`` on the pipeline
+    backend): each rank offers :meth:`newest`, the group takes the least,
+    and every rank restores that step (:meth:`restore`) or raises.
+    """
+
+    def __init__(self, own_dir: str, replicated_dir: str, every: int, *,
+                 writes_replicated: bool,
+                 keep: int = Checkpointer.DEFAULT_KEEP):
+        self.own = Checkpointer(own_dir, every, keep)
+        self.replicated_dir = replicated_dir
+        self.replicated = (Checkpointer(replicated_dir, every, keep)
+                           if writes_replicated else None)
+
+    def maybe_save(self, step: int, own: Pytree, replicated: Pytree) -> bool:
+        if not self.own.maybe_save(step, own):
+            return False
+        if self.replicated is not None:
+            self.replicated.maybe_save(step, replicated)
+        return True
+
+    def newest(self, own: Pytree, replicated: Pytree
+               ) -> Tuple[int, Dict[str, Tuple[int, Pytree]]]:
+        """The newest step this rank can read, -1 before its first save:
+        its own shard's newest intact save, and on the rank that writes the
+        replicated shard the older of that and the replicated shard's; with
+        the trees read, by shard, for :meth:`restore` to reuse.  Raises
+        :class:`CheckpointError` when saves exist and none is intact."""
+        if not self.own.has_checkpoint():
+            return -1, {}
+        step, tree, _ = self.own.rollback(0, own)
+        read = {"own": (step, tree)}
+        if self.replicated is not None:
+            rstep, rtree, _ = self.replicated.rollback(0, replicated)
+            read["replicated"] = (rstep, rtree)
+            step = min(step, rstep)
+        return step, read
+
+    def restore(self, step: int, own: Pytree, replicated: Pytree,
+                read: Dict[str, Tuple[int, Pytree]]) -> Tuple[Pytree, Pytree]:
+        """Both shards at exactly ``step`` (the group's), as trees of host
+        tensors: from ``read`` where :meth:`newest` read that step, else
+        from the files.  Raises :class:`CheckpointError` when a shard has
+        no intact save at ``step``."""
+        def at(name: str, ckpt: Checkpointer, template: Pytree) -> Pytree:
+            got = read.get(name)
+            if got is None or got[0] != step:
+                got = ckpt.rollback(step, template, max_step=step)[:2]
+            if got[0] != step:
+                raise CheckpointError(
+                    f"{name} shard in {ckpt.dir}: no intact checkpoint at "
+                    f"the group's step {step} (newest below it: {got[0]})")
+            return got[1]
+
+        # the replicated shard of the rank that writes it, or a reader of
+        # its files that wipes nothing
+        reader = self.replicated or Checkpointer(
+            self.replicated_dir, self.own.every, self.own.keep, wipe=False)
+        return (at("own", self.own, own),
+                at("replicated", reader, replicated))

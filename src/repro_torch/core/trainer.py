@@ -81,11 +81,14 @@ the group, so every rank holds the same ones and makes the same decisions.
 Windows run their steps eagerly: there is **no CUDA graph** on this
 backend, since gloo's transfers run on the host (through pinned host
 buffers on the card).  The CheckFree family recovers by neighbour transfers
-into the failed rank, merged there by ``ops.stage_merge``.  A repartitioning
-strategy degrades to in-place recovery (the stage group is fixed); the
-backend refuses other families than dense and MoE, a sliding window, a
-layer count the stages do not divide and the strategies that snapshot the
-whole state (``pipeline.spmd.refusal``).  Only a rank that installed a
+into the failed rank, merged there by ``ops.stage_merge``.  The strategies
+that snapshot or restore state keep per-rank shards in directories of each
+rank's own under ``checkpoint_dir`` and ``store_dir``, and decide through
+the group's all-reduce, which the trainer binds to every strategy here
+(``bind_group_reduce``).  A repartitioning strategy degrades to in-place
+recovery (the stage group is fixed); the backend refuses other families
+than dense and MoE, a sliding window and a layer count the stages do not
+divide (``pipeline.spmd.refusal``).  Only a rank that installed a
 recorder records telemetry (rank 0, in the launcher), with
 ``backend="spmd"``.
 """
@@ -242,8 +245,7 @@ class Trainer:
         if backend == "spmd":
             # deferred: only pipeline runs load the backend
             from repro_torch.pipeline import spmd
-            why = spmd.refusal(model.cfg, self.rcfg.num_stages,
-                               self.rcfg.strategy)
+            why = spmd.refusal(model.cfg, self.rcfg.num_stages)
             if why:
                 raise ValueError(why)
         self.part = StagePartition(model.cfg, self.rcfg.num_stages)
@@ -286,8 +288,15 @@ class Trainer:
 
     def _init_spmd(self, group) -> None:
         """The pipeline backend: the stage group, the rank's view of its
-        shard for the strategy, the in-mesh recovery, the step and its
-        window (``repro/core/trainer.py:256-269, 290-299``)."""
+        shard for the strategy, the group's all-reduce and the in-mesh
+        recovery for it, the step and its window
+        (``repro/core/trainer.py:256-269, 290-299``).  The strategies put
+        this rank's checkpoints and stores in its own directories under the
+        configured ones (``statestore.store.rank_dirs``), since each wipes
+        its directory when it starts.  Every rank sizes its
+        windows alike: ``after_step_horizon`` reads only the effective step,
+        which a rollback sets to the group's step on every rank, and the
+        replayed batches are drawn by that step."""
         from repro_torch.launch.mesh import make_stage_group
         from repro_torch.pipeline import spmd
         from repro_torch.pipeline.transport import Transport
@@ -301,6 +310,7 @@ class Trainer:
             log(f"strategy {self.strategy.name!r} advertises repartition but "
                 "the spmd backend has a fixed mesh: permanent departures "
                 "degrade to in-place recovery on a spare")
+        self.strategy.bind_group_reduce(spmd.GroupReduce(self.transport))
         if self.strategy.recover_in_mesh:
             self.strategy.bind_in_mesh(
                 spmd.make_in_mesh_recover(self.transport, self.part))

@@ -41,10 +41,13 @@ is closed and uninstalled when the run ends, also when it raises.
 ``--backend spmd`` trains the dense and MoE families as a pipeline: one rank
 a stage (``launch.mesh.spawn_stages``; the stages snapped to a divisor of
 the layers, as in JAX), every rank on the card (or the CPU with ``--device
-cpu``), gloo between them.  Rank 0 alone logs, records the telemetry and
-writes ``--out``; its History is the run's.  The backend's refusals (another
-family, a sliding window, the strategies that snapshot the whole state) are
-made here, before any rank starts or any run directory is made.
+cpu``), gloo between them, with every strategy.  Rank 0 alone logs,
+records the telemetry and writes ``--out``; its History is the run's.  The
+ranks share one run directory, made and removed by the launching process,
+and each strategy keeps every rank's checkpoints and stores in a directory
+of that rank's own under it.  The backend's refusals (another family, a
+sliding window, a layer count the stages do not divide) are made here,
+before any rank starts or any run directory is made.
 """
 from __future__ import annotations
 
@@ -130,33 +133,37 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     if args.backend == "spmd":
         from repro_torch.pipeline.spmd import refusal
         cfg, stages = _model_and_stages(args)
-        why = refusal(cfg, stages, args.strategy)
+        why = refusal(cfg, stages)
         if why:
             ap.error(f"--backend spmd: {why}")
         _device(args)
-        # one rank a stage; rank 0's History is the run's
-        return spawn_stages(_spmd_rank, stages, args,
-                            cuda=args.device.startswith("cuda"),
-                            timeout_s=None)[0]
+        run_dir = tempfile.mkdtemp(prefix="repro_torch_train_")
+        try:
+            # one rank a stage; rank 0's History is the run's
+            return spawn_stages(_spmd_rank, stages, args, run_dir,
+                                cuda=args.device.startswith("cuda"),
+                                timeout_s=None)[0]
+        finally:
+            shutil.rmtree(run_dir, ignore_errors=True)
     return _run(args)
 
 
-def _spmd_rank(rank: int, args: argparse.Namespace) -> History:
-    """One rank of ``--backend spmd``: rank 0 logs, records and writes
-    ``--out``; the others run silent."""
+def _spmd_rank(rank: int, args: argparse.Namespace, run_dir: str) -> History:
+    """One rank of ``--backend spmd`` in the group's ``run_dir``: rank 0
+    logs, records and writes ``--out``; the others run silent."""
     if rank:
         set_verbosity(-1)
         args = argparse.Namespace(**{**vars(args), "out": "",
                                      "telemetry_dir": "", "trace": False})
-    return _run(args)
+    return _run(args, run_dir)
 
 
-def _run(args: argparse.Namespace) -> History:
+def _run(args: argparse.Namespace, run_dir: Optional[str] = None) -> History:
     """The run, with the telemetry recorder of ``--telemetry-dir``."""
     rec = (telemetry.configure(run_dir=args.telemetry_dir)
            if args.telemetry_dir else None)
     try:
-        hist = _train(args)
+        hist = _train(args, run_dir)
         if rec is not None and args.trace:
             log(f"trace -> {rec.write_chrome_trace()}")
     finally:
@@ -198,8 +205,11 @@ def _model_and_stages(args: argparse.Namespace):
     return cfg, stages
 
 
-def _train(args: argparse.Namespace) -> History:
-    """The run of ``main``'s parsed and checked arguments."""
+def _train(args: argparse.Namespace, run_dir: Optional[str] = None
+           ) -> History:
+    """The run of ``main``'s parsed and checked arguments; its checkpoints
+    and stores go under ``run_dir`` (default: a directory of the run's own,
+    removed at the end)."""
     device = _device(args)
     cfg, stages = _model_and_stages(args)
     seq = args.seq or min(cfg.max_seq_len, 512)
@@ -251,7 +261,8 @@ def _train(args: argparse.Namespace) -> History:
     evals = [batch_for(cfg, src.sample(rng, args.batch, seq), rng)
              for _ in range(2)]
 
-    run_dir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    own = run_dir is None
+    run_dir = tempfile.mkdtemp(prefix="repro_torch_train_") if own else run_dir
     try:
         tcfg = dataclasses.replace(tcfg, recovery=dataclasses.replace(
             rcfg, checkpoint_dir=os.path.join(run_dir, "ckpt"),
@@ -260,7 +271,8 @@ def _train(args: argparse.Namespace) -> History:
                           backend=args.backend)
         state, hist = trainer.run(batches, evals, verbose=not args.quiet)
     finally:
-        shutil.rmtree(run_dir, ignore_errors=True)
+        if own:
+            shutil.rmtree(run_dir, ignore_errors=True)
 
     log(f"\ndone: {state.effective_step} effective steps over "
         f"{hist.wall_iters} wall iterations, "

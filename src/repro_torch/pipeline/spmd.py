@@ -46,8 +46,17 @@ them through ``ops.stage_merge``, the call of ``core/recovery.py``, so the
 result is bit-equal to the host backend's (:func:`checkfree_recover_spmd`).
 Replicated leaves need no transfer: replication is the restore.
 
+The strategies that snapshot or restore state (``checkpoint``,
+``tiered_ckpt``, ``neighbor``, ``adaptive``'s children) keep per-rank
+shards: each rank saves its slice of the tower with its moments, and rank 0
+the replicated leaves once.  Whatever only one rank knows, or must hold on
+every rank alike (the step a rollback returns to, a restore's tier, priced
+read and recovery error), goes through :class:`GroupReduce`, the group's
+all-reduce of host numbers, so every rank makes the same decisions.
+
 Scope: dense and MoE decoder towers with full attention and a number of
-layers that the stages divide (:func:`refusal`), as JAX asserts.
+layers that the stages divide (:func:`refusal`), as JAX asserts; every
+recovery strategy.
 """
 from __future__ import annotations
 
@@ -75,14 +84,9 @@ Batch = Dict[str, torch.Tensor]
 #: these through the in-mesh recovery
 IN_MESH_REINITS = ("grad_norm", "uniform", "copy_prev", "twin_copy")
 
-#: the strategies that snapshot or restore the whole state: refused here
-REFUSED_STRATEGIES = ("checkpoint", "tiered_ckpt", "neighbor", "adaptive")
-
-
-def refusal(cfg: ModelConfig, num_stages: int,
-            strategy: Optional[str] = None) -> Optional[str]:
-    """Why the spmd backend cannot run this model, stage count or strategy
-    (None when it can)."""
+def refusal(cfg: ModelConfig, num_stages: int) -> Optional[str]:
+    """Why the spmd backend cannot run this model or stage count (None
+    when it can)."""
     if cfg.arch_type not in ("dense", "moe"):
         return (f"spmd backend supports dense/moe towers, not "
                 f"{cfg.arch_type} ({cfg.name})")
@@ -93,11 +97,6 @@ def refusal(cfg: ModelConfig, num_stages: int,
         return (f"spmd backend shards the tower evenly: num_layers "
                 f"{cfg.num_layers} is not a multiple of num_stages "
                 f"{num_stages}")
-    if strategy in REFUSED_STRATEGIES:
-        return (f"spmd backend: strategy {strategy!r} snapshots the whole "
-                "state, not ported to per-rank shards yet (ROADMAP.md queue "
-                "1, item 12, \"Snapshot strategies on the pipeline "
-                "backend\")")
     return None
 
 
@@ -556,3 +555,38 @@ class InMeshRecover:
 def make_in_mesh_recover(transport: Transport,
                          part: StagePartition) -> InMeshRecover:
     return InMeshRecover(transport, part)
+
+
+# ---------------------------------------------------------------------------
+# decisions of the group
+# ---------------------------------------------------------------------------
+
+class GroupReduce:
+    """The stage group's all-reduce of host numbers, which the trainer binds
+    to every strategy on this backend (``RecoveryStrategy.
+    bind_group_reduce``), so that the ranks decide as one: :meth:`min`
+    agrees on a step every rank can restore, :meth:`share` hands every rank
+    what one rank alone knows (a restore's step, tier, priced read, bytes
+    and recovery error).  The numbers go through gloo as float64 host
+    tensors (``Transport.reduce_numbers``), on the card too, so a shared
+    value arrives bit for bit."""
+
+    def __init__(self, transport: Transport):
+        self.transport = transport
+        self.rank, self.size = transport.rank, transport.size
+
+    def __call__(self, values: Sequence[float], op: str = "sum"
+                 ) -> List[float]:
+        return self.transport.reduce_numbers(values, op, "decisions")
+
+    def min(self, value: float) -> float:
+        return self([value], "min")[0]
+
+    def share(self, values: Optional[Sequence[float]], owner: int,
+              n: int) -> List[float]:
+        """Rank ``owner``'s ``n`` values (None on the other ranks) on every
+        rank."""
+        if (values is None) == (self.rank == owner):
+            raise ValueError(f"rank {self.rank}: only rank {owner} gives "
+                             "the values of a share")
+        return self([0.0] * n if values is None else values)

@@ -28,6 +28,8 @@ from repro_torch.launch.mesh import StageGroup
 # one op of an exchange: ("send", peer, tensor) or ("recv", peer, shape, dtype)
 Op = Tuple
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}
+
 
 class Transport:
     """Point-to-point exchanges and collectives of one rank of ``sg``, for
@@ -135,6 +137,20 @@ class Transport:
                 self._sync()
             self.sent[kind] += n * flat.element_size()
         self.seconds[kind] += time.perf_counter() - t0
+
+    def reduce_numbers(self, values: Sequence[float], op: str,
+                       kind: str) -> List[float]:
+        """Host numbers combined over the group element-wise by ``op``
+        ("sum" or "min") in float64 -> the same list on every rank.
+        They never touch the card, so the reduction runs on the host on
+        both devices."""
+        vec = torch.tensor([float(v) for v in values], dtype=torch.float64)
+        if self.size > 1:
+            t0 = time.perf_counter()
+            dist.all_reduce(vec, op=_REDUCE_OPS[op], group=self.group)
+            self.sent[kind] += vec.numel() * vec.element_size()
+            self.seconds[kind] += time.perf_counter() - t0
+        return vec.tolist()
 
     def all_gather(self, t: torch.Tensor, kind: str) -> List[torch.Tensor]:
         """Every rank's ``t`` (one shape on all ranks), by rank, on the

@@ -20,6 +20,15 @@ pipeline (:meth:`Adaptive.accept_repartition`): the one-time re-layout
 against staying degraded on a spare, logged in ``repartition_decisions``.
 As in JAX it advertises ``recover_by_repartition`` on every instance, so the
 trainer asks it at each departure whatever its children are.
+
+On the pipeline backend it also advertises ``recover_in_mesh`` when a child
+does, and passes the backend's in-mesh recovery and the group's all-reduce
+through to its children: a ``checkfree`` child then merges by neighbour
+transfers into the failed rank, where host math on the rank's shard would
+find no neighbours, and a ``checkpoint`` child rolls every rank back to one
+step.  JAX needs no such delegation, since its arrays are global.  The
+switch itself needs no reduction: it rests on the failure counts and the
+schedule's observed rate, the same on every rank.
 """
 from __future__ import annotations
 
@@ -77,12 +86,33 @@ class Adaptive(RecoveryStrategy):
     # (accept_repartition prices the re-layout against staying degraded),
     # so an instance always advertises the capability, as JAX's does
     recover_by_repartition = _ChildFlag(lambda self: True, False)
+    # the pipeline backend's neighbour transfers, for a child that takes them
+    recover_in_mesh = _ChildFlag(
+        lambda self: (self.low.recover_in_mesh or
+                      self.high.recover_in_mesh), False)
 
     # ---- wiring -------------------------------------------------------
+    def _children(self) -> List[RecoveryStrategy]:
+        """The distinct children (one when both sides are one policy)."""
+        return [self.low] if self.high is self.low else [self.low, self.high]
+
     def bind(self, part, init_fn=None) -> "Adaptive":
         super().bind(part, init_fn)
-        self.low.bind(part, init_fn)
-        self.high.bind(part, init_fn)
+        for child in self._children():
+            child.bind(part, init_fn)
+        return self
+
+    def bind_in_mesh(self, recover_fn) -> "Adaptive":
+        super().bind_in_mesh(recover_fn)
+        for child in self._children():
+            if child.recover_in_mesh:
+                child.bind_in_mesh(recover_fn)
+        return self
+
+    def bind_group_reduce(self, reduce) -> "Adaptive":
+        super().bind_group_reduce(reduce)
+        for child in self._children():
+            child.bind_group_reduce(reduce)
         return self
 
     # ---- lifecycle ----------------------------------------------------
@@ -146,9 +176,8 @@ class Adaptive(RecoveryStrategy):
 
     def on_layout_change(self, state: TrainState, old, new) -> TrainState:
         self.part = new
-        state = self.low.on_layout_change(state, old, new)
-        if self.high is not self.low:
-            state = self.high.on_layout_change(state, old, new)
+        for child in self._children():
+            state = child.on_layout_change(state, old, new)
         return state
 
     def after_step(self, state: TrainState, hist: History) -> None:
@@ -160,9 +189,8 @@ class Adaptive(RecoveryStrategy):
             self.switches.append((state.effective_step,
                                   self.active.name, want.name))
             self.active = want
-        self.low.after_step(state, hist)
-        if self.high is not self.low:
-            self.high.after_step(state, hist)
+        for child in self._children():
+            child.after_step(state, hist)
 
     def after_step_horizon(self, step: int) -> int:
         # the sliding window takes one sample per wall iteration (and the
@@ -180,9 +208,8 @@ class Adaptive(RecoveryStrategy):
     def on_run_end(self) -> None:
         # both children may own background resources (statestore children
         # run an async snapshot writer even while shadowing)
-        self.low.on_run_end()
-        if self.high is not self.low:
-            self.high.on_run_end()
+        for child in self._children():
+            child.on_run_end()
 
     # ---- wall-clock model --------------------------------------------
     def iteration_cost(self) -> float:

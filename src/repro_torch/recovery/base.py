@@ -47,9 +47,13 @@ horizons
 from-scratch init (``() -> (params, opt_state)``, fresh tensors on the
 trainer's device), for policies that may have to restart.  On the pipeline
 backend (``Trainer(backend="spmd")``) the partition is the rank's view of
-its shard (``pipeline.spmd.ShardPartition``), and ``bind_in_mesh`` gives a
+its shard (``pipeline.spmd.ShardPartition``), ``bind_in_mesh`` gives a
 strategy that advertises ``recover_in_mesh`` the backend's recovery by
-neighbour transfers (``pipeline.spmd.InMeshRecover``).
+neighbour transfers (``pipeline.spmd.InMeshRecover``), and
+``bind_group_reduce`` gives every strategy the stage group's all-reduce of
+host numbers (``pipeline.spmd.GroupReduce``), through which the ranks agree
+on what only some of them know; on the host backend ``group_reduce`` stays
+None.
 
 Strategies are made through the registry
 (:func:`repro_torch.recovery.registry.make_strategy`).
@@ -99,6 +103,8 @@ class RecoveryStrategy:
         self.part: Optional["StagePartition"] = None
         self.init_fn: Optional[InitFn] = None
         self._in_mesh_recover: Optional[Callable] = None
+        #: the stage group's all-reduce on the pipeline backend, else None
+        self.group_reduce: Optional[Callable] = None
 
     # ---- trainer wiring ----------------------------------------------
     def bind(self, part: "StagePartition",
@@ -116,6 +122,16 @@ class RecoveryStrategy:
         Called by the trainer only when the backend offers one and the
         strategy advertises ``recover_in_mesh``."""
         self._in_mesh_recover = recover_fn
+        return self
+
+    def bind_group_reduce(self, reduce: Callable) -> "RecoveryStrategy":
+        """Attach the pipeline backend's all-reduce of host numbers over the
+        stage group, ``reduce(values, op) -> values`` (with ``rank``,
+        ``min`` and ``share``: ``pipeline.spmd.GroupReduce``).  Called by
+        the trainer on that backend, for every strategy; a strategy whose
+        decisions rest on one rank's files or stores takes them through it,
+        so that every rank decides alike."""
+        self.group_reduce = reduce
         return self
 
     # ---- instrumented entry points (what the trainer calls) ----------

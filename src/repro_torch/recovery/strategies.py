@@ -26,11 +26,14 @@ in-mesh recovery (``bind_in_mesh``): the reinits of ``IN_MESH_REINITS`` run
 as neighbour transfers into the failed rank; ``random`` and runs of
 consecutive stages keep the host math, on the tower gathered from every
 rank, as in JAX; each recovery error is taken on the failed rank and summed
-over the group, so every rank records the same value.
+over the group, so every rank records the same value.  ``checkpoint``
+saves each rank's shard there (``ckpt.ShardCheckpointer``) and rolls every
+rank back to the one step the group agreed on (``bind_group_reduce``).
 """
 from __future__ import annotations
 
-from typing import ClassVar, List
+import os
+from typing import Any, ClassVar, List, Tuple
 
 import torch
 
@@ -43,6 +46,7 @@ from repro_torch.pipeline.spmd import IN_MESH_REINITS
 from repro_torch.recovery.base import FailureContext, RecoveryStrategy
 from repro_torch.recovery.registry import register_strategy
 from repro_torch.statestore.codec import copy_into
+from repro_torch.statestore.store import REPLICATED_DIR, rank_dir
 
 
 @register_strategy("none")
@@ -74,6 +78,13 @@ class Checkpointing(RecoveryStrategy):
     tier spec: the paper's 500 Mb/s link to non-faulty storage (fn. 2).
     A rollback copies the saved parameters, moments and Adam step into the
     live state in place.
+
+    On the pipeline backend each rank saves its shard into
+    ``rank<r>/`` of ``checkpoint_dir`` and rank 0 the replicated leaves
+    into ``replicated/`` (``ckpt.ShardCheckpointer``).  A rollback is
+    global, so every rank takes it: each offers the newest step it can read,
+    and every rank restores the least of them, or restarts from the init
+    when a rank has no save yet.
     """
 
     def __init__(self, rcfg, wall):
@@ -85,33 +96,80 @@ class Checkpointing(RecoveryStrategy):
         if self._ckpt is None:
             # deferred import: repro_torch.ckpt sits on top of the state
             # store, whose strategies import the recovery package
-            from repro_torch.ckpt.checkpoint import Checkpointer
-            self._ckpt = Checkpointer(self.rcfg.checkpoint_dir,
-                                      self.rcfg.checkpoint_every)
+            from repro_torch.ckpt.checkpoint import (Checkpointer,
+                                                     ShardCheckpointer)
+            base, every = self.rcfg.checkpoint_dir, self.rcfg.checkpoint_every
+            reduce = self.group_reduce
+            self._ckpt = (Checkpointer(base, every) if reduce is None else
+                          ShardCheckpointer(
+                              rank_dir(base, reduce.rank),
+                              os.path.join(base, REPLICATED_DIR), every,
+                              writes_replicated=reduce.rank == 0))
         return self._ckpt
+
+    def _shards(self, state: TrainState) -> Tuple[Any, Any]:
+        """(this rank's tower slice with its moments, the replicated leaves
+        with theirs and Adam's step count): views of the live state."""
+        key = self.part.tower_key
+        opt = state.opt_state
+
+        def rest(tree):
+            return {k: v for k, v in tree.items() if k != key}
+
+        own = {"params": state.params[key], "m": opt.m[key], "v": opt.v[key]}
+        replicated = {"params": rest(state.params), "m": rest(opt.m),
+                      "v": rest(opt.v), "step": opt.step}
+        return own, replicated
+
+    def _restart(self, state: TrainState) -> TrainState:
+        """Nothing saved yet -> a fresh init at step 0 (lr_scale resets too:
+        any boost belonged to the lost trajectory)."""
+        if self.init_fn is None:
+            raise RuntimeError("checkpoint strategy needs bind(init_fn=...)")
+        params, opt_state = copy_into((state.params, state.opt_state),
+                                      self.init_fn())
+        return TrainState(params, opt_state, lr_scale=1.0, omegas=None,
+                          effective_step=0)
 
     def on_failure(self, state: TrainState,
                    event: FailureContext) -> TrainState:
         event.hist.recovery_errors.append((event.wall_step, float("nan")))
+        if self.group_reduce is not None:
+            return self._rollback_group(state)
         ckpt = self.checkpointer
         live = (state.params, state.opt_state)
         if not ckpt.has_checkpoint():
-            # nothing saved yet -> restart from a fresh init at step 0
-            # (lr_scale resets too: any boost belonged to the lost trajectory)
-            if self.init_fn is None:
-                raise RuntimeError("checkpoint strategy needs "
-                                   "bind(init_fn=...)")
-            params, opt_state = copy_into(live, self.init_fn())
-            return TrainState(params, opt_state, lr_scale=1.0,
-                              omegas=None, effective_step=0)
+            return self._restart(state)
         step, saved, _lost = ckpt.rollback(state.effective_step, live)
         params, opt_state = copy_into(live, saved)
         return TrainState(params, opt_state, state.lr_scale,
                           state.omegas, effective_step=step)
 
+    def _rollback_group(self, state: TrainState) -> TrainState:
+        """The pipeline backend's rollback: the group's least newest
+        readable step, restored on every rank (a corrupted newest save on
+        one rank sends all of them back to the same earlier one)."""
+        ckpt = self.checkpointer
+        own, replicated = self._shards(state)
+        newest, read = ckpt.newest(own, replicated)
+        step = int(self.group_reduce.min(newest))
+        if step < 0:
+            return self._restart(state)
+        own_saved, replicated_saved = ckpt.restore(step, own, replicated,
+                                                   read)
+        copy_into(own, own_saved)
+        opt_step = copy_into(replicated, replicated_saved)["step"]
+        opt = state.opt_state
+        return TrainState(state.params, OptState(opt.m, opt.v, opt_step),
+                          state.lr_scale, state.omegas, effective_step=step)
+
     def after_step(self, state: TrainState, hist: History) -> None:
-        self.checkpointer.maybe_save(state.effective_step,
-                                     (state.params, state.opt_state))
+        if self.group_reduce is None:
+            self.checkpointer.maybe_save(state.effective_step,
+                                         (state.params, state.opt_state))
+        else:
+            self.checkpointer.maybe_save(state.effective_step,
+                                         *self._shards(state))
 
     def after_step_horizon(self, step: int) -> int:
         # saves only fire at multiples of checkpoint_every

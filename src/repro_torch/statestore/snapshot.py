@@ -5,8 +5,8 @@ The expensive parts of a checkpoint are the serialize + tier I/O, not the
 host copy: :func:`~repro_torch.statestore.codec.host_snapshot` detaches the
 state from the training tensors, after which encoding and disk/remote
 writes can run on a background thread while training continues.  The queue
-is bounded at ``DEPTH`` = 2 in-flight writes (the double buffer): if
-the writer falls behind, ``submit`` blocks.
+is bounded at ``depth`` in-flight writes (default 2, the double buffer):
+if the writer falls behind, ``submit`` blocks.
 
 Worker exceptions are captured and re-raised on the next ``flush()`` /
 ``submit()``, so an I/O failure cannot be silently swallowed.
@@ -29,10 +29,9 @@ class SnapshotWriteError(RuntimeError):
 class AsyncSnapshotter:
     """Runs tier-write thunks on a single background thread."""
 
-    DEPTH = 2
-
-    def __init__(self):
-        self._q: "queue.Queue" = queue.Queue(maxsize=self.DEPTH)
+    def __init__(self, depth: int = 2):
+        self.depth = max(int(depth), 1)
+        self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         self._error: Optional[BaseException] = None
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()
@@ -69,7 +68,7 @@ class AsyncSnapshotter:
 
     # ---- public -------------------------------------------------------
     def submit(self, write: Callable[[], None]) -> None:
-        """Enqueue a tier write; blocks when ``DEPTH`` writes are already
+        """Enqueue a tier write; blocks when ``depth`` writes are already
         in flight (double-buffer backpressure)."""
         self._check_error()
         self._ensure_thread()

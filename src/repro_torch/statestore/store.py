@@ -17,6 +17,10 @@ mediates every save/restore:
 * **re-layout** — ``reshard`` drops every snapshot cut along the old stage
   bounds and seeds the fastest tier with shards cut along the new ones.
 
+On the pipeline backend every rank keeps its checkpoints and stores in
+directories of its own under the ones the stage group shares
+(:func:`rank_dirs`), since each wipes its directory when it starts.
+
 Every restore returns the serving tier and its priced read time, which is
 how recovery strategies charge tier-real wall-clock.  The restored tree
 holds host tensors (a memory tier's own); the caller copies them into the
@@ -25,6 +29,7 @@ trains on them.
 """
 from __future__ import annotations
 
+import os
 import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -35,6 +40,24 @@ from repro_torch.statestore.codec import (CodecError, Pytree, Snapshot,
 from repro_torch.statestore.policy import RetentionPolicy
 from repro_torch.statestore.snapshot import AsyncSnapshotter
 from repro_torch.statestore.tiers import StorageTier, TierError
+
+
+#: under a directory the stage group shares, the directory of the shard every
+#: rank reads on the pipeline backend (the replicated leaves), written by
+#: rank 0 alone
+REPLICATED_DIR = "replicated"
+
+
+def rank_dirs(rank: int) -> List[str]:
+    """The directories that rank ``rank`` of the pipeline backend writes,
+    and alone wipes, under a directory the stage group shares: its own
+    (``rank<r>``), and on rank 0 also :data:`REPLICATED_DIR`."""
+    return [f"rank{rank:02d}"] + ([REPLICATED_DIR] if rank == 0 else [])
+
+
+def rank_dir(directory: str, rank: int) -> str:
+    """Rank ``rank``'s own directory under ``directory``."""
+    return os.path.join(directory, rank_dirs(rank)[0])
 
 
 class StoreError(RuntimeError):
@@ -56,7 +79,8 @@ class StateStore:
     """Tiered snapshot storage with asynchronous cold writes."""
 
     def __init__(self, tiers: List[StorageTier],
-                 retention: Optional[RetentionPolicy] = None):
+                 retention: Optional[RetentionPolicy] = None,
+                 snapshot_depth: int = 2):
         if not tiers:
             raise ValueError("StateStore needs at least one tier")
         names = [t.name for t in tiers]
@@ -64,7 +88,8 @@ class StateStore:
             raise ValueError(f"duplicate tier names: {names}")
         self.tiers = list(tiers)          # fastest first
         self.retention = retention or RetentionPolicy()
-        self.writer = AsyncSnapshotter()
+        # at most snapshot_depth asynchronous writes in flight
+        self.writer = AsyncSnapshotter(depth=snapshot_depth)
 
     def tier(self, name: str) -> StorageTier:
         for t in self.tiers:
@@ -150,10 +175,10 @@ class StateStore:
                      host=hosts[sid], sync=True)
 
     # ---- restore ------------------------------------------------------
-    def restore(self, shard_id: str,
-                template: Optional[Pytree] = None) -> RestoreResult:
-        """Serve the freshest copy of ``shard_id`` from the fastest tier
-        holding it.
+    def restore(self, shard_id: str, template: Optional[Pytree] = None, *,
+                max_step: Optional[int] = None) -> RestoreResult:
+        """Serve the freshest copy of ``shard_id`` (at or below ``max_step``
+        when given) from the fastest tier holding it.
 
         Pending asynchronous writes are flushed first so a restore can
         never race its own in-flight checkpoint.  A corrupted snapshot is
@@ -162,21 +187,22 @@ class StateStore:
         """
         with telemetry.span("restore", cat="statestore",
                             shard_id=shard_id):
-            res = self._restore(shard_id, template)
+            res = self._restore(shard_id, template, max_step)
         telemetry.emit("snapshot_restore", step=res.step,
                        shard_id=shard_id, tier=res.tier, nbytes=res.nbytes,
                        read_time_s=res.read_time_s)
         return res
 
-    def _restore(self, shard_id: str,
-                 template: Optional[Pytree]) -> RestoreResult:
+    def _restore(self, shard_id: str, template: Optional[Pytree],
+                 max_step: Optional[int]) -> RestoreResult:
         self.flush()
         # candidate (step, tier) pairs: freshest step first; ties broken by
         # tier order (fastest first)
         candidates = []
         for rank, t in enumerate(self.tiers):
             for s in t.steps(shard_id):
-                candidates.append((-s, rank, t))
+                if max_step is None or s <= max_step:
+                    candidates.append((-s, rank, t))
         if not candidates:
             raise StoreError(f"no snapshot of {shard_id!r} in any tier")
         candidates.sort(key=lambda c: (c[0], c[1]))

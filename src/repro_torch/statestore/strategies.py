@@ -26,6 +26,18 @@ to owned host tensors, and a restore copies the served shard into the live
 slices.  The recovery error is measured against the stage as it was just
 before that copy.  All recovery wall-clock is priced through the tier specs
 of the :class:`~repro_torch.core.walltime.WallClockModel`.
+
+On the pipeline backend each rank keeps a store of its own
+(``<store_dir>/<name>/rank<r>/``) holding its own stage's shard, under the
+host tag ``(r+1) % K`` that the one store of the host backend gives it.
+Every rank drops the hosts of every failed stage before any restore, so the
+owner's store serves exactly the tier and step that the one store would.
+The owner restores, and the group's all-reduce (``bind_group_reduce``)
+hands every rank the restored step, the tier, the priced read, the bytes
+and the recovery error, so that every rank's history, ``restore_log`` and
+wall clock stay equal.  Nothing moves between the ranks: as on the host
+backend, the tiers are a simulation priced by the wall-clock model, and a
+stage's memory replica on its neighbour's host is a tag, not a transfer.
 """
 from __future__ import annotations
 
@@ -43,7 +55,7 @@ from repro_torch.recovery.base import FailureContext, RecoveryStrategy
 from repro_torch.recovery.registry import register_strategy
 from repro_torch.statestore.codec import host_snapshot
 from repro_torch.statestore.policy import RetentionPolicy
-from repro_torch.statestore.store import StateStore, StoreError
+from repro_torch.statestore.store import StateStore, StoreError, rank_dir
 from repro_torch.statestore.tiers import DiskTier, MemoryTier, RemoteTier
 
 Pytree = Any
@@ -89,6 +101,9 @@ class StoreBackedStrategy(RecoveryStrategy):
     def _build_store(self) -> StateStore:
         specs = self.wall.tier_specs()
         base = os.path.join(self.rcfg.store_dir, self.name)
+        if self.group_reduce is not None:
+            # one store a rank: the others' are theirs to wipe
+            base = rank_dir(base, self.group_reduce.rank)
         # a run's snapshots belong to that run: stale tiers from a previous
         # process must not serve restores (as the Checkpointer)
         if os.path.isdir(base):
@@ -139,10 +154,14 @@ class StoreBackedStrategy(RecoveryStrategy):
         return err
 
     def _save_shards(self, state: TrainState, tiers: List[str]) -> None:
-        """One host copy per shard, placed into every tier in ``tiers``."""
+        """One host copy per shard this process holds (on the pipeline
+        backend the rank's own), placed into every tier in ``tiers``."""
         if not tiers:
             return
-        for stage in range(self.part.num_stages):
+        reduce = self.group_reduce
+        stages = (range(self.part.num_stages) if reduce is None
+                  else [reduce.rank])
+        for stage in stages:
             snap = host_snapshot(self._shard_tree(state, stage),
                                  step=state.effective_step,
                                  shard_id=self._shard_id(stage))
@@ -152,10 +171,32 @@ class StoreBackedStrategy(RecoveryStrategy):
                                snap=snap)
 
     # ---- restore ------------------------------------------------------
+    #: a restore's tier as a number, for the group's all-reduce
+    TIERS = ("init", "mem", "disk", "remote")
+
     def _restore_stage(self, state: TrainState, stage: int,
                        event: FailureContext) -> TrainState:
         """Restore one stage's shard from the freshest surviving tier,
-        recording the tier-priced cost for the trainer's clock."""
+        recording the tier-priced cost for the trainer's clock; on the
+        pipeline backend the owner restores and every rank records what
+        it shares."""
+        reduce = self.group_reduce
+        row = None
+        if reduce is None or reduce.rank == stage:
+            row = self._restore_own(state, stage)
+        if reduce is not None:
+            row = reduce.share(row, stage, 5)
+        step, tier, cost, nbytes, err = row
+        self._pending_costs.append(cost)
+        self._pending_nbytes.append(nbytes)
+        self.restore_log.append((event.wall_step, stage, int(step),
+                                 self.TIERS[int(tier)]))
+        event.hist.recovery_errors.append((event.wall_step, err))
+        return state
+
+    def _restore_own(self, state: TrainState, stage: int) -> List[float]:
+        """Restore a stage this process holds -> (step, tier number, priced
+        read seconds, bytes, recovery error)."""
         template = self._shard_tree(state, stage)
         try:
             res = self.store.restore(self._shard_id(stage), template)
@@ -168,18 +209,11 @@ class StoreBackedStrategy(RecoveryStrategy):
             params, opt_state = self.init_fn()
             shard = self._shard_tree(TrainState(params, opt_state), stage)
             err = self._set_shard(state, stage, shard)
-            self._pending_costs.append(self.wall.restart_overhead_s)
-            self._pending_nbytes.append(
-                self.wall.stage_bytes(self.part.num_stages))
-            self.restore_log.append((event.wall_step, stage, -1, "init"))
-        else:
-            err = self._set_shard(state, stage, res.tree)
-            self._pending_costs.append(res.read_time_s)
-            self._pending_nbytes.append(float(res.nbytes))
-            self.restore_log.append((event.wall_step, stage, res.step,
-                                     res.tier))
-        event.hist.recovery_errors.append((event.wall_step, err))
-        return state
+            return [-1, 0, self.wall.restart_overhead_s,
+                    self.wall.stage_bytes(self.part.num_stages), err]
+        err = self._set_shard(state, stage, res.tree)
+        return [res.step, self.TIERS.index(res.tier), res.read_time_s,
+                float(res.nbytes), err]
 
     # ---- lifecycle ----------------------------------------------------
     def on_failure(self, state: TrainState,

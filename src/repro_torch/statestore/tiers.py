@@ -176,17 +176,20 @@ class DiskTier(StorageTier):
     same tier as the sharded store layout (``<shard>-<step>.npz``).
     Interrupted writes leave ``*.tmp`` files that are swept on startup
     (:meth:`clean_stale_tmp`) and never match the step-listing pattern.
+    ``retry`` bounds the attempts at a transient I/O error; None makes the
+    first one fail.
     """
 
     kind = "disk"
     TMP_SUFFIX = ".tmp"
 
     def __init__(self, spec: TierSpec, directory: str,
-                 template: str = "{shard}-{step:08d}.npz"):
+                 template: str = "{shard}-{step:08d}.npz",
+                 retry: Optional[RetryPolicy] = RetryPolicy()):
         super().__init__(spec)
         self.dir = directory
         self.template = template
-        self.retry = RetryPolicy()
+        self.retry = retry
         # injectable for deterministic tests (monkeypatch to skip waits)
         self._sleep: Callable[[float], None] = time.sleep
         self._retry_rng = random.Random(0xFA11)
@@ -258,7 +261,7 @@ class DiskTier(StorageTier):
             except FileNotFoundError:
                 raise
             except OSError as e:
-                if attempt >= self.retry.attempts:
+                if self.retry is None or attempt >= self.retry.attempts:
                     raise TierError(
                         f"tier {self.name!r} {op} {shard_id}@{step} failed "
                         f"after {attempt} attempt(s): {e}") from e

@@ -1942,3 +1942,131 @@ def test_spmd_in_mesh_recovery_is_bit_equal_on_the_card(spmd_runs, case):
 def _leaves(tree):
     from repro_torch import tree as TR
     return TR.leaves(tree)
+
+
+# the snapshot strategies on the pipeline backend: a rollback of every rank
+# to the save at step 2, and stage 1 restored from its neighbour's memory
+SPMD_STORE_RUNS = {"checkpoint": ({3: [2]}, dict(checkpoint_every=2),
+                                  [1, 2, 3, 3, 4]),
+                   "neighbor": ({2: [1]}, dict(neighbor_cold=False),
+                                [1, 2, 3, 4])}
+
+
+def _spmd_store_rank(rank, device, params, directory):
+    """One rank: each run of SPMD_STORE_RUNS on ``device``, with a host
+    copy of the rank's whole state (parameters, moments, Adam's step) after
+    every step, and whether the state after each restore equals, bit for
+    bit, the copy of the step it restored."""
+    import os
+
+    from repro_torch import tree as TR
+    from repro_torch.config import (OptimizerConfig, RecoveryConfig,
+                                    TrainConfig)
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+
+    class Forced:
+        def __init__(self, events):
+            self.events = events
+
+        def at(self, step):
+            return list(self.events.get(step, []))
+
+    def host(state):
+        opt = state.opt_state
+        return (TR.map(lambda t: t.detach().cpu().clone(),
+                       {"params": state.params, "m": opt.m, "v": opt.v}),
+                opt.step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _spmd_config()
+    out = {}
+    for name, (events, rcfg, _) in SPMD_STORE_RUNS.items():
+        tcfg = TrainConfig(
+            global_batch=8, microbatch=4, seq_len=32, steps=SPMD_STEPS,
+            fuse_window=2,
+            optimizer=OptimizerConfig(lr=1e-3, total_steps=SPMD_STEPS),
+            recovery=RecoveryConfig(
+                strategy=name, num_stages=SPMD_STAGES,
+                checkpoint_dir=os.path.join(directory, name, "ckpt"),
+                store_dir=os.path.join(directory, name, "store"), **rcfg))
+        trainer = Trainer(Model(cfg, device=device, weights=False), tcfg,
+                          schedule=Forced(events), backend="spmd")
+        strategy = trainer.strategy
+        after_step, handle = strategy.after_step, strategy.handle_failure
+        kept, restored = {}, []
+
+        def keep(state, hist, _after=after_step, _kept=kept):
+            _after(state, hist)
+            _kept[state.effective_step] = host(state)
+
+        def check(state, event, _handle=handle, _kept=kept,
+                  _restored=restored):
+            state = _handle(state, event)
+            (live, step), (want, want_step) = host(state), \
+                _kept[state.effective_step]
+            _restored.append((state.effective_step, step == want_step and all(
+                torch.equal(a, b) for a, b in zip(TR.leaves(live),
+                                                  TR.leaves(want)))))
+            return state
+
+        strategy.after_step, strategy.handle_failure = keep, check
+        before = ops.launch_counts()
+        state, hist = trainer.run(
+            make_batches(cfg, batch=8, seq=32, seed=0),
+            params=params_from_numpy(params, device=device))
+        after = ops.launch_counts()
+        out[name] = {"hist": hist, "restored": restored,
+                     "restore_log": getattr(strategy, "restore_log", None),
+                     "launches": {k: after[k] - before[k] for k in after}}
+    return out
+
+
+@pytest.fixture(scope="module")
+def spmd_store_runs(tmp_path_factory):
+    if not torch.cuda.is_available():        # runs before _gpu_marker
+        pytest.skip("gpu test: no CUDA device")
+    from repro_torch import tree as TR
+    from repro_torch.launch.mesh import spawn_stages
+    params = TR.map(lambda t: t.numpy(), Model(
+        _spmd_config(), device="cpu", weights=False).init(
+            torch.Generator().manual_seed(0)))
+    return {device: spawn_stages(
+        _spmd_store_rank, SPMD_STAGES, device, params,
+        str(tmp_path_factory.mktemp(device + "_dirs")),
+        cuda=device == "cuda", timeout_s=600,
+        workdir=str(tmp_path_factory.mktemp(device)))
+        for device in ("cuda", "cpu")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SPMD_STORE_RUNS))
+def test_spmd_snapshot_strategies_on_the_card_match_the_cpu(spmd_store_runs,
+                                                            name):
+    """``checkpoint`` rolls every rank back to its save, ``neighbor``
+    restores stage 1 from its neighbour's memory: four ranks on the card
+    against four on the CPU, the same trace, restore log and losses at
+    1e-3 * (1 + |loss|); on both, every rank's state after the restore
+    bit-equal to its copy of the step restored; the kernels launched on
+    every rank of the card."""
+    events, _, trace = SPMD_STORE_RUNS[name]
+    card = [r[name] for r in spmd_store_runs["cuda"]]
+    cpu = [r[name] for r in spmd_store_runs["cpu"]]
+    hist = card[0]["hist"]
+    assert hist.steps == cpu[0]["hist"].steps == trace
+    assert hist.failures == cpu[0]["hist"].failures == \
+        [(w, s) for w in events for s in events[w]]
+    for a, b in zip(hist.loss, cpu[0]["hist"].loss):
+        assert abs(a - b) <= 1e-3 * (1 + abs(b))
+    for r, (x, y) in enumerate(zip(card, cpu)):
+        assert x["hist"].to_json() == hist.to_json(), r
+        assert x["restore_log"] == y["restore_log"] == card[0]["restore_log"]
+        assert x["restored"] == y["restored"] == [(2, True)], r
+        n = x["launches"]
+        walls = len(trace)
+        assert n["flash_attention_fwd"] == n["flash_attention_bwd_dq"] == \
+            n["flash_attention_bwd_dkv"] == 2 * 2 * walls
+        assert n["adam_sumsq"] == n["adam_update"] == walls
+        assert n["stage_merge"] == 0
+        assert not any(y["launches"].values())

@@ -264,7 +264,8 @@ def test_package_imports_no_jax_and_nothing_of_repro():
         "assert not bad, bad\n"
         "for m in ('launch.serve', 'launch.train', 'core.trainer', "
         "'core.recovery', 'core.stages', 'core.failures', 'core.walltime', "
-        "'recovery.strategies', 'optim.adam', 'kernels.stage_merge', "
+        "'recovery', 'recovery.base', 'recovery.strategies', "
+        "'optim.adam', 'kernels.stage_merge', "
         "'models.ssm', 'models.hybrid', 'models.moe', 'models.encdec', "
         "'models.vlm', 'kernels.ssd_scan', "
         "'statestore', "

@@ -1,8 +1,9 @@
 """The pipeline backend's pieces that need no stage group, in one process:
 the GPipe hop lists against ``repro.pipeline.spmd._tick_perm``, the swap
 route against ``stage_permutations``, the stage group's shortfall error, the
-backend's refusals (each naming its limit), the rank's shard of the seeded
-init and the shard partition view the strategies see."""
+backend's refusals (each naming its limit), the snapshot strategies bound
+to the group, the rank's shard of the seeded init and the shard partition
+view the strategies see."""
 import numpy as np
 import pytest
 import torch
@@ -76,25 +77,52 @@ def tcfg(strategy="checkfree", stages=4):
     ("ssm", "dense/moe towers, not ssm"),
     ("sliding_window", "full attention only"),
     ("non_divisor", "num_layers 8 is not a multiple of num_stages 3"),
-    ("checkpoint", "strategy 'checkpoint' snapshots the whole state"),
-    ("neighbor", "strategy 'neighbor' snapshots the whole state"),
+    ("hybrid", "dense/moe towers, not hybrid"),
+    ("encdec", "dense/moe towers, not encdec"),
 ])
 def test_spmd_refuses_by_name(case, limit):
     cfg, train = ModelConfig(**SMALL), tcfg()
-    if case == "ssm":
-        cfg = reduced(get_config("mamba2-1.3b"))
+    if case in ("ssm", "hybrid", "encdec"):
+        arch = {"ssm": "mamba2-1.3b", "hybrid": "zamba2-2.7b",
+                "encdec": "whisper-large-v3"}[case]
+        cfg = reduced(get_config(arch))
     elif case == "sliding_window":
         cfg = cfg.replace(sliding_window=4)
     elif case == "non_divisor":
         train = tcfg(stages=3)
-    else:
-        train = tcfg(strategy=case)
     with pytest.raises(ValueError, match=limit):
         Trainer(Model(cfg, device="cpu", weights=False), train,
                 backend="spmd")
     with pytest.raises(ValueError, match="unknown backend"):
         Trainer(Model(cfg, device="cpu", weights=False), train,
                 backend="mesh")
+
+
+@pytest.mark.parametrize("strategy", ["checkpoint", "tiered_ckpt",
+                                      "neighbor", "adaptive"])
+def test_spmd_binds_the_snapshot_strategies_to_the_group(strategy, tmp_path):
+    """The strategies that snapshot or restore state build on the backend
+    (a group of one rank here) and get the group's all-reduce; ``adaptive``
+    passes it and the in-mesh recovery on to its children."""
+    assert spmd.refusal(ModelConfig(**SMALL), 4) is None
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        trainer = Trainer(Model(ModelConfig(**SMALL), device="cpu",
+                                weights=False),
+                          tcfg(strategy=strategy, stages=1), backend="spmd")
+        got = trainer.strategy
+        assert isinstance(got.group_reduce, spmd.GroupReduce)
+        assert got.group_reduce([2.0, -1.0], "min") == [2.0, -1.0]
+        assert got.group_reduce.share([3.5], 0, 1) == [3.5]
+        if strategy == "adaptive":
+            assert got.recover_in_mesh      # its checkfree child's
+            for child in (got.low, got.high):
+                assert child.group_reduce is got.group_reduce
+            assert got.low._in_mesh_recover is got._in_mesh_recover
+            assert got.high._in_mesh_recover is None   # checkpoint
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", ["dense", "granite-moe-3b-a800m"])

@@ -5,6 +5,7 @@ read across packages in both directions (bit-exact), and the in-place
 state: a snapshot must not alias the tensors that the next Adam step
 updates.
 """
+import contextlib
 import io
 import os
 import zipfile
@@ -325,6 +326,110 @@ def test_disk_tier_retries_transient_faults(op, tmp_path):
     tier.inject(op, times=3)
     with pytest.raises(TierError, match="3 attempt"):
         tier.put(_snap("s", 2)) if op == "put" else tier.get("s", 1)
+
+
+def _packages():
+    """(package name, DiskTier with faults, RetryPolicy, StateStore,
+    TierError, StoreError, snapshot of {"w": 4 x fill}) of JAX and the
+    port."""
+    from repro.statestore import faults as jfaults
+    from repro.statestore import store as jstore
+    from repro.statestore import tiers as jtiers
+    from repro_torch.statestore.tiers import RetryPolicy
+
+    def jsnap(shard_id, step, fill=1.0):
+        return jcodec.host_snapshot({"w": jnp.full((4,), fill, jnp.float32)},
+                                    step=step, shard_id=shard_id)
+
+    return [("jax", jfaults.FaultInjectingDiskTier, jtiers.RetryPolicy,
+             jstore.StateStore, jtiers.TierError, jstore.StoreError, jsnap),
+            ("torch", FaultInjectingDiskTier, RetryPolicy, StateStore,
+             TierError, StoreError,
+             lambda shard_id, step, fill=1.0: _snap(shard_id, step,
+                                                    fill=fill))]
+
+
+@pytest.mark.parametrize("op", ["put", "get"])
+@pytest.mark.parametrize("retry", ["none", "2", "4", "default"])
+def test_disk_tier_retry_option_matches_jax(retry, op, tmp_path):
+    """``DiskTier(retry=...)``: None fails at the first transient fault, a
+    policy retries up to its attempts with the same backoff draws in both
+    packages (the default policy, three attempts, as before)."""
+    outcomes = {}
+    for name, Tier, Retry, _, TierErr, _, snap in _packages():
+        kw = {} if retry == "default" else {
+            "retry": None if retry == "none" else
+            Retry(attempts=int(retry), base_delay_s=0.01)}
+        tier = Tier(SPECS["disk"], str(tmp_path / name / op), **kw)
+        slept = []
+        tier._sleep = slept.append
+        if op == "get":
+            tier.put(snap("s", 1, fill=3.0))
+        tier.inject(op, times=2)
+        try:
+            if op == "put":
+                tier.put(snap("s", 1, fill=3.0))
+            got = np.asarray(tier.get("s", 1).leaves[0]).tolist()
+        except TierErr as e:
+            got = str(e).split(": ")[0]
+        outcomes[name] = (got, slept, tier.faults_remaining(op))
+    assert outcomes["torch"] == outcomes["jax"]
+    got, slept, _ = outcomes["torch"]
+    if retry in ("none", "2"):
+        assert isinstance(got, str) and f"after {1 if retry == 'none' else 2}"\
+            f" attempt" in got
+    else:
+        assert got == [3.0] * 4 and len(slept) == 2
+
+
+@pytest.mark.parametrize("max_step", [None, 7, 5, 4, 2, 0])
+def test_store_restore_at_or_below_max_step_matches_jax(max_step, tmp_path):
+    """``StateStore.restore(max_step=...)``: the freshest intact copy at or
+    below the bound (the first copy read is corrupted, so the restore falls
+    back to the next one), StoreError when none is left; both packages
+    serve the same step."""
+    served = {}
+    for name, Tier, _, Store, _, StoreErr, snap in _packages():
+        tier = Tier(SPECS["disk"], str(tmp_path / name))
+        store = Store([tier], snapshot_depth=1)
+        template = {"w": (jnp.zeros((4,), jnp.float32) if name == "jax"
+                          else torch.zeros(4))}
+        for step in (1, 3, 5, 7):
+            tier.put(snap("s", step, fill=float(step)))
+        tier.inject("get", times=1, exc=(jcodec.CodecError if name == "jax"
+                                         else CodecError)("corrupt"))
+        try:
+            with pytest.warns(RuntimeWarning, match="skipping") if \
+                    max_step != 0 else contextlib.nullcontext():
+                res = store.restore("s", template, max_step=max_step)
+            served[name] = (res.step, res.tier,
+                            np.asarray(res.tree["w"]).tolist())
+        except StoreErr:
+            served[name] = None
+        store.close()
+    assert served["torch"] == served["jax"]
+    want = {None: 5, 7: 5, 5: 3, 4: 1, 2: None, 0: None}[max_step]
+    assert (served["torch"] or [None])[0] == want
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_store_snapshot_depth_bounds_the_writes_in_flight(depth, tmp_path):
+    """``StateStore(snapshot_depth=...)``: the asynchronous writer queues at
+    most ``depth`` writes, as JAX's does; every write still lands."""
+    from repro.statestore.store import StateStore as JStateStore
+    jstore = JStateStore([MemoryTier(SPECS["mem"])], snapshot_depth=depth)
+    store = StateStore([DiskTier(SPECS["disk"], str(tmp_path))],
+                       RetentionPolicy(keep={"disk": 100}),
+                       snapshot_depth=depth)
+    assert store.writer.depth == jstore.writer.depth == depth
+    assert store.writer._q.maxsize == jstore.writer._q.maxsize == depth
+    for step in range(1, 2 * depth + 2):
+        store.put({"w": torch.full((4,), float(step))}, step=step,
+                  shard_id="s", tier="disk")
+    store.flush()
+    assert store.tier("disk").steps("s") == list(range(1, 2 * depth + 2))
+    store.close()
+    jstore.close()
 
 
 def test_retention_policy(tmp_path):

@@ -5,6 +5,7 @@ time, in alternating order.
     python3 tools/chip_compare.py profile A B
     python3 tools/chip_compare.py ssd A B
     python3 tools/chip_compare.py flash-bits A B
+    python3 tools/chip_compare.py spmd A B
     python3 tools/chip_compare.py single-rounding SRC DST
 
 A and B are checkouts that hold ``chip_smoke.py`` and ``src/`` (``.`` for
@@ -33,6 +34,11 @@ its own code.  Every process prints JSON lines labelled with its checkout.
   full, S 1 to 1000) on the same seeded inputs and prints a SHA-256 of each
   output's bytes; the comparison passes (exit 0) only where B's bits equal
   A's in every case.
+* ``spmd``: A, B, B, A; each process runs chip_smoke's ``train_spmd``
+  phase (paper-llama-1.5b, six ranks on the card, ``checkfree_plus``, 12
+  steps in windows of 4, against the host backend's run), whose JSON line
+  holds the ms a step and the windows' ms, then its own line with the
+  phase's seconds.
 * ``single-rounding``: copies checkout SRC (``chip_smoke.py`` and ``src/``)
   to DST with the bf16 SSD kernel rounding att and the state copy to bf16
   once instead of splitting them into hi and lo parts (x w stays split):
@@ -52,7 +58,7 @@ import traceback
 
 HERE = os.path.abspath(__file__)
 ORDERS = {"serve": "AB" * 4, "profile": "ABBA", "ssd": "ABBA",
-          "flash-bits": "AB"}
+          "flash-bits": "AB", "spmd": "ABBA"}
 
 
 def _flash_bits(CS, torch, out) -> None:
@@ -136,6 +142,11 @@ def _worker(mode: str, tree: str, label: str) -> None:
                 out(profile=d)
     elif mode == "flash-bits":
         _flash_bits(CS, torch, out)
+    elif mode == "spmd":
+        CS.phase_env()
+        t0 = time.perf_counter()
+        CS.phase_train_spmd()
+        out(phase="train_spmd", seconds=time.perf_counter() - t0)
     elif mode == "ssd":
         gen = torch.Generator("cuda").manual_seed(3)
         cases = failures = 0
@@ -242,7 +253,8 @@ def single_rounding(src: str, dst: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=["serve", "profile", "ssd",
-                                     "flash-bits", "single-rounding"])
+                                     "flash-bits", "spmd",
+                                     "single-rounding"])
     ap.add_argument("a")
     ap.add_argument("b")
     ap.add_argument("--worker", nargs=2, metavar=("TREE", "LABEL"),
