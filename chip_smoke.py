@@ -261,6 +261,25 @@ result.  Phases:
              merge on the failed rank (every rank for the gathered run).
              ms a step, each rank's host ms of a save and a restore, peak
              memory by rank.
+10d. train_remat — the dry-run's train_step (``launch.dryrun``: loss with
+             remat, backward, ``adam_sumsq`` and ``adam_update``) with remat
+             off, then on under REPRO_REMAT "nothing" and "dots", on the
+             same weights and batch, for every family (REMAT_RUNS):
+             paper-llama-1.5b cut to 4 layers, mamba2-1.3b and
+             granite-moe-3b-a800m to 2, zamba2-2.7b to one segment,
+             whisper-large-v3 to 2 + 2, internvl2-76b to 2; loss and
+             gradients within REMAT_TOL * (1 + |w|) of remat off (bit
+             equality printed), launches as ``remat_expected`` says (the
+             flash forward twice a layer under "nothing", once under
+             "dots").  Then the dry-run's estimate at ``--mesh 1x1`` (meta
+             tensors) of paper-llama-1.5b at 4 layers, batch 8 x 512, and
+             of qwen3-4b and h2o-danube-3-4b at full depth, batch 1 x 512,
+             and three train_steps of each of those two on the card at the
+             depth the estimate says fits: finite gradients, a falling
+             loss, the kernels' launches equal to the dry-run's kernel
+             calls, the estimate's peak within REMAT_PEAK_TOL of
+             ``max_memory_allocated()``; ms a step, tokens/s, peak
+             allocated and reserved.
 11. kernels — one line for every kernel: launches (the training paths and
              for the SSD scan the serving ones, and by path), error, times,
              bound.
@@ -305,11 +324,13 @@ from repro_torch.data.pipeline import (SyntheticLM, batch_for,  # noqa: E402
                                        make_batches)
 from repro_torch.kernels import adam as AD  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import cost  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels import stage_merge as SM  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch.mesh import spawn_stages  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -640,6 +661,30 @@ TRAIN_VLM = dict(arch="internvl2-76b", stages=2, batch=2, seq=256, layers=2,
 # of 1, at most half the way to a router that sends everything to one
 # expert (random weights route unevenly, the more so in small groups)
 MOE_AUX_LOW, MOE_AUX_SPREAD = 0.5, 2.0
+# train_remat: the dry-run's train_step with remat off, then on under
+# REPRO_REMAT "nothing" and "dots", on the same weights and batch (lr 0, so
+# that Adam leaves the weights as they were); zamba2-2.7b at one segment
+# (its attn_every mamba2 layers and the shared block), whisper at 2 + 2
+# layers, internvl2-76b at batch 1 x (256 patches + 256 tokens), where its
+# 3.9 B parameters, their moments and two sets of gradients fit
+REMAT_RUNS = (dict(arch="paper-llama-1.5b", layers=4, batch=8, seq=512),
+              dict(arch="mamba2-1.3b", layers=2, batch=4, seq=512),
+              dict(arch="granite-moe-3b-a800m", layers=2, batch=4, seq=512),
+              dict(arch="zamba2-2.7b", layers=None, batch=4, seq=512),
+              dict(arch="whisper-large-v3", layers=2, batch=4, seq=448),
+              dict(arch="internvl2-76b", layers=2, batch=1, seq=512))
+REMAT_POLICIES = (None, "nothing", "dots")      # None: remat off
+REMAT_TOL = 1e-5                                # x (1 + |remat-off value|)
+# then the dry-run's estimate at --mesh 1x1 and the same step on the card,
+# three steps of each model at full depth (or the depth the estimate says
+# fits), batch 1 x 512, "nothing"; the estimate's peak within
+# REMAT_PEAK_TOL of max_memory_allocated(); a model fits where its
+# estimate, grown by REMAT_PEAK_TOL, fits the card's free memory
+REMAT_FULL = ("qwen3-4b", "h2o-danube-3-4b")
+REMAT_FULL_BATCH, REMAT_FULL_SEQ, REMAT_STEPS = 1, 512, 3
+REMAT_ESTIMATE_CUT = dict(arch="paper-llama-1.5b", layers=4, batch=8,
+                          seq=512)
+REMAT_PEAK_TOL = 0.10
 
 
 def emit(phase: str, **kw) -> None:
@@ -662,20 +707,6 @@ def qkv(gen, b, hq, hkv, s, d, dtype, sk=None):
     shapes = ((b, hq, s, d), (b, hkv, sk, d), (b, hkv, sk, d))
     return [torch.randn(sh, generator=gen, device="cuda").to(dtype)
             for sh in shapes]
-
-
-def visible_pairs(s: int, causal: bool, window: int, sk=None) -> int:
-    """The (query, key) pairs a mask lets through: ``s`` queries over ``sk``
-    keys (default ``s``)."""
-    sk = s if sk is None else sk
-    q = np.arange(s)[:, None]
-    k = np.arange(sk)[None, :]
-    m = np.ones((s, sk), bool)
-    if causal:
-        m &= k <= q
-    if window > 0:
-        m &= k > q - window
-    return int(m.sum())
 
 
 def time_ms(fn, groups: int = 21, per_group: int = 20, warmup: int = 3
@@ -817,9 +848,8 @@ def time_fwd(shape: dict, gen) -> dict:
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=hkv != h))
     # q, k, v read once; out (like q) and the fp32 lse written once
-    nbytes = (2 * q.numel() * q.element_size() + k.numel() * k.element_size()
-              + v.numel() * v.element_size() + b * h * s * 4)
-    flops = 4 * b * h * d * visible_pairs(s, causal, window, sk)
+    nbytes, flops = cost.flash_fwd(b, h, hkv, s, sk, d, itemsize=2,
+                                   causal=causal, window=window)
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
     row = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -1041,18 +1071,15 @@ def time_bwd(shape: dict, gen) -> list:
                      for g, w in zip(lib_grads, want))
     library_ms = time_ms(library)
 
-    pairs = h * b * visible_pairs(s, causal, window, sk)
-    row_bytes = b * h * s * 4                       # one fp32 (B, Hq, S) row
-    qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
+    mask = dict(itemsize=2, causal=causal, window=window)
     rows = []
-    for name, products, nbytes, ms in (
+    for name, products, (nbytes, flops), ms in (
             # q, k, v, dO, lse and delta read once; dq written once
-            ("flash_attention_bwd_dq", 3, 3 * qb + 2 * kb + 2 * row_bytes,
-             dq_ms),
+            ("flash_attention_bwd_dq", 3,
+             cost.flash_bwd_dq(b, h, hkv, s, sk, d, **mask), dq_ms),
             # the same read once; dk and dv written once
-            ("flash_attention_bwd_dkv", 4, 2 * qb + 4 * kb + 2 * row_bytes,
-             dkv_ms)):
-        flops = 2 * products * d * pairs
+            ("flash_attention_bwd_dkv", 4,
+             cost.flash_bwd_dkv(b, h, hkv, s, sk, d, **mask), dkv_ms)):
         tb = nbytes / MEM_BYTES_PER_S * 1e3
         to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
         rows.append({"name": name, "route": "cuda",
@@ -1150,8 +1177,7 @@ def phase_kernel_merge() -> dict:
     weight = cb.item()
     library_ms = time_ms(lambda: torch._foreach_lerp(xs, ys, weight),
                          groups=11, per_group=10)
-    nbytes = 3 * numel * 4                   # x and y read, out written, fp32
-    flops = 3 * numel
+    nbytes, flops = cost.stage_merge(numel)  # x, y read, out written, fp32
     tb = nbytes / MEM_BYTES_PER_S * 1e3
     to = flops / PEAK_FLOP_PER_S[torch.float32] * 1e3
     row = {"name": "stage_merge", "route": "cuda",
@@ -1330,10 +1356,11 @@ def phase_kernel_adam() -> tuple:
     del fused, ps
     rows = []
     for name, ms, plain_ms, nbytes, flops, lib, replaces in (
-            ("adam_sumsq", sumsq_ms, sumsq_plain, 4 * numel, 2 * numel, None,
-             "src/repro/optim/adam.py:34"),
-            ("adam_update", update_ms, update_plain, 28 * numel, 15 * numel,
-             library_ms, "src/repro/optim/adam.py:64")):
+            ("adam_sumsq", sumsq_ms, sumsq_plain, *cost.adam_sumsq(numel),
+             None, "src/repro/optim/adam.py:34"),
+            ("adam_update", update_ms, update_plain,
+             *cost.adam_update(numel), library_ms,
+             "src/repro/optim/adam.py:64")):
         tb = nbytes / MEM_BYTES_PER_S * 1e3
         to = flops / PEAK_FLOP_PER_S[torch.float32] * 1e3
         rows.append({"name": name, "route": "cuda",
@@ -1467,17 +1494,6 @@ def ssd_cases():
                    False, offset)
 
 
-def ssd_bound(b, t, h, p, g, n, chunk: int) -> tuple:
-    """(bytes, flops) of one call at a serving shape: bf16 x and y, fp32 a,
-    bf16 B and C, the fp32 final state written; per (batch, head, chunk)
-    the products C B^T, att x, C S^T and the state update."""
-    nbytes = 2 * b * t * h * p * 2 + b * t * h * 4 + 2 * b * t * g * n * 2 \
-        + b * h * p * n * 4
-    per_chunk = 2 * chunk * chunk * n + 2 * chunk * chunk * p \
-        + 2 * 2 * chunk * n * p
-    return nbytes, b * h * (t // chunk) * per_chunk
-
-
 def phase_kernel_ssd() -> dict:
     gen = torch.Generator("cuda").manual_seed(3)
     cases = failures = 0
@@ -1540,7 +1556,7 @@ def phase_kernel_ssd() -> dict:
             lambda: SSD.ssd_scan(xb, a, bm, cm, chunk=SSD_CHUNK))
         plain_ms = time_ms(lambda: ref.ssd_chunked(xb, a, bm, cm, SSD_CHUNK),
                            groups=11, per_group=5)
-        nbytes, flops = ssd_bound(**shp, chunk=SSD_CHUNK)
+        nbytes, flops = cost.ssd_fwd(**shp, chunk=SSD_CHUNK)
         tb = nbytes / MEM_BYTES_PER_S * 1e3
         to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
         shapes[arch] = {"max_abs_err": y_err, "state_max_abs_err": s_err,
@@ -1610,18 +1626,6 @@ def compare_ssd_bwd(xb, a, bmat, cmat, init_state, dy, dfinal,
     return ok, worst
 
 
-def ssd_bwd_bound(b, t, h, p, g, n, chunk: int) -> tuple:
-    """(bytes, flops) of one backward call at a training shape: bf16 x, dy,
-    B and C read and dx, dB and dC written, fp32 a read and da written; per
-    (batch, head, chunk) the products C B^T, dy x^T, att^T dy, dS B,
-    E C, dS^T x, E B, S^T dy, dy C^T (the state gradient) and x B^T (the
-    recomputed state)."""
-    nbytes = 3 * b * t * h * p * 2 + 2 * b * t * h * 4 + 4 * b * t * g * n * 2
-    per_chunk = 2 * (3 * chunk * chunk * n + 2 * chunk * chunk * p
-                     + 5 * chunk * p * n)
-    return nbytes, b * h * -(-t // chunk) * per_chunk
-
-
 def phase_kernel_ssd_bwd() -> dict:
     gen = torch.Generator("cuda").manual_seed(4)
     cases = failures = 0
@@ -1668,7 +1672,7 @@ def phase_kernel_ssd_bwd() -> dict:
                             groups=11, per_group=5)
         plain_ms = time_ms(lambda: ref.ssd_chunked_bwd_ref(
             xb, a, bm, cm, SSD_CHUNK, None, dy, None), groups=5, per_group=3)
-        nbytes, flops = ssd_bwd_bound(**shp, chunk=SSD_CHUNK)
+        nbytes, flops = cost.ssd_bwd(**shp, chunk=SSD_CHUNK)
         tb = nbytes / MEM_BYTES_PER_S * 1e3
         to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
         shapes[arch] = {"max_abs_err": err, "ms": kernel_ms,
@@ -4512,6 +4516,261 @@ def phase_train_spmd_store() -> dict:
         empty_host_cache()
 
 
+def remat_config(spec: dict):
+    """The config of a train_remat run: cut to ``spec["layers"]`` (and as
+    many encoder layers), a hybrid to one segment."""
+    cfg = get_config(spec["arch"])
+    layers = spec.get("layers") or cfg.attn_every
+    kw = dict(num_layers=layers)
+    if cfg.arch_type == "encdec":
+        kw["num_encoder_layers"] = layers
+    return cfg.replace(**kw)
+
+
+def remat_expected(cfg, policy) -> dict:
+    """The launches of one dry-run train_step: each flash and SSD kernel
+    once a pass, the forwards of the checkpointed blocks again in the
+    backward (all of them under "nothing"; under "dots" the flash forward's
+    outputs are kept, and the encoder-decoder's decoder keeps nothing under
+    either policy, as the JAX family), Adam's two kernels once."""
+    attention, ssd = pass_launches(cfg)
+    again_attn = again_ssd = 0
+    if policy is not None:
+        again_ssd = ssd
+        if cfg.arch_type == "encdec":
+            again_attn = 2 * cfg.num_layers
+        elif policy == "nothing":
+            again_attn = attention
+    return {"flash_attention_fwd": attention + again_attn,
+            "flash_attention_bwd_dq": attention,
+            "flash_attention_bwd_dkv": attention, "stage_merge": 0,
+            "ssd_scan": ssd + again_ssd, "ssd_scan_bwd": ssd,
+            "adam_sumsq": 1, "adam_update": 1}
+
+
+def remat_inputs(cfg, batch: int, seq: int) -> tuple:
+    """(fp32 parameters drawn on the card from seed 0, Adam's state, one
+    batch on the card: int32 tokens and labels, frames and patches in
+    ``cfg.dtype``, as the dry-run's inputs)."""
+    model = Model(cfg, device="cuda", weights=False)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    for p in TR.leaves(params):
+        p.requires_grad_(True)
+    plan = DR.plan_for(cfg, DR.INPUT_SHAPES["train_4k"], batch=batch, seq=seq)
+    raw = next(make_batches(cfg, batch=batch, seq=plan["text"], seed=0))
+    data = {k: torch.as_tensor(v).cuda() for k, v in raw.items()}
+    for k in ("frames", "patches"):
+        if k in data:
+            data[k] = data[k].to(getattr(torch, cfg.dtype))
+    return model, params, DR.init_state(params), data, plan
+
+
+def finite(grads) -> bool:
+    """Every gradient finite, read through one sum a leaf (a NaN or an
+    infinity carries into the sum; ``isfinite`` of a whole leaf would
+    allocate its absolute value and masks, GBs at full depth)."""
+    return bool(torch.isfinite(torch.stack([g.sum() for g in grads])).all())
+
+
+def remat_step(model, plan, ocfg, params, state, data, policy) -> dict:
+    """One dry-run train_step under ``policy`` (None: remat off): loss,
+    gradients, launches, host ms (ending in a synchronize), the step's
+    ``max_memory_allocated()`` (bytes, and GiB)."""
+    os.environ["REPRO_REMAT"] = policy or "nothing"
+    step = DR.make_step_fn(model, plan, ocfg, remat=policy is not None)
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = step(params, state, data)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    return {"loss": float(loss), "grads": grads, "launches": counts(),
+            "ms": ms, "peak_b": peak, "peak_gib": peak / 2**30}
+
+
+def remat_on_off(spec: dict, total: dict) -> None:
+    """Remat off, then on under "nothing" and "dots", on one family."""
+    cfg = remat_config(spec)
+    model, params, state, data, plan = remat_inputs(cfg, spec["batch"],
+                                                    spec["seq"])
+    ocfg = OptimizerConfig(lr=0.0)
+    want = None
+    for policy in REMAT_POLICIES:
+        run = remat_step(model, plan, ocfg, params, state, data, policy)
+        for k, n in run["launches"].items():
+            total[k] = total.get(k, 0) + n
+        expected = remat_expected(cfg, policy)
+        if run["launches"] != expected:
+            raise AssertionError(f"train_remat {cfg.name} {policy}: "
+                                 f"launches {run['launches']}, expected "
+                                 f"{expected}")
+        if not (math.isfinite(run["loss"]) and finite(run["grads"])):
+            raise AssertionError(f"train_remat {cfg.name} {policy}: a loss "
+                                 "or gradient is not finite")
+        if want is None:
+            want = (run["loss"], [g.cpu() for g in run["grads"]])
+            err, equal, ok = 0.0, True, True
+        else:
+            loss_err = abs(run["loss"] - want[0])
+            ok = loss_err <= REMAT_TOL * (1 + abs(want[0]))
+            equal, err = run["loss"] == want[0], loss_err
+            for g, w in zip(run["grads"], want[1]):
+                w = w.to(g.device)
+                good, e = within(g, w, REMAT_TOL)
+                ok &= good
+                equal &= bool(torch.equal(g, w))
+                err = max(err, e)
+                del w
+        del run["grads"]
+        emit("train_remat", part="remat_on_off", arch=cfg.name,
+             layers=cfg.num_layers, d_model=cfg.d_model, **model_shape(cfg),
+             batch=spec["batch"], seq=spec["seq"],
+             remat=policy is not None, policy=policy, loss=run["loss"],
+             max_abs_diff_vs_off=err, bit_equal_to_off=equal,
+             tol=f"{REMAT_TOL} * (1 + |w|)", launches=run["launches"],
+             peak_memory_gib=run["peak_gib"], step_ms=run["ms"])
+        if not ok:
+            raise AssertionError(f"train_remat {cfg.name} {policy}: remat "
+                                 f"on against off differs by {err}")
+    del model, params, state, data, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def remat_estimate(cfg, batch: int, seq: int) -> dict:
+    """The dry-run's record at ``--mesh 1x1`` (meta tensors, "nothing")."""
+    os.environ["REPRO_REMAT"] = "nothing"
+    rec = DR.run_one(cfg.name, "train_4k", mesh="1x1", cfg=cfg, batch=batch,
+                     seq=seq, verbose=False)
+    if rec["status"] != "ok":
+        raise AssertionError(f"train_remat: the dry-run of {cfg.name} "
+                             f"failed: {rec.get('traceback', rec)}")
+    return rec
+
+
+def remat_depth(arch: str, free: int) -> tuple:
+    """(config, its estimate): the published depth when its estimate, grown
+    by REMAT_PEAK_TOL, fits ``free`` bytes, else the largest depth that
+    does."""
+    cfg = get_config(arch)
+    for layers in range(cfg.num_layers, 0, -1):
+        cut = cfg.replace(num_layers=layers)
+        rec = remat_estimate(cut, REMAT_FULL_BATCH, REMAT_FULL_SEQ)
+        if rec["memory"]["peak_est_B"] * (1 + REMAT_PEAK_TOL) <= free:
+            return cut, rec
+    raise AssertionError(f"train_remat: no depth of {arch} fits "
+                         f"{free / 1e9:.1f} GB")
+
+
+def remat_full_depth(cfg, rec: dict, total: dict) -> None:
+    """REMAT_STEPS dry-run train_steps on the card ("nothing"), held
+    against the estimate ``rec``."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model, params, state, data, plan = remat_inputs(cfg, REMAT_FULL_BATCH,
+                                                    REMAT_FULL_SEQ)
+    held = sum(t.untyped_storage().nbytes() for t in
+               [*TR.leaves(params), *state.m, *state.v, state.step,
+                *data.values()])
+    other = torch.cuda.memory_allocated() - before - held
+    ocfg = OptimizerConfig(warmup_steps=1, schedule="constant")
+    losses, ms, launches, peaks = [], [], [], []
+    for _ in range(REMAT_STEPS):
+        run = remat_step(model, plan, ocfg, params, state, data, "nothing")
+        if not finite(run["grads"]):
+            raise AssertionError(f"train_remat {cfg.name}: a gradient is "
+                                 "not finite")
+        del run["grads"]
+        losses.append(run["loss"])
+        ms.append(run["ms"])
+        launches.append(run["launches"])
+        peaks.append(run["peak_b"])
+        for k, n in run["launches"].items():
+            total[k] = total.get(k, 0) + n
+    # the steps' own peaks, from a reset before each step to its end
+    peak = max(peaks) - before - other
+    reserved = torch.cuda.max_memory_reserved()
+    est = rec["memory"]["peak_est_B"]
+    step_ms = float(np.median(ms[1:]))
+    tokens = REMAT_FULL_BATCH * REMAT_FULL_SEQ
+    predicted = dict(rec["kernels"])
+    emit("train_remat", part="full_depth", arch=cfg.name,
+         layers=cfg.num_layers,
+         layers_published=get_config(cfg.name).num_layers,
+         cut=cfg.num_layers != get_config(cfg.name).num_layers,
+         d_model=cfg.d_model, **model_shape(cfg), params=cfg.param_count(),
+         batch=REMAT_FULL_BATCH, seq=REMAT_FULL_SEQ, policy="nothing",
+         loss=losses, step_ms=ms, step_ms_median_after_first=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3, launches=launches,
+         max_memory_allocated_gib=peak / 2**30,
+         max_memory_reserved_gib=reserved / 2**30,
+         other_allocated_b=other, estimate_peak_gib=est / 2**30,
+         estimate_over_measured=est / peak, tol=REMAT_PEAK_TOL,
+         estimate_flops=rec["cost"]["flops_per_dev"],
+         flops_bound_ms=rec["roofline"]["compute_s"] * 1e3,
+         bytes_bound_ms=rec["roofline"]["memory_s"] * 1e3,
+         nvidia_smi=smi(),
+         timing="host clock around the dry-run's train_step ending in "
+                "torch.cuda.synchronize(); median of the steps after the "
+                "first")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train_remat {cfg.name}: the loss does not "
+                             f"fall over {REMAT_STEPS} steps: {losses}")
+    if abs(est / peak - 1) > REMAT_PEAK_TOL:
+        raise AssertionError(f"train_remat {cfg.name}: the estimate's peak "
+                             f"{est / 2**30:.2f} GiB against "
+                             f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    for n in launches:
+        got = {k: v for k, v in n.items() if v}
+        if got != predicted:
+            raise AssertionError(f"train_remat {cfg.name}: launches {got}, "
+                                 f"the dry-run's {predicted}")
+    del model, params, state, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_remat() -> dict:
+    """Remat on against off in every family, then the dry-run's estimate
+    and the same step at full depth on the card.  Returns the launches of
+    all the phase's steps."""
+    total: dict = {}
+    prev = os.environ.get("REPRO_REMAT")
+    try:
+        for spec in REMAT_RUNS:
+            remat_on_off(spec, total)
+        cut = REMAT_ESTIMATE_CUT
+        cfg = get_config(cut["arch"]).replace(num_layers=cut["layers"])
+        rec = remat_estimate(cfg, cut["batch"], cut["seq"])
+        emit("train_remat", part="estimate", arch=cfg.name,
+             layers=cfg.num_layers, batch=cut["batch"], seq=cut["seq"],
+             memory=rec["memory"], flops=rec["cost"]["flops_per_dev"],
+             kernels=rec["kernels"], trace_s=rec["trace_s"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        for arch in REMAT_FULL:
+            cfg, rec = remat_depth(arch, free)
+            emit("train_remat", part="estimate", arch=arch,
+                 layers=cfg.num_layers,
+                 layers_published=get_config(arch).num_layers,
+                 fits_at_full_depth=(cfg.num_layers
+                                     == get_config(arch).num_layers),
+                 card_free_b=free, batch=REMAT_FULL_BATCH,
+                 seq=REMAT_FULL_SEQ, memory=rec["memory"],
+                 flops=rec["cost"]["flops_per_dev"], kernels=rec["kernels"],
+                 trace_s=rec["trace_s"])
+            remat_full_depth(cfg, rec, total)
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_REMAT", None)
+        else:
+            os.environ["REPRO_REMAT"] = prev
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs the "
@@ -4563,7 +4822,8 @@ def main() -> int:
                "train_ckpt": phase_train_ckpt(),
                "train_neighbor": phase_train_neighbor(),
                "train_spmd": phase_train_spmd(),
-               **phase_train_spmd_store()}
+               **phase_train_spmd_store(),
+               "train_remat": phase_train_remat()}
     # launches: the training paths; by path: every path that ran it
     for row in (fwd, dq, dkv, merge, ssd, ssd_bwd, *adam_rows):
         by_path = {path: n[row["name"]] for path, n in trained.items()}

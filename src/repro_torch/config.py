@@ -5,12 +5,13 @@ A copy of ``repro.config``'s model configs (``ModelConfig``, ``MoEConfig``,
 ``TrainConfig``), kept here so that the port imports nothing of the JAX
 package.  Fields, defaults and derived quantities are unchanged: tests hold
 ``dataclasses.asdict`` of every registered config, and every default of the
-training configs, equal to the JAX ones.  The serving run config arrives
-with the slice that uses it.
+training and serving configs and the input shape suite, equal to the JAX
+ones.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Tuple
 
@@ -92,6 +93,10 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
 
+    @property
+    def is_decoder_only(self) -> bool:
+        return self.arch_type in ("dense", "moe", "ssm", "hybrid", "vlm")
+
     def param_count(self) -> int:
         """Analytic parameter count."""
         d, hd = self.d_model, self.resolved_head_dim
@@ -153,6 +158,9 @@ class ModelConfig:
         all_experts = (m.num_experts + m.num_shared_experts) * 3 * d * m.d_ff_expert
         return self.param_count() - self.num_layers * (all_experts - active_experts)
 
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -176,7 +184,7 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Training / recovery configuration
+# Training / recovery / serving configuration
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -250,3 +258,33 @@ class TrainConfig:
     def num_microbatches(self) -> int:
         assert self.global_batch % self.microbatch == 0
         return self.global_batch // self.microbatch
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    batch: int = 8
+    prompt_len: int = 32
+    max_new_tokens: int = 16
+    cache_len: int = 128
+    swa_serving_window: int = 0   # >0: force ring-buffer SWA KV cache (long ctx)
+    temperature: float = 0.0
+
+
+# ---------------------------------------------------------------------------
+# Input shape suite (the dry-run's)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -7,7 +7,7 @@ CPU-smoke variant (<= 2 layers, d_model <= 512, <= 4 experts).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.config import ModelConfig
 
@@ -42,6 +42,10 @@ PAPER_STAGES = {
     "paper-llama-500m": paper_llama.MEDIUM_STAGES,
     "paper-llama-1.5b": paper_llama.LARGE_STAGES,
 }
+
+
+def arch_ids() -> List[str]:
+    return list(ARCHS.keys())
 
 
 def get_config(name: str) -> ModelConfig:

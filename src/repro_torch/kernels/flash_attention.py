@@ -18,8 +18,15 @@ k and v may be longer or shorter than q (Sk != Sq) for cross-attention,
 which is full attention (``causal=False, window=0``); any other mask over
 Sq != Sk is refused, as no path needs it and the JAX code defines none.
 
+The forward is also the operator ``repro_torch::flash_attention_fwd``, so
+that a selective checkpoint (``launch.perf``'s ``"dots"`` policy) can keep
+its ``(out, lse)`` and skip its launch in the recompute.  On meta tensors
+(the dry-run) the operator and the backward launch nothing: they return
+empty tensors of the kernels' output shapes and credit the kernels' counts
+(``kernels.cost``) to the open tally.
+
 ``launches``, ``launches_dq`` and ``launches_dkv`` count each kernel's
-launches in this process.
+launches in this process; meta calls are not launches.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 
 # head dims each direction is built for, both the same: zamba2's 80,
 # h2o-danube-3-4b's 120 and gemma-2b's 256 beside 32, 64 and 128
@@ -215,10 +223,13 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
 
     ``dO`` from autograd may be non-contiguous or misaligned for the
     kernels' 16-byte rows; it is made contiguous here, never in a kernel.
+    On meta tensors the kernels launch nothing (:func:`_bwd_meta`).
     """
     if not _aligned(do):
         do = do.contiguous()
     delta = (do.float() * out.float()).sum(-1)
+    if q.is_meta:
+        return _bwd_meta(q, k, v, causal, window)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
                                 window=window)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
@@ -226,13 +237,47 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
+def _shape_args(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                window: int) -> dict:
+    b, hq, s, d = q.shape
+    return dict(b=b, hq=hq, hkv=k.shape[1], s=s, sk=k.shape[2], d=d,
+                itemsize=q.element_size(), causal=causal, window=window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool, window: int,
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd` as an operator: (out, lse)."""
+    return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_fwd_op.register_fake
+def _fwd_meta(q, k, v, causal, window):
+    """The forward's outputs, empty, in the kernel's layout; its counts
+    credited.  Launches nothing."""
+    cost.credit("flash_attention_fwd",
+                cost.flash_fwd(**_shape_args(q, k, causal, window)))
+    b, hq, s, _ = q.shape
+    return _like(q), q.new_empty((b, hq, s), dtype=torch.float32)
+
+
+def _bwd_meta(q, k, v, causal: bool, window: int):
+    """dq, dk, dv on meta tensors, empty, in the kernels' layouts; both
+    kernels' counts credited.  Launches nothing."""
+    shape = _shape_args(q, k, causal, window)
+    cost.credit("flash_attention_bwd_dq", cost.flash_bwd_dq(**shape))
+    cost.credit("flash_attention_bwd_dkv", cost.flash_bwd_dkv(**shape))
+    return _like(q), _like(k), _like(v)
+
+
 class FlashAttention(torch.autograd.Function):
     """Kernel layout: q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) -> out like q;
-    the backward gives dk/dv like k/v (Sk rows)."""
+    the backward gives dk/dv like k/v (Sk rows).  CUDA or meta tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        out, lse = flash_attention_fwd_op(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out

@@ -1,8 +1,13 @@
 """Dispatch between each kernel and its plain version, by the tensor's device.
 
 A CPU tensor takes the plain PyTorch version (``kernels.ref``); a CUDA tensor
-takes the hand-written kernel, which launches or raises.  Any other device
-raises: there is no silent fallback.  ``flash_attention`` also adapts the
+takes the hand-written kernel, which launches or raises.  A meta tensor (the
+dry-run, ``launch.dryrun``) takes the kernel's meta branch: empty outputs of
+the kernel's shapes (for the flash and SSD kernels through their autograd
+Functions, whose backwards give the kernels' gradient shapes), its counts
+from ``kernels.cost`` credited to the open tally, and no launch; it is not a
+fallback, since no kernel and no plain version runs there.  Any other
+device raises: there is no silent fallback.  ``flash_attention`` also adapts the
 model layout (B, S, H, D) to the kernel layout (B, H, S, D) as strided views,
 so no copy is made on the way in or out.  ``ssd_scan`` is differentiable on
 both devices: on the card through :class:`SSD.SSDScan`, whose backward is a
@@ -19,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import adam as AD
+from repro_torch.kernels import cost
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as SSD
@@ -42,7 +48,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         out, _ = ref.flash_attention_ref(qt, kt, vt, causal=causal,
                                          window=window)
-    elif q.device.type == "cuda":
+    elif q.device.type in ("cuda", "meta"):
+        # meta: the operator's fake and the backward's meta branch
         out = FA.FlashAttention.apply(qt, kt, vt, causal, window)
     else:
         raise ValueError(f"flash_attention: no kernel and no plain version "
@@ -72,6 +79,9 @@ def stage_merge(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor], ca, cb,
         w = torch.stack([torch.as_tensor(c, dtype=torch.float32, device=device)
                          .reshape(()) for c in (ca, cb)])
         SM.stage_merge(xs, ys, out, w)
+    elif device.type == "meta":
+        cost.credit("stage_merge", cost.stage_merge(
+            sum(x.numel() for x in xs), xs[0].element_size()))
     else:
         raise ValueError(f"stage_merge: no kernel and no plain version for "
                          f"tensors on {device}")
@@ -92,7 +102,7 @@ def ssd_scan(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     """
     if xb.device.type == "cpu":
         return ref.ssd_chunked(xb, a, bmat, cmat, chunk, init_state)
-    if xb.device.type != "cuda":
+    if xb.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan: no kernel and no plain version for "
                          f"tensors on {xb.device}")
     if init_state is not None:
@@ -112,6 +122,11 @@ def adam_sumsq(grads: Sequence[torch.Tensor], tower: Sequence[bool],
         return ref.adam_sumsq_ref(grads, tower, layers)
     if device.type == "cuda":
         return AD.adam_sumsq(grads, tower, layers)
+    if device.type == "meta":
+        cost.credit("adam_sumsq", cost.adam_sumsq(sum(g.numel()
+                                                      for g in grads)))
+        out = torch.empty(layers + 1, dtype=torch.float32, device=device)
+        return out[:layers], out[layers]
     raise ValueError(f"adam_sumsq: no kernel and no plain version for "
                      f"tensors on {device}")
 
@@ -130,13 +145,17 @@ def adam_update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
         ref.adam_update_ref(params, grads, m, v, scalars, **kw)
     elif device.type == "cuda":
         AD.adam_update(params, grads, m, v, scalars, **kw)
+    elif device.type == "meta":
+        cost.credit("adam_update", cost.adam_update(sum(p.numel()
+                                                        for p in params)))
     else:
         raise ValueError(f"adam_update: no kernel and no plain version for "
                          f"tensors on {device}")
 
 
 def launch_counts() -> Dict[str, int]:
-    """Each kernel's launches in this process, by the wrappers' counts."""
+    """Each kernel's launches in this process, by the wrappers' counts
+    (meta calls launch nothing and are not counted)."""
     return {"flash_attention_fwd": FA.launches,
             "flash_attention_bwd_dq": FA.launches_dq,
             "flash_attention_bwd_dkv": FA.launches_dkv,

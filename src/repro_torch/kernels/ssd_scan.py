@@ -23,8 +23,11 @@ launches the backward kernel.
 
 Both take tensors that lie on a CUDA device and nothing else: the plain
 versions for CPU tensors are in ``kernels.ref``, and ``kernels.ops`` picks
-between them by the tensor's device.  ``launches`` and ``launches_bwd``
-count each kernel's launches in this process, ``launches_bwd_path`` the
+between them by the tensor's device; on meta tensors (the dry-run) both
+launch nothing, return empty outputs of the kernels' shapes and credit the
+kernels' counts (``kernels.cost``) to the open tally.  ``launches`` and
+``launches_bwd`` count each kernel's launches in this process (meta calls
+are not launches), ``launches_bwd_path`` the
 backward's by the walk kernel it ran (``bf16``, the tensor cores; ``f32``).
 """
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 
 MAX_CHUNK, MAX_P, MAX_N = 64, 64, 128     # csrc/ssd_scan.cu
 P_BLK = 32                                # the bf16 backward's state rows a block
@@ -135,9 +139,14 @@ def ssd_scan(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     synchronise.  No autograd: :class:`SSDScan` carries the gradient.
     """
     global launches
-    _check(xb, a, bmat, cmat, chunk, init_state)
     b, t, h, p = xb.shape
     g, n = bmat.shape[2], bmat.shape[3]
+    if xb.is_meta:
+        cost.credit("ssd_scan", cost.ssd_fwd(b, t, h, p, g, n, chunk,
+                                             itemsize=xb.element_size()))
+        return (xb.new_empty((b, t, h, p)),
+                xb.new_empty((b, h, p, n), dtype=torch.float32))
+    _check(xb, a, bmat, cmat, chunk, init_state)
     y = torch.empty((b, t, h, p), dtype=xb.dtype, device=xb.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=xb.device)
     lib, fn = _entry()
@@ -171,10 +180,17 @@ def ssd_scan_bwd(xb: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     synchronise.
     """
     global launches_bwd
-    _check(xb, a, bmat, cmat, chunk, init_state, "ssd_scan_bwd", dy=dy,
-           dfinal=dfinal)
     b, t, h, p = xb.shape
     g, n = bmat.shape[2], bmat.shape[3]
+    if xb.is_meta:
+        cost.credit("ssd_scan_bwd", cost.ssd_bwd(b, t, h, p, g, n, chunk,
+                                                 itemsize=xb.element_size()))
+        return (xb.new_empty(xb.shape), a.new_empty(a.shape),
+                bmat.new_empty(bmat.shape), cmat.new_empty(cmat.shape),
+                None if init_state is None else init_state.new_empty(
+                    init_state.shape))
+    _check(xb, a, bmat, cmat, chunk, init_state, "ssd_scan_bwd", dy=dy,
+           dfinal=dfinal)
     nc = -(-t // chunk)
     dev = xb.device
     dx = torch.empty((b, t, h, p), dtype=xb.dtype, device=dev)

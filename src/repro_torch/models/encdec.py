@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.launch import perf
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer_order, unstack
 
@@ -108,16 +109,29 @@ def _dec_block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
     return x + L.apply_mlp(bp["mlp"], h, cfg), (sk, sv, ck, cv)
 
 
+def _dec_block_remat(bp: Params, x: torch.Tensor, positions: torch.Tensor,
+                     cfg: ModelConfig, enc_out: torch.Tensor) -> torch.Tensor:
+    """:func:`_dec_block` without the K/V: the unit a remat forward
+    checkpoints."""
+    return _dec_block(bp, x, positions, cfg, enc_out)[0]
+
+
 def _decoder(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
              enc_out: torch.Tensor, cache: Optional[Params] = None,
-             ) -> torch.Tensor:
+             remat: bool = False) -> torch.Tensor:
     """The decoder over a full sequence -> its final hidden states.  With
     ``cache``, each layer's self K/V go into slots 0..S-1 of it and the
-    layer's cross K/V beside them."""
+    layer's cross K/V beside them.  ``remat`` (no cache): each decoder
+    block checkpointed, always keeping nothing, whatever ``REPRO_REMAT``
+    says, as the JAX family does (``repro/models/encdec.py:128-130``)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = _embed(params, cfg, tokens, positions)
     for i, bp in enumerate(unstack(params["dec_blocks"], cfg.num_layers)):
+        if remat:
+            x = perf.checkpoint(_dec_block_remat, bp, x, positions, cfg,
+                                enc_out, policy="nothing")
+            continue
         x, (sk, sv, ck, cv) = _dec_block(bp, x, positions, cfg, enc_out)
         if cache is not None:
             cache["k"][i, :, :s] = sk
@@ -134,11 +148,14 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             frames: torch.Tensor, order: Optional[Sequence[int]] = None,
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) decoder inputs, frames (B, F, d) -> (logits (B, S, V),
     aux): aux is a 0-d fp32 0, as the JAX family's.  ``order`` walks the
-    encoder's layers in that order."""
-    x = _decoder(params, cfg, tokens, encode(params, cfg, frames, order=order))
+    encoder's layers in that order.  ``remat`` checkpoints the decoder
+    blocks only, keeping nothing; the encoder is not checkpointed (the JAX
+    family's code, ``ROADMAP.md`` §3)."""
+    x = _decoder(params, cfg, tokens, encode(params, cfg, frames, order=order),
+                 remat=remat)
     logits = _logits(params, cfg, x)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.launch import perf
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
@@ -64,8 +65,17 @@ def _attn_apply(bp: Params, x: torch.Tensor, positions: torch.Tensor,
     return (x, kv) if return_kv else x
 
 
+def _segment(mamba: Sequence[Params], shared: Params, x: torch.Tensor,
+             positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One segment: the mamba2 layers ``mamba`` in turn, then the shared
+    block; the unit a remat forward checkpoints."""
+    for bp in mamba:
+        x = S.mamba_residual(bp, x, cfg)
+    return _attn_apply(shared, x, positions, cfg)
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            order: Optional[Sequence[int]] = None,
+            order: Optional[Sequence[int]] = None, remat: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, T) -> (logits (B, T, V), aux): the JAX family's
     ``return_aux`` form, aux a 0-d fp32 0 (no MoE layer).
@@ -73,6 +83,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``order`` walks the ``"mamba"`` tower in that order (CheckFree+'s
     swapped stages); the shared block still runs after every
     ``attn_every`` positions of the walk, as after JAX's permuted tower.
+    ``remat`` checkpoints each segment (its ``attn_every`` mamba2 layers and
+    the shared block) under ``launch.perf``'s policy, as the JAX family.
     """
     nseg, per = _nseg(cfg)
     positions = T.token_positions(tokens)
@@ -80,9 +92,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     mamba = T.unstack(params["mamba"], cfg.num_layers)
     walk = T.layer_order(cfg.num_layers, order)
     for seg in range(nseg):
-        for i in walk[seg * per:(seg + 1) * per]:
-            x = x + S.mamba_block(mamba[i], x, cfg)
-        x = _attn_apply(params["shared_attn"], x, positions, cfg)
+        layers = [mamba[i] for i in walk[seg * per:(seg + 1) * per]]
+        if remat:
+            x = perf.checkpoint(_segment, layers, params["shared_attn"], x,
+                                positions, cfg)
+        else:
+            x = _segment(layers, params["shared_attn"], x, positions, cfg)
     logits = S.logits_from_hidden(params, cfg, x)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 

@@ -70,6 +70,12 @@ def keep_drawn(fn: Callable[[torch.Tensor], torch.Tensor]) -> Iterator[None]:
 
 def _trunc_normal(gen: torch.Generator, shape, std: float, dtype,
                   device) -> torch.Tensor:
+    """A draw of ``shape``; on the meta device (the dry-run's shapes, the
+    counterpart of ``jax.eval_shape(model.init)``) an empty tensor: nothing
+    is drawn and ``gen`` may be None."""
+    if torch.device(device).type == "meta":
+        t = torch.empty(shape, dtype=to_dtype(dtype), device=device)
+        return t if _DRAWN is None else _DRAWN(t)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
     t = t.mul_(std).to(dtype)

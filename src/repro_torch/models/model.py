@@ -115,7 +115,7 @@ class Model(nn.Module):
         return {k: batch[k] for k in _INPUTS.get(self.cfg.arch_type, ())}
 
     def loss(self, params: Params, batch: Batch, *,
-             order: Optional[Sequence[int]] = None,
+             order: Optional[Sequence[int]] = None, remat: bool = False,
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean token cross-entropy of ``batch`` -> (loss, {"ce", "aux"}).
 
@@ -127,13 +127,18 @@ class Model(nn.Module):
         over the layers (0 for the other families), added with weight
         ``cfg.moe.router_aux_coef``.  The VLM's P patch positions carry no
         loss: as JAX drops their logits, they are not unembedded.
+        ``remat`` checkpoints the family's blocks (``launch.perf``), as the
+        JAX ``Model.loss(remat=True)``: every layer (dense, MoE, ssm), every
+        segment (hybrid), the decoder blocks alone keeping nothing
+        (encoder-decoder), the decoder's (VLM).
         """
         cfg = self.cfg
         kw = self.inputs(batch)
         if cfg.arch_type == "vlm":
             kw["prefix_logits"] = False
         logits, aux = self.family.forward(L.cast_tree(params, cfg.dtype), cfg,
-                                          batch["tokens"], order=order, **kw)
+                                          batch["tokens"], order=order,
+                                          remat=remat, **kw)
         ce = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
         return ce + cfg.moe.router_aux_coef * aux, {"ce": ce, "aux": aux}
 

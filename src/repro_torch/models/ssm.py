@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.launch import perf
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (the JAX name)
 from repro_torch.models import layers as L
@@ -245,8 +246,14 @@ def init(gen: torch.Generator, cfg: ModelConfig, device,
     return params
 
 
+def mamba_residual(bp: Params, x: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """x + one mamba2 layer: the unit a remat forward checkpoints."""
+    return x + mamba_block(bp, x, cfg)
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            order: Optional[Sequence[int]] = None,
+            order: Optional[Sequence[int]] = None, remat: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, T) -> (logits (B, T, V), aux): the JAX family's
     ``return_aux`` form, aux a 0-d fp32 0 (no MoE layer).
@@ -254,11 +261,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``order`` walks the ``"blocks"`` tower in that order (CheckFree+'s
     swapped stages), the counterpart of the JAX trainer's ``_permute_tower``
     before ``ssm.forward``; with autograd on this is the training forward.
+    ``remat`` checkpoints each mamba2 layer under ``launch.perf``'s policy,
+    as the JAX family does.
     """
     x = embed_tokens(params, cfg, tokens)
     blocks = unstack(params["blocks"], cfg.num_layers)
     for i in layer_order(cfg.num_layers, order):
-        x = x + mamba_block(blocks[i], x, cfg)
+        if remat:
+            x = perf.checkpoint(mamba_residual, blocks[i], x, cfg)
+        else:
+            x = mamba_residual(blocks[i], x, cfg)
     logits = logits_from_hidden(params, cfg, x)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 

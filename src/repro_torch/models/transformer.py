@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.launch import perf
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 
@@ -134,6 +135,14 @@ def _block(bp: Params, x: torch.Tensor, positions: torch.Tensor,
     return x + out, kv, aux
 
 
+def _block_remat(bp: Params, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig, window: int):
+    """:func:`_block` without the K/V: the unit a remat forward
+    checkpoints -> (x, aux)."""
+    x, _, aux = _block(bp, x, positions, cfg, window)
+    return x, aux
+
+
 def token_positions(tokens: torch.Tensor) -> torch.Tensor:
     """(B, S) positions 0..S-1 of a prompt batch."""
     b, s = tokens.shape
@@ -170,7 +179,7 @@ def layer_order(num_layers: int,
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             order: Optional[Sequence[int]] = None,
             inputs_embeds: Optional[torch.Tensor] = None,
-            prefix_logits: bool = True,
+            prefix_logits: bool = True, remat: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (logits (B, S, V), aux): the JAX family's
     ``return_aux`` form, aux the MoE layers' load-balance losses summed over
@@ -183,13 +192,20 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     copying the tower, and autograd sums each layer's gradients into its own
     slice whichever position ran it.  With ``inputs_embeds`` the logits
     cover the prefix too, (B, P + S, V), unless ``prefix_logits`` is False.
+    ``remat`` checkpoints each decoder block under ``launch.perf``'s policy
+    (``REPRO_REMAT``), as the JAX ``run_blocks``; the MoE aux comes out of
+    the checkpointed block.
     """
     x, positions = embed_inputs(params, cfg, tokens, inputs_embeds)
     blocks = unstack(params["blocks"], cfg.num_layers)
     aux = 0.0
     for i, swa in zip(layer_order(cfg.num_layers, order), swa_flags(cfg)):
-        x, _, a = _block(blocks[i], x, positions, cfg,
-                         cfg.sliding_window if swa else 0)
+        window = cfg.sliding_window if swa else 0
+        if remat:
+            x, a = perf.checkpoint(_block_remat, blocks[i], x, positions, cfg,
+                                   window)
+        else:
+            x, _, a = _block(blocks[i], x, positions, cfg, window)
         aux = aux + a
     if inputs_embeds is not None and not prefix_logits:
         x = x[:, inputs_embeds.shape[1]:]

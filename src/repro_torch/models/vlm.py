@@ -46,14 +46,16 @@ def project(params: Params, patches: torch.Tensor,
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             patches: torch.Tensor, order: Optional[Sequence[int]] = None,
-            prefix_logits: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+            prefix_logits: bool = True, remat: bool = False,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S), patches (B, P, D_PATCH) -> (logits, aux).  The logits
     cover the P + S positions, as JAX's; ``prefix_logits=False`` unembeds
     only the S token positions (the same values: the loss drops the patch
-    positions, so their P x V logits a row are never formed)."""
+    positions, so their P x V logits a row are never formed).  ``remat``
+    goes through to the decoder's forward."""
     embeds = project(params, patches, cfg)
     return T.forward(params, cfg, tokens, order=order, inputs_embeds=embeds,
-                     prefix_logits=prefix_logits)
+                     prefix_logits=prefix_logits, remat=remat)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, device,

@@ -2070,3 +2070,88 @@ def test_spmd_snapshot_strategies_on_the_card_match_the_cpu(spmd_store_runs,
         assert n["adam_sumsq"] == n["adam_update"] == walls
         assert n["stage_merge"] == 0
         assert not any(y["launches"].values())
+
+
+# ---------------------------------------------------------------------------
+# remat and the dry-run's meta branches
+# ---------------------------------------------------------------------------
+
+def _remat_run(cfg, params, batch, remat, monkeypatch, policy="nothing"):
+    """(loss, gradients, launches) of ``Model.loss`` on the card."""
+    from repro_torch import tree as TR
+    monkeypatch.setenv("REPRO_REMAT", policy)
+    leaves = [p.detach().clone().requires_grad_() for p in TR.leaves(params)]
+    it = iter(leaves)                  # map visits the leaves in this order
+    tree = TR.map(lambda _: next(it), params)
+    before = ops.launch_counts()
+    loss, _ = Model(cfg, device="cuda", weights=False).loss(tree, batch,
+                                                            remat=remat)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    return loss.detach(), grads, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["paper-llama-124m", "mamba2-1.3b",
+                                  "granite-moe-3b-a800m"])
+def test_remat_on_and_off_agree_on_the_card(arch, monkeypatch):
+    """2-layer models at their reduced widths, bf16 compute on fp32
+    masters: remat on ("nothing", "dots") against off within
+    1e-5 * (1 + |w|); bit-equality is reported in the assertion message."""
+    from repro_torch import tree as TR
+    from repro_torch.data.pipeline import make_batches
+    cfg = reduced(get_config(arch))
+    params = TR.map(lambda t: t.float(), Model(
+        cfg, device="cuda",
+        generator=torch.Generator("cuda").manual_seed(0)).params)
+    raw = next(make_batches(cfg, batch=2, seq=128, seed=0))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in raw.items()}
+    want = _remat_run(cfg, params, batch, False, monkeypatch)
+    for policy in ("nothing", "dots"):
+        got = _remat_run(cfg, params, batch, True, monkeypatch, policy)
+        equal = torch.equal(got[0], want[0]) and all(
+            torch.equal(g, w) for g, w in zip(got[1], want[1]))
+        for g, w in [(got[0], want[0]), *zip(got[1], want[1])]:
+            err = (g.float() - w.float()).abs()
+            assert bool((err <= 1e-5 * (1 + w.float().abs())).all()), (
+                policy, float(err.max()), f"bit-equal: {equal}")
+
+
+@pytest.mark.gpu
+def test_flash_forward_launches_under_each_remat_policy(monkeypatch):
+    """The flash forward runs once a layer without remat and under "dots"
+    (its out and lse are kept), twice under "nothing"; dq and dkv once."""
+    from repro_torch import tree as TR
+    from repro_torch.data.pipeline import make_batches
+    cfg = reduced(get_config("paper-llama-124m"))
+    params = TR.map(lambda t: t.float(), Model(
+        cfg, device="cuda",
+        generator=torch.Generator("cuda").manual_seed(0)).params)
+    raw = next(make_batches(cfg, batch=2, seq=64, seed=0))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in raw.items()}
+    n = cfg.num_layers
+    for remat, policy, fwd in ((False, "nothing", n), (True, "nothing", 2 * n),
+                               (True, "dots", n)):
+        launched = _remat_run(cfg, params, batch, remat, monkeypatch,
+                              policy)[2]
+        assert launched["flash_attention_fwd"] == fwd, (remat, policy)
+        assert launched["flash_attention_bwd_dq"] == n
+        assert launched["flash_attention_bwd_dkv"] == n
+
+
+@pytest.mark.gpu
+def test_meta_dispatch_raises_nothing_and_launches_nothing():
+    """The dry-run on meta tensors, next to a card: every kernel's meta
+    branch answers, and no kernel launches."""
+    from repro_torch.launch import dryrun as DR
+    before = ops.launch_counts()
+    for arch, shape in (("paper-llama-124m", "train_4k"),
+                        ("mamba2-1.3b", "train_4k"),
+                        ("zamba2-2.7b", "prefill_32k")):
+        cfg = reduced(get_config(arch))
+        rec = DR.run_one(arch, shape, mesh="1x1", cfg=cfg, batch=2, seq=64,
+                         verbose=False)
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert rec["kernels"]
+    assert ops.launch_counts() == before

@@ -152,9 +152,26 @@ def test_ops_takes_model_layout_on_cpu():
 
 
 def test_ops_raises_off_cpu_and_cuda():
-    q = torch.empty((1, 64, 2, 32), device="meta")
-    with pytest.raises(ValueError, match="meta"):
+    """Another device raises; meta takes the kernel's meta branch (the
+    dry-run's shapes: no launch, no plain version)."""
+    q = torch.empty((1, 64, 2, 32)).as_subclass(_Elsewhere)
+    with pytest.raises(ValueError, match="xpu"):
         ops.flash_attention(q, q, q)
+    before = FA.launches
+    q = torch.empty((1, 64, 2, 32), device="meta")
+    assert ops.flash_attention(q, q, q).shape == q.shape
+    assert FA.launches == before
+
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device, ``xpu``, for which the port
+    has no kernel and no plain version."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if getattr(func, "__self__", None) is torch.Tensor.device:
+            return torch.device("xpu")
+        return super().__torch_function__(func, types, args, kwargs or {})
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -24,9 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro import config as JCF
 from repro import configs as JC
 from repro.data import pipeline as JD
 from repro.models.model import build_model as jax_build_model
+from repro_torch import config as TC
 from repro_torch import configs as C
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.data import pipeline as D
@@ -109,6 +111,13 @@ def test_every_config_matches_jax():
             dataclasses.asdict(JC.reduced(jcfg)), name
         assert cfg.param_count() == jcfg.param_count(), name
         assert C.get_stages(name) == JC.get_stages(name), name
+        assert cfg.is_decoder_only == jcfg.is_decoder_only, name
+        assert cfg.to_json() == jcfg.to_json(), name
+    assert C.arch_ids() == JC.arch_ids()
+    assert dataclasses.asdict(TC.ServeConfig()) == \
+        dataclasses.asdict(JCF.ServeConfig())
+    assert {k: dataclasses.asdict(v) for k, v in TC.INPUT_SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in JCF.INPUT_SHAPES.items()}
 
 
 def test_synthetic_source_matches_jax():
@@ -277,7 +286,8 @@ def test_package_imports_no_jax_and_nothing_of_repro():
         "'telemetry', 'telemetry.events', 'telemetry.recorder', "
         "'telemetry.trace', 'telemetry.metrics', 'telemetry.report', "
         "'telemetry.log', 'pipeline', 'pipeline.spmd', "
-        "'pipeline.transport', 'launch.mesh'):\n"
+        "'pipeline.transport', 'launch.mesh', 'launch.perf', "
+        "'launch.shardings', 'launch.dryrun', 'kernels.cost'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

@@ -186,11 +186,27 @@ def test_ops_ssd_scan_on_cpu_is_the_chunked_plain_version():
 
 
 def test_ops_ssd_scan_raises_off_cpu_and_cuda():
-    x = torch.empty((1, 16, 2, 8), device="meta")
-    a = torch.empty((1, 16, 2), device="meta")
-    bm = torch.empty((1, 16, 1, 4), device="meta")
-    with pytest.raises(ValueError, match="meta"):
+    """Another device raises; meta takes the kernel's meta branch."""
+    shapes = ((1, 16, 2, 8), (1, 16, 2), (1, 16, 1, 4))
+    x, a, bm = (torch.empty(s).as_subclass(_Elsewhere) for s in shapes)
+    with pytest.raises(ValueError, match="xpu"):
         ops.ssd_scan(x, a, bm, bm, chunk=16)
+    x, a, bm = (torch.empty(s, device="meta") for s in shapes)
+    before = SSD.launches
+    y, final = ops.ssd_scan(x, a, bm, bm, chunk=16)
+    assert y.shape == x.shape and final.shape == (1, 2, 8, 4)
+    assert SSD.launches == before
+
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device, ``xpu``, for which the port
+    has no kernel and no plain version."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if getattr(func, "__self__", None) is torch.Tensor.device:
+            return torch.device("xpu")
+        return super().__torch_function__(func, types, args, kwargs or {})
 
 
 def test_ssd_kernel_wrapper_refuses_cpu_tensors():

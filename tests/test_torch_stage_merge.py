@@ -86,6 +86,22 @@ def test_merge_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_ops_merge_raises_off_cpu_and_cuda():
-    x = torch.empty(8, device="meta")
-    with pytest.raises(ValueError, match="meta"):
+    """Another device raises; meta takes the kernel's meta branch."""
+    x = torch.empty(8).as_subclass(_Elsewhere)
+    with pytest.raises(ValueError, match="xpu"):
         ops.stage_merge([x], [x], 0.5, 0.5)
+    x = torch.empty(8, device="meta")
+    before = ops.launch_counts()
+    assert ops.stage_merge([x], [x], 0.5, 0.5)[0].shape == x.shape
+    assert ops.launch_counts() == before
+
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device, ``xpu``, for which the port
+    has no kernel and no plain version."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if getattr(func, "__self__", None) is torch.Tensor.device:
+            return torch.device("xpu")
+        return super().__torch_function__(func, types, args, kwargs or {})
