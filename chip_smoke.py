@@ -11,9 +11,10 @@ result.  Phases:
 2. build   — compiles every CUDA source under src/repro_torch/csrc.
 3. kernel  — the flash-attention forward kernel (bf16 on the tensor cores,
              fp32 on the CUDA cores) against its plain version over dtypes,
-             MHA/GQA/MQA groups, every head dim it is built for (32, 64, 80,
-             120, 128, 256), masks (causal, a window of 100, full, the 4096
-             window at S 512), lengths shorter than one tile, ragged and long,
+             MHA/GQA/MQA groups, every head dim it is built for (16, 32,
+             64, 80, 120, 128, 256), masks (causal, a window of 100, full,
+             the 4096 window at S 512), lengths shorter than one tile,
+             ragged and long,
              and the four serving shapes (paper-llama-1.5b 16 x 128,
              zamba2-2.7b's shared attention 32 x 80, h2o-danube-3-4b 32/8 x
              120 with its 4096 window, gemma-2b 8/1 x 256, granite-moe-3b-
@@ -25,7 +26,8 @@ result.  Phases:
              serving shapes with CUDA events around back-to-back calls,
              beside the bound (and at whisper-large-v3's encoder, B 8 x
              1500 frames, 20 x 64, full, and its cross-attention, 416 rows
-             over the 1500 frames).  The same for the two backward kernels
+             over the 1500 frames, and at the examples' small model, B 8 x
+             64, 4 x 16).  The same for the two backward kernels
              (bf16 on the tensor cores, fp32 on the CUDA cores; against
              ``flash_attention_bwd_ref`` and PyTorch's autograd through the
              plain forward over every head dim, MHA/GQA/MQA, masks, S 128,
@@ -280,6 +282,25 @@ result.  Phases:
              calls, the estimate's peak within REMAT_PEAK_TOL of
              ``max_memory_allocated()``; ms a step, tokens/s, peak
              allocated and reserved.
+10e. train_guarded — paper-llama-124m at full width and depth (12 layers,
+             4 stages of 3, batch 8 x 512, bf16), ``checkfree`` in fused
+             windows of 8 for 32 steps, stage 2 failing at step 16, the
+             whole ``Trainer.run`` inside ``repro_torch.analysis.runtime.
+             guarded()`` (``set_sync_debug_mode("error")`` from the set-up
+             to the last drain: any implicit sync raises), then the same
+             run unguarded.  Implicit syncs 0; the explicit sections by
+             kind (drains, the capture, the set-up) and the dispatches;
+             exactly one capture (``assert_capture_bound``); the merge's
+             launch; ms a step of both runs; losses bit-equal.
+10f. examples — each port example's ``main`` in-process on the card:
+             torch_quickstart, torch_recovery_demo, torch_serve_batched,
+             torch_spot_trace_demo (``--steps 24``) and
+             torch_train_with_failures ``--full --steps 40`` (its four
+             default strategies at paper-llama-124m's full size).  Every
+             loss finite, each train_with_failures run's failures its
+             schedule's, a merge, the greedy tokens (4, 12); each
+             example's wall time and its launches (the windows' replays
+             counted).
 11. kernels — one line for every kernel: launches (the training paths and
              for the SSD scan the serving ones, and by path), error, times,
              bound.
@@ -291,6 +312,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import io
 import json
 import math
@@ -339,6 +361,7 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim import adam as A  # noqa: E402
 from repro_torch.recovery import default_protect_edges  # noqa: E402
 from repro_torch.sim import get_scenario, simulate  # noqa: E402
+from repro_torch.analysis import runtime as guard  # noqa: E402
 from repro_torch.statestore import codec as ss_codec  # noqa: E402
 from repro_torch.statestore import store as store_mod  # noqa: E402
 from repro_torch.statestore import strategies as ss_strategies  # noqa: E402
@@ -403,6 +426,8 @@ TRAIN_ATTN_SHAPES = {
     "d120": dict(b=4, h=32, hkv=8, s=512, d=120, window=4096),
     "d80": dict(b=4, h=32, hkv=32, s=512, d=80, window=0),
     "d64": dict(b=2, h=24, hkv=8, s=512, d=64, window=0),
+    # the examples' small model, as its forward
+    "d16": dict(b=8, h=4, hkv=4, s=64, d=16, window=0),
     # whisper-large-v3's attentions at train_whisper's half batch of 4:
     # the encoder's over its 1500 frames (full) and the decoder's 448 rows
     # over them (cross-attention, full)
@@ -459,6 +484,9 @@ ATTN_SHAPES = {"d128": dict(b=8, h=16, hkv=16, s=512, d=128, window=0),
                "d120": dict(b=8, h=32, hkv=8, s=512, d=120, window=4096),
                "d256": dict(b=8, h=8, hkv=1, s=512, d=256, window=0),
                "d64": dict(b=8, h=24, hkv=8, s=512, d=64, window=0),
+               # the examples' small model (examples/torch_quickstart.py):
+               # batch 8 x 64 tokens, 4 heads of 16
+               "d16": dict(b=8, h=4, hkv=4, s=64, d=16, window=0),
                # whisper-large-v3, batch 8: the encoder over 1500 frames
                # (full) and the decoder's 416 prompt rows over them
                "enc": dict(b=8, h=20, hkv=20, s=1500, d=64, window=0,
@@ -685,6 +713,18 @@ REMAT_FULL_BATCH, REMAT_FULL_SEQ, REMAT_STEPS = 1, 512, 3
 REMAT_ESTIMATE_CUT = dict(arch="paper-llama-1.5b", layers=4, batch=8,
                           seq=512)
 REMAT_PEAK_TOL = 0.10
+# train_guarded: examples/train_with_failures.py --full's model at full
+# width and depth, checkfree in windows of 8, stage 2 failing at step 16;
+# the whole Trainer.run under repro_torch.analysis.runtime.guarded(), and
+# the same run unguarded
+GUARDED = dict(arch="paper-llama-124m", stages=4, batch=8, seq=512,
+               steps=32, window=8, schedule={16: [2]})
+# examples: each port example's main on the card, in-process
+# (argv beside --device cuda); spot_trace_demo's steps cut to seconds
+EXAMPLES = (("torch_quickstart", []), ("torch_recovery_demo", []),
+            ("torch_serve_batched", []),
+            ("torch_spot_trace_demo", ["--steps", "24"]),
+            ("torch_train_with_failures", ["--full", "--steps", "40"]))
 
 
 def emit(phase: str, **kw) -> None:
@@ -788,11 +828,25 @@ def phase_build() -> None:
     emit("build", seconds=seconds, sources=sorted(info), ptxas=ptxas)
 
 
-def sweep_cases():
-    """(dtype, b, hq, hkv, s, d, causal, window, tol) of the kernel sweep."""
+# The sweeps draw each case's inputs from the phase's generator in turn, at
+# the head dims of FIRST_HEAD_DIMS; head dim 16, the examples' small model,
+# is swept after them from a generator of its own (later_gen), so its cases
+# leave the inputs of the others as they were.
+FIRST_HEAD_DIMS = tuple(d for d in FA.FWD_HEAD_DIMS if d != 16)
+LAST_HEAD_DIMS = (16,)
+assert FA.BWD_HEAD_DIMS == FA.FWD_HEAD_DIMS
+
+
+def later_gen() -> torch.Generator:
+    return torch.Generator("cuda").manual_seed(16)
+
+
+def sweep_cases(dims=FIRST_HEAD_DIMS):
+    """(dtype, b, hq, hkv, s, d, causal, window, tol) of the kernel sweep,
+    at the head dims ``dims``."""
     for dtype in (torch.float32, torch.bfloat16):
         for hq, hkv in ((16, 16), (32, 8), (4, 1), (8, 1)):
-            for dd in FA.FWD_HEAD_DIMS:
+            for dd in dims:
                 for causal, window in ((True, 0), (True, 100), (False, 0)):
                     # shorter than one tile, ragged, long
                     for ss in (1, 37, 63, 128, 1000, 2048):
@@ -802,25 +856,26 @@ def sweep_cases():
                 yield (dtype, 2, hq, hkv, 512, dd, True, 4096, TOL[dtype])
         # granite-moe-3b-a800m's group of 3
         hq, hkv, dd = GRANITE_GROUP
-        for ss in GRANITE_SWEEP_LENGTHS:
+        for ss in GRANITE_SWEEP_LENGTHS if dd in dims else ():
             yield (dtype, 2, hq, hkv, ss, dd, True, 0, TOL[dtype])
         # the serving shapes, where bf16 is held to one ulp
         for shape in ATTN_SHAPES.values():
-            if "sk" in shape or not shape.get("causal", True):
-                continue                  # in cross_cases
+            if "sk" in shape or not shape.get("causal", True) or \
+                    shape["d"] not in dims:
+                continue                  # in cross_cases, or another pass
             yield (dtype, shape["b"], shape["h"], shape["hkv"], shape["s"],
                    shape["d"], True, shape["window"],
                    TOL[dtype] if dtype == torch.float32 else SERVE_TOL)
 
 
-def cross_cases():
+def cross_cases(dims=FIRST_HEAD_DIMS):
     """(dtype, b, hq, hkv, sq, sk, d) of the sweep over another key length
     than the query length (cross-attention, full): whisper's decoder rows
     over its 1500 frames (23 tiles of 64 and a ragged 28), MHA and GQA,
-    every head dim the kernels are built for, and short key runs."""
+    at the head dims ``dims``, and short key runs."""
     for dtype in (torch.float32, torch.bfloat16):
         for hq, hkv in ((4, 4), (8, 2)):
-            for d in FA.FWD_HEAD_DIMS:
+            for d in dims:
                 for sq, sk in CROSS_LENGTHS:
                     yield dtype, 1, hq, hkv, sq, sk, d
 
@@ -869,30 +924,32 @@ def phase_kernel() -> dict:
     gen = torch.Generator("cuda").manual_seed(0)
     cases = failures = 0
     worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
-    for dtype, b, hq, hkv, s, d, causal, window, tol in sweep_cases():
-        q, k, v = qkv(gen, b, hq, hkv, s, d, dtype)
-        ok, out_err, lse_err = compare(q, k, v, causal=causal, window=window,
-                                       tol=tol)
-        name = str(dtype).split(".")[1]
-        worst[name][0] = max(worst[name][0], out_err)
-        worst[name][1] = max(worst[name][1], lse_err)
-        cases += 1
-        if not ok:
-            failures += 1
-            print(f"MISMATCH dtype={name} b={b} hq={hq} hkv={hkv} d={d} "
-                  f"causal={causal} window={window} s={s}", file=sys.stderr)
-    for dtype, b, hq, hkv, sq, sk, d in cross_cases():
-        q, k, v = qkv(gen, b, hq, hkv, sq, d, dtype, sk)
-        ok, out_err, lse_err = compare(q, k, v, causal=False, window=0,
-                                       tol=TOL[dtype])
-        name = str(dtype).split(".")[1]
-        worst[name][0] = max(worst[name][0], out_err)
-        worst[name][1] = max(worst[name][1], lse_err)
-        cases += 1
-        if not ok:
-            failures += 1
-            print(f"MISMATCH cross dtype={name} hq={hq} hkv={hkv} d={d} "
-                  f"sq={sq} sk={sk}", file=sys.stderr)
+    for dims, g in ((FIRST_HEAD_DIMS, gen), (LAST_HEAD_DIMS, later_gen())):
+        for dtype, b, hq, hkv, s, d, causal, window, tol in sweep_cases(dims):
+            q, k, v = qkv(g, b, hq, hkv, s, d, dtype)
+            ok, out_err, lse_err = compare(q, k, v, causal=causal,
+                                           window=window, tol=tol)
+            name = str(dtype).split(".")[1]
+            worst[name][0] = max(worst[name][0], out_err)
+            worst[name][1] = max(worst[name][1], lse_err)
+            cases += 1
+            if not ok:
+                failures += 1
+                print(f"MISMATCH dtype={name} b={b} hq={hq} hkv={hkv} d={d} "
+                      f"causal={causal} window={window} s={s}",
+                      file=sys.stderr)
+        for dtype, b, hq, hkv, sq, sk, d in cross_cases(dims):
+            q, k, v = qkv(g, b, hq, hkv, sq, d, dtype, sk)
+            ok, out_err, lse_err = compare(q, k, v, causal=False, window=0,
+                                           tol=TOL[dtype])
+            name = str(dtype).split(".")[1]
+            worst[name][0] = max(worst[name][0], out_err)
+            worst[name][1] = max(worst[name][1], lse_err)
+            cases += 1
+            if not ok:
+                failures += 1
+                print(f"MISMATCH cross dtype={name} hq={hq} hkv={hkv} d={d} "
+                      f"sq={sq} sk={sk}", file=sys.stderr)
     emit("kernel_check", kernel="flash_attention_fwd", cases=cases,
          failures=failures, cross_lengths=CROSS_LENGTHS,
          max_abs_err={k: {"out": v[0], "lse": v[1]} for k, v in worst.items()},
@@ -909,7 +966,7 @@ def phase_kernel() -> dict:
            "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:39",
            **time_fwd(ATTN_SHAPES["d128"], gen)}
-    for name in ("d80", "d120", "d256", "d64", "enc", "cross"):
+    for name in ("d80", "d120", "d256", "d64", "enc", "cross", "d16"):
         row[name] = time_fwd(ATTN_SHAPES[name], gen)
     return row
 
@@ -923,28 +980,31 @@ def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple:
     return ok, float(err.max())
 
 
-def bwd_cases():
-    """(dtype, b, hq, hkv, s, d, causal, window) of the backward sweep: every
-    head dim it is built for, MHA, GQA and MQA, masks and lengths; gemma-2b's
+def bwd_cases(dims=FIRST_HEAD_DIMS):
+    """(dtype, b, hq, hkv, s, d, causal, window) of the backward sweep at
+    the head dims ``dims``: MHA, GQA and MQA, masks and lengths; gemma-2b's
     MQA group at D 256 and h2o-danube-3-4b's group and 4096 window at D 120;
-    the four training shapes."""
+    the training shapes."""
     for dtype in (torch.float32, torch.bfloat16):
         for hq, hkv in ((16, 16), (32, 8), (4, 1)):
-            for d in FA.BWD_HEAD_DIMS:
+            for d in dims:
                 for causal, window in ((True, 0), (True, 100), (False, 0)):
                     for s in (128, 1000, 2048):
                         yield (dtype, 1 if s == 2048 else 2, hq, hkv, s, d,
                                causal, window)
         for s in (128, 1000, 2048):
             b = 1 if s == 2048 else 2
-            yield (dtype, b, 8, 1, s, 256, True, 0)
-            yield (dtype, b, 32, 8, s, 120, True, 4096)
+            if 256 in dims:
+                yield (dtype, b, 8, 1, s, 256, True, 0)
+            if 120 in dims:
+                yield (dtype, b, 32, 8, s, 120, True, 4096)
         hq, hkv, d = GRANITE_GROUP
-        for s in GRANITE_SWEEP_LENGTHS:
+        for s in GRANITE_SWEEP_LENGTHS if d in dims else ():
             yield (dtype, 2, hq, hkv, s, d, True, 0)
         for shape in TRAIN_ATTN_SHAPES.values():
-            if "sk" in shape or not shape.get("causal", True):
-                continue                  # in cross_cases
+            if "sk" in shape or not shape.get("causal", True) or \
+                    shape["d"] not in dims:
+                continue                  # in cross_cases, or another pass
             yield (dtype, shape["b"], shape["h"], shape["hkv"], shape["s"],
                    shape["d"], True, shape["window"])
 
@@ -974,29 +1034,30 @@ def phase_kernel_bwd() -> list:
     gen = torch.Generator("cuda").manual_seed(1)
     cases = failures = 0
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for dtype, b, hq, hkv, s, d, causal, window in bwd_cases():
-        q, k, v = qkv(gen, b, hq, hkv, s, d, dtype)
-        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-        ok, err = compare_bwd(q, k, v, do, causal=causal, window=window)
-        name = str(dtype).split(".")[1]
-        worst[name] = max(worst[name], err)
-        cases += 1
-        if not ok:
-            failures += 1
-            print(f"MISMATCH bwd dtype={name} b={b} hq={hq} hkv={hkv} d={d} "
-                  f"causal={causal} window={window} s={s} err={err}",
-                  file=sys.stderr)
-    for dtype, b, hq, hkv, sq, sk, d in cross_cases():
-        q, k, v = qkv(gen, b, hq, hkv, sq, d, dtype, sk)
-        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-        ok, err = compare_bwd(q, k, v, do, causal=False, window=0)
-        name = str(dtype).split(".")[1]
-        worst[name] = max(worst[name], err)
-        cases += 1
-        if not ok:
-            failures += 1
-            print(f"MISMATCH bwd cross dtype={name} hq={hq} hkv={hkv} d={d} "
-                  f"sq={sq} sk={sk} err={err}", file=sys.stderr)
+    for dims, g in ((FIRST_HEAD_DIMS, gen), (LAST_HEAD_DIMS, later_gen())):
+        for dtype, b, hq, hkv, s, d, causal, window in bwd_cases(dims):
+            q, k, v = qkv(g, b, hq, hkv, s, d, dtype)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            ok, err = compare_bwd(q, k, v, do, causal=causal, window=window)
+            name = str(dtype).split(".")[1]
+            worst[name] = max(worst[name], err)
+            cases += 1
+            if not ok:
+                failures += 1
+                print(f"MISMATCH bwd dtype={name} b={b} hq={hq} hkv={hkv} "
+                      f"d={d} causal={causal} window={window} s={s} "
+                      f"err={err}", file=sys.stderr)
+        for dtype, b, hq, hkv, sq, sk, d in cross_cases(dims):
+            q, k, v = qkv(g, b, hq, hkv, sq, d, dtype, sk)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            ok, err = compare_bwd(q, k, v, do, causal=False, window=0)
+            name = str(dtype).split(".")[1]
+            worst[name] = max(worst[name], err)
+            cases += 1
+            if not ok:
+                failures += 1
+                print(f"MISMATCH bwd cross dtype={name} hq={hq} hkv={hkv} "
+                      f"d={d} sq={sq} sk={sk} err={err}", file=sys.stderr)
     emit("kernel_check", kernel="flash_attention_bwd_dq+dkv", cases=cases,
          failures=failures, cross_lengths=CROSS_LENGTHS, max_abs_err=worst,
          tol={"float32": GRAD_TOL[torch.float32],
@@ -1008,7 +1069,7 @@ def phase_kernel_bwd() -> list:
                              f"versions in {failures} of {cases} cases")
 
     rows = time_bwd(TRAIN_ATTN_SHAPES["d128"], gen)
-    for name in ("d256", "d120", "d80", "d64", "enc", "cross"):
+    for name in ("d256", "d120", "d80", "d64", "enc", "cross", "d16"):
         for row, sub in zip(rows, time_bwd(TRAIN_ATTN_SHAPES[name], gen)):
             row[name] = {k: sub[k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
@@ -4771,6 +4832,241 @@ def phase_train_remat() -> dict:
     return total
 
 
+def replayed_launches(windows: list, counted: dict) -> dict:
+    """The launches that ran: the wrappers count each launch a capture
+    recorded once (the capture ran nothing), and each replay ran them all
+    again."""
+    out = dict(counted)
+    for w in windows:
+        for name, n in w.recorded_launches.items():
+            out[name] += (w.replays - w.captures) * n
+    return out
+
+
+@contextlib.contextmanager
+def windows_made(into: list):
+    """Every ``FusedWindow`` built inside, appended to ``into``."""
+    init = FusedWindow.__init__
+
+    def recording(self, *args, **kw):
+        init(self, *args, **kw)
+        into.append(self)
+
+    FusedWindow.__init__ = recording
+    try:
+        yield into
+    finally:
+        FusedWindow.__init__ = init
+
+
+def guarded_run(guarded: bool) -> dict:
+    """One GUARDED run (under ``guard.guarded()`` or not), each window
+    timed on the host clock from its dispatch to the end of its drain with
+    no synchronize of its own (the drain waits for the window)."""
+    spec = GUARDED
+    cfg = get_config(spec["arch"])
+    tcfg = train_config("checkfree", spec["steps"], stages=spec["stages"],
+                        batch=spec["batch"], seq=spec["seq"],
+                        window=spec["window"])
+    trainer = Trainer(Model(cfg, device="cuda", weights=False), tcfg,
+                      schedule=Forced(spec["schedule"]))
+    runner = trainer.window
+    dispatch, drain = runner.dispatch, runner.drain
+    window_ms, t0 = [], [0.0]
+
+    def timed_dispatch(state, stacked, **kw):
+        t0[0] = time.perf_counter()
+        return dispatch(state, stacked, **kw)
+
+    def timed_drain(pending):
+        out = drain(pending)
+        window_ms.append((pending.k, (time.perf_counter() - t0[0]) * 1e3))
+        return out
+
+    runner.dispatch, runner.drain = timed_dispatch, timed_drain
+    batches = make_batches(cfg, batch=spec["batch"], seq=spec["seq"], seed=0)
+    torch.cuda.synchronize()
+    before = dict(TR.explicit_counts)
+    zero_counts()
+    t_run = time.perf_counter()
+    with (guard.guarded() if guarded else contextlib.nullcontext()):
+        mode = torch.cuda.get_sync_debug_mode()
+        state, hist = trainer.run(batches)
+    run_s = time.perf_counter() - t_run
+    launched = replayed_launches([runner], counts())
+    sections = {k: n - before.get(k, 0) for k, n in TR.explicit_counts.items()
+                if n != before.get(k, 0)}
+    steady = [ms / k for i, (k, ms) in enumerate(window_ms)
+              if i > 0 and k == spec["window"]]
+    out = {"hist": hist, "launched": launched, "sections": sections,
+           "mode": mode, "captures": guard.captured_graph_count(trainer),
+           "window_ms": window_ms, "ms_per_step": float(np.median(steady)),
+           "run_s": run_s, "kept_cache": runner.kept_cache}
+    guard.assert_capture_bound(trainer, 1, what=f"train_guarded "
+                               f"({'guarded' if guarded else 'unguarded'})")
+    del trainer, state, runner
+    gc.collect()                     # the timed window holds a cycle
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_guarded() -> dict:
+    """GUARDED under the guard and without it: no implicit sync (the
+    guarded run raises on one), one capture, the merge, the same losses bit
+    for bit.  Returns the guarded run's launches."""
+    spec = GUARDED
+    cfg = get_config(spec["arch"])
+    card = smi()
+    runs = {"guarded": guarded_run(True), "unguarded": guarded_run(False)}
+    g, u = runs["guarded"], runs["unguarded"]
+    failures = [(s, st) for s in sorted(spec["schedule"])
+                for st in spec["schedule"][s]]
+    tokens = spec["batch"] * spec["seq"]
+    emit("train_guarded", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=cfg.num_heads,
+         head_dim=cfg.resolved_head_dim,
+         stages=spec["stages"], params=cfg.param_count(), dtype=cfg.dtype,
+         masters="float32", strategy="checkfree", batch=spec["batch"],
+         seq=spec["seq"], steps=spec["steps"], fuse_window=spec["window"],
+         schedule=spec["schedule"], implicit_syncs=0,
+         sync_debug_mode_guarded=g["mode"],
+         sync_debug_mode_unguarded=u["mode"],
+         explicit_sections=g["sections"],
+         explicit_sections_unguarded=u["sections"],
+         dispatches=g["hist"].dispatches, captures=g["captures"],
+         captures_unguarded=u["captures"], kept_cache=g["kept_cache"],
+         failures=g["hist"].failures,
+         recovery_errors=g["hist"].recovery_errors,
+         merge_launches=g["launched"]["stage_merge"], launches=g["launched"],
+         loss=g["hist"].loss, loss_bit_equal=g["hist"].loss == u["hist"].loss,
+         window_ms=g["window_ms"], window_ms_unguarded=u["window_ms"],
+         ms_per_step=g["ms_per_step"],
+         ms_per_step_unguarded=u["ms_per_step"],
+         tokens_per_s=tokens / g["ms_per_step"] * 1e3,
+         tokens_per_s_unguarded=tokens / u["ms_per_step"] * 1e3,
+         run_s=g["run_s"], run_s_unguarded=u["run_s"], nvidia_smi=card,
+         timing="window_ms: host clock from the window's dispatch to the "
+                "end of its drain (no synchronize of its own: the drain "
+                "waits for the window); ms_per_step: the median over the "
+                "full windows after the first (which runs the eager step "
+                "and the capture) of ms / 8")
+    problems = []
+    for name, run in runs.items():
+        h = run["hist"]
+        if len(h.loss) != spec["steps"] or                 not all(math.isfinite(x) for x in h.loss):
+            problems.append(f"{name}: losses {h.loss}")
+        if [tuple(f) for f in h.failures] != failures or                 len(h.recovery_errors) != 1:
+            problems.append(f"{name}: failures {h.failures}, recovery "
+                            f"errors {h.recovery_errors}")
+        if run["launched"]["stage_merge"] != 1:
+            problems.append(f"{name}: merge launches "
+                            f"{run['launched']['stage_merge']}")
+        if run["captures"] != 1:
+            problems.append(f"{name}: {run['captures']} captures")
+    if g["mode"] != 2:
+        problems.append(f"the guarded run's sync debug mode {g['mode']}")
+    if g["hist"].loss != u["hist"].loss:
+        problems.append("the guarded and unguarded losses differ")
+    if g["sections"].get("drain") !=             g["hist"].dispatches + len(g["hist"].recovery_errors):
+        problems.append(f"drains {g['sections']} against "
+                        f"{g['hist'].dispatches} dispatches")
+    if g["sections"].get("capture") != 1:
+        problems.append(f"capture sections {g['sections']}")
+    if problems:
+        raise AssertionError("train_guarded: " + "; ".join(problems))
+    return g["launched"]
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (``examples`` is no package)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples() -> dict:
+    """Each port example's ``main`` on the card, its output captured.
+    Returns the launches of all of them (the windows' replays counted)."""
+    card = smi()
+    windows: list = []
+    zero_counts()
+    results, problems = {}, []
+    with windows_made(windows):
+        for name, argv in EXAMPLES:
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                got = load_example(name).main([*argv, "--device", "cuda"])
+            torch.cuda.synchronize()
+            results[name] = (got, time.perf_counter() - t0,
+                             len(out.getvalue().splitlines()))
+    launched = replayed_launches(windows, counts())
+    graphs = {"windows": len(windows),
+              "captures": sum(w.captures for w in windows),
+              "replays": sum(w.replays for w in windows)}
+    del windows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    losses = {}
+    quick, rec = results["torch_quickstart"][0],         results["torch_recovery_demo"][0]
+    losses["torch_quickstart"] = quick["loss"]
+    losses["torch_recovery_demo"] = [rec["trained_loss"], rec["base_loss"]] + [
+        x for r in rec["rows"] for x in (r["loss_at_reinit"],
+                                         r["loss_after_20"])]
+    failures = {}
+    for name in ("torch_spot_trace_demo", "torch_train_with_failures"):
+        got = results[name][0]
+        for strategy, h in got["hists"].items():
+            losses[f"{name}:{strategy}"] = h.loss + [
+                e for _, _, e in h.eval_loss]
+            if name == "torch_train_with_failures":
+                sched = got["schedules"][strategy]
+                want = [(w, s) for w in range(h.wall_iters)
+                        for s in sorted(sched.at(w))]
+                failures[strategy] = {"got": [list(f) for f in h.failures],
+                                      "schedule": [list(f) for f in want]}
+                if [tuple(f) for f in h.failures] != want:
+                    problems.append(f"train_with_failures {strategy}: "
+                                    f"failures {h.failures}, its schedule "
+                                    f"{want}")
+    serve = results["torch_serve_batched"][0]["rows"]
+    shapes = {r["arch"]: list(r["tokens"].shape) for r in serve}
+    for key, xs in losses.items():
+        if not xs or not all(math.isfinite(x) for x in xs):
+            problems.append(f"{key}: losses {xs}")
+    if any(s != [4, 12] for s in shapes.values()):
+        problems.append(f"serve_batched token shapes {shapes}")
+    if launched["stage_merge"] < 1:
+        problems.append("no merge ran")
+    full = results["torch_train_with_failures"][0]["cfg"]
+    emit("examples", nvidia_smi=card,
+         wall_s={name: r[1] for name, r in results.items()},
+         printed_lines={name: r[2] for name, r in results.items()},
+         argv={name: argv for name, argv in EXAMPLES},
+         train_with_failures_model=dict(
+             arch=full.name, layers=full.num_layers, d_model=full.d_model,
+             params=full.param_count(), dtype=full.dtype),
+         train_with_failures_rows=results["torch_train_with_failures"][0][
+             "rows"],
+         spot_trace_rows=results["torch_spot_trace_demo"][0]["rows"],
+         quickstart_recovery_errors=quick["recovery_errors"],
+         recovery_demo_rows=rec["rows"],
+         serve_rows=[{k: v for k, v in r.items() if k != "tokens"}
+                     for r in serve],
+         serve_token_shapes=shapes, failures=failures,
+         graphs=graphs, launches=launched,
+         timing="wall_s: host clock around each example's main, between two "
+                "synchronizes (the examples' own set-up, kernels already "
+                "built)")
+    if problems:
+        raise AssertionError("examples: " + "; ".join(problems))
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs the "
@@ -4823,7 +5119,9 @@ def main() -> int:
                "train_neighbor": phase_train_neighbor(),
                "train_spmd": phase_train_spmd(),
                **phase_train_spmd_store(),
-               "train_remat": phase_train_remat()}
+               "train_remat": phase_train_remat(),
+               "train_guarded": phase_train_guarded(),
+               "examples": phase_examples()}
     # launches: the training paths; by path: every path that ran it
     for row in (fwd, dq, dkv, merge, ssd, ssd_bwd, *adam_rows):
         by_path = {path: n[row["name"]] for path, n in trained.items()}

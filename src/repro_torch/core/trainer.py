@@ -351,9 +351,16 @@ class Trainer:
         return params, init_adam(params)
 
     def device_batch(self, batch: Dict[str, np.ndarray]) -> Batch:
-        """A numpy batch as tensors on the trainer's device."""
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+        """A numpy batch as tensors on the trainer's device: on the card
+        through pinned memory, one asynchronous copy a key (no
+        synchronize)."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
+        return out
 
     def init_state(self, params: Optional[Params] = None) -> TrainState:
         """Step 0: ``params`` (default: :meth:`init_params`) as trainable
@@ -410,7 +417,7 @@ class Trainer:
         rec = self._body(state.params, TR.leaves(opt.m), TR.leaves(opt.v),
                          batch, step, lr_scale)
         # the body decayed lr_scale on the device; the host state holds it
-        lr_scale = float(rec[RECORD.index("lr_scale")])
+        lr_scale = TR.host_float(rec[RECORD.index("lr_scale")])
         metrics = {name: rec[RECORD.index(name)]
                    for name in ("ce", "aux", "grad_norm", "lr")}
         state = TrainState(state.params, OptState(opt.m, opt.v, opt.step + 1),
@@ -552,18 +559,21 @@ class Trainer:
         if params is not None and self.backend == "spmd":
             from repro_torch.pipeline.spmd import shard_params
             params = shard_params(params, self.part, self.rank)
-        # taken before init_state, which trains tensors already on the
-        # device in place
-        self._init_host = (None if params is None else
-                           TR.map(lambda t: t.detach().to("cpu", copy=True),
-                                  params))
-        state = self.init_state(params)
+        # the set-up's copies between host and device, before the loop:
+        # one explicit section
+        with TR.explicit("setup"):
+            # taken before init_state, which trains tensors already on the
+            # device in place
+            self._init_host = (None if params is None else
+                               TR.map(lambda t: t.detach().to("cpu", copy=True),
+                                      params))
+            state = self.init_state(params)
+            self._evals = ([self.device_batch(eb) for eb in eval_batches]
+                           if eval_batches else None)
         hist = History()
         # the failure events' random draws: a stream of its own, apart from
         # the parameters' init
         self._event_rng = np.random.default_rng([tcfg.seed, 1])
-        self._evals = ([self.device_batch(eb) for eb in eval_batches]
-                       if eval_batches else None)
         prefetch = WindowPrefetcher(batches)
         # the per-family FLOP estimate (6 * active params * tokens for
         # training) that the report turns into an MFU figure
@@ -705,8 +715,10 @@ class Trainer:
         if not (self._evals and
                 state.effective_step % self.tcfg.eval_every == 0):
             return
-        el = float(np.mean([self.eval_loss(state.params, eb).item()
-                            for eb in self._evals]))
+        # one explicit drain of every eval batch's loss
+        losses = TR.device_get([self.eval_loss(state.params, eb)
+                                for eb in self._evals])
+        el = float(np.mean([float(x) for x in losses]))
         hist.eval_loss.append((state.effective_step, clock, el))
         telemetry.emit("eval", step=state.effective_step, loss=el,
                        clock_s=clock)
@@ -733,9 +745,9 @@ class Trainer:
                                wall_step=wall_step, backend=self.backend)
             hist.dispatches += 1
             self.dispatched_buckets.add(1)
-            # the step's one read of its loss
+            # the step's one read of its loss, the explicit drain
             with telemetry.span("window_drain", cat="trainer", k=1):
-                loss = loss.item()
+                loss = TR.host_float(loss)
             factor = self._iteration_factor(wall_step)
             clock += strategy.iteration_cost() * factor
             hist.steps.append(state.effective_step)
@@ -768,6 +780,9 @@ class Trainer:
             # current layout's window: a re-layout at the boundary made anew)
             k = self._window_size(wall_step, state.effective_step, max_wall)
             runner = self.window
+            # the window owns the state until its drain: the host reads
+            # only its own count of the steps from here
+            after = state.effective_step + k
             stacked = prefetch.take(state.effective_step, k)
             t0 = telemetry.clock()
             pending = runner.dispatch(state, stacked, part=self.part)
@@ -777,10 +792,9 @@ class Trainer:
             self.dispatched_buckets.add(k)
             # while the card runs this window, line up the next one (a
             # failure at the boundary replays from the cache instead)
-            next_k = self._window_size(wall_step + k,
-                                       state.effective_step + k, max_wall)
-            if state.effective_step + k < tcfg.steps:
-                prefetch.prime(state.effective_step + k, next_k)
+            next_k = self._window_size(wall_step + k, after, max_wall)
+            if after < tcfg.steps:
+                prefetch.prime(after, next_k)
             # one copy to the host for the window's k steps
             with telemetry.span("window_drain", cat="trainer", k=k):
                 state, ring = runner.drain(pending)

@@ -126,6 +126,9 @@ class FusedWindow:
         #: recorded; each replay runs it again): the replays ran
         #: ``recorded_launches`` times ``replays``
         self.captures = 0
+        #: graphs captured by the windows of earlier stage partitions
+        #: (:meth:`relayout` carries the count over)
+        self.prior_captures = 0
         self.replays = 0
         self.recorded_launches: Dict[str, int] = {}
         #: whether the last capture kept the allocator's cache
@@ -161,8 +164,10 @@ class FusedWindow:
         if graph is not None:
             graph.reset()
             del graph
-            torch.cuda.empty_cache()
+            with TR.explicit("relayout"):
+                torch.cuda.empty_cache()
         new = FusedWindow(self.body, self.device, part, self.stream)
+        new.prior_captures = self.prior_captures + self.captures
         new.step, new.lr_scale = self.step, self.lr_scale
         new.params, new.m, new.v = self.params, self.m, self.v
         return new
@@ -241,24 +246,27 @@ class FusedWindow:
 
     def _capture(self, batch: Batch) -> None:
         """Capture one step of the body into the graph's own pool
-        (synchronizes once; the capture itself runs nothing).  The cache of
-        the eager step's blocks is kept for the work between windows when
-        the device's free memory can hold the graph's pool beside it (a pool
-        about the size of that cache), else emptied first."""
+        (synchronizes once, in an explicit section; the capture itself runs
+        nothing).  The cache of the eager step's blocks is kept for the work
+        between windows when the device's free memory can hold the graph's
+        pool beside it (a pool about the size of that cache), else emptied
+        first."""
         self.static_batch = {key: torch.empty_like(t) for key, t in
                              batch.items()}
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        # as torch.cuda.graph does: a collection during the capture could
-        # free an unreachable graph, whose release invalidates the capture
-        gc.collect()
-        torch.cuda.synchronize(self.device)
-        free, _ = torch.cuda.mem_get_info(self.device)
-        cached = (torch.cuda.memory_reserved(self.device)
-                  - torch.cuda.memory_allocated(self.device))
-        self.kept_cache = cached <= free
-        if not self.kept_cache:
-            torch.cuda.empty_cache()
+        with TR.explicit("capture"):
+            # as torch.cuda.graph does: a collection during the capture
+            # could free an unreachable graph, whose release invalidates
+            # the capture
+            gc.collect()
+            torch.cuda.synchronize(self.device)
+            free, _ = torch.cuda.mem_get_info(self.device)
+            cached = (torch.cuda.memory_reserved(self.device)
+                      - torch.cuda.memory_allocated(self.device))
+            self.kept_cache = cached <= free
+            if not self.kept_cache:
+                torch.cuda.empty_cache()
         with torch.cuda.stream(self.stream):
             graph.capture_begin()
             try:
@@ -272,10 +280,11 @@ class FusedWindow:
         self.captures += 1
 
     def drain(self, pending: Pending) -> Tuple[TrainState, np.ndarray]:
-        """Wait for the window and bring its ring to the host in one copy ->
-        (the state after it, the ring as a (k, width) fp32 array)."""
+        """Wait for the window and bring its ring to the host in one copy,
+        the explicit drain -> (the state after it, the ring as a (k, width)
+        fp32 array)."""
         state, k = pending.state, pending.k
-        ring = pending.ring.cpu().numpy()
+        ring = TR.device_get(pending.ring)
         step = state.opt_state.step + k
         if int(ring[-1, RECORD.index("step")]) != step:
             raise AssertionError(

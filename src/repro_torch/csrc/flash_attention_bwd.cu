@@ -930,6 +930,7 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch(const Params& p, int D, bool dkv, cudaStream_t stream) {
   switch (D) {
+    case 16: return dkv ? launch_dkv<T, 16>(p, stream) : launch_dq<T, 16>(p, stream);
     case 32: return dkv ? launch_dkv<T, 32>(p, stream) : launch_dq<T, 32>(p, stream);
     case 64: return dkv ? launch_dkv<T, 64>(p, stream) : launch_dq<T, 64>(p, stream);
     case 80: return dkv ? launch_dkv<T, 80>(p, stream) : launch_dq<T, 80>(p, stream);

@@ -553,6 +553,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
   switch (D) {
+    case 16: return launch<T, 16>(p, stream);
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
     case 80: return launch<T, 80>(p, stream);

@@ -40,8 +40,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels import cost
 
 # head dims each direction is built for, both the same: zamba2's 80,
-# h2o-danube-3-4b's 120 and gemma-2b's 256 beside 32, 64 and 128
-FWD_HEAD_DIMS = (32, 64, 80, 120, 128, 256)
+# h2o-danube-3-4b's 120 and gemma-2b's 256 beside 32, 64 and 128, and 16,
+# the head dim of the examples' small models (examples/torch_quickstart.py)
+FWD_HEAD_DIMS = (16, 32, 64, 80, 120, 128, 256)
 BWD_HEAD_DIMS = FWD_HEAD_DIMS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -84,6 +84,7 @@ from repro_torch.launch import shardings as SH
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
 from repro_torch.optim.adam import adam_step
+from repro_torch.telemetry import log
 
 # NVIDIA H100 SXM5 80GB datasheet, at its 700 W limit ("NVIDIA H100 80GB
 # HBM3, 700.00 W" on the machine the port is measured on): dense BF16
@@ -399,19 +400,18 @@ def run_one(arch: str, shape_name: str, *, mesh: str = "16x16",
         rec["trace_s"] = round(time.time() - t0, 1)
         if verbose:
             r = rec["roofline"]
-            print(f"[ok] {arch:22s} {shape_name:12s} {mesh:8s} "
-                  f"{rec['trace_s']:6.1f}s mem/dev "
-                  f"{rec['memory']['peak_est_B'] / 2**30:8.2f}GiB "
-                  f"c/m/coll {r['compute_s']:.2e}/{r['memory_s']:.2e}/"
-                  f"{r['collective_s']:.2e}s dom={r['dominant']} "
-                  f"useful={r['useful_ratio']:.2f}", flush=True)
+            log(f"[ok] {arch:22s} {shape_name:12s} {mesh:8s} "
+                f"{rec['trace_s']:6.1f}s mem/dev "
+                f"{rec['memory']['peak_est_B'] / 2**30:8.2f}GiB "
+                f"c/m/coll {r['compute_s']:.2e}/{r['memory_s']:.2e}/"
+                f"{r['collective_s']:.2e}s dom={r['dominant']} "
+                f"useful={r['useful_ratio']:.2f}")
     except Exception as e:   # noqa: BLE001 — record failures in the report
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-2000:]
         if verbose:
-            print(f"[ERR] {arch} {shape_name}: {rec['error'][:200]}",
-                  flush=True)
+            log(f"[ERR] {arch} {shape_name}: {rec['error'][:200]}")
     return rec
 
 
@@ -529,9 +529,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.smoke:
         rec = run_one("paper-llama-124m", "train_4k", mesh=mesh)
         if rec["status"] != "ok":
-            print(rec.get("traceback", rec))
+            log(str(rec.get("traceback", rec)))
             raise SystemExit(1)
-        print("=== dry-run smoke OK ===")
+        log("=== dry-run smoke OK ===")
         return
 
     archs = arch_ids() if args.arch == "all" else args.arch.split(",")
@@ -549,8 +549,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ok = sum(r["status"] == "ok" for r in results)
     sk = sum(r["status"] == "skipped" for r in results)
     err = sum(r["status"] == "error" for r in results)
-    print(f"\n=== dry-run complete: {ok} ok / {sk} skipped / {err} errors "
-          f"over {len(results)} pairs ===")
+    log(f"\n=== dry-run complete: {ok} ok / {sk} skipped / {err} errors "
+        f"over {len(results)} pairs ===")
     if err:
         raise SystemExit(1)
 

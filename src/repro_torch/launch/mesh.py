@@ -37,6 +37,8 @@ from typing import Any, Callable, List, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.telemetry import log
+
 #: the default time for the whole run
 DEFAULT_TIMEOUT_S = 1800.0
 #: the longest a rank waits in one transfer or collective before it raises
@@ -99,7 +101,7 @@ def _rank_main(fn: Callable, rank: int, num_stages: int, workdir: str,
         text = traceback.format_exc()
         with open(os.path.join(workdir, f"rank{rank}.err"), "w") as f:
             f.write(text)
-        print(f"stage rank {rank}:\n{text}", file=sys.stderr, flush=True)
+        log(f"stage rank {rank}:\n{text}")
         sys.exit(1)
 
 

@@ -60,6 +60,7 @@ from repro_torch.core.trainer import Trainer
 from repro_torch.data.pipeline import SyntheticLM, batch_for, make_batches
 from repro_torch.models.model import build_model
 from repro_torch.recovery import available_strategies
+from repro_torch.telemetry import log
 
 
 def _wall_s(fn: Callable[[], None]) -> float:
@@ -138,7 +139,7 @@ def _report(phase: str, wall_s: float, traced: Tuple[dict, float], per: int,
             key = short.group(0) if short else name
             ours[key][0] += n
             ours[key][1] += us
-    print(json.dumps({
+    log(json.dumps({
         "phase": phase, **extra, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_span_ms": span_ms, "idle_share": 1.0 - busy_ms / span_ms,
         "kernel_launches": sum(n for n, _ in kernels.values()) / per,
@@ -147,7 +148,7 @@ def _report(phase: str, wall_s: float, traced: Tuple[dict, float], per: int,
         "ours": {k: {"calls": n / per, "ms": us / 1e3 / per}
                  for k, (n, us) in sorted(ours.items())},
         "top": [{"name": name[:90], "calls": n / per, "ms": us / 1e3 / per}
-                for name, (n, us) in rows]}), flush=True)
+                for name, (n, us) in rows]}))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

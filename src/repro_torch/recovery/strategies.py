@@ -237,7 +237,9 @@ class MergeRecovery(RecoveryStrategy):
             err = stage_sq_dist(saved, self.part.get_stage(params, stage))
             if self._in_mesh_recover is not None:
                 err = self._in_mesh_recover.total(err)
-            event.hist.recovery_errors.append((event.wall_step, err.item()))
+            # the explicit drain
+            event.hist.recovery_errors.append((event.wall_step,
+                                               TR.host_float(err)))
 
     def _host_math(self, params, fn):
         """``fn(params, part)``, one of ``core.recovery``'s functions: on the

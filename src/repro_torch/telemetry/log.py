@@ -40,5 +40,5 @@ def log(message: str, *, level: int = 1) -> None:
     """Print ``message`` when ``level <= verbosity()`` and mirror it into
     the event stream when telemetry is enabled."""
     if level <= verbosity():
-        print(message, flush=True)
+        print(message, flush=True)  # repro: allow[no-bare-print] — the one sink
     _recorder.emit("log", message=message, level=level)

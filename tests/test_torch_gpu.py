@@ -176,7 +176,8 @@ def test_ops_flash_attention_keeps_the_graph_on_the_card(dtype):
     grad_fn and give q, k and v the plain version's gradients."""
     q, k, v = (t.transpose(1, 2).contiguous()
                for t in qkv(6, 2, 4, 2, 80, 64, dtype))
-    w = torch.randn(q.shape, device="cuda").to(dtype)
+    w = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1)).to(dtype)
     card = [t.detach().requires_grad_() for t in (q, k, v)]
     out = ops.flash_attention(*card, causal=True, window=0)
     assert out.requires_grad and out.grad_fn is not None
@@ -244,8 +245,9 @@ def test_stage_merge_kernel_matches_plain(dtype, ca, cb):
 def test_stage_merge_kernel_in_place_on_tower_slices():
     """The recovery path: slices of one stacked leaf, merged into a third
     slice, with a misaligned leaf taking the scalar loop."""
-    tower = torch.randn(6, 33, 17, device="cuda")
-    flat = torch.randn(1001, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    tower = torch.randn(6, 33, 17, device="cuda", generator=gen)
+    flat = torch.randn(1001, device="cuda", generator=gen)
     xs = [tower[0:2], flat[1:334]]
     ys = [tower[4:6], flat[334:667]]
     outs = [tower[2:4], flat[667:1000]]
@@ -653,7 +655,9 @@ def test_restore_into_live_card_leaves_keeps_identity():
     from repro_torch.statestore import copy_into, host_snapshot
     from repro_torch.statestore import snapshot_to_tree
 
-    live = {"w": torch.randn(8, 8, device="cuda").requires_grad_()}
+    gen = torch.Generator("cuda").manual_seed(0)
+    live = {"w": torch.randn(8, 8, device="cuda",
+                             generator=gen).requires_grad_()}
     saved = snapshot_to_tree(host_snapshot(live, step=1, shard_id="full"),
                              live)
     w = live["w"]
@@ -1401,8 +1405,9 @@ def test_store_events_from_pinned_snapshots_are_valid(tmp_path):
     specs = WallClockModel().tier_specs()
     store = StateStore([MemoryTier(specs["mem"]),
                         DiskTier(specs["disk"], str(tmp_path))])
-    tree = {"w": torch.randn(64, 33, device="cuda"),
-            "b": torch.randn(130, device="cuda").bfloat16()}
+    gen = torch.Generator("cuda").manual_seed(0)
+    tree = {"w": torch.randn(64, 33, device="cuda", generator=gen),
+            "b": torch.randn(130, device="cuda", generator=gen).bfloat16()}
     rec = telemetry.Recorder(stream=False)
     prev = telemetry.set_recorder(rec)
     try:
@@ -1753,7 +1758,9 @@ def test_adam_kernels_take_every_leaf_of_a_whisper_tree():
     assert len(params) == 33 <= AD.MAX_LEAVES
     part = StagePartition(cfg, 2)
     tower = part.tower_flags(tree)
-    grads = [torch.randn_like(p) for p in params]
+    gen = torch.Generator("cuda").manual_seed(1)
+    grads = [torch.randn(p.shape, device=p.device, generator=gen)
+             for p in params]
     per_layer, total = AD.adam_sumsq(grads, tower, part.num_layers)
     want_layer, want_total = ref.adam_sumsq_ref(grads, tower, part.num_layers)
     torch.testing.assert_close(per_layer, want_layer, rtol=1e-6, atol=0)
@@ -2155,3 +2162,59 @@ def test_meta_dispatch_raises_nothing_and_launches_nothing():
         assert rec["status"] == "ok", rec.get("traceback")
         assert rec["kernels"]
     assert ops.launch_counts() == before
+
+
+class GuardForced:
+    def __init__(self, events):
+        self.events = dict(events)
+
+    def at(self, step):
+        return list(self.events.get(step, []))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,steps,events", [
+    ("none", 16, {}), ("checkfree", 10, {5: [1]})])
+def test_trainer_runs_under_the_guard_with_one_capture(strategy, steps,
+                                                       events):
+    """tests/test_torch_runtime_guards.py's two runs on the card, under
+    ``guarded()`` (``set_sync_debug_mode("error")`` from the set-up to the
+    last drain): windows of 8, one full and one cut by the failure, replay
+    the one captured graph; every host read is an explicit drain."""
+    from repro_torch import tree as TR
+    from repro_torch.analysis import runtime
+    from repro_torch.config import (ModelConfig, OptimizerConfig,
+                                    RecoveryConfig, TrainConfig)
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+
+    # the guard tests' 4-layer llama at head dim 64 (the kernels' smallest
+    # but one)
+    cfg = ModelConfig(
+        name="guard-llama", arch_type="dense", num_layers=4, d_model=128,
+        num_heads=2, num_kv_heads=2, d_ff=256, vocab_size=128,
+        max_seq_len=32, dtype="float32", param_dtype="float32")
+    tcfg = TrainConfig(global_batch=4, microbatch=4, seq_len=32, steps=steps,
+                       eval_every=100, fuse_window=8,
+                       optimizer=OptimizerConfig(lr=1e-3, total_steps=steps,
+                                                 warmup_steps=2),
+                       recovery=RecoveryConfig(strategy=strategy,
+                                               num_stages=4))
+    trainer = Trainer(Model(cfg, device="cuda", weights=False), tcfg,
+                      schedule=GuardForced(events))
+    drains = TR.explicit_counts["drain"]
+    before = ops.launch_counts()
+    with runtime.guarded():
+        assert torch.cuda.get_sync_debug_mode() == 2
+        _, hist = trainer.run(make_batches(cfg, batch=4, seq=32, seed=0))
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert np.isfinite(hist.loss).all() and len(hist.loss) == steps
+    runtime.assert_capture_bound(trainer, 1)
+    assert TR.explicit_counts["drain"] - drains == \
+        hist.dispatches + len(hist.recovery_errors)
+    if strategy == "none":
+        assert hist.dispatches == 2 and trainer.dispatched_buckets == {8}
+    else:
+        assert hist.failures == [(5, 1)] and len(hist.recovery_errors) == 1
+        assert len(trainer.dispatched_buckets) > 1
+        assert ops.launch_counts()["stage_merge"] > before["stage_merge"]

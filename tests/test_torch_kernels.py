@@ -123,7 +123,7 @@ def test_head_dims_each_direction_is_built_for():
     """Both directions take 120 and 256 (a CPU tensor is then refused for its
     device, not its head dim); a head dim neither is built for, 48, is
     refused by head dim in both."""
-    assert FA.FWD_HEAD_DIMS == (32, 64, 80, 120, 128, 256)
+    assert FA.FWD_HEAD_DIMS == (16, 32, 64, 80, 120, 128, 256)
     assert FA.BWD_HEAD_DIMS == FA.FWD_HEAD_DIMS
     whats = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     for d in (120, 256):

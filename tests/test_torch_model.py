@@ -261,13 +261,18 @@ def test_model_owns_parameters_in_jax_layout():
 
 def test_package_imports_no_jax_and_nothing_of_repro():
     code = (
-        "import importlib, importlib.util, pkgutil, sys\n"
+        "import glob, importlib, importlib.util, os, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "spec = importlib.util.spec_from_file_location('chip_smoke', "
-        "'chip_smoke.py')\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    if not m.name.endswith('.__main__'):   # a CLI: runs on import\n"
+        "        importlib.import_module(m.name)\n"
+        "scripts = ['chip_smoke.py', *sorted(glob.glob("
+        "'examples/torch_*.py'))]\n"
+        "assert len(scripts) == 6, scripts\n"
+        "for path in scripts:\n"
+        "    name = os.path.basename(path)[:-3]\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
@@ -287,7 +292,10 @@ def test_package_imports_no_jax_and_nothing_of_repro():
         "'telemetry.trace', 'telemetry.metrics', 'telemetry.report', "
         "'telemetry.log', 'pipeline', 'pipeline.spmd', "
         "'pipeline.transport', 'launch.mesh', 'launch.perf', "
-        "'launch.shardings', 'launch.dryrun', 'kernels.cost'):\n"
+        "'launch.shardings', 'launch.dryrun', 'kernels.cost', "
+        "'analysis', 'analysis.engine', 'analysis.rules', "
+        "'analysis.baseline', 'analysis.cli', 'analysis.runtime', "
+        "'analysis.pytest_plugin'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
