@@ -105,7 +105,35 @@ result.  Phases:
              flash-forward launches a prefill: the encoder's, the decoder's
              causal and its cross-attention over the frames); serve_vlm:
              internvl2-76b cut to 26 of its 80 layers (SERVE_VLM says
-             why), 256 patches before a 512-token prompt.
+             why), 256 patches before a 512-token prompt.  serve_qwen3,
+             serve_deepseek_coder: qwen3-4b (36 layers, qk-norm) and
+             deepseek-coder-33b (all 62 layers, 62.11 GiB of bf16
+             weights) the same way.  Every serve phase holds its build's
+             peak to the weights plus the draw's largest fp32 buffer plus
+             BUILD_SLACK_GIB (the draw goes a layer at a time).
+5c. serve_long — the flash forward timed at qwen3-4b's prefill_32k layer
+             (B 1, S 32,768, 32/8 x 128, causal) and h2o-danube-3-4b's
+             ring prefill (B 8, S 8,160, a window of 4,096 that masks, D
+             120; SDPA with an explicit boolean mask, its backend named),
+             the SSD scan at T 32,768 (512 chunks), each beside its bound,
+             its plain version (over blocks of query rows, or a batch row
+             at a time) and the library call.  Then the dry-run's serving
+             shapes served for real through ``generate`` (SERVE_LONG):
+             qwen3-4b with a full cache (32,736 prompt tokens + 32 new:
+             prefill_32k and decode_32k), qwen3-4b from an SWA-serving ring
+             of 8,192 that wraps on the first decode step (long_500k's dense
+             variant), h2o-danube-3-4b's 8,160 tokens into its native ring
+             of 4,096, and mamba2-1.3b at 32,768 tokens (native SSM state).
+             Each: the dry-run's --mesh 1x1 estimate of its prefill and
+             decode plans, and the dry-run's step functions of those plans
+             on the card (``max_memory_allocated()`` within REMAT_PEAK_TOL
+             of the estimate); the counted run (launches as path_launches
+             says, prefill ms, decode ms a token, the first token the
+             prefill's argmax); every kernel call of a prefill held against
+             its plain version on its own inputs (SERVE_TOL, SSD_TOL), the
+             plain prefill's logits within SERVE_LOGITS_TOL; mamba2 also
+             against an fp32 prefill with the plain scan (ROADMAP queue 2,
+             note c).
 6. train_model — the same 2-layer fp32 cut, two Adam steps of the Trainer on
              the card (kernels) and on the CPU (plain versions) from the same
              parameters: loss and parameters agree.
@@ -197,10 +225,11 @@ result.  Phases:
              internvl2-76b cut to 2 of its 80 layers (TRAIN_VLM), 2 stages,
              batch 2 x (256 patches + 256 tokens), ``checkfree`` with an
              edge stage copied from its neighbour.
-9. train_ckpt — the checkpoint baseline at TRAIN's full width and depth
-             (cut to 12 layers, and said so, if the host cannot hold the
-             state in half its free memory, or two saves in half the free
-             space of the temporary directory): ``checkpoint`` every 3
+9. train_ckpt — the checkpoint baseline at TRAIN's full width cut to
+             CKPT_LAYERS (6 of 24) since serve_long came (said so again,
+             with the readings, if the host cannot hold the state in half
+             its free memory, or two saves in half the free space of the
+             temporary directory): ``checkpoint`` every 3
              steps for 6 steps, wall 1 failing before the first save
              (restart from the initial parameters at step 0) and wall 5
              rolling back from step 4 to 3.  The effective-step trace, the
@@ -208,8 +237,8 @@ result.  Phases:
              parameters and moments bit-equal to the initial ones and to the
              checkpoint read back; save, device-to-host, rollback and step
              times beside ``torch.save`` of the same state to the same disk
-             (a yardstick only).  About 32 GB on disk under the temporary
-             directory, removed at the end.
+             (a yardstick only).  About 8 GB on disk under the temporary
+             directory (32 GB at full depth), removed at the end.
 10. train_neighbor — ``neighbor`` without its disk tier, 4 steps: six
              stage shards snapshotted to host memory every step, stage 3
              failing at wall 2 and served from the memory tier, bit-equal to
@@ -239,9 +268,10 @@ result.  Phases:
              the pipeline backend, in one spawn of six ranks on the card
              (SPMD's batch 8 in microbatches of 4, windows of up to 4), each
              schedule also run on the host backend, eagerly.
-             paper-llama-1.5b at full width cut to 12 of its 24 layers
-             (SPMD_STORE_LAYERS: at 24 the phase outgrew the host's memory
-             and the script's time), said so with the host's readings, and
+             paper-llama-1.5b at full width cut to 6 of its 24 layers
+             (SPMD_STORE_LAYERS: at 24 the phase outgrew the host's memory;
+             12 until serve_long took its time), said so with the host's
+             readings, and
              the phase's lowest free host memory printed: ``checkpoint``
              (rollbacks from steps 5 and 6 to
              the save at 4, the second for the edge stage 0), ``neighbor``
@@ -251,7 +281,7 @@ result.  Phases:
              ``checkpoint`` by an observed failure rate and back, with a
              rollback while high).  Then the gathered path (a consecutive
              run merged on the tower gathered from every rank; a ``random``
-             reinit) and the MoE pipeline (granite-moe-3b-a800m cut to 24
+             reinit) and the MoE pipeline (granite-moe-3b-a800m cut to 12
              of 32 layers, ``checkfree_plus``, batch 4 in one microbatch a
              half).  Gates: failures, effective-step trace, restore log and
              switches equal to the host run's; losses within
@@ -515,6 +545,11 @@ NEIGHBOR_SCHEDULE = {2: [3]}
 NEIGHBOR_RESTORE = (2, 3, 2, "mem")
 # the depth both phases fall back to when the host cannot hold their state
 CKPT_CUT_LAYERS = 12
+# train_ckpt's depth: 6 of paper-llama-1.5b's 24 layers, one a stage, for
+# serve_long's time (at 24 its two saves and rollback of the whole 16 GB
+# state took 109-144 s of the script's 1,200, at 12 72 s; what it checks,
+# the trace, the restore and the replay, does not depend on the depth)
+CKPT_LAYERS = 6
 # the card's host link, each way: PCIe 5.0 x16 (H100 SXM data sheet)
 HOST_LINK_BYTES_PER_S = 64e9
 SERVE_DANUBE = dict(arch="h2o-danube-3-4b", batch=8, prompt=512,
@@ -726,6 +761,55 @@ EXAMPLES = (("torch_quickstart", []), ("torch_recovery_demo", []),
             ("torch_spot_trace_demo", ["--steps", "24"]),
             ("torch_train_with_failures", ["--full", "--steps", "40"]))
 
+# serve_qwen3, serve_deepseek_coder: qwen3-4b (qk-norm, an untied 151,936
+# vocabulary, 4.41 B parameters) and deepseek-coder-33b (62 layers, d 7168,
+# 56/8 x 128, 33.34 B parameters: 62.11 GiB of bf16 weights, the attention
+# inputs of all 62 layers 4.7 GB beside them) at full size, all layers
+SERVE_QWEN3 = dict(arch="qwen3-4b", batch=8, prompt=512, new_tokens=32)
+SERVE_DEEPSEEK_CODER = dict(arch="deepseek-coder-33b", batch=8, prompt=512,
+                            new_tokens=32)
+# a serve phase's build may hold the weights, the largest fp32 buffer of
+# the draw (one layer of a stacked leaf, or a whole 2-D leaf) and this
+BUILD_SLACK_GIB = 2.0
+# the plain attention runs over blocks of query rows where the whole
+# version's (B, Hq, Sq, Sk) fp32 scores would pass PLAIN_ROWS_BYTES (no
+# phase before serve_long does), each block's scores within
+# PLAIN_BLOCK_BYTES; the plain SSD scan a batch row at a time where its
+# per-chunk fp32 states would pass PLAIN_ROWS_BYTES
+PLAIN_ROWS_BYTES = 2 ** 31
+PLAIN_BLOCK_BYTES = 2 ** 30
+# serve_long: the dry-run's serving shapes (INPUT_SHAPES and decode_plan of
+# src/repro/config.py and src/repro/launch/dryrun.py) served through
+# launch.serve.generate: (prefill shape, decode shape), batch, prompt, new
+# tokens and window (0: the cache holds the prompt and the new tokens).
+# Each run's --mesh 1x1 estimate stays under a third of the card; what
+# bounds the batch is the plain versions' fp32 work, run twice a layer
+# (the plain prefill, and the check on each kernel call's own inputs):
+# qwen3-4b's causal attention over 32,736 tokens is 8.8 TFLOP a layer and
+# batch row, 0.60 s on an H100 at batch 1, 43 s for the two passes over 36
+# layers; near three minutes of the script's twenty at batch 4.  The qwen3-4b SWA-serving prompt is the window, so the ring
+# wraps on the first decode step (long_500k's dense variant); danube's
+# 8,160 tokens wrap its native ring of 4,096 in the prefill
+SERVE_LONG = (
+    dict(arch="qwen3-4b", shapes=("prefill_32k", "decode_32k"), batch=1,
+         prompt=32736, new_tokens=32, window=0),
+    dict(arch="qwen3-4b", shapes=("prefill_32k", "long_500k"), batch=4,
+         prompt=8192, new_tokens=32, window=8192),
+    dict(arch="h2o-danube-3-4b", shapes=("prefill_32k", "long_500k"),
+         batch=8, prompt=8160, new_tokens=32, window=4096),
+    dict(arch="mamba2-1.3b", shapes=("prefill_32k", "decode_32k"), batch=4,
+         prompt=32768, new_tokens=32, window=0),
+)
+# the kernels timed at serve_long's shapes: qwen3-4b's prefill_32k layer
+# (causal, SDPA with enable_gqa as the yardstick), h2o-danube-3-4b's ring
+# prefill (a window of 4,096 that masks over 8,160 tokens) and mamba2-1.3b's
+# SSD scan at 32,768 tokens (512 chunks)
+LONG_ATTN_SHAPES = {
+    "s32768": dict(b=1, h=32, hkv=8, s=32768, d=128, window=0),
+    "d120_s8160_w4096": dict(b=8, h=32, hkv=8, s=8160, d=120, window=4096),
+}
+LONG_SSD_SHAPE = dict(b=4, t=32768, h=64, p=64, g=1, n=128)
+
 
 def emit(phase: str, **kw) -> None:
     """One JSON line of a phase, with ``t_s``: the seconds since this
@@ -775,13 +859,62 @@ def time_ms(fn, groups: int = 21, per_group: int = 20, warmup: int = 3
     return float(np.median(times))
 
 
-def compare(q, k, v, *, causal: bool, window: int, tol: float) -> tuple:
-    """The kernel against its plain version on the same inputs, element-wise:
-    out within ``tol * (1 + |want|)``, lse within ``LSE_TOL * (1 + |lse|)``.
-    Returns (ok, max |out error|, max |lse error|)."""
-    out, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
-    want, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
-                                             window=window)
+def plain_attention(q, k, v, *, causal: bool, window: int) -> tuple:
+    """The forward's plain version, (out, lse): ``ref.flash_attention_ref``,
+    or, where its whole (B, Hq, Sq, Sk) fp32 score tensor would pass
+    PLAIN_ROWS_BYTES, the same function over blocks of query rows
+    (``ref.flash_attention_rows_ref``) of at most PLAIN_BLOCK_BYTES of
+    scores each."""
+    b, hq, sq, _ = q.shape
+    row = b * hq * k.shape[2] * 4
+    if row * sq <= PLAIN_ROWS_BYTES:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_rows_ref(q, k, v, causal=causal, window=window,
+                                        block=max(PLAIN_BLOCK_BYTES // row, 1))
+
+
+def plain_ssd_scan(xb, a, bmat, cmat, chunk: int, init_state=None) -> tuple:
+    """The SSD scan's chunked plain version, (y, final state):
+    ``ref.ssd_chunked``, or, where its per-chunk states (B, T / chunk, H,
+    P, N) in fp32 would pass PLAIN_ROWS_BYTES, the same function a batch
+    row at a time (the rows are independent)."""
+    b, t, h, p = xb.shape
+    states = b * -(-t // chunk) * h * p * bmat.shape[3] * 4
+    if states <= PLAIN_ROWS_BYTES:
+        return ref.ssd_chunked(xb, a, bmat, cmat, chunk, init_state)
+    parts = [ref.ssd_chunked(xb[i:i + 1], a[i:i + 1], bmat[i:i + 1],
+                             cmat[i:i + 1], chunk,
+                             None if init_state is None
+                             else init_state[i:i + 1]) for i in range(b)]
+    return (torch.cat([y for y, _ in parts]),
+            torch.cat([st for _, st in parts]))
+
+
+def build_peak(model: Model, peak_b: int) -> dict:
+    """A model's build against its bound: the weights, plus the largest
+    fp32 buffer the draw holds (one layer of a stacked leaf, a whole 2-D
+    leaf), plus BUILD_SLACK_GIB.  ``peak_b``: ``max_memory_allocated()``
+    over the build, less what was allocated before it."""
+    leaves = list(model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in leaves)
+    layer = max((p[0].numel() for p in leaves if p.dim() >= 3), default=0)
+    whole = max((p.numel() for p in leaves if p.dim() < 3), default=0)
+    bound = weights + 4 * max(layer, whole) + BUILD_SLACK_GIB * 2**30
+    return {"peak_gib": peak_b / 2**30, "weights_gib": weights / 2**30,
+            "layer_fp32_gib": 4 * layer / 2**30,
+            "leaf_2d_fp32_gib": 4 * whole / 2**30,
+            "bound_gib": bound / 2**30, "ok": peak_b <= bound}
+
+
+def compare(q, k, v, *, causal: bool, window: int, tol: float,
+            got=None) -> tuple:
+    """The kernel (or ``got``, its (out, lse)) against its plain version on
+    the same inputs, element-wise: out within ``tol * (1 + |want|)``, lse
+    within ``LSE_TOL * (1 + |lse|)``.  Returns (ok, max |out error|,
+    max |lse error|)."""
+    out, lse = got if got is not None else FA.flash_attention_fwd(
+        q, k, v, causal=causal, window=window)
+    want, want_lse = plain_attention(q, k, v, causal=causal, window=window)
     o, w = out.float(), want.float()
     ok = bool(((o - w).abs() <= tol * (1 + w.abs())).all())
     ok &= bool(((lse - want_lse).abs() <= LSE_TOL * (1 + want_lse.abs())).all())
@@ -880,10 +1013,22 @@ def cross_cases(dims=FIRST_HEAD_DIMS):
                     yield dtype, 1, hq, hkv, sq, sk, d
 
 
-def time_fwd(shape: dict, gen) -> dict:
+def sdpa_backend(q, k, v, mask, causal: bool, gqa: bool) -> str:
+    """The name of the backend ``scaled_dot_product_attention`` picks for
+    these inputs under the backends enabled here."""
+    choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, causal,
+                                     enable_gqa=gqa)
+    return torch.nn.attention.SDPBackend(choice).name
+
+
+def time_fwd(shape: dict, gen, *, groups: int = 21, per_group: int = 20,
+             plain_groups: int = 21, plain_per_group: int = 20) -> dict:
     """The forward kernel, its plain version and SDPA at a bf16 serving
     shape (causal unless ``shape["causal"]`` says otherwise; ``shape["sk"]``
-    keys when given), beside the bound."""
+    keys when given), beside the bound.  Where the window cuts the prompt,
+    SDPA takes the mask as an explicit boolean one, with k and v repeated
+    to the query heads beforehand (outside the timing), and the math
+    backend is not enabled: it would build the whole score tensor."""
     b, h, hkv, s, d, window = (shape[x] for x in
                                ("b", "h", "hkv", "s", "d", "window"))
     causal, sk = shape.get("causal", True), shape.get("sk", s)
@@ -894,14 +1039,32 @@ def time_fwd(shape: dict, gen) -> dict:
         raise AssertionError(f"serving shape {shape}: out error {err}, lse "
                              f"error {lse_err}")
     kernel_ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=causal,
-                                                       window=window))
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
-                                                       window=window))
-    # the yardstick computes the same function only where the window does
-    # not cut the prompt
-    assert window == 0 or window >= s, shape
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=hkv != h))
+                                                       window=window),
+                        groups, per_group)
+    plain_ms = time_ms(lambda: plain_attention(q, k, v, causal=causal,
+                                               window=window),
+                       plain_groups, plain_per_group,
+                       warmup=min(3, plain_groups))
+    if window == 0 or window >= s:
+        # the yardstick computes the same function with its own masks
+        backend = None
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=hkv != h),
+            groups, per_group)
+        library = "scaled_dot_product_attention"
+    else:
+        mask = ref._mask(s, sk, causal, window, q.device)
+        kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+        with torch.nn.attention.sdpa_kernel(
+                [torch.nn.attention.SDPBackend.FLASH_ATTENTION,
+                 torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION,
+                 torch.nn.attention.SDPBackend.CUDNN_ATTENTION]):
+            backend = sdpa_backend(q, kr, vr, mask, False, False)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, kr, vr, attn_mask=mask), groups, per_group)
+        library = ("scaled_dot_product_attention with an explicit boolean "
+                   "mask, k and v repeated to the query heads")
+        del mask, kr, vr
     # q, k, v read once; out (like q) and the fp32 lse written once
     nbytes, flops = cost.flash_fwd(b, h, hkv, s, sk, d, itemsize=2,
                                    causal=causal, window=window)
@@ -911,12 +1074,17 @@ def time_fwd(shape: dict, gen) -> dict:
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": library_ms}
+    rows_plain = b * h * s * sk * 4 > PLAIN_ROWS_BYTES
     emit("kernel_time", kernel="flash_attention_fwd",
          shape=dict(shape, dtype="bfloat16", causal=causal, sk=sk),
          bytes=nbytes,
          flops=flops, **row, lse_err=lse_err, tol=SERVE_TOL,
-         library="scaled_dot_product_attention",
-         timing="median of 21 groups of 20 back-to-back calls, CUDA events")
+         library=library, library_backend=backend,
+         plain=("ref.flash_attention_rows_ref" if rows_plain
+                else "ref.flash_attention_ref"),
+         timing=f"median of {groups} groups of {per_group} back-to-back "
+                f"calls, CUDA events (plain: {plain_groups} of "
+                f"{plain_per_group})")
     return row
 
 
@@ -1502,7 +1670,7 @@ def compare_ssd(xb, a, bmat, cmat, init_state, chunk: int, *,
         got = SSD.ssd_scan(xb, a, bmat, cmat, chunk=chunk,
                            init_state=init_state)
     y, state = got
-    wants = [ref.ssd_chunked(xb, a, bmat, cmat, chunk, init_state)]
+    wants = [plain_ssd_scan(xb, a, bmat, cmat, chunk, init_state)]
     if token:
         wy, ws = ref.ssd_scan_ref(*(v.transpose(1, 2) for v in
                                     (xb, a, bmat, cmat)), init_state)
@@ -1605,32 +1773,8 @@ def phase_kernel_ssd() -> dict:
 
     # the serving shapes: one layer's prefill of each model, real decay,
     # B and C strided views of xBC
-    shapes = {}
-    for arch, shp in SSD_SERVE.items():
-        xb, a, bm, cm, _ = ssd_inputs(gen, **shp, dtype=torch.bfloat16,
-                                      real=True, strided=True)
-        ok, y_err, s_err = compare_ssd(xb, a, bm, cm, None, SSD_CHUNK)
-        if not ok:
-            raise AssertionError(f"{arch} serving shape: y error {y_err}, "
-                                 f"state error {s_err}")
-        kernel_ms = time_ms(
-            lambda: SSD.ssd_scan(xb, a, bm, cm, chunk=SSD_CHUNK))
-        plain_ms = time_ms(lambda: ref.ssd_chunked(xb, a, bm, cm, SSD_CHUNK),
-                           groups=11, per_group=5)
-        nbytes, flops = cost.ssd_fwd(**shp, chunk=SSD_CHUNK)
-        tb = nbytes / MEM_BYTES_PER_S * 1e3
-        to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
-        shapes[arch] = {"max_abs_err": y_err, "state_max_abs_err": s_err,
-                        "ms": kernel_ms, "plain_ms": plain_ms,
-                        "bound_ms": max(tb, to),
-                        "bound_by": "bytes" if tb >= to else "operations",
-                        "library_ms": None}
-        emit("kernel_time", kernel="ssd_scan",
-             shape=dict(shp, arch=arch, chunk=SSD_CHUNK, dtype="bfloat16"),
-             bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
-             **shapes[arch], library="none: no single PyTorch call computes "
-             "the SSD scan", timing="median of 21 groups of 20 back-to-back "
-             "calls, CUDA events (plain: 11 groups of 5)")
+    shapes = {arch: time_ssd(arch, shp, gen)
+              for arch, shp in SSD_SERVE.items()}
     main_shape = shapes["mamba2-1.3b"]
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -1639,6 +1783,45 @@ def phase_kernel_ssd() -> dict:
                                           "bound_by", "library_ms")},
             "max_abs_err": max(v[0] for v in worst.values()),
             "shapes": shapes}
+
+
+def time_ssd(name: str, shp: dict, gen, *, token: bool = True,
+             groups: int = 21, per_group: int = 20, plain_groups: int = 11,
+             plain_per_group: int = 5) -> dict:
+    """The bf16 SSD kernel at one layer's prefill shape (real decay, B and
+    C strided views of xBC), held against its plain versions (the
+    token-by-token one too, with ``token``), then timed beside its bound
+    and the chunked plain version (no PyTorch call computes it)."""
+    xb, a, bm, cm, _ = ssd_inputs(gen, **shp, dtype=torch.bfloat16,
+                                  real=True, strided=True)
+    ok, y_err, s_err = compare_ssd(xb, a, bm, cm, None, SSD_CHUNK,
+                                   token=token)
+    if not ok:
+        raise AssertionError(f"{name} serving shape: y error {y_err}, "
+                             f"state error {s_err}")
+    kernel_ms = time_ms(lambda: SSD.ssd_scan(xb, a, bm, cm, chunk=SSD_CHUNK),
+                        groups, per_group)
+    plain_ms = time_ms(lambda: plain_ssd_scan(xb, a, bm, cm, SSD_CHUNK),
+                       plain_groups, plain_per_group,
+                       warmup=min(3, plain_groups))
+    nbytes, flops = cost.ssd_fwd(**shp, chunk=SSD_CHUNK)
+    tb = nbytes / MEM_BYTES_PER_S * 1e3
+    to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
+    row = {"max_abs_err": y_err, "state_max_abs_err": s_err,
+           "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": max(tb, to),
+           "bound_by": "bytes" if tb >= to else "operations",
+           "library_ms": None}
+    emit("kernel_time", kernel="ssd_scan",
+         shape=dict(shp, arch=name, chunk=SSD_CHUNK, dtype="bfloat16"),
+         bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
+         **row, library="none: no single PyTorch call computes the SSD "
+         "scan", oracles=["ref.ssd_chunked (a batch row at a time above "
+                          "PLAIN_ROWS_BYTES)"]
+         + (["ref.ssd_scan_ref (token by token)"] if token else []),
+         timing=f"median of {groups} groups of {per_group} back-to-back "
+                f"calls, CUDA events (plain: {plain_groups} of "
+                f"{plain_per_group})")
+    return row
 
 
 def ssd_bwd_cases():
@@ -1853,13 +2036,16 @@ def phase_serve(spec: dict, phase: str) -> dict:
     the same seeded draw as the prompt; ``spec["layers"]`` cuts the depth.
     Returns the launch counts of the counted run and the largest errors."""
     cfg = train_model_config(spec)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda",
                   generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    build = build_peak(model, torch.cuda.max_memory_allocated() - before)
     raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
         np.random.default_rng(0), spec["batch"], spec["prompt"])
     batch = {k: torch.from_numpy(v).cuda()
@@ -1885,14 +2071,14 @@ def phase_serve(spec: dict, phase: str) -> dict:
         return got
 
     def ssd_plain(xb, a, bmat, cmat, *, chunk, init_state=None):
-        return ref.ssd_chunked(xb, a, bmat, cmat, chunk, init_state)
+        return plain_ssd_scan(xb, a, bmat, cmat, chunk, init_state)
 
     def fwd_recording(q, k, v, *, causal, window):
         attn_seen.append((q, k, v, causal, window))
         return fwd_kernel(q, k, v, causal=causal, window=window)
 
     def fwd_plain(q, k, v, *, causal, window):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return plain_attention(q, k, v, causal=causal, window=window)
 
     route_fn, routes = MOE.route, {"kernel": [], "plain": []}
     try:
@@ -1974,7 +2160,7 @@ def phase_serve(spec: dict, phase: str) -> dict:
          dtype=cfg.dtype,
          params=n_params, batch=spec["batch"], prompt=spec["prompt"],
          new_tokens=spec["new_tokens"], capacity=capacity, init_s=init_s,
-         init_peak_memory_gib=init_peak_gib,
+         init_peak_memory_gib=init_peak_gib, build=build,
          attention_launches_a_prefill=path_launches(cfg)[
              "flash_attention_fwd"],
          prefill_ms=res.prefill_s * 1e3,
@@ -1995,6 +2181,9 @@ def phase_serve(spec: dict, phase: str) -> dict:
          attention_lse_max_abs_err=attn_lse_err, attention_tol=SERVE_TOL,
          **moe)
     problems = []
+    if not build["ok"]:
+        problems.append(f"the build held {build['peak_gib']:.2f} GiB, over "
+                        f"{build['bound_gib']:.2f}")
     if launched != want_launches:
         problems.append(f"launches {launched}, want {want_launches}")
     if attn_checked != want_launches["flash_attention_fwd"] or (
@@ -3540,19 +3729,22 @@ def cut_if_needed(phase: str, spec: dict, directory: str, ram: float,
                   disk: float) -> dict:
     """``spec`` as it is when the phase's need (``ram`` and ``disk`` times
     the training state) fits half of the host's free memory and of
-    ``directory``'s free space, else cut to CKPT_CUT_LAYERS layers (said
-    so, with the readings that forced it)."""
-    need = state_bytes(train_model_config(spec))
+    ``directory``'s free space, else cut to CKPT_CUT_LAYERS layers, or
+    left at a shallower cut it already has (said so, with the readings
+    that forced it)."""
+    cfg = train_model_config(spec)
+    need = state_bytes(cfg)
     report = host_report(phase, directory, {"ram": ram * need,
                                             "disk": disk * need})
     if report["fits_in_half"]:
         return spec
-    emit(phase + "_cut", layers=CKPT_CUT_LAYERS,
+    layers = min(cfg.num_layers, CKPT_CUT_LAYERS)
+    emit(phase + "_cut", layers=layers,
          reason="the phase's need does not fit half of the host's free "
                 "memory or disk", need_gb=report["need_gb"],
          mem_available_gb=report["mem_available_gb"],
          disk_free_gb=report["disk_free_gb"])
-    return dict(spec, layers=CKPT_CUT_LAYERS)
+    return dict(spec, layers=layers)
 
 
 class HostMemoryLow:
@@ -3623,7 +3815,8 @@ def phase_train_ckpt() -> dict:
     rollback, two saves of the whole state; the ``torch.save`` yardstick."""
     work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        spec = cut_if_needed("train_ckpt", TRAIN, work, ram=1, disk=2)
+        spec = cut_if_needed("train_ckpt", dict(TRAIN, layers=CKPT_LAYERS),
+                             work, ram=1, disk=2)
         return train_ckpt(spec, work)
     finally:
         untimed_snapshots()
@@ -4200,12 +4393,15 @@ SPMD_STORE_LOGS = {"neighbor": [(2, 3, 2, "mem"), (4, 1, 3, "disk"),
 SPMD_STORE_SWITCHES = [(4, "checkfree", "checkpoint"),
                        (6, "checkpoint", "checkfree")]
 SPMD_STORMY_RATE = 0.5
-# the dense runs' depth: 12 of paper-llama-1.5b's 24 layers.  At 24 (on an
-# NVIDIA H100 80GB HBM3, 700 W, with a host of 96 GiB) the phase had run
-# 485 s of the script's 1,108 without ending when the host's memory ran
-# out: the six ranks share one host, where each stage of a deployment has
-# its own, and keep their snapshots and stage every transfer through its
-# pinned memory; and the script must end within 1,200 s.  Beside the cut,
+# the dense runs' depth: 6 of paper-llama-1.5b's 24 layers, one a stage.
+# At 24 (on an NVIDIA H100 80GB HBM3, 700 W, with a host of 96 GiB) the
+# phase had run 485 s of the script's 1,108 without ending when the host's
+# memory ran out: the six ranks share one host, where each stage of a
+# deployment has its own, and keep their snapshots and stage every
+# transfer through its pinned memory.  At 12 it took 231-347 s of the
+# script's 1,200; serve_long's long prompts took that time, and the runs,
+# steps and schedules are as they were (what they check does not depend on
+# the depth: failures, traces, restore logs, switches).  Beside the cut,
 # cut_if_needed still checks that half the host's free memory and disk
 # hold the most saves of the whole state (fp32 masters and moments) that
 # the runs keep at once, one run at a time (each removes its files when it
@@ -4214,7 +4410,7 @@ SPMD_STORMY_RATE = 0.5
 # bounds it); on disk, ``neighbor``'s saves at steps 3 and 6 (``checkpoint``
 # and ``adaptive`` save once, at 4 of 7 steps; ``tiered_ckpt``'s disk
 # cadence, checkpoint_every 100, never fires)
-SPMD_STORE_LAYERS = 12
+SPMD_STORE_LAYERS = 6
 SPMD_STORE_HELD = dict(ram=3, disk=2)
 # the gathered path (InMeshRecover.gathered: host math on the tower
 # gathered from every rank) at the store runs' depth: a consecutive run
@@ -4223,10 +4419,11 @@ SPMD_GATHERED_RUNS = {
     "checkfree-consecutive": ("checkfree", 3, {1: [2, 3]}, {}, ()),
     "random": ("random", 3, {1: [3]}, {}, ()),
 }
-# the MoE pipeline: granite-moe-3b-a800m cut to 24 of 32 layers (six ranks
-# of 4: 7.65 GB of fp32 state and gradients a rank), batch 4 in one
-# microbatch a half, so that routing and capacity are the host run's
-SPMD_MOE = dict(arch="granite-moe-3b-a800m", stages=6, layers=24, batch=4,
+# the MoE pipeline: granite-moe-3b-a800m cut to 12 of 32 layers (six ranks
+# of 2; at 24, 7.65 GB of fp32 state and gradients a rank, cut with the
+# dense runs for serve_long's time), batch 4 in one microbatch a half, so
+# that routing and capacity are the host run's
+SPMD_MOE = dict(arch="granite-moe-3b-a800m", stages=6, layers=12, batch=4,
                 seq=512, microbatch=4, window=4)
 SPMD_MOE_RUNS = {"granite-checkfree_plus": ("checkfree_plus", 4, {2: [2]},
                                             {}, ())}
@@ -4505,8 +4702,9 @@ def phase_train_spmd_store() -> dict:
         dense = dict(SPMD, layers=SPMD_STORE_LAYERS)
         emit("train_spmd_store_cut", layers=SPMD_STORE_LAYERS,
              layers_published=get_config(SPMD["arch"]).num_layers,
-             reason="at full depth the phase outgrew the host's memory and "
-                    "the script's time (SPMD_STORE_LAYERS)")
+             reason="at full depth the phase outgrew the host's memory; "
+                    "at 12 layers serve_long did not fit the script's time "
+                    "(SPMD_STORE_LAYERS)")
         dense = cut_if_needed("train_spmd_store", dense, work,
                               **SPMD_STORE_HELD)
         moe_cfg = train_model_config(SPMD_MOE)
@@ -4514,7 +4712,8 @@ def phase_train_spmd_store() -> dict:
              layers=moe_cfg.num_layers,
              layers_published=get_config(SPMD_MOE["arch"]).num_layers,
              reason="six ranks of its fp32 state, gradients and "
-                    "activations share the one card")
+                    "activations share the one card; 12 layers for "
+                    "serve_long's time (SPMD_MOE)")
         groups = {"train_spmd_store": (dense, SPMD_STORE_RUNS),
                   "train_spmd_gathered": (dense, SPMD_GATHERED_RUNS),
                   "train_spmd_moe": (SPMD_MOE, SPMD_MOE_RUNS)}
@@ -4575,6 +4774,31 @@ def phase_train_spmd_store() -> dict:
         shutil.rmtree(work, ignore_errors=True)
         gc.collect()
         empty_host_cache()
+
+
+def one_card_estimate(cfg, shape: str, batch: int, seq, capacity=None, *,
+                      with_cost: bool = False) -> dict:
+    """The dry-run's record of ``shape``'s plan at ``--mesh 1x1`` (meta
+    tensors; memory only unless ``with_cost``)."""
+    rec = DR.run_one(cfg.name, shape, mesh="1x1", cfg=cfg, batch=batch,
+                     seq=seq, capacity=capacity, with_cost=with_cost,
+                     verbose=False)
+    if rec["status"] != "ok":
+        raise AssertionError(f"the dry-run of {cfg.name} {shape} failed: "
+                             f"{rec.get('traceback', rec)}")
+    return rec
+
+
+def measured(fn, base: int) -> tuple:
+    """(fn(), host ms ending in a synchronize, ``max_memory_allocated()``
+    over the call less ``base`` bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, torch.cuda.max_memory_allocated() - base
 
 
 def remat_config(spec: dict):
@@ -4640,13 +4864,7 @@ def remat_step(model, plan, ocfg, params, state, data, policy) -> dict:
     os.environ["REPRO_REMAT"] = policy or "nothing"
     step = DR.make_step_fn(model, plan, ocfg, remat=policy is not None)
     zero_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    loss, grads = step(params, state, data)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated()
+    (loss, grads), ms, peak = measured(lambda: step(params, state, data), 0)
     return {"loss": float(loss), "grads": grads, "launches": counts(),
             "ms": ms, "peak_b": peak, "peak_gib": peak / 2**30}
 
@@ -4674,6 +4892,10 @@ def remat_on_off(spec: dict, total: dict) -> None:
             want = (run["loss"], [g.cpu() for g in run["grads"]])
             err, equal, ok = 0.0, True, True
         else:
+            # internvl2-76b's 2 layers leave the card nearly full; the
+            # comparison's temporaries (3.9 GiB for its embedding) need
+            # the step's cached blocks back
+            torch.cuda.empty_cache()
             loss_err = abs(run["loss"] - want[0])
             ok = loss_err <= REMAT_TOL * (1 + abs(want[0]))
             equal, err = run["loss"] == want[0], loss_err
@@ -4703,12 +4925,7 @@ def remat_on_off(spec: dict, total: dict) -> None:
 def remat_estimate(cfg, batch: int, seq: int) -> dict:
     """The dry-run's record at ``--mesh 1x1`` (meta tensors, "nothing")."""
     os.environ["REPRO_REMAT"] = "nothing"
-    rec = DR.run_one(cfg.name, "train_4k", mesh="1x1", cfg=cfg, batch=batch,
-                     seq=seq, verbose=False)
-    if rec["status"] != "ok":
-        raise AssertionError(f"train_remat: the dry-run of {cfg.name} "
-                             f"failed: {rec.get('traceback', rec)}")
-    return rec
+    return one_card_estimate(cfg, "train_4k", batch, seq, with_cost=True)
 
 
 def remat_depth(arch: str, free: int) -> tuple:
@@ -5067,6 +5284,234 @@ def phase_examples() -> dict:
     return launched
 
 
+def serve_long_run(spec: dict) -> dict:
+    """One serving shape of the dry-run, served for real: the estimate of
+    its prefill and decode plans at --mesh 1x1, then the dry-run's step
+    functions of those plans on the card (``max_memory_allocated()``
+    against the estimate), the counted run through ``generate`` (launches,
+    prefill and decode times, the first token), and a prefill whose every
+    kernel call is held against its plain version on its own inputs, then
+    the plain prefill (logits within SERVE_LOGITS_TOL); for the ssm
+    family also an fp32 prefill with the plain scan on the same weights
+    (ROADMAP queue 2, note c)."""
+    cfg = get_config(spec["arch"])
+    b, prompt, new, window = (spec[k] for k in
+                              ("batch", "prompt", "new_tokens", "window"))
+    capacity = window or prompt + new              # what generate fills
+    pshape, dshape = spec["shapes"]
+    dseq = prompt + new if dshape == "decode_32k" else None
+    pplan = DR.plan_for(cfg, DR.INPUT_SHAPES[pshape], batch=b, seq=prompt,
+                        capacity=capacity)
+    dplan = DR.plan_for(cfg, DR.INPUT_SHAPES[dshape], batch=b, seq=dseq)
+    if cfg.arch_type != "ssm" and (dplan["capacity"], dplan["window"]) != (
+            capacity, window):
+        raise AssertionError(f"serve_long {cfg.name}: the plan's cache "
+                             f"{dplan} is not generate's ({capacity}, "
+                             f"{window})")
+    est = {"prefill": one_card_estimate(cfg, pshape, b, prompt, capacity),
+           "decode": one_card_estimate(cfg, dshape, b, dseq)}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = Model(cfg, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(0))
+    raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
+        np.random.default_rng(0), b, prompt)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in batch_for(cfg, raw).items() if k != "labels"}
+    params = model.params
+    torch.cuda.synchronize()
+    batch_b = sum(t.untyped_storage().nbytes() for t in batch.values())
+    held = batch_b + sum(t.untyped_storage().nbytes()
+                         for t in TR.leaves(params))
+    other = torch.cuda.memory_allocated() - before - held
+
+    # the dry-run's step functions of the two plans, on the card
+    prefill_step = DR.make_step_fn(model, pplan)
+    (logits, cache), prefill_step_ms, prefill_peak = measured(
+        lambda: prefill_step(params, batch), before + other)
+    nxt = logits[:, -1].argmax(-1).to(torch.int32)
+    del logits
+    serve_step = DR.make_step_fn(model, dplan)
+    _, decode_step_ms, decode_peak = measured(
+        lambda: serve_step(params, cache, nxt), before + other + batch_b)
+    del cache, nxt
+    peaks = {"prefill": prefill_peak, "decode": decode_peak}
+
+    # the counted run, through the entry point
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = generate(model, batch, new_tokens=new, window=window)
+    launched = counts()
+    run_peak = torch.cuda.max_memory_allocated() - before - other
+
+    # a prefill whose every kernel call is held against its plain version
+    # on its own inputs, then the plain prefill
+    fwd_kernel, ssd_kernel = FA.flash_attention_fwd, SSD.ssd_scan
+    n_ssd = path_launches(cfg)["ssd_scan"]
+    token_layers = sorted({i % n_ssd for i in SSD_TOKEN_LAYERS}) \
+        if n_ssd else []
+    seen = {"attention": [0, 0, 0.0, 0.0], "ssd": [0, 0, 0.0, 0.0]}
+
+    def note(kind, ok, err, err2):
+        rec = seen[kind]
+        rec[0] += 1
+        rec[1] += not ok
+        rec[2], rec[3] = max(rec[2], err), max(rec[3], err2)
+
+    def fwd_checking(q, k, v, *, causal, window):
+        got = fwd_kernel(q, k, v, causal=causal, window=window)
+        note("attention", *compare(q, k, v, causal=causal, window=window,
+                                   tol=SERVE_TOL, got=got))
+        return got
+
+    def ssd_checking(xb, a, bmat, cmat, *, chunk, init_state=None):
+        got = ssd_kernel(xb, a, bmat, cmat, chunk=chunk,
+                         init_state=init_state)
+        note("ssd", *compare_ssd(xb, a, bmat, cmat, init_state, chunk,
+                                 token=seen["ssd"][0] in token_layers,
+                                 got=got))
+        return got
+
+    def ssd_plain(xb, a, bmat, cmat, *, chunk, init_state=None):
+        return plain_ssd_scan(xb, a, bmat, cmat, chunk, init_state)
+
+    try:
+        FA.flash_attention_fwd, SSD.ssd_scan = fwd_checking, ssd_checking
+        logits = model.prefill(batch, capacity)[0].float().cpu()
+        FA.flash_attention_fwd, SSD.ssd_scan = plain_attention, ssd_plain
+        want = model.prefill(batch, capacity)[0].float().cpu()
+    finally:
+        FA.flash_attention_fwd, SSD.ssd_scan = fwd_kernel, ssd_kernel
+    logits_err = float((logits - want).abs().max())
+    logits_scale = float(want.abs().max())
+    logits_ok = logits_err <= SERVE_LOGITS_TOL * logits_scale
+    gate, fp32 = "kernel vs plain bf16 prefill", {}
+    if cfg.arch_type == "ssm":
+        model32 = Model(cfg.replace(dtype="float32"),
+                        TR.map(lambda t: t.float(), params), device="cuda")
+        try:
+            SSD.ssd_scan = ssd_plain
+            ref32 = model32.prefill(batch, capacity)[0].float().cpu()
+        finally:
+            SSD.ssd_scan = ssd_kernel
+        del model32
+        scale32 = float(ref32.abs().max())
+        dist = {"kernel": float((logits - ref32).abs().max()),
+                "plain": float((want - ref32).abs().max())}
+        fp32 = {"fp32_logits_max_abs": scale32,
+                "vs_fp32_max_abs_err": dist,
+                "vs_fp32_share": {k: e / scale32 for k, e in dist.items()}}
+        if not logits_ok and dist["kernel"] <= dist["plain"]:
+            # ROADMAP queue 2, note c: the kernel no further from fp32 than
+            # the plain bf16 version is; each within the limit of fp32
+            gate = "note c: each bf16 prefill vs the fp32 one"
+            logits_ok = max(dist.values()) <= SERVE_LOGITS_TOL * scale32
+    first_ok = bool((logits[:, -1].argmax(-1).numpy()
+                     == res.tokens[:, 0]).all())
+    want_launches = {**dict.fromkeys(launched, 0), **path_launches(cfg)}
+    ratio = {k: est[k]["memory"]["peak_est_B"] / peaks[k] for k in peaks}
+    steps = new - 1
+    out = dict(
+        arch=cfg.name, layers=cfg.num_layers, **model_shape(cfg),
+        variant=dplan.get("variant", ""), shapes=list(spec["shapes"]),
+        batch=b, prompt=prompt, new_tokens=new, capacity=capacity,
+        serve_window=window, positions=[prompt, prompt + steps],
+        prefill_ms=res.prefill_s * 1e3,
+        decode_ms_per_token=res.decode_s / steps * 1e3,
+        prefill_tokens_per_s=b * prompt / res.prefill_s,
+        run_peak_gib=run_peak / 2**30,
+        step_ms={"prefill": prefill_step_ms, "decode": decode_step_ms},
+        max_memory_allocated_gib={k: v / 2**30 for k, v in peaks.items()},
+        estimate_gib={k: e["memory"]["peak_est_B"] / 2**30
+                      for k, e in est.items()},
+        estimate_memory={k: e["memory"] for k, e in est.items()},
+        estimate_over_measured=ratio, peak_tol=REMAT_PEAK_TOL,
+        launches=launched, path_launches=path_launches(cfg),
+        first_tokens=res.tokens[0, :8].tolist(),
+        first_token_is_prefill_argmax=first_ok,
+        attention_inputs_checked=seen["attention"][0],
+        attention_failures=seen["attention"][1],
+        attention_max_abs_err=seen["attention"][2],
+        attention_lse_max_abs_err=seen["attention"][3],
+        attention_tol=SERVE_TOL, ssd_inputs_checked=seen["ssd"][0],
+        ssd_token_by_token_layers=token_layers,
+        ssd_failures=seen["ssd"][1], ssd_max_abs_err=seen["ssd"][2],
+        ssd_state_max_abs_err=seen["ssd"][3],
+        ssd_tol={"y": SSD_TOL[torch.bfloat16], "state": SSD_STATE_TOL},
+        logits_vs_plain_max_abs_err=logits_err, logits_max_abs=logits_scale,
+        logits_vs_plain_share=logits_err / logits_scale,
+        logits_tol=SERVE_LOGITS_TOL, logits_gate=gate, **fp32)
+    emit("serve_long", **out, nvidia_smi=smi(),
+         timing="host clock: prefill_ms around Model.prefill and the first "
+                "argmax, decode_ms_per_token around the other new_tokens - "
+                "1 decode steps, each ending in torch.cuda.synchronize() "
+                "(launch.serve.generate); step_ms around the dry-run's "
+                "prefill_step and serve_step")
+    problems = []
+    if launched != want_launches:
+        problems.append(f"launches {launched}, want {want_launches}")
+    if (seen["attention"][0], seen["ssd"][0]) != (
+            want_launches["flash_attention_fwd"], want_launches["ssd_scan"]):
+        problems.append(f"{seen['attention'][0]} attention and "
+                        f"{seen['ssd'][0]} SSD inputs checked")
+    if seen["attention"][1] or seen["ssd"][1]:
+        problems.append(f"kernels vs plain versions on the path's inputs: "
+                        f"{seen['ssd'][1]} SSD, {seen['attention'][1]} "
+                        "attention failures")
+    if res.tokens.shape != (b, new) or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        problems.append(f"bad generation {res.tokens.shape}")
+    if not first_ok:
+        problems.append("the first generated tokens are not the argmax of "
+                        "the prefill logits")
+    if not (math.isfinite(logits_err) and logits_ok):
+        problems.append(f"prefill logits ({gate}): {logits_err} of "
+                        f"{logits_scale}; {fp32}")
+    for k, r in ratio.items():
+        if abs(r - 1) > REMAT_PEAK_TOL:
+            problems.append(f"the {k} plan's estimate "
+                            f"{est[k]['memory']['peak_est_B'] / 2**30:.3f} "
+                            f"GiB against max_memory_allocated "
+                            f"{peaks[k] / 2**30:.3f} GiB")
+    del model, params, batch, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"serve_long {cfg.name} {dplan.get('variant')}"
+                             ": " + "; ".join(problems))
+    return {"launches": launched, "attn_err": seen["attention"][2],
+            "ssd_err": seen["ssd"][2]}
+
+
+def phase_serve_long() -> dict:
+    """The flash forward and the SSD scan timed at the long shapes, then
+    every SERVE_LONG run.  Returns the runs' launches summed, the largest
+    errors and the timed rows."""
+    gen = torch.Generator("cuda").manual_seed(29)
+    rows = {name: time_fwd(shape, gen, groups=5, per_group=3,
+                           plain_groups=3, plain_per_group=1)
+            for name, shape in LONG_ATTN_SHAPES.items()}
+    ssd_row = time_ssd("mamba2-1.3b T 32768", LONG_SSD_SHAPE, gen,
+                       token=False, groups=5, per_group=3, plain_groups=3,
+                       plain_per_group=1)
+    del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    total, attn_err, ssd_err = {}, 0.0, 0.0
+    for spec in SERVE_LONG:
+        got = serve_long_run(spec)
+        for k, n in got["launches"].items():
+            total[k] = total.get(k, 0) + n
+        attn_err = max(attn_err, got["attn_err"])
+        ssd_err = max(ssd_err, got["ssd_err"])
+    return {"launches": total, "attn_err": attn_err, "ssd_err": ssd_err,
+            "fwd_rows": rows, "ssd_row": ssd_row}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs the "
@@ -5091,13 +5536,22 @@ def main() -> int:
     deepseek = phase_serve(SERVE_DEEPSEEK, "serve_deepseek")
     whisper = phase_serve(SERVE_WHISPER, "serve_whisper")
     vlm = phase_serve(SERVE_VLM, "serve_vlm")
+    qwen3 = phase_serve(SERVE_QWEN3, "serve_qwen3")
+    coder = phase_serve(SERVE_DEEPSEEK_CODER, "serve_deepseek_coder")
+    long = phase_serve_long()
+    fwd.update(long["fwd_rows"])
+    ssd["shapes"]["mamba2-1.3b T 32768"] = long["ssd_row"]
     ssd["max_abs_err"] = max(ssd["max_abs_err"], ssm["ssd_err"],
-                             hybrid["ssd_err"])
+                             hybrid["ssd_err"], long["ssd_err"],
+                             long["ssd_row"]["max_abs_err"])
     fwd["max_abs_err"] = max(fwd["max_abs_err"], serve["attn_err"],
                              hybrid["attn_err"], gemma["attn_err"],
                              danube["attn_err"], moe["attn_err"],
                              deepseek["attn_err"], whisper["attn_err"],
-                             vlm["attn_err"])
+                             vlm["attn_err"], qwen3["attn_err"],
+                             coder["attn_err"], long["attn_err"],
+                             *(r["max_abs_err"]
+                               for r in long["fwd_rows"].values()))
     phase_train_model()
     trained = {"train": phase_train(),
                "train_fused": phase_train_fused(),
@@ -5136,9 +5590,13 @@ def main() -> int:
         "serve_deepseek": deepseek["launches"]["flash_attention_fwd"],
         "serve_whisper": whisper["launches"]["flash_attention_fwd"],
         "serve_vlm": vlm["launches"]["flash_attention_fwd"],
+        "serve_qwen3": qwen3["launches"]["flash_attention_fwd"],
+        "serve_deepseek_coder": coder["launches"]["flash_attention_fwd"],
+        "serve_long": long["launches"]["flash_attention_fwd"],
         **fwd["launches_by_path"]}
     ssd["launches_by_path"] = {"serve_ssm": ssm["launches"]["ssd_scan"],
                                "serve_hybrid": hybrid["launches"]["ssd_scan"],
+                               "serve_long": long["launches"]["ssd_scan"],
                                **ssd["launches_by_path"]}
     ssd["launches"] = sum(ssd["launches_by_path"].values())
     rows = [fwd, dq, dkv, merge, ssd, ssd_bwd, *adam_rows]

@@ -34,11 +34,10 @@ enforces the *execution*:
   calling thread.  The layer cannot tell host data from device data, so
   host-side numbers must be numpy or Python numbers, not CPU tensors, as
   JAX's trainer keeps them.  The blocker is not narrowed to the port's own
-  frames.  The one call of PyTorch's own code that trips it on the
-  trainer's path, ``nn.init.trunc_normal_``'s ``.item()`` of a CPU scalar
-  it makes itself (no sync on the card either), runs in the parameter
-  draw, which the trainer does in its explicit set-up section
-  (``Trainer.run``).  The patch is process-global while active: use it
+  frames.  The trainer's set-up (the host copy of given parameters, the
+  state, the eval batches) runs in its explicit set-up section
+  (``Trainer.run``); the parameter draw (``models.layers._trunc_normal``)
+  reads nothing back.  The patch is process-global while active: use it
   around a region under test, not around code that converts tensors on
   other threads.
 * **On the card** it also sets ``torch.cuda.set_sync_debug_mode("error")``,

@@ -14,12 +14,14 @@ NEG_INF = -1e30
 
 
 def _mask(sq: int, sk: int, causal: bool, window: int,
-          device) -> torch.Tensor:
+          device, q0: int = 0, k0: int = 0) -> torch.Tensor:
     """(Sq, Sk), True = attend: the JAX masks' meaning (``causal_mask(s,
     t)`` is ``kpos <= qpos``, ``swa_mask`` adds ``kpos > qpos - window``);
-    cross-attention (Sq != Sk) is ``causal=False, window=0``, all true."""
-    qpos = torch.arange(sq, device=device)[:, None]
-    kpos = torch.arange(sk, device=device)[None, :]
+    cross-attention (Sq != Sk) is ``causal=False, window=0``, all true.
+    ``q0``, ``k0``: the positions of the first query and key (a block of
+    the whole mask)."""
+    qpos = torch.arange(q0, q0 + sq, device=device)[:, None]
+    kpos = torch.arange(k0, k0 + sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask = mask & (kpos <= qpos)
@@ -50,6 +52,59 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhst,bhtd->bhsd", probs, v.float())
     return out.to(q.dtype), lse
+
+
+def flash_attention_rows_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, block: int = 256,
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref` computed over blocks of ``block`` query
+    rows: (out in q's dtype, lse fp32), the same function.
+
+    Each block takes the keys its rows can see under :func:`_mask` (up to
+    its last row when causal, from its first row's window start), and each
+    row's softmax runs in fp32 over all of that row's visible keys, so at
+    most (B, Hq, block, Sk) fp32 scores live at once where the whole
+    version builds (B, Hq, Sq, Sk): 137 GB a layer of qwen3-4b at 32,768
+    tokens.  GQA by grouping the query heads over each kv head (no
+    repeated k or v).  Every row must see at least one key, as under every
+    mask the kernels take.  No autograd use: a plain version to compare
+    with at long lengths.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if block < 1:
+        raise ValueError(f"flash_attention_rows_ref: block {block}")
+    qg = q.reshape(b, hkv, g, sq, d)
+    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    og = out.view(b, hkv, g, sq, d)
+    lg = lse.view(b, hkv, g, sq)
+    for r0 in range(0, sq, block):
+        r1 = min(r0 + block, sq)
+        lo = max(r0 - window + 1, 0) if window > 0 else 0
+        hi = min(r1, sk) if causal else sk
+        kk, vv = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
+        logits = torch.einsum("bkgsd,bktd->bkgst", qg[:, :, :, r0:r1].float(),
+                              kk).div_(math.sqrt(d))
+        # the mask can hide only keys before the last row's window or after
+        # the first row; every other key of the block is visible to all rows
+        spans = []
+        if window > 0:
+            spans.append((lo, min(hi, r1 - window)))
+        if causal:
+            spans.append((max(lo, r0 + 1), hi))
+        for a, z in spans:
+            if a < z:
+                mask = _mask(r1 - r0, z - a, causal, window, q.device, r0, a)
+                logits[..., a - lo:z - lo].masked_fill_(~mask, NEG_INF)
+        lg[..., r0:r1] = torch.logsumexp(logits, dim=-1)
+        probs = torch.softmax(logits, dim=-1)
+        del logits
+        og[..., r0:r1, :] = torch.einsum("bkgst,bktd->bkgsd", probs,
+                                         vv).to(q.dtype)
+    return out, lse
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

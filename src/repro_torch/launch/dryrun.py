@@ -56,6 +56,9 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
           --shape all [--multi-pod] [--out dryrun.json]
       PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh 1x1 \\
           --arch qwen3-4b --shape train_4k --batch 1 --seq 512
+      PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh 1x1 \\
+          --arch qwen3-4b --shape prefill_32k --batch 1 --seq 32736 \\
+          --capacity 32768 --no-cost
 """
 from __future__ import annotations
 
@@ -139,24 +142,33 @@ def decode_plan(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
 def param_tree(cfg: ModelConfig, device="meta", dtype=None) -> Dict[str, Any]:
     """The parameter tree's shapes as empty tensors on ``device`` (meta by
     default): the counterpart of ``jax.eval_shape(model.init)``.  On meta
-    nothing is drawn."""
+    nothing is drawn.  Given ``dtype``, every floating leaf in it, as
+    ``Model`` holds its serving weights (the leaves the families draw in
+    fp32, such as mamba2's ``a_log``, included)."""
     model = Model(cfg, device=device, weights=False)
-    return model.init(None, dtype=dtype)
+    tree = model.init(None, dtype=dtype)
+    return tree if dtype is None else L.cast_tree(tree, dtype)
 
 
 def plan_for(cfg: ModelConfig, shape: InputShape, *,
-             batch: Optional[int] = None,
-             seq: Optional[int] = None) -> Dict[str, Any]:
+             batch: Optional[int] = None, seq: Optional[int] = None,
+             capacity: Optional[int] = None) -> Dict[str, Any]:
     """The step's kind, global batch, sequence, tokens a step and, to
-    decode, JAX's cache plan; ``batch`` and ``seq`` replace the shape's."""
+    decode, JAX's cache plan; ``batch`` and ``seq`` replace the shape's.
+    ``capacity`` replaces a prefill's cache capacity (JAX's is the
+    sequence): ``launch.serve.generate`` fills a cache of the prompt plus
+    the new tokens, or the ring of ``--window`` slots."""
     b = shape.global_batch if batch is None else batch
     s = shape.seq_len if seq is None else seq
     plan: Dict[str, Any] = {"kind": shape.kind, "batch": b, "seq": s}
+    if capacity is not None and shape.kind != "prefill":
+        raise ValueError(f"capacity replaces a prefill's; {shape.name} is "
+                         f"a {shape.kind} shape")
     if shape.kind in ("train", "prefill"):
         plan["text"] = s - (cfg.num_patches if cfg.arch_type == "vlm" else 0)
         plan["tokens_per_step"] = s * b
         if shape.kind == "prefill":
-            plan["capacity"] = s
+            plan["capacity"] = s if capacity is None else capacity
         return plan
     dp = decode_plan(cfg, InputShape(shape.name, s, b, shape.kind))
     plan.update(dp)
@@ -382,10 +394,12 @@ def collectives(params: Dict[str, Any], mesh: SH.MeshSpec,
 def run_one(arch: str, shape_name: str, *, mesh: str = "16x16",
             with_cost: bool = True, verbose: bool = True,
             cfg: Optional[ModelConfig] = None, batch: Optional[int] = None,
-            seq: Optional[int] = None) -> Dict[str, Any]:
+            seq: Optional[int] = None,
+            capacity: Optional[int] = None) -> Dict[str, Any]:
     """The record of one (arch, shape) on ``mesh`` ("16x16", "2x16x16",
     "1x1"); ``cfg``, ``batch`` and ``seq`` replace the registered config
-    and the shape's batch and sequence (a cut that fits one card)."""
+    and the shape's batch and sequence (a cut that fits one card),
+    ``capacity`` a prefill's cache capacity (:func:`plan_for`)."""
     rec: Dict[str, Any] = {"arch": arch, "shape": shape_name, "mesh": mesh}
     if (arch, shape_name) in SKIPS:
         rec["status"] = "skipped"
@@ -395,7 +409,8 @@ def run_one(arch: str, shape_name: str, *, mesh: str = "16x16",
     try:
         cfg = cfg or get_config(arch)
         m = MESHES[mesh]()
-        plan = plan_for(cfg, INPUT_SHAPES[shape_name], batch=batch, seq=seq)
+        plan = plan_for(cfg, INPUT_SHAPES[shape_name], batch=batch, seq=seq,
+                        capacity=capacity)
         rec.update(_estimate(cfg, plan, m, with_cost))
         rec["trace_s"] = round(time.time() - t0, 1)
         if verbose:
@@ -517,6 +532,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="global batch in place of the shape's")
     ap.add_argument("--seq", type=int, default=None,
                     help="sequence length in place of the shape's")
+    ap.add_argument("--capacity", type=int, default=None,
+                    help="a prefill's cache capacity in place of the "
+                         "sequence (what launch.serve fills: prompt + new "
+                         "tokens, or the --window ring)")
     ap.add_argument("--no-cost", action="store_true",
                     help="memory only: no FLOP or byte counting")
     ap.add_argument("--smoke", action="store_true",
@@ -542,7 +561,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         for shape in shapes:
             results.append(run_one(arch, shape, mesh=mesh,
                                    with_cost=not args.no_cost,
-                                   batch=args.batch, seq=args.seq))
+                                   batch=args.batch, seq=args.seq,
+                                   capacity=args.capacity))
             if args.out:   # incremental write
                 with open(args.out, "w") as f:
                     json.dump(results, f, indent=1)

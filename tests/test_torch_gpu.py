@@ -2218,3 +2218,94 @@ def test_trainer_runs_under_the_guard_with_one_capture(strategy, steps,
         assert hist.failures == [(5, 1)] and len(hist.recovery_errors) == 1
         assert len(trainer.dispatched_buckets) > 1
         assert ops.launch_counts()["stage_merge"] > before["stage_merge"]
+
+
+# ---------------------------------------------------------------------------
+# long-context serving: the block-row plain attention, the layer-wise draw,
+# ring decode across 2^19
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_ref_matches_the_forward_kernel_with_a_window_that_masks(dtype):
+    """S 4,096 with a window of 1,024 (the shapes of h2o-danube-3-4b's ring
+    prefill, cut): the plain attention over blocks of query rows, which
+    chip_smoke's serve_long holds the kernel against at 32,768 tokens."""
+    q, k, v = qkv(41, 1, 8, 2, 4096, 128, dtype)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=True, window=1024)
+    want, want_lse = ref.flash_attention_rows_ref(q, k, v, causal=True,
+                                                  window=1024, block=384)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+
+
+@pytest.mark.gpu
+def test_layerwise_draw_holds_the_result_and_one_layer_on_the_card():
+    """A stacked leaf drawn on the card holds the bf16 result and one
+    layer's fp32 buffer at most (sizes in whole 512-byte blocks of the
+    caching allocator); a 4-layer qwen3-4b at full width builds within its
+    weights plus the largest fp32 buffer of its draw (its untied head)
+    plus 1 MiB (the build measured 384 KiB over the two on the H100: small
+    blocks beside the leaves)."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator("cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = L._trunc_normal(gen, (8, 1024, 1024), 0.02, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak <= t.numel() * 2 + 1024 * 1024 * 4, peak
+    assert float(t.float().abs().max()) <= 3 * 0.02 * (1 + 2 ** -8)
+    del t
+    cfg = get_config("qwen3-4b").replace(num_layers=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    model = Model(cfg, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    leaves = list(model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in leaves)
+    draw = 4 * max(p[0].numel() if p.dim() >= 3 else p.numel()
+                   for p in leaves)
+    assert peak <= weights + draw + 2 ** 20, (peak, weights, draw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [8, 7])
+def test_ring_decode_across_2_19_on_card_matches_cpu(window):
+    """qwen3-4b at full width cut to 2 layers, fp32, long_500k's dense
+    variant: a ring of ``window`` slots filled by a prompt of the window,
+    then ``pos`` set to 524,280 on both devices and 12 decode steps across
+    2^19.  The RoPE frequencies are reckoned in float64 and rounded once
+    (``layers.rope_freqs``), so both devices rotate by the same fp32
+    angles.  Logits at chip_smoke's MODEL_TOL for full-width cuts (d 2560
+    products summed in other orders), the rotated keys at 1e-4."""
+    cfg = get_config("qwen3-4b").replace(num_layers=2, dtype="float32")
+    params = Model(cfg, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0)).params
+    cpu = Model(cfg, _to_cpu(params), device="cpu")
+    card = Model(cfg, params, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(2, window)).astype(np.int32))
+    logits, cache = card.prefill({"tokens": toks.cuda()}, window)
+    want, want_cache = cpu.prefill({"tokens": toks}, window)
+    torch.testing.assert_close(logits.cpu(), want, atol=1e-3, rtol=1e-3)
+    cache["pos"].fill_(524_280)
+    want_cache["pos"].fill_(524_280)
+    for _ in range(12):
+        nxt = want[:, -1].argmax(-1).to(torch.int32)
+        logits, cache = card.decode_step(cache, nxt.cuda(), window=window)
+        want, want_cache = cpu.decode_step(want_cache, nxt, window=window)
+        torch.testing.assert_close(logits.cpu(), want, atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(cache["k"].cpu(), want_cache["k"],
+                                   atol=1e-4, rtol=1e-4)
+    assert int(cache["pos"][0]) == 524_292
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu()

@@ -190,24 +190,30 @@ def test_ragged_prompt_matches_jax():
 
 def test_swa_ring_cache_matches_jax():
     """Prompt 12 into a ring of capacity 8 == sliding window, then ring decode
-    (transformer.py:215-224 and layers.py:208-214 of the JAX package)."""
+    (transformer.py:215-224 and layers.py:208-214 of the JAX package); and a
+    prompt of 21 that wraps the ring more than once (positions 13..20 land
+    in slots 5..7, 0..4), as h2o-danube-3-4b's 8,160 tokens wrap its 4,096."""
     model, jmodel, jparams = pair("paper-llama-124m", dtype="float32",
                                   sliding_window=8)
-    toks = prompt(model.cfg, 2, 12, seed=4)
-    logits, cache = model.prefill({"tokens": torch.from_numpy(toks)}, 8)
-    jlogits, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, 8)
-    close(logits, jlogits)
-    close_cache(cache, jcache)
-    for _ in range(5):
-        nxt = jnp.argmax(jlogits[:, -1], axis=-1).astype(jnp.int32)
-        logits, cache = model.decode_step(
-            cache, torch.from_numpy(np.array(nxt)), window=8)
-        jlogits, jcache = jmodel.decode_step(jparams, jcache, nxt, window=8)
+    for s, seed in ((12, 4), (21, 8)):
+        toks = prompt(model.cfg, 2, s, seed=seed)
+        logits, cache = model.prefill({"tokens": torch.from_numpy(toks)}, 8)
+        jlogits, jcache = jmodel.prefill(jparams,
+                                         {"tokens": jnp.asarray(toks)}, 8)
         close(logits, jlogits)
         close_cache(cache, jcache)
-    got = serve.generate(model, torch.from_numpy(toks), new_tokens=6, window=8)
-    np.testing.assert_array_equal(
-        got.tokens, jax_greedy(jmodel, jparams, toks, 6, window=8))
+        for _ in range(5):
+            nxt = jnp.argmax(jlogits[:, -1], axis=-1).astype(jnp.int32)
+            logits, cache = model.decode_step(
+                cache, torch.from_numpy(np.array(nxt)), window=8)
+            jlogits, jcache = jmodel.decode_step(jparams, jcache, nxt,
+                                                 window=8)
+            close(logits, jlogits)
+            close_cache(cache, jcache)
+        got = serve.generate(model, torch.from_numpy(toks), new_tokens=6,
+                             window=8)
+        np.testing.assert_array_equal(
+            got.tokens, jax_greedy(jmodel, jparams, toks, 6, window=8))
 
 
 def test_bf16_prefill_and_forward_close_to_jax():
