@@ -8,7 +8,8 @@ dry-run's arguments against what a real model and cache hold.
 
 Tolerances: the block-row attention against the whole one 1e-6 x (1 + |w|)
 (the same fp32 function, summed in other blocks); JAX parity fp32 1e-4
-(``test_torch_model.TOL``); the draw's empirical std within 2% of the
+(``test_torch_model.TOL``), and the port's own RoPE near 2^19 within
+LONG_ROPE_TOL of JAX's; the draw's empirical std within 2% of the
 truncated normal's.
 """
 import math
@@ -41,6 +42,9 @@ TRUNC_STD = math.sqrt(1 - 6 * math.exp(-4.5) / math.sqrt(2 * math.pi)
                       / math.erf(3 / math.sqrt(2)))
 # decode from just below 2^19 (long_500k's 524,288 tokens) across it
 LONG_POS = 524_280
+# the port's own RoPE against JAX's there (ROADMAP §3's rounding gap: 3.5e-3
+# in logits, 1.1e-2 in the rotated keys; v is not rotated: JAX parity's 1e-4)
+LONG_ROPE_TOL = {"logits": 1e-2, "k": 3e-2, "v": 1e-4}
 
 
 # ---------------------------------------------------------------------------
@@ -216,9 +220,10 @@ def test_decode_across_2_19_matches_jax_given_its_rope_frequencies(
     a ring of ``window`` slots, filled by a prompt of the window, on a
     cache whose ``pos`` is then set the same in both; 524,280 is slot 0 of
     a ring of 8 and slot 1 of a ring of 7).  The angles are fp32 products
-    pos x freq in both packages; JAX's jitted frequencies are not the
+    pos x freq in both packages; JAX's jitted frequencies need not be the
     correctly rounded ones the port holds
-    (:func:`test_rope_frequencies_are_correctly_rounded`), and at these
+    (:func:`test_rope_frequencies_are_correctly_rounded`; XLA's fused
+    power decides), and at these
     positions one ulp of a frequency moves an angle by up to 0.03 rad, so
     JAX's are carried into the port here and the rest is held at 1e-4."""
     monkeypatch.setattr(L, "rope_freqs", jax_jit_rope_freqs)
@@ -238,6 +243,58 @@ def test_decode_across_2_19_matches_jax_given_its_rope_frequencies(
         close(logits, jlogits)
         close_cache(cache, jcache)
     assert int(cache["pos"][0]) == LONG_POS + 12 > 2 ** 19
+
+
+def own_rope_gap_across_2_19(window: int) -> dict:
+    """Decode from LONG_POS across 2^19 with the port's own frequencies
+    (``rope_freqs`` as it stands), tokens from JAX's argmax: the largest
+    |port - JAX| of the logits and of the cache's k and v."""
+    model, jmodel, jparams = pair("qwen3-4b", dtype="float32")
+    toks = prompt(model.cfg, 2, window, seed=5)
+    logits, cache = model.prefill({"tokens": torch.from_numpy(toks)}, window)
+    jlogits, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                                     window)
+    cache["pos"].fill_(LONG_POS)
+    jcache = dict(jcache, pos=jnp.full_like(jcache["pos"], LONG_POS))
+    worst = dict.fromkeys(LONG_ROPE_TOL, 0.0)
+    for _ in range(12):
+        nxt = jnp.argmax(jlogits[:, -1], axis=-1).astype(jnp.int32)
+        logits, cache = model.decode_step(
+            cache, torch.from_numpy(np.array(nxt)), window=window)
+        jlogits, jcache = jmodel.decode_step(jparams, jcache, nxt,
+                                             window=window)
+        for key, got, want in (("logits", logits, jlogits),
+                               ("k", cache["k"], jcache["k"]),
+                               ("v", cache["v"], jcache["v"])):
+            err = float(np.abs(got.float().numpy()
+                               - np.asarray(want, np.float32)).max())
+            worst[key] = max(worst[key], err)
+        np.testing.assert_array_equal(cache["pos"].numpy(),
+                                      np.asarray(jcache["pos"]))
+    assert int(cache["pos"][0]) == LONG_POS + 12 > 2 ** 19
+    return worst
+
+
+@pytest.mark.parametrize("window", [8, 7])
+def test_decode_across_2_19_with_the_ports_own_rope_stays_near_jax(window):
+    """The same decode with the port's own frequencies (``rope_freqs``,
+    rounded once from float64), which may differ from JAX's jitted ones
+    by ulps (ROADMAP §3: a fp32 formula's ulps moved logits by 3.5e-3
+    and the rotated keys by 1.1e-2 at these positions); held within
+    LONG_ROPE_TOL, just above that gap."""
+    worst = own_rope_gap_across_2_19(window)
+    assert all(worst[k] <= LONG_ROPE_TOL[k] for k in worst), worst
+
+
+def test_decode_across_2_19_refuses_a_rope_fault(monkeypatch):
+    """LONG_ROPE_TOL is tight enough for a fault of the port's RoPE at
+    long positions: frequencies off by 2**-18 of themselves (the angle at
+    2^19 off by ~2 rad at the fastest) move the logits past it."""
+    own = L.rope_freqs
+    monkeypatch.setattr(L, "rope_freqs", lambda d, theta, device:
+                        own(d, theta, device) * (1 + 2 ** -18))
+    worst = own_rope_gap_across_2_19(8)
+    assert worst["logits"] > LONG_ROPE_TOL["logits"], worst
 
 
 def test_rope_frequencies_are_correctly_rounded():
