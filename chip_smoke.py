@@ -80,65 +80,69 @@ result.  Phases:
              batch 2: full-sequence logits, the (token, layer) routing
              decisions of card and CPU compared, the logits held on the
              tokens whose routing agreed (MOE_ROUTE_DIFF_MAX).
-5. serve   — paper-llama-1.5b, all 24 layers, random weights from a seeded
-             generator on the card: batch 8, prompt 512, 32 new tokens
-             through ``launch.serve.generate``; the kernel must launch once
-             per layer in the prefill.  Then, outside the counted run, the
-             prefill with the kernel against the prefill with the plain
-             version, and the kernel against the plain version on each
-             layer's own attention inputs.  The same for mamba2-1.3b (48 SSD
-             launches a prefill) and zamba2-2.7b (54 SSD launches and 6
-             flash-forward launches at head dim 80), the SSD kernel held
-             against the chunked plain version on every layer's inputs and
-             against the token-by-token one on the first and last; and
-             gemma-2b (18 flash-forward launches a prefill at head dim 256)
-             and h2o-danube-3-4b (24 at head dim 120, window 4096), all
-             layers, as paper-llama-1.5b.  serve_moe, serve_deepseek:
-             granite-moe-3b-a800m (32 flash-forward launches at 24/8 x 64)
-             and deepseek-moe-16b (28 at 16 x 128, all 28 layers, 33.8 GB in
-             bf16, drawn leaf by leaf), the same checks with the routing
-             drift of every comparison printed; the plain prefill is pinned
-             to the kernel run's routing, and both bf16 prefills, pinned to
-             an fp32 prefill's routing, are held against it
-             (SERVE_LOGITS_TOL says why).  serve_whisper: whisper-large-v3
-             at full size, batch 8 of 1500 frames, a 416-token prompt (96
-             flash-forward launches a prefill: the encoder's, the decoder's
-             causal and its cross-attention over the frames); serve_vlm:
-             internvl2-76b cut to 26 of its 80 layers (SERVE_VLM says
-             why), 256 patches before a 512-token prompt.  serve_qwen3,
-             serve_deepseek_coder: qwen3-4b (36 layers, qk-norm) and
-             deepseek-coder-33b (all 62 layers, 62.11 GiB of bf16
-             weights) the same way.  Every serve phase holds its build's
-             peak to the weights plus the draw's largest fp32 buffer plus
-             BUILD_SLACK_GIB (the draw goes a layer at a time).
+5. serve   — one harness (``phase_serve``) for every serve phase: the
+             model built at full width and depth from a seeded generator
+             on the card (its build's peak held to the weights plus the
+             draw's largest fp32 buffer plus BUILD_SLACK_GIB), the kernels'
+             prefill and one decode step as the dry-run's step functions
+             of the phase's plans, the counted run through
+             ``launch.serve.generate`` (every kernel of the path launched
+             as often as ``path_launches`` says, no other; the first token
+             the argmax of the kernels' prefill), then one plain prefill
+             in which every attention and SSD call also runs the kernel on
+             the same inputs and is held to the plain result (the SSD also
+             to the token-by-token definition on the first and last
+             layer), its logits within SERVE_LOGITS_TOL of the kernels'.
+             serve: paper-llama-1.5b, batch 8, prompt 512, 32 new tokens
+             (24 flash-forward launches a prefill); the same for
+             mamba2-1.3b (48 SSD launches), zamba2-2.7b (54 SSD and 6
+             flash-forward launches at head dim 80), gemma-2b (18 at head
+             dim 256) and h2o-danube-3-4b (24 at head dim 120, window
+             4096).  serve_moe, serve_deepseek: granite-moe-3b-a800m (32
+             at 24/8 x 64) and deepseek-moe-16b (28 at 16 x 128, all 28
+             layers, 33.8 GB in bf16); the kernels' prefill records its
+             routing, a second kernel prefill must route alike, the plain
+             prefill is pinned to it, a free plain prefill's drift is
+             printed, and both bf16 prefills, pinned to an fp32
+             prefill's routing, are held against it (SERVE_LOGITS_TOL says
+             why).  serve_whisper: whisper-large-v3 at full size, batch 8
+             of 1500 frames, a 416-token prompt (96 flash-forward launches
+             a prefill: the encoder's, the decoder's causal and its
+             cross-attention over the frames); serve_vlm: internvl2-76b cut
+             to 26 of its 80 layers (SERVE_VLM says why), 256 patches
+             before a 512-token prompt.  serve_qwen3, serve_deepseek_coder:
+             qwen3-4b (36 layers, qk-norm) and deepseek-coder-33b (all 62
+             layers, 62.11 GiB of bf16 weights) the same way.
 5c. serve_long — the flash forward timed at qwen3-4b's prefill_32k layer
-             (B 1, S 32,768, 32/8 x 128, causal) and h2o-danube-3-4b's
-             ring prefill (B 8, S 8,160, a window of 4,096 that masks, D
-             120; SDPA with an explicit boolean mask, its backend named),
-             the SSD scan at T 32,768 (512 chunks), each beside its bound,
-             its plain version (over blocks of query rows, or a batch row
-             at a time) and the library call.  Then the dry-run's serving
-             shapes served for real through ``generate`` (SERVE_LONG):
-             qwen3-4b with a full cache (32,736 prompt tokens + 32 new:
-             prefill_32k and decode_32k), qwen3-4b from an SWA-serving ring
-             of 8,192 that wraps on the first decode step (long_500k's dense
-             variant), h2o-danube-3-4b's 8,160 tokens into its native ring
-             of 4,096, and mamba2-1.3b at 32,768 tokens (native SSM state).
-             Each: the dry-run's --mesh 1x1 estimate of its prefill and
-             decode plans, and the dry-run's step functions of those plans
-             on the card (``max_memory_allocated()`` within REMAT_PEAK_TOL
-             of the estimate); the counted run (launches as path_launches
-             says, prefill ms, decode ms a token, the first token the
-             argmax of the dry-run prefill step's logits); the plain
-             prefill, every attention and SSD call of it also run through
-             the kernel on the same inputs and held to the plain result
-             (SERVE_TOL and, the plain attention being the block-row one,
-             SERVE_RMS_TOL; SSD_TOL), its logits within SERVE_LOGITS_TOL of
-             the kernels'; mamba2 also against an fp32 prefill with the
-             plain scan (ROADMAP queue 2, note c).  Before the runs, the
-             flash forward at the long shapes is timed, and held to the same
-             bounds, which must refuse the plain output with one key tile
-             of V read from the next (``planted_v_tiles``).
+             (B 1, S 32,768, 32/8 x 128, causal), h2o-danube-3-4b's ring
+             prefill (B 8, S 8,160, a window of 4,096 that masks, D 120;
+             SDPA with an explicit boolean mask, its backend named),
+             gemma-2b's (B 1, S 32,768, 8/1 x 256) and
+             granite-moe-3b-a800m's (24/8 x 64), and the SSD scan at T
+             32,768 (512 chunks) at mamba2-1.3b's and zamba2-2.7b's widths,
+             each beside its bound, its plain version (over blocks of
+             query rows, or a batch row at a time) and the library call;
+             the attention also held to 2^-7·|w| + SERVE_RMS_TOL of the
+             row's rms, which must refuse the plain output with one key
+             tile of V read from the next (``planted_v_tiles``).  Then
+             the dry-run's serving shapes served for real through
+             ``phase_serve`` (SERVE_LONG): qwen3-4b, gemma-2b and
+             zamba2-2.7b with a full cache (32,736 prompt tokens + 32 new:
+             prefill_32k and decode_32k), granite-moe-3b-a800m and
+             deepseek-moe-16b the same from 32,768 tokens (8 routing
+             groups of 4,096 a row), qwen3-4b and zamba2-2.7b from an
+             SWA-serving ring of 8,192 that wraps on the first decode step
+             (long_500k's dense and hybrid variants), h2o-danube-3-4b's
+             8,160 tokens into its native ring of 4,096, and mamba2-1.3b
+             at 32,768 tokens (native SSM state).  Each also against the
+             dry-run's --mesh 1x1 estimate of its prefill and decode plans
+             (``max_memory_allocated()`` of each step within
+             REMAT_PEAK_TOL); mamba2-1.3b and zamba2-2.7b, where the
+             bf16 prefills differ past the limit, against an fp32 prefill
+             with the plain versions (ROADMAP queue 2, note c);
+             the MoE ones against ``moe_fp32_reference`` where the fp32
+             prefill's estimate fits the card (the row says why not
+             otherwise).
 6. train_model — the same 2-layer fp32 cut, two Adam steps of the Trainer on
              the card (kernels) and on the CPU (plain versions) from the same
              parameters: loss and parameters agree.
@@ -269,16 +273,17 @@ result.  Phases:
              by kind, host ms a step in transfers, each rank's peak memory,
              the merge's device ms on rank 2.
 10c. train_spmd_store — the strategies that snapshot or restore state on
-             the pipeline backend, in one spawn of six ranks on the card
-             (SPMD's batch 8 in microbatches of 4, windows of up to 4), each
-             schedule also run on the host backend, eagerly.
+             the pipeline backend, in the spawn of six ranks on the card
+             that ran train_spmd (each process warms up once; SPMD's batch
+             8 in microbatches of 4, windows of up to 4), each schedule
+             also run on the host backend, eagerly.
              paper-llama-1.5b at full width cut to 6 of its 24 layers
              (SPMD_STORE_LAYERS: at 24 the phase outgrew the host's memory;
              12 until serve_long took its time), said so with the host's
              readings, and
              the phase's lowest free host memory printed: ``checkpoint``
-             (rollbacks from steps 5 and 6 to
-             the save at 4, the second for the edge stage 0), ``neighbor``
+             (the edge stage 0 rolled back from step 5 to the save at 4),
+             ``neighbor``
              (a hot restore, then a consecutive pair whose replica holder
              dies with it, so the disk tier serves), ``tiered_ckpt``, and
              ``adaptive`` (``checkfree`` merging stage 2, switched to
@@ -788,17 +793,20 @@ PLAIN_ROWS_BYTES = 2 ** 31
 PLAIN_BLOCK_BYTES = 2 ** 30
 # serve_long: the dry-run's serving shapes (INPUT_SHAPES and decode_plan of
 # src/repro/config.py and src/repro/launch/dryrun.py) served through
-# launch.serve.generate: (prefill shape, decode shape), batch, prompt, new
-# tokens and window (0: the cache holds the prompt and the new tokens).
-# Each run's --mesh 1x1 estimate stays under a third of the card; what
-# bounds the batch is the plain versions' fp32 work, once a layer in the
-# plain prefill that also checks the kernel: qwen3-4b's causal attention
-# over 32,736 tokens is 8.8 TFLOP a layer and batch row, 0.51-0.60 s on an
-# H100 at batch 1, ~20 s over 36 layers; near a minute and a half of the
-# script's twenty at batch 4.  The qwen3-4b SWA-serving prompt is the
-# window, so the ring wraps on the first decode step (long_500k's dense
-# variant); danube's 8,160 tokens wrap its native ring of 4,096 in the
-# prefill
+# launch.serve.generate by ``phase_serve``: (prefill shape, decode shape),
+# batch, prompt, new tokens and window (0: the cache holds the prompt and
+# the new tokens).  Each run's --mesh 1x1 estimate stays well inside the
+# card; what bounds the batch is the plain versions' fp32 work, once a
+# layer in the plain prefill that also checks the kernel: qwen3-4b's causal
+# attention over 32,736 tokens is 8.8 TFLOP a layer and batch row,
+# 0.51-0.60 s on an H100 at batch 1, ~20 s over 36 layers.  The SWA-serving
+# prompts are the window, so the ring wraps on the first decode step
+# (long_500k's dense variant, and the hybrid's native-ssm+swa-shared-attn);
+# danube's 8,160 tokens wrap its native ring of 4,096 in the prefill.  The
+# MoE prompts are the dry-run's 32,768 (capacity 32,800 with the new
+# tokens): ``_group_size`` takes the largest power of two up to 4,096 that
+# divides the row, and 32,736 = 2^5 x 1,023 would route in groups of 32,
+# where 32,768 routes in 8 groups of 4,096 a row as the dry-run plans
 SERVE_LONG = (
     dict(arch="qwen3-4b", shapes=("prefill_32k", "decode_32k"), batch=1,
          prompt=32736, new_tokens=32, window=0),
@@ -808,23 +816,47 @@ SERVE_LONG = (
          batch=8, prompt=8160, new_tokens=32, window=4096),
     dict(arch="mamba2-1.3b", shapes=("prefill_32k", "decode_32k"), batch=4,
          prompt=32768, new_tokens=32, window=0),
+    dict(arch="gemma-2b", shapes=("prefill_32k", "decode_32k"), batch=1,
+         prompt=32736, new_tokens=32, window=0),
+    dict(arch="granite-moe-3b-a800m", shapes=("prefill_32k", "decode_32k"),
+         batch=1, prompt=32768, new_tokens=32, window=0),
+    dict(arch="deepseek-moe-16b", shapes=("prefill_32k", "decode_32k"),
+         batch=1, prompt=32768, new_tokens=32, window=0),
+    dict(arch="zamba2-2.7b", shapes=("prefill_32k", "decode_32k"), batch=1,
+         prompt=32736, new_tokens=32, window=0),
+    dict(arch="zamba2-2.7b", shapes=("prefill_32k", "long_500k"), batch=1,
+         prompt=8192, new_tokens=32, window=8192),
 )
 # the kernels timed at serve_long's shapes: qwen3-4b's prefill_32k layer
 # (causal, SDPA with enable_gqa as the yardstick), h2o-danube-3-4b's ring
-# prefill (a window of 4,096 that masks over 8,160 tokens) and mamba2-1.3b's
-# SSD scan at 32,768 tokens (512 chunks)
+# prefill (a window of 4,096 that masks over 8,160 tokens), gemma-2b's MQA
+# at head dim 256 and granite-moe-3b-a800m's 24/8 x 64 over 32,768 tokens;
+# the SSD scan at mamba2-1.3b's and zamba2-2.7b's widths over 32,768 tokens
+# (512 chunks)
 LONG_ATTN_SHAPES = {
     "s32768": dict(b=1, h=32, hkv=8, s=32768, d=128, window=0),
     "d120_s8160_w4096": dict(b=8, h=32, hkv=8, s=8160, d=120, window=4096),
+    "d256_s32768": dict(b=1, h=8, hkv=1, s=32768, d=256, window=0),
+    "d64_s32768": dict(b=1, h=24, hkv=8, s=32768, d=64, window=0),
 }
-LONG_SSD_SHAPE = dict(b=4, t=32768, h=64, p=64, g=1, n=128)
+LONG_SSD_SHAPES = {
+    "mamba2-1.3b T 32768": dict(b=4, t=32768, h=64, p=64, g=1, n=128),
+    "zamba2-2.7b T 32768": dict(b=1, t=32768, h=80, p=64, g=1, n=64),
+}
+
+
+# seconds by phase name: the time from the line before to each line,
+# credited to the line's phase (printed before the result)
+SECONDS = {"_last": 0.0}
 
 
 def emit(phase: str, **kw) -> None:
     """One JSON line of a phase, with ``t_s``: the seconds since this
     module was loaded (the script's clock, for the phases' durations)."""
-    print(json.dumps({"phase": phase, **kw,
-                      "t_s": time.perf_counter() - LOADED}), flush=True)
+    t = time.perf_counter() - LOADED
+    SECONDS[phase] = SECONDS.get(phase, 0.0) + t - SECONDS["_last"]
+    SECONDS["_last"] = t
+    print(json.dumps({"phase": phase, **kw, "t_s": t}), flush=True)
 
 
 def smi() -> str:
@@ -2109,16 +2141,61 @@ def phase_model() -> None:
     torch.cuda.empty_cache()
 
 
+def serve_plans(cfg, spec: dict, capacity: int) -> tuple:
+    """(prefill plan, decode plan, estimates) of a serve spec: for a spec
+    that names the dry-run's ``shapes``, the dry-run's plans of them
+    (``generate``'s cache must be the decode plan's) and their --mesh 1x1
+    estimates; otherwise plans of the spec's own capacity and window, and
+    no estimate."""
+    window = spec.get("window", 0)
+    if "shapes" not in spec:
+        return ({"kind": "prefill", "capacity": capacity},
+                {"kind": "decode", "window": window}, {})
+    b, prompt = spec["batch"], spec["prompt"]
+    pshape, dshape = spec["shapes"]
+    dseq = prompt + spec["new_tokens"] if dshape == "decode_32k" else None
+    pplan = DR.plan_for(cfg, DR.INPUT_SHAPES[pshape], batch=b, seq=prompt,
+                        capacity=capacity)
+    dplan = DR.plan_for(cfg, DR.INPUT_SHAPES[dshape], batch=b, seq=dseq)
+    if cfg.arch_type != "ssm" and (dplan["capacity"], dplan["window"]) != (
+            capacity, window):
+        raise AssertionError(f"{cfg.name}: the plan's cache {dplan} is not "
+                             f"generate's ({capacity}, {window})")
+    return pplan, dplan, {
+        "prefill": one_card_estimate(cfg, pshape, b, prompt, capacity),
+        "decode": one_card_estimate(cfg, dshape, b, dseq)}
+
+
 def phase_serve(spec: dict, phase: str) -> dict:
-    """Serve ``spec["arch"]`` at full width and depth: the counted run
-    through ``generate`` (every kernel of the path must launch as often as
-    ``path_launches`` says, no other kernel at all), then the prefill with
-    the kernels against the prefill with the plain versions, and each kernel
-    against its plain versions on the inputs the path gave it.  The
-    encoder-decoder family takes its frames and the VLM its patches from
-    the same seeded draw as the prompt; ``spec["layers"]`` cuts the depth.
-    Returns the launch counts of the counted run and the largest errors."""
+    """Serve ``spec["arch"]`` at full width and depth (``spec["layers"]``
+    cuts it) through ``generate``, from a cache of the prompt and the new
+    tokens, or from a ring of ``spec["window"]`` slots.
+
+    The kernels' prefill and one decode step run first, as the dry-run's
+    step functions of the spec's plans (for a spec that names the dry-run's
+    ``shapes``: its plans, each step's ``max_memory_allocated()`` held
+    within REMAT_PEAK_TOL of its --mesh 1x1 estimate); then the counted
+    run (every kernel of the path launched as often as ``path_launches``
+    says, no other, the first token the argmax of the kernels' prefill);
+    then one plain prefill, every attention and SSD call of which also runs
+    the kernel on the same inputs and holds it to the plain result
+    (``compare``, ``compare_ssd``), its logits within SERVE_LOGITS_TOL of
+    the kernels'.  MoE: the kernels' prefill records its routing, a second
+    one must route alike, and the plain prefill is pinned to it; the 8 x
+    512 phases also run a free plain prefill and ``moe_fp32_reference``,
+    the shapes' runs that reference where its fp32 estimate fits the card.
+    ssm and hybrid at the shapes, where the bf16 gate fails: an fp32
+    plain prefill on the same weights (ROADMAP queue 2, note c).  The encoder-decoder family takes its frames
+    and the VLM its patches from the same seeded draw as the prompt.
+    Returns the counted run's launches and the largest errors."""
     cfg = train_model_config(spec)
+    b, prompt, new = spec["batch"], spec["prompt"], spec["new_tokens"]
+    window = spec.get("window", 0)
+    capacity = window or cfg.num_patches + prompt + new  # what generate fills
+    pplan, dplan, est = serve_plans(cfg, spec, capacity)
+
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -2130,185 +2207,286 @@ def phase_serve(spec: dict, phase: str) -> dict:
     init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     build = build_peak(model, torch.cuda.max_memory_allocated() - before)
     raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
-        np.random.default_rng(0), spec["batch"], spec["prompt"])
+        np.random.default_rng(0), b, prompt)
     batch = {k: torch.from_numpy(v).cuda()
              for k, v in batch_for(cfg, raw).items() if k != "labels"}
-    toks = batch["tokens"]
-    generate(model, batch, new_tokens=2)                 # warm-up
-    torch.cuda.reset_peak_memory_stats()
+    params = model.params
+    torch.cuda.synchronize()
+    batch_b = sum(t.untyped_storage().nbytes() for t in batch.values())
+    held = batch_b + sum(t.untyped_storage().nbytes()
+                         for t in TR.leaves(params))
+    other = torch.cuda.memory_allocated() - before - held
 
+    # the kernels' prefill and one decode step: the step functions of the
+    # plans; the MoE routing of the prefill recorded
+    route_fn, routes = MOE.route, {"kernel": [], "rerun": [], "plain": []}
+    prefill_step = DR.make_step_fn(model, pplan)
+    try:
+        MOE.route = recording_routes(route_fn, routes["kernel"])
+        (logits, cache), prefill_step_ms, prefill_peak = measured(
+            lambda: prefill_step(params, batch), before + other)
+    finally:
+        MOE.route = route_fn
+    nxt = logits[:, -1].argmax(-1).to(torch.int32)
+    logits = logits.cpu()                       # the kernels' prefill
+    serve_step = DR.make_step_fn(model, dplan)
+    _, decode_step_ms, decode_peak = measured(
+        lambda: serve_step(params, cache, nxt), before + other + batch_b)
+    del cache, nxt
+    peaks = {"prefill": prefill_peak, "decode": decode_peak}
+
+    # the counted run, through the entry point
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    res = generate(model, batch, new_tokens=spec["new_tokens"])
+    res = generate(model, batch, new_tokens=new, window=window)
     launched = counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    run_peak = torch.cuda.max_memory_allocated() - before - other
 
-    # comparison runs, after the counted one: the prefill with the kernels,
-    # recording what the path gives them, then with the plain versions
-    capacity = cfg.num_patches + spec["prompt"] + spec["new_tokens"]
-    ssd_seen, attn_seen = [], []
-    ssd_kernel, fwd_kernel = SSD.ssd_scan, FA.flash_attention_fwd
+    moe_run = cfg.arch_type == "moe"
+    moe = {}
+    if moe_run:
+        # routing is discrete: the same kernels on the same inputs must
+        # route alike, bit for bit
+        try:
+            MOE.route = recording_routes(route_fn, routes["rerun"])
+            model.prefill(batch, capacity)
+        finally:
+            MOE.route = route_fn
+        rerun = routing_drift(routes["kernel"], routes["rerun"])
+        rerun.pop("clean")
+        moe["routing_kernel_rerun"] = rerun
 
-    def ssd_recording(xb, a, bmat, cmat, *, chunk, init_state=None):
-        got = ssd_kernel(xb, a, bmat, cmat, chunk=chunk, init_state=init_state)
-        ssd_seen.append(((xb, a, bmat, cmat, init_state, chunk), got))
-        return got
+    # the plain prefill: every attention and SSD call also runs the kernel
+    # on the same inputs, held to the plain result
+    fwd_kernel, ssd_kernel = FA.flash_attention_fwd, SSD.ssd_scan
+    n_ssd = path_launches(cfg)["ssd_scan"]
+    token_layers = sorted({i % n_ssd for i in SSD_TOKEN_LAYERS}) \
+        if n_ssd else []
+    seen = {"attention": [0, 0, 0.0, 0.0, 0.0], "ssd": [0, 0, 0.0, 0.0, 0.0]}
+    attn = {"head_dims": set(), "full": 0, "cross": 0}
 
-    def ssd_plain(xb, a, bmat, cmat, *, chunk, init_state=None):
-        return plain_ssd_scan(xb, a, bmat, cmat, chunk, init_state)
+    def note(kind, ok, err, err2, excess=None):
+        rec = seen[kind]
+        rec[0] += 1
+        rec[1] += not ok
+        rec[2], rec[3] = max(rec[2], err), max(rec[3], err2)
+        rec[4] = max(rec[4], excess or 0.0)
 
-    def fwd_recording(q, k, v, *, causal, window):
-        attn_seen.append((q, k, v, causal, window))
-        return fwd_kernel(q, k, v, causal=causal, window=window)
+    def fwd_checked(q, k, v, *, causal, window):
+        want = plain_attention(q, k, v, causal=causal, window=window)
+        got = fwd_kernel(q, k, v, causal=causal, window=window)
+        note("attention", *compare(q, k, v, causal=causal, window=window,
+                                   tol=SERVE_TOL, got=got, want=want))
+        # the encoder's attentions run without a mask, the
+        # cross-attentions over another key length (Sq != Sk)
+        attn["head_dims"].add(q.shape[-1])
+        attn["full"] += not causal
+        attn["cross"] += q.shape[2] != k.shape[2]
+        return want
+
+    def ssd_checked(xb, a, bmat, cmat, *, chunk, init_state=None):
+        want = plain_ssd_scan(xb, a, bmat, cmat, chunk, init_state)
+        got = ssd_kernel(xb, a, bmat, cmat, chunk=chunk,
+                         init_state=init_state)
+        note("ssd", *compare_ssd(xb, a, bmat, cmat, init_state, chunk,
+                                 token=seen["ssd"][0] in token_layers,
+                                 got=got, want=want))
+        return want
 
     def fwd_plain(q, k, v, *, causal, window):
         return plain_attention(q, k, v, causal=causal, window=window)
 
-    route_fn, routes = MOE.route, {"kernel": [], "plain": []}
+    def ssd_plain(xb, a, bmat, cmat, *, chunk, init_state=None):
+        return plain_ssd_scan(xb, a, bmat, cmat, chunk, init_state)
+
     try:
-        SSD.ssd_scan, FA.flash_attention_fwd = ssd_recording, fwd_recording
-        MOE.route = recording_routes(route_fn, routes["kernel"])
-        logits = model.prefill(batch, capacity)[0]
-        SSD.ssd_scan, FA.flash_attention_fwd = ssd_plain, fwd_plain
-        MOE.route = recording_routes(route_fn, routes["plain"])
-        want = model.prefill(batch, capacity)[0]
-    finally:
-        SSD.ssd_scan, FA.flash_attention_fwd = ssd_kernel, fwd_kernel
-        MOE.route = route_fn
-    n_params = sum(p.numel() for p in model.parameters())
-    moe = {}
-    if cfg.arch_type == "moe":
-        # the routing is discrete: a bf16 difference in the attention moves
-        # the router's inputs, a choice flips, and the flip travels.  The
-        # plain prefill again, its routing pinned to the kernel run's, is
-        # the comparison the limit holds; the free-running one is reported
-        try:
-            FA.flash_attention_fwd = fwd_plain
+        FA.flash_attention_fwd, SSD.ssd_scan = fwd_checked, ssd_checked
+        if moe_run:
+            # pinned to the kernels' routing: what differs between the two
+            # prefills is then the attention, not a discrete choice
             MOE.route = pinned_routes(route_fn, routes["kernel"])
-            want_free = want
-            want = model.prefill(batch, capacity)[0]
+        want = model.prefill(batch, capacity)[0].cpu()
+        if moe_run and not est:
+            # the free-running plain prefill, reported beside the pinned one
+            FA.flash_attention_fwd, SSD.ssd_scan = fwd_plain, ssd_plain
+            MOE.route = recording_routes(route_fn, routes["plain"])
+            want_free = model.prefill(batch, capacity)[0].cpu()
+            drift = routing_drift(routes["kernel"], routes["plain"])
+            drift.pop("clean")
+            moe.update(routing_kernel_vs_plain=drift,
+                       logits_vs_plain_free_max_abs_err=max_abs(logits,
+                                                                want_free))
+    finally:
+        FA.flash_attention_fwd, SSD.ssd_scan = fwd_kernel, ssd_kernel
+        MOE.route = route_fn
+    logits_err = max_abs(logits, want)
+    logits_scale = max_abs(want)
+    logits_ok = logits_err <= SERVE_LOGITS_TOL * logits_scale
+    gate, fp32 = "kernel vs plain bf16 prefill", {}
+    if moe_run:
+        moe["logits_vs_plain_compared"] = "routing pinned to the kernel run's"
+    if est and cfg.arch_type in ("ssm", "hybrid") and not logits_ok:
+        # note c's fp32 prefill, where the bf16 gate fails
+        model32 = Model(cfg.replace(dtype="float32"),
+                        TR.map(lambda t: t.float(), params), device="cuda")
+        try:
+            FA.flash_attention_fwd, SSD.ssd_scan = fwd_plain, ssd_plain
+            ref32 = model32.prefill(batch, capacity)[0]
         finally:
-            FA.flash_attention_fwd, MOE.route = fwd_kernel, route_fn
-        drift = routing_drift(routes["kernel"], routes["plain"])
-        drift.pop("clean")
-        want_free = want_free.float().cpu()
-        moe = {"routing_kernel_vs_plain": drift,
-               "logits_vs_plain_free_max_abs_err": float(
-                   (logits.float().cpu() - want_free).abs().max()),
-               "logits_vs_plain_compared": "routing pinned to the kernel "
-                                           "run's"}
-    logits, want = logits.float().cpu(), want.float().cpu()
-    logits_err = float((logits - want).abs().max())
-    logits_scale = float(want.abs().max())
-    first_ok = bool((logits[:, -1].argmax(-1).cpu().numpy()
+            FA.flash_attention_fwd, SSD.ssd_scan = fwd_kernel, ssd_kernel
+        del model32
+        scale32 = max_abs(ref32)
+        dist = {"kernel": max_abs(logits, ref32),
+                "plain": max_abs(want, ref32)}
+        del ref32
+        fp32 = {"fp32_logits_max_abs": scale32,
+                "vs_fp32_max_abs_err": dist,
+                "vs_fp32_share": {k: e / scale32 for k, e in dist.items()}}
+        if not logits_ok and dist["kernel"] <= dist["plain"]:
+            # ROADMAP queue 2, note c: the kernel no further from fp32 than
+            # the plain bf16 version is; each within the limit of fp32
+            gate = "note c: each bf16 prefill vs the fp32 one"
+            logits_ok = max(dist.values()) <= SERVE_LOGITS_TOL * scale32
+    first_ok = bool((logits[:, -1].float().argmax(-1).numpy()
                      == res.tokens[:, 0]).all())
-    ssd_checked, ssd_fail, ssd_err, ssd_state_err = len(ssd_seen), 0, 0.0, 0.0
-    token_layers = sorted({i % ssd_checked for i in SSD_TOKEN_LAYERS}) \
-        if ssd_checked else []
-    for i, ((xb, a, bmat, cmat, init_state, chunk), got) in enumerate(ssd_seen):
-        ok, y_err, s_err = compare_ssd(xb, a, bmat, cmat, init_state, chunk,
-                                       token=i in token_layers, got=got)
-        ssd_fail += not ok
-        ssd_err, ssd_state_err = max(ssd_err, y_err), max(ssd_state_err, s_err)
-    ssd_seen.clear()
-    attn_checked, attn_fail, attn_err, attn_lse_err = len(attn_seen), 0, 0.0, 0.0
-    head_dims = sorted({q.shape[-1] for q, *_ in attn_seen})
-    # the encoder's attentions run without a mask, the cross-attentions over
-    # another key length (Sq != Sk)
-    attn_full = sum(not causal for _, _, _, causal, _ in attn_seen)
-    attn_cross = sum(q.shape[2] != k.shape[2] for q, k, *_ in attn_seen)
-    for q, k, v, causal, window in attn_seen:
-        ok, err, lse_err, _ = compare(q, k, v, causal=causal, window=window,
-                                      tol=SERVE_TOL)
-        attn_fail += not ok
-        attn_err, attn_lse_err = max(attn_err, err), max(attn_lse_err, lse_err)
-    attn_seen.clear()
-    if moe:
-        # the fp32 reference needs the room: nothing of this run may stay
-        # on the card but the prompt and the routing records (small blocks:
-        # a tensor left in a large cached segment, such as a prefill's
-        # cache, keeps the whole segment from going back)
-        model = None
-        gc.collect()
-        torch.cuda.empty_cache()
-        moe.update(moe_fp32_reference(cfg, toks, capacity, logits, want_free,
-                                      routes["kernel"], routes["plain"],
-                                      fwd_plain))
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if moe_run:
+        # the fp32 reference needs the room: nothing of this run stays on
+        # the card but the prompt (the routing records are on the host)
+        why = None
+        if est:
+            need = one_card_estimate(
+                cfg.replace(dtype="float32"), spec["shapes"][0], b, prompt,
+                capacity)["memory"]["peak_est_B"]
+            free = torch.cuda.mem_get_info()[0]
+            if need * (1 + REMAT_PEAK_TOL) + 4 * PLAIN_BLOCK_BYTES > free:
+                why = (f"the fp32 prefill's --mesh 1x1 estimate "
+                       f"{need / 2**30:.2f} GiB, with REMAT_PEAK_TOL and "
+                       f"the plain attention's blocks, does not fit the "
+                       f"{free / 2**30:.2f} GiB free")
+        if why is None:
+            moe.update(moe_fp32_reference(
+                cfg, batch["tokens"], capacity, logits.float(),
+                None if est else want_free.float(), routes["kernel"],
+                None if est else routes["plain"], fwd_plain))
+        else:
+            moe["fp32_reference"] = {"ran": False, "why": why}
 
     want_launches = {**dict.fromkeys(launched, 0), **path_launches(cfg)}
-    steps = spec["new_tokens"] - 1
-    new = spec["batch"] * spec["new_tokens"]
+    ratio = {k: est[k]["memory"]["peak_est_B"] / peaks[k] for k in est}
+    steps = new - 1
+    start = cfg.num_patches + prompt
     emit(phase, arch=cfg.name, layers=cfg.num_layers,
          layers_published=get_config(spec["arch"]).num_layers,
          d_model=cfg.d_model, **model_shape(cfg), vocab=cfg.vocab_size,
-         dtype=cfg.dtype,
-         params=n_params, batch=spec["batch"], prompt=spec["prompt"],
-         new_tokens=spec["new_tokens"], capacity=capacity, init_s=init_s,
+         dtype=cfg.dtype, params=n_params, variant=dplan.get("variant", ""),
+         shapes=list(spec.get("shapes", ())), batch=b, prompt=prompt,
+         new_tokens=new, capacity=capacity, serve_window=window,
+         positions=[start, start + steps], init_s=init_s,
          init_peak_memory_gib=init_peak_gib, build=build,
          attention_launches_a_prefill=path_launches(cfg)[
              "flash_attention_fwd"],
          prefill_ms=res.prefill_s * 1e3,
          decode_ms_per_token=res.decode_s / steps * 1e3,
-         decode_tokens_per_s=spec["batch"] * steps / res.decode_s,
-         tokens_per_s=new / (res.prefill_s + res.decode_s),
-         peak_memory_gib=peak_gib, launches=launched,
+         decode_tokens_per_s=b * steps / res.decode_s,
+         prefill_tokens_per_s=b * prompt / res.prefill_s,
+         tokens_per_s=b * new / (res.prefill_s + res.decode_s),
+         peak_memory_gib=peak_gib, run_peak_gib=run_peak / 2**30,
+         step_ms={"prefill": prefill_step_ms, "decode": decode_step_ms},
+         max_memory_allocated_gib={k: v / 2**30 for k, v in peaks.items()},
+         estimate_gib={k: e["memory"]["peak_est_B"] / 2**30
+                       for k, e in est.items()},
+         estimate_memory={k: e["memory"] for k, e in est.items()},
+         estimate_over_measured=ratio, peak_tol=REMAT_PEAK_TOL,
+         launches=launched, path_launches=path_launches(cfg),
          first_tokens=res.tokens[0, :8].tolist(),
          first_token_is_prefill_argmax=first_ok,
          logits_vs_plain_max_abs_err=logits_err, logits_max_abs=logits_scale,
-         logits_tol=SERVE_LOGITS_TOL, ssd_inputs_checked=ssd_checked,
-         ssd_token_by_token_layers=token_layers, ssd_failures=ssd_fail,
-         ssd_max_abs_err=ssd_err, ssd_state_max_abs_err=ssd_state_err,
+         logits_vs_plain_share=logits_err / logits_scale,
+         logits_tol=SERVE_LOGITS_TOL, logits_gate=gate, **fp32,
+         ssd_inputs_checked=seen["ssd"][0],
+         ssd_token_by_token_layers=token_layers, ssd_failures=seen["ssd"][1],
+         ssd_max_abs_err=seen["ssd"][2], ssd_state_max_abs_err=seen["ssd"][3],
          ssd_tol={"y": SSD_TOL[torch.bfloat16], "state": SSD_STATE_TOL},
-         attention_inputs_checked=attn_checked, attention_head_dims=head_dims,
-         attention_inputs_full=attn_full, attention_inputs_cross=attn_cross,
-         attention_failures=attn_fail, attention_max_abs_err=attn_err,
-         attention_lse_max_abs_err=attn_lse_err, attention_tol=SERVE_TOL,
-         **moe)
+         attention_inputs_checked=seen["attention"][0],
+         attention_head_dims=sorted(attn["head_dims"]),
+         attention_inputs_full=attn["full"],
+         attention_inputs_cross=attn["cross"],
+         attention_failures=seen["attention"][1],
+         attention_max_abs_err=seen["attention"][2],
+         attention_lse_max_abs_err=seen["attention"][3],
+         attention_tol=SERVE_TOL, attention_rms_excess=seen["attention"][4],
+         attention_rms_tol=SERVE_RMS_TOL,
+         checked="inline: each call of the plain prefill also runs the "
+                 "kernel on the same inputs", **moe,
+         **({"nvidia_smi": smi()} if est else {}),
+         timing="host clock: prefill_ms around Model.prefill and the first "
+                "argmax, decode_ms_per_token around the other new_tokens - "
+                "1 decode steps, each ending in torch.cuda.synchronize() "
+                "(launch.serve.generate); step_ms around the dry-run's "
+                "prefill_step and serve_step of the plans")
     problems = []
     if not build["ok"]:
         problems.append(f"the build held {build['peak_gib']:.2f} GiB, over "
                         f"{build['bound_gib']:.2f}")
     if launched != want_launches:
         problems.append(f"launches {launched}, want {want_launches}")
-    if attn_checked != want_launches["flash_attention_fwd"] or (
-            attn_checked and head_dims != [cfg.resolved_head_dim]):
-        problems.append(f"{attn_checked} attention inputs, head dims "
-                        f"{head_dims}")
-    if ssd_checked != want_launches["ssd_scan"]:
-        problems.append(f"{ssd_checked} SSD inputs")
+    if (seen["attention"][0], seen["ssd"][0]) != (
+            want_launches["flash_attention_fwd"], want_launches["ssd_scan"]):
+        problems.append(f"{seen['attention'][0]} attention and "
+                        f"{seen['ssd'][0]} SSD inputs checked")
+    if seen["attention"][0] and attn["head_dims"] != {cfg.resolved_head_dim}:
+        problems.append(f"attention head dims {sorted(attn['head_dims'])}")
     if cfg.arch_type == "encdec" and (
-            attn_cross != cfg.num_layers
-            or attn_full != cfg.num_encoder_layers + cfg.num_layers):
-        problems.append(f"{attn_full} full attentions, {attn_cross} over "
-                        "another key length")
-    if moe and moe["routing_kernel_vs_plain"]["layers"] != cfg.num_layers:
-        problems.append(f"routing of {moe['routing_kernel_vs_plain']} "
-                        "layers recorded")
-    if res.tokens.shape != (spec["batch"], spec["new_tokens"]) or not (
+            attn["cross"] != cfg.num_layers
+            or attn["full"] != cfg.num_encoder_layers + cfg.num_layers):
+        problems.append(f"{attn['full']} full attentions, {attn['cross']} "
+                        "over another key length")
+    if seen["attention"][1] or seen["ssd"][1]:
+        problems.append(f"kernels vs plain versions on the path's inputs: "
+                        f"{seen['ssd'][1]} SSD, {seen['attention'][1]} "
+                        "attention failures")
+    if moe_run and len(routes["kernel"]) != cfg.num_layers:
+        problems.append(f"routing of {len(routes['kernel'])} layers "
+                        "recorded")
+    if moe_run and moe["routing_kernel_rerun"]["differ"]:
+        problems.append(f"two kernel prefills routed apart: "
+                        f"{moe['routing_kernel_rerun']}")
+    if res.tokens.shape != (b, new) or not (
             (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
         problems.append(f"bad generation {res.tokens.shape}")
     if not first_ok:
         problems.append("the first generated tokens are not the argmax of "
                         "the prefill logits")
-    if not (math.isfinite(logits_err)
-            and logits_err <= SERVE_LOGITS_TOL * logits_scale):
-        problems.append(f"prefill with the kernels vs the plain versions: "
-                        f"logits {logits_err} of {logits_scale}")
-    if moe and not all(
+    if not (math.isfinite(logits_err) and logits_ok):
+        problems.append(f"prefill logits ({gate}): {logits_err} of "
+                        f"{logits_scale}; {fp32}")
+    if "vs_fp32_pinned_max_abs_err" in moe and not all(
             math.isfinite(e) and e <= SERVE_LOGITS_TOL
             * moe["fp32_logits_max_abs"]
             for e in moe["vs_fp32_pinned_max_abs_err"].values()):
         problems.append(f"the bf16 prefills vs the fp32 one, routing pinned "
                         f"to its: {moe['vs_fp32_pinned_max_abs_err']} of "
                         f"{moe['fp32_logits_max_abs']}")
-    if ssd_fail or attn_fail:
-        problems.append(f"kernels vs plain versions on the path's inputs: "
-                        f"{ssd_fail} SSD, {attn_fail} attention failures")
-    del model, res
+    for k, r in ratio.items():
+        if abs(r - 1) > REMAT_PEAK_TOL:
+            problems.append(f"the {k} plan's estimate "
+                            f"{est[k]['memory']['peak_est_B'] / 2**30:.3f} "
+                            f"GiB against max_memory_allocated "
+                            f"{peaks[k] / 2**30:.3f} GiB")
+    del batch, res, logits, want
     gc.collect()
     torch.cuda.empty_cache()
     if problems:
-        raise AssertionError(f"{phase}: " + "; ".join(problems))
-    return {"launches": launched, "ssd_err": ssd_err, "attn_err": attn_err}
+        raise AssertionError(f"{phase} {cfg.name} {dplan.get('variant', '')}"
+                             ": " + "; ".join(problems))
+    return {"launches": launched, "ssd_err": seen["ssd"][2],
+            "attn_err": seen["attention"][2]}
 
 
 def moe_fp32_reference(cfg, toks, capacity: int, kernel_logits,
@@ -2320,7 +2498,9 @@ def moe_fp32_reference(cfg, toks, capacity: int, kernel_logits,
     would not fit beside it), then the bf16 model again with the kernel and
     with the plain attention, both pinned to the fp32 run's routing.
     Returns each bf16 prefill's distance to the fp32 one (free-running and
-    pinned) and the routing drift of each free-running bf16 run from it."""
+    pinned) and the routing drift of each free-running bf16 run from it
+    (the plain one's where ``plain_logits`` and ``plain_routes`` are given:
+    the shapes' runs prefill the plain version once, pinned)."""
     cfg32 = cfg.replace(dtype="float32")
     allocated_gib = torch.cuda.memory_allocated() / 2 ** 30
     tree = Model(cfg32, device="cuda", weights=False).init(
@@ -2359,14 +2539,16 @@ def moe_fp32_reference(cfg, toks, capacity: int, kernel_logits,
     def err(x):
         return float((x - ref32).abs().max())
 
-    drift = {}
-    for name, routes in (("kernel", kernel_routes), ("plain", plain_routes)):
+    free, drift = {"kernel": (kernel_logits, kernel_routes)}, {}
+    if plain_logits is not None:
+        free["plain"] = (plain_logits, plain_routes)
+    for name, (_, routes) in free.items():
         drift[name] = routing_drift(routes, fp32_routes)
         drift[name].pop("clean")
     return {"fp32_allocated_gib_before": allocated_gib,
             "fp32_logits_max_abs": float(ref32.abs().max()),
-            "vs_fp32_free_max_abs_err": {"kernel": err(kernel_logits),
-                                         "plain": err(plain_logits)},
+            "vs_fp32_free_max_abs_err": {name: err(x) for name, (x, _)
+                                         in free.items()},
             "vs_fp32_pinned_max_abs_err": {"kernel": err(out["kernel"]),
                                            "plain": err(out["plain"])},
             "routing_vs_fp32": drift}
@@ -4270,11 +4452,25 @@ def spmd_rank(rank: int, spec: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     plain = dict.fromkeys(PLAIN_FUNCTIONS, 0)
+    originals = {name: getattr(ref, name) for name in PLAIN_FUNCTIONS}
     for name in PLAIN_FUNCTIONS:
         def counted(*a, _fn=getattr(ref, name), _name=name, **k):
             plain[_name] += 1
             return _fn(*a, **k)
         setattr(ref, name, counted)
+    merge = ops.stage_merge
+    try:
+        return spmd_run(spec, plain)
+    finally:
+        # the process goes on to train_spmd_store's runs
+        for name, fn in originals.items():
+            setattr(ref, name, fn)
+        ops.stage_merge = merge
+
+
+def spmd_run(spec: dict, plain: dict) -> dict:
+    """train_spmd's run on one rank, its plain-version calls counted into
+    ``plain``."""
     cfg = train_model_config(spec)
     tcfg = dataclasses.replace(
         train_config("checkfree_plus", spec["steps"], stages=spec["stages"],
@@ -4308,7 +4504,7 @@ def spmd_rank(rank: int, spec: dict) -> dict:
     state, hist = trainer.run(batches)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    return {"hist": hist, "launched": counts(), "plain": plain,
+    return {"hist": hist, "launched": counts(), "plain": dict(plain),
             "rings": record["rings"], "window_ms": record["window_ms"],
             "transfer_ms_per_step": transfer_ms_per_step(record),
             "recovery_ms": record["recovery_ms"],
@@ -4321,23 +4517,63 @@ def spmd_rank(rank: int, spec: dict) -> dict:
             "effective_step": state.effective_step}
 
 
+def spmd_ranks(rank: int, args: tuple) -> dict:
+    """One rank of train_spmd and train_spmd_store (a spawned process):
+    train_spmd's run, then every run of train_spmd_store, so that the six
+    processes warm up once (a rank's first window took 66.7-70.3 s where
+    the next took 1.4-7.8 on an NVIDIA H100 80GB HBM3, 700 W)."""
+    spec, runs = args
+    out = {"spmd": spmd_rank(rank, spec)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache()
+    out["store"] = spmd_store_rank(rank, runs)
+    return out
+
+
 def phase_train_spmd() -> dict:
-    """TRAIN on the pipeline backend: six ranks on the card against the
-    host backend's run of the same steps.  Returns the launches of every
-    rank, summed."""
+    """train_spmd and train_spmd_store: TRAIN on the pipeline backend and
+    the strategies that snapshot or restore state there, each against the
+    host backend's runs of the same steps, the ranks of both in one spawn
+    of six on the card.  Returns each path's launches, summed over the
+    ranks."""
+    spec = SPMD
+    host = train_run("checkfree_plus", spec["steps"], Forced(SPMD_SCHEDULE),
+                     spec=spec, setup=record_windows, window=spec["window"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_spmd_store_")
+    try:
+        store = store_host_runs(work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with HostMemoryLow() as spawn_mem:
+            ranks = spawn_stages(
+                spmd_ranks, spec["stages"], (spec, store["runs"]),
+                cuda=True,
+                timeout_s=SPMD_RANK_TIMEOUT_S + SPMD_STORE_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        totals = {"train_spmd": spmd_report(
+            host, [r["spmd"] for r in ranks], spawn_s)}
+        totals.update(store_report(store, [r["store"] for r in ranks],
+                                   spawn_s, spawn_mem))
+        return totals
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        empty_host_cache()
+
+
+def spmd_report(host: tuple, ranks: list, spawn_s: float) -> dict:
+    """train_spmd's gates and line: the ranks' run against the host
+    backend's (``host``: ``train_run``'s result).  Returns the launches of
+    every rank, summed."""
     spec = SPMD
     cfg = train_model_config(spec)
     steps, k = spec["steps"], spec["window"]
     tokens = spec["batch"] * spec["seq"]
-    host_hist, host_launched, host_record, host_peak = train_run(
-        "checkfree_plus", steps, Forced(SPMD_SCHEDULE), spec=spec,
-        setup=record_windows, window=k)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn_stages(spmd_rank, spec["stages"], spec, cuda=True,
-                         timeout_s=SPMD_RANK_TIMEOUT_S)
-    spawn_s = time.perf_counter() - t0
+    host_hist, host_launched, host_record, host_peak = host
     hist = ranks[0]["hist"]
     host_omegas = np.concatenate(host_record["rings"])[:, OMEGAS:]
     omegas = np.concatenate(ranks[0]["rings"])[:, OMEGAS:]
@@ -4419,6 +4655,7 @@ def phase_train_spmd() -> dict:
          merge_device_ms_rank2=ranks[2]["merge_ms"],
          recovery_ms_by_rank=[res["recovery_ms"] for res in ranks],
          run_s_by_rank=[res["run_s"] for res in ranks], spawn_s=spawn_s,
+         spawn="one spawn for train_spmd and train_spmd_store",
          nvidia_smi=smi(),
          timing="host clock from each window's dispatch (after a "
                 "synchronize) to the end of its drain, a step's ms the "
@@ -4449,25 +4686,25 @@ def phase_train_spmd() -> dict:
 # name -> (strategy, steps, schedule, RecoveryConfig fields, walls whose
 # observed failure rate is SPMD_STORMY_RATE)
 SPMD_STORE_RUNS = {
-    # stage 2 rolled back from step 5 to the save at 4 (wall 5), then the
-    # edge stage 0 from step 6 to 4 (wall 7)
-    "checkpoint": ("checkpoint", 7, {5: [2], 7: [0]},
+    # the edge stage 0 rolled back from step 5 to the save at 4 (wall 5;
+    # adaptive's rollback at wall 5 is of an inner stage)
+    "checkpoint": ("checkpoint", 6, {5: [0]},
                    dict(checkpoint_every=4), ()),
     # stage 3 served by its neighbour's memory at wall 2; stages 1 and 2
     # together at wall 4: stage 1's replica lived on stage 2's host, so the
     # disk copy of step 3 serves it
-    "neighbor": ("neighbor", 6, {2: [3], 4: [1, 2]},
+    "neighbor": ("neighbor", 5, {2: [3], 4: [1, 2]},
                  dict(checkpoint_every=3), ()),
-    "tiered_ckpt": ("tiered_ckpt", 4, {2: [4]}, {}, ()),
+    "tiered_ckpt": ("tiered_ckpt", 3, {2: [4]}, {}, ()),
     # checkfree merges stage 2 at wall 1; the observed rate on walls 3-5
     # switches to checkpoint (shadow-saving at 4 all along), which rolls
     # the failure at wall 5 back from step 5 to 4; calm again at wall 6
     "adaptive": ("adaptive", 7, {1: [2], 5: [3]},
                  dict(checkpoint_every=4), (3, 4, 5)),
 }
-SPMD_STORE_TRACES = {"checkpoint": [1, 2, 3, 4, 5, 5, 6, 5, 6, 7],
-                     "neighbor": [1, 2, 3, 4, 5, 6],
-                     "tiered_ckpt": [1, 2, 3, 4],
+SPMD_STORE_TRACES = {"checkpoint": [1, 2, 3, 4, 5, 5, 6],
+                     "neighbor": [1, 2, 3, 4, 5],
+                     "tiered_ckpt": [1, 2, 3],
                      "adaptive": [1, 2, 3, 4, 5, 5, 6, 7]}
 SPMD_STORE_LOGS = {"neighbor": [(2, 3, 2, "mem"), (4, 1, 3, "disk"),
                                 (4, 2, 4, "mem")],
@@ -4481,16 +4718,19 @@ SPMD_STORMY_RATE = 0.5
 # memory ran out: the six ranks share one host, where each stage of a
 # deployment has its own, and keep their snapshots and stage every
 # transfer through its pinned memory.  At 12 it took 231-347 s of the
-# script's 1,200; serve_long's long prompts took that time, and the runs,
-# steps and schedules are as they were (what they check does not depend on
-# the depth: failures, traces, restore logs, switches).  Beside the cut,
+# script's 1,200; serve_long's long prompts took that time (what the runs
+# check does not depend on the depth: failures, traces, restore logs,
+# switches), and later the runs' steps: each run ends at the first wall
+# that holds its last event's checks (neighbor 5, tiered_ckpt 3, the
+# gathered runs 2, the MoE run 3), and ``checkpoint`` rolls back the edge
+# stage only (an inner stage's rollback is ``adaptive``'s).  Beside the cut,
 # cut_if_needed still checks that half the host's free memory and disk
 # hold the most saves of the whole state (fp32 masters and moments) that
 # the runs keep at once, one run at a time (each removes its files when it
 # ends): in memory, ``neighbor``'s and ``tiered_ckpt``'s tiers keep_hot = 2
 # snapshots of every stage while they take the next a stage at a time (3
-# bounds it); on disk, ``neighbor``'s saves at steps 3 and 6 (``checkpoint``
-# and ``adaptive`` save once, at 4 of 7 steps; ``tiered_ckpt``'s disk
+# bounds it); on disk, ``neighbor``'s save at step 3 (``checkpoint``
+# and ``adaptive`` save once, at 4; ``tiered_ckpt``'s disk
 # cadence, checkpoint_every 100, never fires)
 SPMD_STORE_LAYERS = 6
 SPMD_STORE_HELD = dict(ram=3, disk=2)
@@ -4498,8 +4738,8 @@ SPMD_STORE_HELD = dict(ram=3, disk=2)
 # gathered from every rank) at the store runs' depth: a consecutive run
 # merged by recover_consecutive, and a random reinit
 SPMD_GATHERED_RUNS = {
-    "checkfree-consecutive": ("checkfree", 3, {1: [2, 3]}, {}, ()),
-    "random": ("random", 3, {1: [3]}, {}, ()),
+    "checkfree-consecutive": ("checkfree", 2, {1: [2, 3]}, {}, ()),
+    "random": ("random", 2, {1: [3]}, {}, ()),
 }
 # the MoE pipeline: granite-moe-3b-a800m cut to 12 of 32 layers (six ranks
 # of 2; at 24, 7.65 GB of fp32 state and gradients a rank, cut with the
@@ -4507,7 +4747,7 @@ SPMD_GATHERED_RUNS = {
 # that routing and capacity are the host run's
 SPMD_MOE = dict(arch="granite-moe-3b-a800m", stages=6, layers=12, batch=4,
                 seq=512, microbatch=4, window=4)
-SPMD_MOE_RUNS = {"granite-checkfree_plus": ("checkfree_plus", 4, {2: [2]},
+SPMD_MOE_RUNS = {"granite-checkfree_plus": ("checkfree_plus", 3, {2: [2]},
                                             {}, ())}
 SPMD_STORE_TIMEOUT_S = 1000.0
 
@@ -4774,88 +5014,84 @@ def check_store_run(name: str, spec: dict, run: tuple, host: dict,
     return problems, report
 
 
-def phase_train_spmd_store() -> dict:
-    """The strategies that snapshot or restore state, the gathered path and
-    the MoE pipeline on the pipeline backend: one spawn of six ranks on the
-    card against the host backend's runs of the same schedules.  Returns
-    each path's launches, summed over the ranks."""
-    work = tempfile.mkdtemp(prefix="chip_smoke_spmd_store_")
-    try:
-        dense = dict(SPMD, layers=SPMD_STORE_LAYERS)
-        emit("train_spmd_store_cut", layers=SPMD_STORE_LAYERS,
-             layers_published=get_config(SPMD["arch"]).num_layers,
-             reason="at full depth the phase outgrew the host's memory; "
-                    "at 12 layers serve_long did not fit the script's time "
-                    "(SPMD_STORE_LAYERS)")
-        dense = cut_if_needed("train_spmd_store", dense, work,
-                              **SPMD_STORE_HELD)
-        moe_cfg = train_model_config(SPMD_MOE)
-        emit("train_spmd_moe_cut", arch=moe_cfg.name,
-             layers=moe_cfg.num_layers,
-             layers_published=get_config(SPMD_MOE["arch"]).num_layers,
-             reason="six ranks of its fp32 state, gradients and "
-                    "activations share the one card; 12 layers for "
-                    "serve_long's time (SPMD_MOE)")
-        groups = {"train_spmd_store": (dense, SPMD_STORE_RUNS),
-                  "train_spmd_gathered": (dense, SPMD_GATHERED_RUNS),
-                  "train_spmd_moe": (SPMD_MOE, SPMD_MOE_RUNS)}
-        host, runs = {}, []
-        t0 = time.perf_counter()
-        with HostMemoryLow() as host_mem:
-            for spec, table in groups.values():
-                for name, run in table.items():
-                    host[name] = store_host_run(
-                        spec, run, os.path.join(work, "host", name))
-                    runs.append((name, spec, run,
-                                 os.path.join(work, "spmd", name)))
-        host_runs_s = time.perf_counter() - t0
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        with HostMemoryLow() as spawn_mem:
-            ranks = spawn_stages(spmd_store_rank, SPMD["stages"], runs,
-                                 cuda=True, timeout_s=SPMD_STORE_TIMEOUT_S)
-        spawn_s = time.perf_counter() - t0
-        problems, totals = [], {}
-        for group, (spec, table) in groups.items():
-            cfg = train_model_config(spec)
-            reports = {}
+def store_host_runs(work: str) -> dict:
+    """train_spmd_store's set-up: its cuts printed, the host backend's run
+    of every schedule (eagerly) under ``work``.  Returns the groups, the
+    host runs, the ranks' runs, the host runs' seconds and host memory."""
+    dense = dict(SPMD, layers=SPMD_STORE_LAYERS)
+    emit("train_spmd_store_cut", layers=SPMD_STORE_LAYERS,
+         layers_published=get_config(SPMD["arch"]).num_layers,
+         reason="at full depth the phase outgrew the host's memory; "
+                "at 12 layers serve_long did not fit the script's time "
+                "(SPMD_STORE_LAYERS)")
+    dense = cut_if_needed("train_spmd_store", dense, work,
+                          **SPMD_STORE_HELD)
+    moe_cfg = train_model_config(SPMD_MOE)
+    emit("train_spmd_moe_cut", arch=moe_cfg.name,
+         layers=moe_cfg.num_layers,
+         layers_published=get_config(SPMD_MOE["arch"]).num_layers,
+         reason="six ranks of its fp32 state, gradients and "
+                "activations share the one card; 12 layers for "
+                "serve_long's time (SPMD_MOE)")
+    groups = {"train_spmd_store": (dense, SPMD_STORE_RUNS),
+              "train_spmd_gathered": (dense, SPMD_GATHERED_RUNS),
+              "train_spmd_moe": (SPMD_MOE, SPMD_MOE_RUNS)}
+    host, runs = {}, []
+    t0 = time.perf_counter()
+    with HostMemoryLow() as host_mem:
+        for spec, table in groups.values():
             for name, run in table.items():
-                bad, reports[name] = check_store_run(name, spec, run,
-                                                     host[name], ranks)
-                problems += [f"{name}: {p}" for p in bad]
-            emit(group, arch=cfg.name, layers=cfg.num_layers,
-                 layers_published=get_config(spec["arch"]).num_layers,
-                 stages=spec["stages"], ranks=len(ranks),
-                 batch=spec["batch"], seq=spec["seq"],
-                 microbatch=spec["microbatch"], window=spec["window"],
-                 runs=reports, spawn_s=spawn_s, host_runs_s=host_runs_s,
-                 host_memory={"host_runs": host_mem.report(),
-                              "spawn": spawn_mem.report()},
-                 nvidia_smi=smi(),
-                 timing="host clock: a step's ms the median over the "
-                        "windows after the first of their ms (from the "
-                        "dispatch, after a synchronize, to the end of the "
-                        "drain) over their steps; after_step_ms around the "
-                        "strategy's after_step (a save, where one fires: "
-                        "the snapshot's device-to-host copy, then the "
-                        "file or the memory tier) and recovery_ms around "
-                        "its failure handler, each ending in a "
-                        "synchronize; the host runs eager, host_step_ms "
-                        "their median step")
-            totals[group] = {}
-            for name in table:
-                for res in ranks:
-                    for kernel, n in res[name]["launched"].items():
-                        totals[group][kernel] = \
-                            totals[group].get(kernel, 0) + n
-        if problems:
-            raise AssertionError("train_spmd_store: " + "; ".join(problems))
-        return totals
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-        gc.collect()
-        empty_host_cache()
+                host[name] = store_host_run(
+                    spec, run, os.path.join(work, "host", name))
+                runs.append((name, spec, run,
+                             os.path.join(work, "spmd", name)))
+    return {"groups": groups, "host": host, "runs": runs,
+            "host_runs_s": time.perf_counter() - t0, "host_mem": host_mem}
+
+
+def store_report(store: dict, ranks: list, spawn_s: float,
+                 spawn_mem) -> dict:
+    """train_spmd_store's gates and lines: each run of the ranks against
+    the host backend's.  Returns each path's launches, summed over the
+    ranks."""
+    problems, totals = [], {}
+    for group, (spec, table) in store["groups"].items():
+        cfg = train_model_config(spec)
+        reports = {}
+        for name, run in table.items():
+            bad, reports[name] = check_store_run(name, spec, run,
+                                                 store["host"][name], ranks)
+            problems += [f"{name}: {p}" for p in bad]
+        emit(group, arch=cfg.name, layers=cfg.num_layers,
+             layers_published=get_config(spec["arch"]).num_layers,
+             stages=spec["stages"], ranks=len(ranks),
+             batch=spec["batch"], seq=spec["seq"],
+             microbatch=spec["microbatch"], window=spec["window"],
+             runs=reports, spawn_s=spawn_s,
+             spawn="one spawn for train_spmd and train_spmd_store",
+             host_runs_s=store["host_runs_s"],
+             host_memory={"host_runs": store["host_mem"].report(),
+                          "spawn": spawn_mem.report()},
+             nvidia_smi=smi(),
+             timing="host clock: a step's ms the median over the "
+                    "windows after the first of their ms (from the "
+                    "dispatch, after a synchronize, to the end of the "
+                    "drain) over their steps; after_step_ms around the "
+                    "strategy's after_step (a save, where one fires: "
+                    "the snapshot's device-to-host copy, then the "
+                    "file or the memory tier) and recovery_ms around "
+                    "its failure handler, each ending in a "
+                    "synchronize; the host runs eager, host_step_ms "
+                    "their median step")
+        totals[group] = {}
+        for name in table:
+            for res in ranks:
+                for kernel, n in res[name]["launched"].items():
+                    totals[group][kernel] = \
+                        totals[group].get(kernel, 0) + n
+    if problems:
+        raise AssertionError("train_spmd_store: " + "; ".join(problems))
+    return totals
 
 
 def one_card_estimate(cfg, shape: str, batch: int, seq, capacity=None, *,
@@ -5366,237 +5602,29 @@ def phase_examples() -> dict:
     return launched
 
 
-def serve_long_run(spec: dict) -> dict:
-    """One serving shape of the dry-run, served for real: the estimate of
-    its prefill and decode plans at --mesh 1x1, then the dry-run's step
-    functions of those plans on the card (``max_memory_allocated()``
-    against the estimate; the prefill step's logits are the kernels'),
-    the counted run through ``generate`` (launches, prefill and decode
-    times, the first token), and the plain prefill, whose every attention
-    and SSD call also runs the kernel on the same inputs and holds it to
-    the plain result (logits within SERVE_LOGITS_TOL of the kernels'); for
-    the ssm family also an fp32 prefill with the plain scan on the same
-    weights (ROADMAP queue 2, note c).  The logits stay on the host in
-    bf16 and are compared a block of positions at a time on the card."""
-    cfg = get_config(spec["arch"])
-    b, prompt, new, window = (spec[k] for k in
-                              ("batch", "prompt", "new_tokens", "window"))
-    capacity = window or prompt + new              # what generate fills
-    pshape, dshape = spec["shapes"]
-    dseq = prompt + new if dshape == "decode_32k" else None
-    pplan = DR.plan_for(cfg, DR.INPUT_SHAPES[pshape], batch=b, seq=prompt,
-                        capacity=capacity)
-    dplan = DR.plan_for(cfg, DR.INPUT_SHAPES[dshape], batch=b, seq=dseq)
-    if cfg.arch_type != "ssm" and (dplan["capacity"], dplan["window"]) != (
-            capacity, window):
-        raise AssertionError(f"serve_long {cfg.name}: the plan's cache "
-                             f"{dplan} is not generate's ({capacity}, "
-                             f"{window})")
-    est = {"prefill": one_card_estimate(cfg, pshape, b, prompt, capacity),
-           "decode": one_card_estimate(cfg, dshape, b, dseq)}
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    model = Model(cfg, device="cuda",
-                  generator=torch.Generator("cuda").manual_seed(0))
-    raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
-        np.random.default_rng(0), b, prompt)
-    batch = {k: torch.from_numpy(v).cuda()
-             for k, v in batch_for(cfg, raw).items() if k != "labels"}
-    params = model.params
-    torch.cuda.synchronize()
-    batch_b = sum(t.untyped_storage().nbytes() for t in batch.values())
-    held = batch_b + sum(t.untyped_storage().nbytes()
-                         for t in TR.leaves(params))
-    other = torch.cuda.memory_allocated() - before - held
-
-    # the dry-run's step functions of the two plans, on the card
-    prefill_step = DR.make_step_fn(model, pplan)
-    (logits, cache), prefill_step_ms, prefill_peak = measured(
-        lambda: prefill_step(params, batch), before + other)
-    nxt = logits[:, -1].argmax(-1).to(torch.int32)
-    logits = logits.cpu()                       # the kernels' prefill
-    serve_step = DR.make_step_fn(model, dplan)
-    _, decode_step_ms, decode_peak = measured(
-        lambda: serve_step(params, cache, nxt), before + other + batch_b)
-    del cache, nxt
-    peaks = {"prefill": prefill_peak, "decode": decode_peak}
-
-    # the counted run, through the entry point
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    res = generate(model, batch, new_tokens=new, window=window)
-    launched = counts()
-    run_peak = torch.cuda.max_memory_allocated() - before - other
-
-    # the plain prefill, every kernel held to the plain result on the
-    # same inputs
-    fwd_kernel, ssd_kernel = FA.flash_attention_fwd, SSD.ssd_scan
-    n_ssd = path_launches(cfg)["ssd_scan"]
-    token_layers = sorted({i % n_ssd for i in SSD_TOKEN_LAYERS}) \
-        if n_ssd else []
-    seen = {"attention": [0, 0, 0.0, 0.0, 0.0], "ssd": [0, 0, 0.0, 0.0, 0.0]}
-
-    def note(kind, ok, err, err2, excess=None):
-        rec = seen[kind]
-        rec[0] += 1
-        rec[1] += not ok
-        rec[2], rec[3] = max(rec[2], err), max(rec[3], err2)
-        rec[4] = max(rec[4], excess or 0.0)
-
-    def fwd_checked(q, k, v, *, causal, window):
-        want = plain_attention(q, k, v, causal=causal, window=window)
-        got = fwd_kernel(q, k, v, causal=causal, window=window)
-        note("attention", *compare(q, k, v, causal=causal, window=window,
-                                   tol=SERVE_TOL, got=got, want=want))
-        return want
-
-    def ssd_checked(xb, a, bmat, cmat, *, chunk, init_state=None):
-        want = plain_ssd_scan(xb, a, bmat, cmat, chunk, init_state)
-        got = ssd_kernel(xb, a, bmat, cmat, chunk=chunk,
-                         init_state=init_state)
-        note("ssd", *compare_ssd(xb, a, bmat, cmat, init_state, chunk,
-                                 token=seen["ssd"][0] in token_layers,
-                                 got=got, want=want))
-        return want
-
-    def ssd_plain(xb, a, bmat, cmat, *, chunk, init_state=None):
-        return plain_ssd_scan(xb, a, bmat, cmat, chunk, init_state)
-
-    try:
-        FA.flash_attention_fwd, SSD.ssd_scan = fwd_checked, ssd_checked
-        want = model.prefill(batch, capacity)[0].cpu()
-    finally:
-        FA.flash_attention_fwd, SSD.ssd_scan = fwd_kernel, ssd_kernel
-    logits_err = max_abs(logits, want)
-    logits_scale = max_abs(want)
-    logits_ok = logits_err <= SERVE_LOGITS_TOL * logits_scale
-    gate, fp32 = "kernel vs plain bf16 prefill", {}
-    if cfg.arch_type == "ssm":
-        model32 = Model(cfg.replace(dtype="float32"),
-                        TR.map(lambda t: t.float(), params), device="cuda")
-        try:
-            SSD.ssd_scan = ssd_plain
-            ref32 = model32.prefill(batch, capacity)[0]
-        finally:
-            SSD.ssd_scan = ssd_kernel
-        del model32
-        scale32 = max_abs(ref32)
-        dist = {"kernel": max_abs(logits, ref32),
-                "plain": max_abs(want, ref32)}
-        del ref32
-        fp32 = {"fp32_logits_max_abs": scale32,
-                "vs_fp32_max_abs_err": dist,
-                "vs_fp32_share": {k: e / scale32 for k, e in dist.items()}}
-        if not logits_ok and dist["kernel"] <= dist["plain"]:
-            # ROADMAP queue 2, note c: the kernel no further from fp32 than
-            # the plain bf16 version is; each within the limit of fp32
-            gate = "note c: each bf16 prefill vs the fp32 one"
-            logits_ok = max(dist.values()) <= SERVE_LOGITS_TOL * scale32
-    first_ok = bool((logits[:, -1].float().argmax(-1).numpy()
-                     == res.tokens[:, 0]).all())
-    want_launches = {**dict.fromkeys(launched, 0), **path_launches(cfg)}
-    ratio = {k: est[k]["memory"]["peak_est_B"] / peaks[k] for k in peaks}
-    steps = new - 1
-    out = dict(
-        arch=cfg.name, layers=cfg.num_layers, **model_shape(cfg),
-        variant=dplan.get("variant", ""), shapes=list(spec["shapes"]),
-        batch=b, prompt=prompt, new_tokens=new, capacity=capacity,
-        serve_window=window, positions=[prompt, prompt + steps],
-        prefill_ms=res.prefill_s * 1e3,
-        decode_ms_per_token=res.decode_s / steps * 1e3,
-        prefill_tokens_per_s=b * prompt / res.prefill_s,
-        run_peak_gib=run_peak / 2**30,
-        step_ms={"prefill": prefill_step_ms, "decode": decode_step_ms},
-        max_memory_allocated_gib={k: v / 2**30 for k, v in peaks.items()},
-        estimate_gib={k: e["memory"]["peak_est_B"] / 2**30
-                      for k, e in est.items()},
-        estimate_memory={k: e["memory"] for k, e in est.items()},
-        estimate_over_measured=ratio, peak_tol=REMAT_PEAK_TOL,
-        launches=launched, path_launches=path_launches(cfg),
-        first_tokens=res.tokens[0, :8].tolist(),
-        first_token_is_prefill_argmax=first_ok,
-        attention_inputs_checked=seen["attention"][0],
-        attention_failures=seen["attention"][1],
-        attention_max_abs_err=seen["attention"][2],
-        attention_lse_max_abs_err=seen["attention"][3],
-        attention_tol=SERVE_TOL, attention_rms_excess=seen["attention"][4],
-        attention_rms_tol=SERVE_RMS_TOL, ssd_inputs_checked=seen["ssd"][0],
-        ssd_token_by_token_layers=token_layers,
-        ssd_failures=seen["ssd"][1], ssd_max_abs_err=seen["ssd"][2],
-        ssd_state_max_abs_err=seen["ssd"][3],
-        ssd_tol={"y": SSD_TOL[torch.bfloat16], "state": SSD_STATE_TOL},
-        logits_vs_plain_max_abs_err=logits_err, logits_max_abs=logits_scale,
-        logits_vs_plain_share=logits_err / logits_scale,
-        logits_tol=SERVE_LOGITS_TOL, logits_gate=gate, **fp32)
-    emit("serve_long", **out, nvidia_smi=smi(),
-         timing="host clock: prefill_ms around Model.prefill and the first "
-                "argmax, decode_ms_per_token around the other new_tokens - "
-                "1 decode steps, each ending in torch.cuda.synchronize() "
-                "(launch.serve.generate); step_ms around the dry-run's "
-                "prefill_step and serve_step")
-    problems = []
-    if launched != want_launches:
-        problems.append(f"launches {launched}, want {want_launches}")
-    if (seen["attention"][0], seen["ssd"][0]) != (
-            want_launches["flash_attention_fwd"], want_launches["ssd_scan"]):
-        problems.append(f"{seen['attention'][0]} attention and "
-                        f"{seen['ssd'][0]} SSD inputs checked")
-    if seen["attention"][1] or seen["ssd"][1]:
-        problems.append(f"kernels vs plain versions on the path's inputs: "
-                        f"{seen['ssd'][1]} SSD, {seen['attention'][1]} "
-                        "attention failures")
-    if res.tokens.shape != (b, new) or not (
-            (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
-        problems.append(f"bad generation {res.tokens.shape}")
-    if not first_ok:
-        problems.append("the first generated tokens are not the argmax of "
-                        "the prefill logits")
-    if not (math.isfinite(logits_err) and logits_ok):
-        problems.append(f"prefill logits ({gate}): {logits_err} of "
-                        f"{logits_scale}; {fp32}")
-    for k, r in ratio.items():
-        if abs(r - 1) > REMAT_PEAK_TOL:
-            problems.append(f"the {k} plan's estimate "
-                            f"{est[k]['memory']['peak_est_B'] / 2**30:.3f} "
-                            f"GiB against max_memory_allocated "
-                            f"{peaks[k] / 2**30:.3f} GiB")
-    del model, params, batch, res, logits, want
-    gc.collect()
-    torch.cuda.empty_cache()
-    if problems:
-        raise AssertionError(f"serve_long {cfg.name} {dplan.get('variant')}"
-                             ": " + "; ".join(problems))
-    return {"launches": launched, "attn_err": seen["attention"][2],
-            "ssd_err": seen["ssd"][2]}
-
-
 def phase_serve_long() -> dict:
     """The flash forward and the SSD scan timed at the long shapes, then
-    every SERVE_LONG run.  Returns the runs' launches summed, the largest
-    errors and the timed rows."""
+    every SERVE_LONG run through ``phase_serve``.  Returns the runs'
+    launches summed, the largest errors and the timed rows."""
     gen = torch.Generator("cuda").manual_seed(29)
     rows = {name: time_fwd(shape, gen, groups=5, per_group=3,
-                           plain_groups=3, plain_per_group=1)
+                           plain_groups=1, plain_per_group=1)
             for name, shape in LONG_ATTN_SHAPES.items()}
-    ssd_row = time_ssd("mamba2-1.3b T 32768", LONG_SSD_SHAPE, gen,
-                       token=False, groups=5, per_group=3, plain_groups=3,
-                       plain_per_group=1)
+    ssd_rows = {name: time_ssd(name, shape, gen, token=False, groups=5,
+                               per_group=3, plain_groups=1, plain_per_group=1)
+                for name, shape in LONG_SSD_SHAPES.items()}
     del gen
     gc.collect()
     torch.cuda.empty_cache()
     total, attn_err, ssd_err = {}, 0.0, 0.0
     for spec in SERVE_LONG:
-        got = serve_long_run(spec)
+        got = phase_serve(spec, "serve_long")
         for k, n in got["launches"].items():
             total[k] = total.get(k, 0) + n
         attn_err = max(attn_err, got["attn_err"])
         ssd_err = max(ssd_err, got["ssd_err"])
     return {"launches": total, "attn_err": attn_err, "ssd_err": ssd_err,
-            "fwd_rows": rows, "ssd_row": ssd_row}
+            "fwd_rows": rows, "ssd_rows": ssd_rows}
 
 
 def main() -> int:
@@ -5627,10 +5655,11 @@ def main() -> int:
     coder = phase_serve(SERVE_DEEPSEEK_CODER, "serve_deepseek_coder")
     long = phase_serve_long()
     fwd.update(long["fwd_rows"])
-    ssd["shapes"]["mamba2-1.3b T 32768"] = long["ssd_row"]
+    ssd["shapes"].update(long["ssd_rows"])
     ssd["max_abs_err"] = max(ssd["max_abs_err"], ssm["ssd_err"],
                              hybrid["ssd_err"], long["ssd_err"],
-                             long["ssd_row"]["max_abs_err"])
+                             *(r["max_abs_err"]
+                               for r in long["ssd_rows"].values()))
     fwd["max_abs_err"] = max(fwd["max_abs_err"], serve["attn_err"],
                              hybrid["attn_err"], gemma["attn_err"],
                              danube["attn_err"], moe["attn_err"],
@@ -5658,8 +5687,7 @@ def main() -> int:
                "train_vlm": phase_train_checkfree(TRAIN_VLM, "train_vlm"),
                "train_ckpt": phase_train_ckpt(),
                "train_neighbor": phase_train_neighbor(),
-               "train_spmd": phase_train_spmd(),
-               **phase_train_spmd_store(),
+               **phase_train_spmd(),
                "train_remat": phase_train_remat(),
                "train_guarded": phase_train_guarded(),
                "examples": phase_examples()}
@@ -5690,6 +5718,8 @@ def main() -> int:
     if any(row["launches"] <= 0 for row in rows):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{[(r['name'], r['launches']) for r in rows]}")
+    emit("seconds", by_phase={k: v for k, v in SECONDS.items()
+                              if k != "_last"})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

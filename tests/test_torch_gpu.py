@@ -2309,3 +2309,88 @@ def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree.detach().cpu()
+
+
+# ---------------------------------------------------------------------------
+# the serving shapes served at 32k: gemma-2b's MQA at head dim 256 over long
+# keys, granite-moe-3b-a800m's routing in groups of 4,096
+# ---------------------------------------------------------------------------
+
+# chip_smoke's bounds at the long shapes: out within SERVE_TOL * (1 + |w|)
+# and 2**-7 |w| + SERVE_RMS_TOL x the rms of w over its row's head dim
+SERVE_TOL, SERVE_RMS_TOL = 1e-2, 2 ** -5
+
+
+@pytest.mark.gpu
+def test_forward_at_mqa_head_dim_256_over_8192_keys_matches_rows_ref():
+    """gemma-2b's prefill_32k layer cut to 8,192 keys (B 1, 8 query heads on
+    one kv head of 256, causal, bf16): the kernel against the block-row
+    plain attention at chip_smoke's long-shape bounds; the index arithmetic
+    over S x 256 a head, the shared-memory tiles at D 256 past S 512."""
+    q, k, v = qkv(43, 1, 8, 1, 8192, 256, torch.bfloat16)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal=True, window=0)
+    want, want_lse = ref.flash_attention_rows_ref(q, k, v, causal=True,
+                                                  window=0, block=1024)
+    o, w = out.float(), want.float()
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+    assert bool(((o - w).abs() <= SERVE_TOL * (1 + w.abs())).all()), \
+        float((o - w).abs().max())
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    excess = float((((o - w).abs() - 2 ** -7 * w.abs()) / rms).max())
+    assert excess <= SERVE_RMS_TOL, excess
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+
+
+def _recording_routes(route, into):
+    def recorded(p, xg, cfg, cap):
+        r = route(p, xg, cfg, cap)
+        into.append((r.topi.cpu(), r.keep.cpu()))
+        return r
+    return recorded
+
+
+@pytest.mark.gpu
+def test_granite_in_groups_of_4096_on_card_matches_cpu(monkeypatch):
+    """granite-moe-3b-a800m at full width cut to 2 layers, fp32, batch 2 x
+    4,096 tokens: one routing group of 4,096 a row (40 experts, top 8, 1,024
+    slots an expert), as its prefill_32k groups.  chip_smoke's card-vs-CPU
+    rule for MoE: at most 1% of the (token, layer) decisions differ (the
+    router's d-long products summed in other orders may swap a near tie),
+    and the logits agree within 1e-3 * (1 + max |w|) on the tokens whose
+    own routing and whose group's earlier tokens' routing agreed in every
+    layer."""
+    from repro_torch.models import moe as M
+    monkeypatch.delenv("REPRO_MOE_GROUP", raising=False)
+    cfg = get_config("granite-moe-3b-a800m").replace(num_layers=2,
+                                                     dtype="float32")
+    assert M._group_size(2 * 4096, 4096) == 4096
+    params = Model(cfg, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0)).params
+    cpu = Model(cfg, _to_cpu(params), device="cpu")
+    card = Model(cfg, params, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 4096)).astype(np.int32))
+    routes, route = {"card": [], "cpu": []}, M.route
+    with torch.no_grad():
+        monkeypatch.setattr(M, "route", _recording_routes(route,
+                                                          routes["card"]))
+        logits, _ = card.apply({"tokens": toks.cuda()})
+        monkeypatch.setattr(M, "route", _recording_routes(route,
+                                                          routes["cpu"]))
+        want, _ = cpu.apply({"tokens": toks})
+    assert len(routes["card"]) == len(routes["cpu"]) == 2
+    assert routes["card"][0][0].shape == (2, 4096, cfg.moe.top_k)
+
+    def decisions(topi, keep):
+        kept = torch.where(keep, topi, -1)
+        return torch.cat([topi.sort(-1).values, kept.sort(-1).values], -1)
+
+    differ = torch.stack([(decisions(*a) != decisions(*b)).any(-1)
+                          for a, b in zip(routes["card"], routes["cpu"])])
+    assert float(differ.float().mean()) <= 0.01, int(differ.sum())
+    clean = ~(differ.any(0).int().cumsum(-1) > 0)
+    assert bool(clean.any())
+    got = logits.cpu().reshape(-1, cfg.vocab_size)[clean.reshape(-1)]
+    ref_rows = want.reshape(-1, cfg.vocab_size)[clean.reshape(-1)]
+    err = float((got - ref_rows).abs().max())
+    assert err <= 1e-3 * (1 + float(want.abs().max())), err

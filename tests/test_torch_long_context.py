@@ -206,6 +206,62 @@ def test_swa_serving_ring_on_a_model_with_no_window_matches_jax():
         got.tokens, jax_greedy(jmodel, jparams, toks, 6, window=window))
 
 
+HYBRID_RING = 8
+
+
+def hybrid_swa_ring_against_jax(window: int = HYBRID_RING) -> None:
+    """long_500k's hybrid variant (native-ssm+swa-shared-attn): zamba2-2.7b
+    reduced to 4 SSM layers with the shared block after every 2, no
+    sliding window of its own, prefills a prompt of ``window`` tokens into a
+    ring of that capacity, then decodes 2 * window + 3 tokens with
+    ``window=`` (the ring wraps at the first step and twice more) while the
+    SSM states carry on; logits, the ring's K/V and ``pos``, and the SSM
+    and conv states held to JAX's at 1e-4 after every step."""
+    model, jmodel, jparams = pair("zamba2-2.7b", dtype="float32",
+                                  num_layers=4, attn_every=2)
+    assert model.cfg.sliding_window == 0
+    toks = prompt(model.cfg, 2, window, seed=8)
+    logits, cache = model.prefill({"tokens": torch.from_numpy(toks)}, window)
+    jlogits, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                                     window)
+    close(logits, jlogits)
+    close_cache(cache, jcache)
+    for _ in range(2 * window + 3):
+        nxt = jnp.argmax(jlogits[:, -1], axis=-1).astype(jnp.int32)
+        logits, cache = model.decode_step(
+            cache, torch.from_numpy(np.array(nxt)), window=window)
+        jlogits, jcache = jmodel.decode_step(jparams, jcache, nxt,
+                                             window=window)
+        close(logits, jlogits)
+        close_cache(cache, jcache)
+        close(cache["ssm"], jcache["ssm"])
+        close(cache["conv"], jcache["conv"])
+    assert int(cache["pos"][0]) == 3 * window + 3
+
+
+def test_hybrid_swa_serving_ring_matches_jax():
+    hybrid_swa_ring_against_jax()
+
+
+def test_hybrid_swa_serving_ring_refuses_a_slot_off_by_one(monkeypatch):
+    """The same comparison fails where each decode step writes its K/V one
+    ring slot past ``pos % window`` (and so evicts the second oldest key,
+    keeping one that left the window)."""
+    decode = L.attention_decode
+
+    def off_by_one(p, x, pos, cache_k, cache_v, cfg, **kw):
+        for c in (cache_k, cache_v):
+            c.copy_(c.roll(-1, dims=1))
+        out = decode(p, x, pos, cache_k, cache_v, cfg, **kw)
+        for c in (cache_k, cache_v):
+            c.copy_(c.roll(1, dims=1))
+        return out
+
+    monkeypatch.setattr(L, "attention_decode", off_by_one)
+    with pytest.raises(AssertionError):
+        hybrid_swa_ring_against_jax()
+
+
 def jax_jit_rope_freqs(head_dim, theta, device):
     """JAX's RoPE frequencies as its jitted model computes them."""
     return torch.from_numpy(np.array(

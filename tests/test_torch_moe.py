@@ -409,3 +409,75 @@ def test_model_built_leaf_by_leaf_equals_whole_tree_cast(arch):
         [p for p, _ in TR.leaves_with_path(whole)]
     for a, b in zip(TR.leaves(got), TR.leaves(whole)):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# serving with several routing groups a row
+# ---------------------------------------------------------------------------
+
+SERVE_GROUP, SERVE_PROMPT = "64", 256       # 4 groups a row of the prompt
+
+
+def serve_routing_against_jax(arch, monkeypatch) -> None:
+    """Prefill of a 256-token prompt under ``REPRO_MOE_GROUP`` 64 (4
+    routing groups a row, as prefill_32k's 32,768 tokens route in 8 groups
+    of 4,096), then 4 teacher-forced decode steps, fp32: every MoE layer's
+    ``topi`` and ``keep`` equal to JAX's, layer by layer and step by step
+    (JAX's read off its one-hot dispatch, its layer scan unrolled so that
+    each layer runs on its own), and the logits within 1e-4."""
+    monkeypatch.setenv("REPRO_MOE_GROUP", SERVE_GROUP)
+    monkeypatch.setenv("REPRO_UNROLL_SCAN", "1")
+    model, jmodel, jparams = model_pair(arch, dtype="float32")
+    cfg = model.cfg
+    got, want = [], []
+    route, dispatch = M.route, JM.topk_dispatch
+
+    def port_recorded(p, xg, cfg, cap):
+        r = route(p, xg, cfg, cap)
+        got.append((r.topi.numpy(), r.keep.numpy()))
+        return r
+
+    def jax_recorded(gates, k, capacity, dtype):
+        out = dispatch(gates, k, capacity, dtype)
+        _, topi = jax.lax.top_k(gates, k)
+        topi = np.asarray(topi)
+        placed = np.asarray(out[0], np.float32).sum(-1)      # (G, T, E)
+        want.append((topi, np.take_along_axis(placed, topi, -1) > 0))
+        return out
+
+    monkeypatch.setattr(M, "route", port_recorded)
+    monkeypatch.setattr(JM, "topk_dispatch", jax_recorded)
+    toks = prompt(cfg, 2, SERVE_PROMPT, seed=11)
+    capacity = SERVE_PROMPT + 4
+    logits, cache = model.prefill({"tokens": torch.from_numpy(toks)},
+                                  capacity)
+    jlogits, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                                     capacity)
+    close(logits, jlogits, 1e-4)
+    groups = 2 * SERVE_PROMPT // int(SERVE_GROUP)
+    assert [t.shape for t, _ in want] == \
+        [(groups, int(SERVE_GROUP), cfg.moe.top_k)] * cfg.num_layers
+    for _ in range(4):          # teacher-forced with JAX's greedy tokens
+        nxt = np.asarray(jnp.argmax(jlogits[:, -1], -1)).astype(np.int32)
+        jlogits, jcache = jmodel.decode_step(jparams, jcache,
+                                             jnp.asarray(nxt))
+        logits, cache = model.decode_step(cache, torch.from_numpy(nxt))
+        close(logits, jlogits, 1e-4)
+    assert len(got) == len(want) == 5 * cfg.num_layers
+    for (gt, gk), (wt, wk) in zip(got, want):
+        np.testing.assert_array_equal(gt, wt)
+        np.testing.assert_array_equal(gk, wk)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_with_several_groups_a_row_matches_jax(arch, monkeypatch):
+    serve_routing_against_jax(arch, monkeypatch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_groups_refuse_the_whole_row_as_one_group(arch, monkeypatch):
+    """The same comparison fails where the port routes each row of the
+    prompt as one group in place of ``_group_size``'s."""
+    monkeypatch.setattr(M, "_group_size", lambda total_tokens, seq: seq)
+    with pytest.raises(AssertionError):
+        serve_routing_against_jax(arch, monkeypatch)
