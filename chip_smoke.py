@@ -33,12 +33,21 @@ result.  Phases:
              plain forward over every head dim, MHA/GQA/MQA, masks, S 128,
              1000 and 2048, gemma-2b's 8/1 group at D 256 and
              h2o-danube-3-4b's 32/8 group with its 4096 window at D 120;
+             past 2,048 keys, from a generator of their own: S 4,096 at
+             every head dim (32/8), gemma-2b's 8/1 x 256, granite's 24/8 x
+             64 and danube's 32/8 x 120 at S 4,160, where its window of
+             4,096 masks, the plain backward one kv head's group at a time
+             above PLAIN_ROWS_BYTES of scores, bf16 also held row by row
+             to GRAD_RMS_TOL;
              timed at four training shapes, B 4 x 512: paper-llama-1.5b
              16 x 128, gemma-2b 8/1 x 256, h2o-danube-3-4b 32/8 x 120 and
              zamba2-2.7b's attention 32 x 80, and at granite-moe-3b-a800m's
              24/8 x 64, B 2 x 512, and whisper's encoder and cross-
-             attention at B 4, 1500 and 448 x 1500, with SDPA's flash
-             backward as the yardstick; the cross sweep as the forward's)
+             attention at B 4, 1500 and 448 x 1500, and at train_4k's
+             layer shapes, B 1 x 4,096 (TRAIN_4K_ATTN_SHAPES), where the
+             rms bound must refuse a planted dK and dV key tile
+             (``planted_grad_tiles``), with SDPA's flash backward as the
+             yardstick; the cross sweep as the forward's)
              and for the stage merge (against
              ``stage_merge_ref``; timed on one 4-layer stage of
              paper-llama-1.5b, ``torch._foreach_lerp`` as the yardstick).
@@ -57,8 +66,9 @@ result.  Phases:
              and 4 and N 36 and 4 (padded inside the block), chunks of 1 and
              48 with ragged ends, and B and C rows 8, 4 and 2 bytes off a
              16-byte boundary; a state-carry check, and both models' serving
-             shapes, timed there beside its bound and the chunked plain
-             version (no PyTorch call computes it).
+             shapes and T 4,096 (64 chunks) at both widths, timed there
+             beside its bound and the chunked plain version (no PyTorch
+             call computes it).
              The SSD backward (bf16 on the tensor cores, several blocks a
              head; fp32 on the CUDA cores) against ``ssd_chunked_bwd_ref``
              over tests/test_kernels.py's SSD shapes, ragged chunks and a
@@ -66,7 +76,8 @@ result.  Phases:
              states and dfinal, both training widths cut in batch and heads
              and B and C rows off a 16-byte boundary, each case launched
              twice for bit-equality; timed at both models' training shapes
-             (B 8 x 512 x 64 heads, N 128; B 4 x 512 x 80 heads, N 64)
+             (B 8 x 512 x 64 heads, N 128; B 4 x 512 x 80 heads, N 64) and
+             at T 4,096, B 1
              beside its bound (and as a multiple of it) and the plain
              version (no PyTorch call computes it), and the fp32 check path
              at mamba2-1.3b's.
@@ -166,6 +177,16 @@ result.  Phases:
              window ms, ms a step, tokens/s, peak memory and both merges'
              ms, device ms and new device allocations (none allowed: the
              capture keeps the cache of the eager step's blocks).
+7b'. train_4k — paper-llama-1.5b at full width and all 24 layers at its
+             published context, batch 2 x 4,096 (TRAIN_4K): ``checkfree``
+             and ``checkfree_plus`` eagerly under train's schedules with
+             train's checks, then each in fused windows of 8 against the
+             same 16 steps eagerly (the loss falling), once through
+             ``launch.train.main`` (TRAIN_4K_MAIN), the first two steps of
+             each against the plain attention at one layer a stage
+             (TRAIN_4K_PLAIN_LAYERS), and the backward kernels on one
+             full-depth step's own inputs (GRAD_TOL and GRAD_RMS_TOL).  ms
+             a step eager and in windows, tokens/s, peaks, merge ms.
 7c. train_telemetry — train_fused's fused run three times: dark (no
              recorder), lit (``telemetry.configure`` streaming into a run
              directory) and dark again, each under
@@ -256,8 +277,9 @@ result.  Phases:
              bytes, and the one ``snapshot_restore`` with those of the shard
              it served.
 10b. train_spmd — the pipeline-parallel backend (``Trainer(backend=
-             "spmd")``) at TRAIN's full width and depth: six ranks, one a
-             stage, all on the one card (gloo between them, staged through
+             "spmd")``) at TRAIN's full width cut to 12 of its 24 layers
+             (SPMD): six ranks of two layers, one a stage, all on the one
+             card (gloo between them, staged through
              pinned host memory; no CUDA graph), ``checkfree_plus`` without
              edge protection for 12 steps in windows of up to 4, batch 8 x
              512 in microbatches of 4 (2 a half), stage 2 merged at wall 5
@@ -314,13 +336,19 @@ result.  Phases:
              flash forward twice a layer under "nothing", once under
              "dots").  Then the dry-run's estimate at ``--mesh 1x1`` (meta
              tensors) of paper-llama-1.5b at 4 layers, batch 8 x 512, and
-             of qwen3-4b and h2o-danube-3-4b at full depth, batch 1 x 512,
-             and three train_steps of each of those two on the card at the
-             depth the estimate says fits: finite gradients, a falling
-             loss, the kernels' launches equal to the dry-run's kernel
-             calls, the estimate's peak within REMAT_PEAK_TOL of
-             ``max_memory_allocated()``; ms a step, tokens/s, peak
-             allocated and reserved.
+             of REMAT_FULL's seven models (qwen3-4b, h2o-danube-3-4b,
+             gemma-2b, mamba2-1.3b, zamba2-2.7b, granite-moe-3b-a800m,
+             whisper-large-v3) at full depth, train_4k's batch 1 x 4,096,
+             and three
+             train_steps of each on the card at the depth the estimate
+             says fits: finite gradients, a falling loss, the kernels'
+             launches equal to the dry-run's kernel calls, the estimate's
+             peak within REMAT_PEAK_TOL of ``max_memory_allocated()``; one
+             more step whose first and last attention and SSD backward
+             calls are held against their plain versions on their own
+             inputs (GRAD_TOL, GRAD_RMS_TOL); granite's routing in two
+             kernel steps from the same weights, forward and recompute,
+             bit-equal; ms a step, tokens/s, peak allocated and reserved.
 10e. train_guarded — paper-llama-124m at full width and depth (12 layers,
              4 stages of 3, batch 8 x 512, bf16), ``checkfree`` in fused
              windows of 8 for 32 steps, stage 2 failing at step 16, the
@@ -334,7 +362,7 @@ result.  Phases:
 10f. examples — each port example's ``main`` in-process on the card:
              torch_quickstart, torch_recovery_demo, torch_serve_batched,
              torch_spot_trace_demo (``--steps 24``) and
-             torch_train_with_failures ``--full --steps 40`` (its four
+             torch_train_with_failures ``--full --steps 24`` (its four
              default strategies at paper-llama-124m's full size).  Every
              loss finite, each train_with_failures run's failures its
              schedule's, a merge, the greedy tokens (4, 12); each
@@ -392,6 +420,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels import stage_merge as SM  # noqa: E402
 from repro_torch.launch import dryrun as DR  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import spawn_stages  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -458,6 +487,34 @@ MODEL_DRAW_ON_CARD = 1e9
 # gradients are rounded once from fp32 sums taken in different orders by the
 # kernel and the plain version: 3e-2 * (1 + |w|) (tests/test_kernels.py:16-17)
 GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# bf16 gradients over more than GRAD_RMS_KEYS keys are also held row by
+# row, as ``rms_excess`` holds the long forward: |g - w| <= 2**-7 |w| +
+# GRAD_RMS_TOL x the rms of w's row across the head dim (dQ: a query row;
+# dK, dV: a key row).  At 4,096 keys GRAD_TOL alone can pass a key tile
+# of dK or dV taken from the wrong place (``planted_grad_tiles``: whisper's
+# decoder shape's late dV tile).  The limit, from the kernels' own excess
+# at S <= 2,048 on an NVIDIA H100 80GB HBM3, 700 W: 0.0150 over the bf16
+# sweep (128 to 2,048 keys), 0.0111 to 0.0869 over the causal and windowed
+# attentions of one real training step of each model at 512 tokens
+# (granite-moe-3b-a800m's the largest; ``train_backward_inputs``); about
+# 1.4 x that, to a power of two.  (whisper-large-v3's full and cross
+# attention over its 1500 frames reach 0.55 on a real step; the bound is
+# not held there.)  Past 2,048 keys the same runs gave 0.0109 (sweep) and
+# 0.0098 to 0.0556 (real steps); a planted tile, 4.4 to 18.3
+GRAD_RMS_TOL = 2 ** -3
+GRAD_RMS_KEYS = 2048
+# each row's rms counts as at least GRAD_RMS_FLOOR x the rms of the whole
+# gradient: a row whose true gradient vanishes (under a causal mask dQ's
+# first row is exactly 0: one key, so dS = P (dP - D) = 0) or nearly
+# cancels has no size of its own to measure the kernels' bf16 rounding of
+# dS against (on qwen3-4b's last layer of a real step at 4,096 tokens such
+# a row took the excess to 0.106 at a floor of 2**-7, 0.047 at 2**-5).
+# The rows it lifts lie below 1/32 of the whole's rms; a tile taken from
+# its neighbour moves rows of the whole's size
+GRAD_RMS_FLOOR = 2 ** -5
+# the sweep's cases that the limit is set from: 128 to 2,048 keys (with
+# fewer a gradient can vanish as a whole: over one key dS = 0)
+GRAD_RMS_MIN_KEYS = 128
 # the merge: fp32 1e-6 * (1 + |w|) (tests/test_recovery.py:118); bf16 one ulp
 # (2**-7 of |w|: 8 significant bits)
 MERGE_TOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -7}
@@ -753,11 +810,16 @@ REMAT_POLICIES = (None, "nothing", "dots")      # None: remat off
 REMAT_TOL = 1e-5                                # x (1 + |remat-off value|)
 # then the dry-run's estimate at --mesh 1x1 and the same step on the card,
 # three steps of each model at full depth (or the depth the estimate says
-# fits), batch 1 x 512, "nothing"; the estimate's peak within
+# fits), train_4k's batch 1 x 4,096, "nothing"; the estimate's peak within
 # REMAT_PEAK_TOL of max_memory_allocated(); a model fits where its
-# estimate, grown by REMAT_PEAK_TOL, fits the card's free memory
-REMAT_FULL = ("qwen3-4b", "h2o-danube-3-4b")
-REMAT_FULL_BATCH, REMAT_FULL_SEQ, REMAT_STEPS = 1, 512, 3
+# estimate, grown by REMAT_PEAK_TOL, fits the card's free memory.  Every
+# family the card holds at full depth (deepseek-moe-16b's 259.88 GiB and
+# internvl2-76b's 76 B parameters do not fit); whisper-large-v3's config
+# extends its decoder's positions to 4,096 for train_4k, as JAX's does
+# (configs/whisper_large_v3.py:29)
+REMAT_FULL = ("qwen3-4b", "h2o-danube-3-4b", "gemma-2b", "mamba2-1.3b",
+              "zamba2-2.7b", "granite-moe-3b-a800m", "whisper-large-v3")
+REMAT_FULL_BATCH, REMAT_FULL_SEQ, REMAT_STEPS = 1, 4096, 3
 REMAT_ESTIMATE_CUT = dict(arch="paper-llama-1.5b", layers=4, batch=8,
                           seq=512)
 REMAT_PEAK_TOL = 0.10
@@ -768,11 +830,12 @@ REMAT_PEAK_TOL = 0.10
 GUARDED = dict(arch="paper-llama-124m", stages=4, batch=8, seq=512,
                steps=32, window=8, schedule={16: [2]})
 # examples: each port example's main on the card, in-process
-# (argv beside --device cuda); spot_trace_demo's steps cut to seconds
+# (argv beside --device cuda); spot_trace_demo's steps cut to seconds,
+# train_with_failures's from 40 to 24 (PR 31, for train_4k's time)
 EXAMPLES = (("torch_quickstart", []), ("torch_recovery_demo", []),
             ("torch_serve_batched", []),
             ("torch_spot_trace_demo", ["--steps", "24"]),
-            ("torch_train_with_failures", ["--full", "--steps", "40"]))
+            ("torch_train_with_failures", ["--full", "--steps", "24"]))
 
 # serve_qwen3, serve_deepseek_coder: qwen3-4b (qk-norm, an untied 151,936
 # vocabulary, 4.41 B parameters) and deepseek-coder-33b (62 layers, d 7168,
@@ -806,15 +869,17 @@ PLAIN_BLOCK_BYTES = 2 ** 30
 # MoE prompts are the dry-run's 32,768 (capacity 32,800 with the new
 # tokens): ``_group_size`` takes the largest power of two up to 4,096 that
 # divides the row, and 32,736 = 2^5 x 1,023 would route in groups of 32,
-# where 32,768 routes in 8 groups of 4,096 a row as the dry-run plans
+# where 32,768 routes in 8 groups of 4,096 a row as the dry-run plans.
+# The batches of qwen3-4b's ring (4 until PR 31), danube's ring (8) and
+# mamba2-1.3b (4) halved for train_4k's time
 SERVE_LONG = (
     dict(arch="qwen3-4b", shapes=("prefill_32k", "decode_32k"), batch=1,
          prompt=32736, new_tokens=32, window=0),
-    dict(arch="qwen3-4b", shapes=("prefill_32k", "long_500k"), batch=4,
+    dict(arch="qwen3-4b", shapes=("prefill_32k", "long_500k"), batch=2,
          prompt=8192, new_tokens=32, window=8192),
     dict(arch="h2o-danube-3-4b", shapes=("prefill_32k", "long_500k"),
-         batch=8, prompt=8160, new_tokens=32, window=4096),
-    dict(arch="mamba2-1.3b", shapes=("prefill_32k", "decode_32k"), batch=4,
+         batch=4, prompt=8160, new_tokens=32, window=4096),
+    dict(arch="mamba2-1.3b", shapes=("prefill_32k", "decode_32k"), batch=2,
          prompt=32768, new_tokens=32, window=0),
     dict(arch="gemma-2b", shapes=("prefill_32k", "decode_32k"), batch=1,
          prompt=32736, new_tokens=32, window=0),
@@ -843,6 +908,60 @@ LONG_SSD_SHAPES = {
     "mamba2-1.3b T 32768": dict(b=4, t=32768, h=64, p=64, g=1, n=128),
     "zamba2-2.7b T 32768": dict(b=1, t=32768, h=80, p=64, g=1, n=64),
 }
+# train_4k (INPUT_SHAPES["train_4k"], 4,096 tokens; paper-llama-1.5b's
+# published max_seq_len): the backward sweep past 2,048 keys, in fp32 and
+# bf16 from a generator of its own (``long_gen``, so that the earlier
+# cases keep their draws): S 4,096 at B 1 over every head dim at the (32,
+# 8) group, gemma-2b's 8/1 x 256 and granite-moe-3b-a800m's 24/8 x 64, and
+# h2o-danube-3-4b's 32/8 x 120 at S 4,160 with its window of 4,096, where
+# the window first masks (keys after a query's 4,096th back are hidden)
+LONG_BWD_S = 4096
+LONG_BWD_WINDOW = (4160, 4096)
+# the backward kernels timed at the layer shapes of a train_4k step, B 1 x
+# 4,096 (checkfree_plus's half of paper-llama-1.5b's batch of 2; one row of
+# the dry-run's remat runs): paper-llama-1.5b, qwen3-4b, gemma-2b,
+# h2o-danube-3-4b (its window of 4,096, which masks nothing at 4,096 and
+# does at 4,160), granite-moe-3b-a800m, zamba2-2.7b's shared attention, and
+# whisper-large-v3's decoder self-attention (causal) and cross-attention
+# (4,096 rows over its 1500 frames) at 4,096 tokens
+TRAIN_4K_ATTN_SHAPES = {
+    "llama_s4096": dict(b=1, h=16, hkv=16, s=4096, d=128, window=0),
+    "qwen3_s4096": dict(b=1, h=32, hkv=8, s=4096, d=128, window=0),
+    "gemma_s4096": dict(b=1, h=8, hkv=1, s=4096, d=256, window=0),
+    "danube_s4096": dict(b=1, h=32, hkv=8, s=4096, d=120, window=4096),
+    "danube_s4160_w4096": dict(b=1, h=32, hkv=8, s=4160, d=120,
+                               window=4096),
+    "granite_s4096": dict(b=1, h=24, hkv=8, s=4096, d=64, window=0),
+    "zamba2_s4096": dict(b=1, h=32, hkv=32, s=4096, d=80, window=0),
+    "whisper_dec_s4096": dict(b=1, h=20, hkv=20, s=4096, d=64, window=0),
+    "whisper_cross_4096x1500": dict(b=1, h=20, hkv=20, s=4096, sk=1500, d=64,
+                                    window=0, causal=False),
+}
+# the SSD scan and its backward over 64 chunks (T 4,096), B 1, at
+# mamba2-1.3b's and zamba2-2.7b's widths
+SSD_4K_SHAPES = {
+    "mamba2-1.3b T 4096": dict(b=1, t=4096, h=64, p=64, g=1, n=128),
+    "zamba2-2.7b T 4096": dict(b=1, t=4096, h=80, p=64, g=1, n=64),
+}
+# train_4k: the paper's main path at its published context, paper-llama-
+# 1.5b at full width and all 24 layers, 6 stages, batch 2 x 4,096
+# (checkfree_plus's halves 1 x 4,096): ``checkfree`` and ``checkfree_plus``
+# eagerly under train's schedules, then each in fused windows of 8
+# (TRAIN_4K_FUSED: 16 steps, a failure at the window boundary) against the
+# same steps eagerly, and once through ``launch.train.main``
+TRAIN_4K = dict(arch="paper-llama-1.5b", stages=6, batch=2, seq=4096)
+TRAIN_4K_FUSED = {"checkfree": dict(steps=16, schedule={8: [2]},
+                                    sizes=[8, 8], merges=1),
+                  "checkfree_plus": dict(steps=16, schedule={8: [3]},
+                                         sizes=[8, 8], merges=1)}
+TRAIN_4K_MAIN = ["--arch", "paper-llama-1.5b", "--seq", "4096", "--batch",
+                 "2", "--stages", "6", "--steps", "4", "--fuse-window", "1",
+                 "--rate", "0", "--quiet"]
+# the plain attention's autograd keeps fp32 scores and probabilities, (B,
+# 16, 4,096, 4,096) x 4 B = 1 GiB a tensor for each batch row and layer:
+# the kernels against plain run at one layer a stage (6 of 24; reckoned in
+# ``plain_scores_gib``)
+TRAIN_4K_PLAIN_LAYERS = 6
 
 
 # seconds by phase name: the time from the line before to each line,
@@ -970,11 +1089,15 @@ def build_peak(model: Model, peak_b: int) -> dict:
             "bound_gib": bound / 2**30, "ok": peak_b <= bound}
 
 
-def rms_excess(o, w) -> float:
+def rms_excess(o, w, floor: float = 0.0) -> float:
     """The largest (|o - w| - 2**-7 |w|) over the rms of w across its
     row's head dim: what out's error takes beyond one bf16 ulp, in units
-    of the row's size (held to SERVE_RMS_TOL)."""
+    of the row's size (held to SERVE_RMS_TOL).  ``floor``: a row's rms
+    counts as at least ``floor`` x the rms of all of w."""
     rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    if floor:
+        rms = rms.clamp_min(floor * float(w.pow(2).mean().sqrt()))
+    rms = rms.clamp_min(torch.finfo(torch.float32).tiny)
     return float((((o - w).abs() - 2 ** -7 * w.abs()) / rms).max())
 
 
@@ -1291,61 +1414,168 @@ def bwd_cases(dims=FIRST_HEAD_DIMS):
                    shape["d"], True, shape["window"])
 
 
-def compare_bwd(q, k, v, do, *, causal: bool, window: int) -> tuple:
-    """dq, dk, dv of the kernels against ``flash_attention_bwd_ref`` and
-    against PyTorch's autograd through ``flash_attention_ref``, on the plain
-    forward's out and lse.  Returns (ok, max |error|)."""
+def plain_bwd(q, k, v, out, lse, do, causal: bool, window: int) -> tuple:
+    """The backward's plain version, (dq, dk, dv):
+    ``ref.flash_attention_bwd_ref``, or, where its whole (B, Hq, Sq, Sk)
+    fp32 scores would pass PLAIN_ROWS_BYTES, the same function one kv
+    head's group of query heads at a time
+    (``ref.flash_attention_bwd_groups_ref``)."""
+    fn = (ref.flash_attention_bwd_groups_ref if rows_plain(q, k)
+          else ref.flash_attention_bwd_ref)
+    with torch.no_grad():
+        return fn(q, k, v, out, lse, do, causal, window)
+
+
+def grad_excesses(got, want) -> list:
+    """``rms_excess`` of dq, dk and dv (a query row's, a key row's), each
+    row's rms floored at GRAD_RMS_FLOOR of the whole gradient's."""
+    return [rms_excess(g.detach().float(), w.float(), GRAD_RMS_FLOOR)
+            for g, w in zip(got, want)]
+
+
+def grad_excess(got, want) -> float:
+    """The largest of ``grad_excesses`` (held to GRAD_RMS_TOL past
+    GRAD_RMS_KEYS keys in bf16)."""
+    return max(grad_excesses(got, want))
+
+
+def rms_bound_applies(q, k) -> bool:
+    return q.dtype == torch.bfloat16 and k.shape[2] > GRAD_RMS_KEYS
+
+
+def compare_bwd(q, k, v, do, *, causal: bool, window: int,
+                want: list = None) -> tuple:
+    """dq, dk, dv of the kernels against ``plain_bwd`` and, where the whole
+    scores fit PLAIN_ROWS_BYTES, against PyTorch's autograd through
+    ``flash_attention_ref``, on the plain forward's out and lse: within
+    GRAD_TOL * (1 + |w|), and past GRAD_RMS_KEYS keys in bf16 within
+    GRAD_RMS_TOL of ``grad_excess``.  ``want``: a list that receives the
+    plain gradients.  Returns (ok, max |error|, bf16: the rms excesses of
+    dq, dk and dv, else None)."""
     tol = GRAD_TOL[q.dtype]
-    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    out, lse = plain_attention(q, k, v, causal=causal, window=window)
     got = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                  window=window)
-    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    o, _ = ref.flash_attention_ref(*leaves, causal=causal, window=window)
-    auto = torch.autograd.grad(o, leaves, do)
+    plain = plain_bwd(q, k, v, out, lse, do, causal, window)
+    oracles = [plain]
+    if not rows_plain(q, k):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o, _ = ref.flash_attention_ref(*leaves, causal=causal, window=window)
+        oracles.append(torch.autograd.grad(o, leaves, do))
+        del o, leaves
     ok, worst = True, 0.0
-    for g, w, a in zip(got, want, auto):
-        for oracle in (w, a):
-            good, err = within(g, oracle, tol)
+    for i, g in enumerate(got):
+        for oracle in oracles:
+            good, err = within(g, oracle[i], tol)
             ok &= good and g.dtype == q.dtype
             worst = max(worst, err)
-    return ok, worst
+    excess = (grad_excesses(got, plain) if q.dtype == torch.bfloat16
+              else None)
+    if rms_bound_applies(q, k):
+        ok &= max(excess) <= GRAD_RMS_TOL
+    if want is not None:
+        want.extend(plain)
+    return ok, worst, excess
+
+
+def planted_grad_tiles(want) -> dict:
+    """The backward's bounds against a planted fault: the plain dK (and dV)
+    with one key tile (64 keys, the kernels' tile) taken from the next
+    tile, at the middle of the keys and at the last whole tile but one, in
+    place of the kernels'.  Each must fail GRAD_TOL with GRAD_RMS_TOL;
+    says whether GRAD_TOL alone would have let it pass."""
+    out = {}
+    for name, w in (("dk", want[1]), ("dv", want[2])):
+        sk = w.shape[2]
+        for where, t in (("middle", sk // 128), ("late", sk // 64 - 2)):
+            bad = w.clone()
+            bad[:, :, 64 * t:64 * t + 64] = w[:, :, 64 * t + 64:64 * t + 128]
+            alone, err = within(bad, w, GRAD_TOL[w.dtype])
+            excess = rms_excess(bad.float(), w.float(), GRAD_RMS_FLOOR)
+            out[f"{name}_{where}"] = {
+                "keys": [64 * t, 64 * t + 64], "max_abs_err": err,
+                "rms_excess": excess, "grad_tol_alone_passes": alone,
+                "caught": not (alone and excess <= GRAD_RMS_TOL)}
+            del bad
+    return out
+
+
+def long_gen() -> torch.Generator:
+    return torch.Generator("cuda").manual_seed(31)
+
+
+def long_bwd_cases():
+    """(dtype, b, hq, hkv, s, d, causal, window) of the backward sweep past
+    2,048 keys (LONG_BWD_S, LONG_BWD_WINDOW)."""
+    s, (sw, w) = LONG_BWD_S, LONG_BWD_WINDOW
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in FIRST_HEAD_DIMS:
+            yield dtype, 1, 32, 8, s, d, True, 0
+        yield dtype, 1, 8, 1, s, 256, True, 0
+        yield (dtype, 1, *GRANITE_GROUP[:2], s, GRANITE_GROUP[2], True, 0)
+        yield dtype, 1, 32, 8, sw, 120, True, w
 
 
 def phase_kernel_bwd() -> list:
     gen = torch.Generator("cuda").manual_seed(1)
     cases = failures = 0
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    # bf16 rms excesses of dq, dk, dv at S <= GRAD_RMS_KEYS (what
+    # GRAD_RMS_TOL is set from) and past it (where it is held)
+    excess = {"short": [0.0] * 3, "long": [0.0] * 3}
+
+    def note(what, ok, err, exc, q, k):
+        nonlocal cases, failures
+        name = str(q.dtype).split(".")[1]
+        worst[name] = max(worst[name], err)
+        if exc is not None and k.shape[2] >= GRAD_RMS_MIN_KEYS:
+            key = "long" if k.shape[2] > GRAD_RMS_KEYS else "short"
+            excess[key] = [max(a, b) for a, b in zip(excess[key], exc)]
+        cases += 1
+        if not ok:
+            failures += 1
+            print(f"MISMATCH bwd {what} dtype={name} err={err} "
+                  f"rms_excess={exc}", file=sys.stderr)
+
     for dims, g in ((FIRST_HEAD_DIMS, gen), (LAST_HEAD_DIMS, later_gen())):
         for dtype, b, hq, hkv, s, d, causal, window in bwd_cases(dims):
             q, k, v = qkv(g, b, hq, hkv, s, d, dtype)
             do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
-            ok, err = compare_bwd(q, k, v, do, causal=causal, window=window)
-            name = str(dtype).split(".")[1]
-            worst[name] = max(worst[name], err)
-            cases += 1
-            if not ok:
-                failures += 1
-                print(f"MISMATCH bwd dtype={name} b={b} hq={hq} hkv={hkv} "
-                      f"d={d} causal={causal} window={window} s={s} "
-                      f"err={err}", file=sys.stderr)
+            ok, err, exc = compare_bwd(q, k, v, do, causal=causal,
+                                       window=window)
+            note(f"b={b} hq={hq} hkv={hkv} d={d} causal={causal} "
+                 f"window={window} s={s}", ok, err, exc, q, k)
         for dtype, b, hq, hkv, sq, sk, d in cross_cases(dims):
             q, k, v = qkv(g, b, hq, hkv, sq, d, dtype, sk)
             do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
-            ok, err = compare_bwd(q, k, v, do, causal=False, window=0)
-            name = str(dtype).split(".")[1]
-            worst[name] = max(worst[name], err)
-            cases += 1
-            if not ok:
-                failures += 1
-                print(f"MISMATCH bwd cross dtype={name} hq={hq} hkv={hkv} "
-                      f"d={d} sq={sq} sk={sk} err={err}", file=sys.stderr)
+            ok, err, exc = compare_bwd(q, k, v, do, causal=False, window=0)
+            note(f"cross hq={hq} hkv={hkv} d={d} sq={sq} sk={sk}", ok, err,
+                 exc, q, k)
+    # past 2,048 keys, from a generator of its own
+    g = long_gen()
+    long_cases = 0
+    for dtype, b, hq, hkv, s, d, causal, window in long_bwd_cases():
+        q, k, v = qkv(g, b, hq, hkv, s, d, dtype)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        ok, err, exc = compare_bwd(q, k, v, do, causal=causal, window=window)
+        note(f"long b={b} hq={hq} hkv={hkv} d={d} window={window} s={s}",
+             ok, err, exc, q, k)
+        long_cases += 1
+        del q, k, v, do
     emit("kernel_check", kernel="flash_attention_bwd_dq+dkv", cases=cases,
          failures=failures, cross_lengths=CROSS_LENGTHS, max_abs_err=worst,
+         long_cases=long_cases, long_lengths=[LONG_BWD_S,
+                                              list(LONG_BWD_WINDOW)],
+         rms_excess_short=dict(zip(("dq", "dk", "dv"), excess["short"])),
+         rms_excess_long=dict(zip(("dq", "dk", "dv"), excess["long"])),
+         rms_floor=GRAD_RMS_FLOOR,
          tol={"float32": GRAD_TOL[torch.float32],
-              "bfloat16": GRAD_TOL[torch.bfloat16]},
-         oracles=["flash_attention_bwd_ref",
-                  "autograd through flash_attention_ref"])
+              "bfloat16": GRAD_TOL[torch.bfloat16],
+              "bfloat16_rms_past_keys": [GRAD_RMS_TOL, GRAD_RMS_KEYS]},
+         oracles=["flash_attention_bwd_ref (by kv-head group above "
+                  "PLAIN_ROWS_BYTES of scores)",
+                  "autograd through flash_attention_ref (where the whole "
+                  "scores fit PLAIN_ROWS_BYTES)"])
     if failures:
         raise AssertionError(f"the backward kernels disagree with their plain "
                              f"versions in {failures} of {cases} cases")
@@ -1353,68 +1583,115 @@ def phase_kernel_bwd() -> list:
     rows = time_bwd(TRAIN_ATTN_SHAPES["d128"], gen)
     for name in ("d256", "d120", "d80", "d64", "enc", "cross", "d16"):
         for row, sub in zip(rows, time_bwd(TRAIN_ATTN_SHAPES[name], gen)):
-            row[name] = {k: sub[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                             "bound_ms", "bound_by",
-                                             "library_ms")}
+            row[name] = {k: sub[k] for k in ROW_KEYS}
+    # train_4k's layer shapes, from the long sweep's generator
+    for name, shape in TRAIN_4K_ATTN_SHAPES.items():
+        for row, sub in zip(rows, time_bwd(shape, g, groups=5, per_group=3,
+                                           plain_groups=1,
+                                           plain_per_group=1)):
+            row[name] = {k: sub[k] for k in ROW_KEYS}
     return rows
 
 
-def sdpa_backward(q, k, v, do, hkv: int, causal: bool = True):
+ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+
+def sdpa_backward(q, k, v, do, hkv: int, causal: bool = True,
+                  window: int = 0):
     """The yardstick: SDPA's flash backend (GQA and MQA through
     ``enable_gqa``, no copy of k and v) run forward once, then its backward
     under ``torch.autograd.grad``: dq, dk and dv together.  Timed here, never
-    called by the port.  Where the flash backend refuses the shape, PyTorch's
-    own choice of backend.  Returns (call, grads of one call, backend)."""
+    called by the port.  Where the flash backend refuses the shape,
+    PyTorch's own choice of backend.  Where the window cuts the sequence,
+    SDPA with the mask as an explicit boolean one over k and v repeated to
+    the query heads (repeated outside the timing; dk and dv then summed
+    over each group to compare).  Returns (call, grads of one call,
+    backend)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    gqa = hkv != q.shape[1]
-    try:
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+    g = q.shape[1] // hkv
+    if window and window < q.shape[2]:
+        mask = ref._mask(q.shape[2], k.shape[2], causal, window, q.device)
+        leaves = [t.detach().requires_grad_() for t in
+                  (q, k.repeat_interleave(g, dim=1),
+                   v.repeat_interleave(g, dim=1))]
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            backend = sdpa_backend(*leaves, mask, False, False)
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    else:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        gqa = hkv != q.shape[1]
+        try:
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                     enable_gqa=gqa)
+            backend = "flash"
+        except RuntimeError:
             out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                                  enable_gqa=gqa)
-        backend = "flash"
-    except RuntimeError:
-        out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                             enable_gqa=gqa)
-        backend = "default (flash refused the shape)"
+            backend = "default (flash refused the shape)"
 
     def call():
         return torch.autograd.grad(out, leaves, do, retain_graph=True)
 
-    return call, call(), backend
+    dq, dk, dv = call()
+    if dk.shape[1] != hkv:
+        b, _, sk, d = dk.shape
+        dk, dv = (t.reshape(b, hkv, g, sk, d).sum(2) for t in (dk, dv))
+    return call, (dq, dk, dv), backend
 
 
-def time_bwd(shape: dict, gen) -> list:
+def time_bwd(shape: dict, gen, *, groups: int = 21, per_group: int = 20,
+             plain_groups: int = 11, plain_per_group: int = 5) -> list:
     """Both backward kernels at a bf16 training shape (causal unless
     ``shape["causal"]`` says otherwise; ``shape["sk"]`` keys when given):
-    checked against the plain version, then timed beside their bounds, the
-    plain version and SDPA's backward.  Returns the dq and dkv rows."""
+    checked against the plain version (past GRAD_RMS_KEYS keys also by
+    ``grad_excess``, which must refuse ``planted_grad_tiles``), then timed
+    beside their bounds, the plain version and SDPA's backward.  Returns
+    the dq and dkv rows."""
     b, h, hkv, s, d, window = (shape[x] for x in
                                ("b", "h", "hkv", "s", "d", "window"))
     causal, sk = shape.get("causal", True), shape.get("sk", s)
     q, k, v = qkv(gen, b, h, hkv, s, d, torch.bfloat16, sk)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    ok, err = compare_bwd(q, k, v, do, causal=causal, window=window)
+    want = []
+    ok, err, excess = compare_bwd(q, k, v, do, causal=causal, window=window,
+                                  want=want)
     if not ok:
-        raise AssertionError(f"training shape {shape}: backward error {err}")
+        raise AssertionError(f"training shape {shape}: backward error {err}, "
+                             f"rms excess {excess}")
+    extra = {}
+    if rms_bound_applies(q, k):
+        planted = planted_grad_tiles(want)
+        extra = {"rms_excess": dict(zip(("dq", "dk", "dv"), excess)),
+                 "rms_tol": GRAD_RMS_TOL, "rms_floor": GRAD_RMS_FLOOR,
+                 "planted_grad_tiles": planted}
+        if not all(p["caught"] for p in planted.values()):
+            raise AssertionError(f"training shape {shape}: a planted dK or "
+                                 f"dV tile passed the check: {planted}")
     out, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
     delta = (do.float() * out.float()).sum(-1)
     dq_ms = time_ms(lambda: FA.flash_attention_bwd_dq(
-        q, k, v, do, lse, delta, causal=causal, window=window))
+        q, k, v, do, lse, delta, causal=causal, window=window),
+        groups, per_group)
     dkv_ms = time_ms(lambda: FA.flash_attention_bwd_dkv(
-        q, k, v, do, lse, delta, causal=causal, window=window))
-    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, out, lse, do, causal, window), groups=11, per_group=5)
-    # the yardstick computes the same function only where the window does
-    # not cut the sequence
-    assert window == 0 or window >= s, shape
-    library, lib_grads, backend = sdpa_backward(q, k, v, do, hkv, causal)
-    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
-    library_ok = all(within(g, w, GRAD_TOL[torch.bfloat16])[0]
-                     for g, w in zip(lib_grads, want))
-    library_ms = time_ms(library)
+        q, k, v, do, lse, delta, causal=causal, window=window),
+        groups, per_group)
+    plain_ms = time_ms(lambda: plain_bwd(q, k, v, out, lse, do, causal,
+                                         window),
+                       plain_groups, plain_per_group,
+                       warmup=min(3, plain_groups))
+    library, lib_grads, backend = sdpa_backward(q, k, v, do, hkv, causal,
+                                                window)
+    library_ok = all(within(gl, w, GRAD_TOL[torch.bfloat16])[0]
+                     for gl, w in zip(lib_grads, want))
+    del lib_grads, want
+    library_ms = time_ms(library, groups, per_group)
 
     mask = dict(itemsize=2, causal=causal, window=window)
+    cut = 0 < window < s
     rows = []
     for name, products, (nbytes, flops), ms in (
             # q, k, v, dO, lse and delta read once; dq written once
@@ -1437,17 +1714,19 @@ def time_bwd(shape: dict, gen) -> list:
         emit("kernel_time", kernel=name,
              shape=dict(shape, dtype="bfloat16", causal=causal, sk=sk),
              bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
-             **{k: rows[-1][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")},
-             plain="flash_attention_bwd_ref: dq, dk and dv together",
+             **{k: rows[-1][k] for k in ROW_KEYS}, **extra,
+             plain=("flash_attention_bwd_groups_ref" if rows_plain(q, k)
+                    else "flash_attention_bwd_ref") +
+             ": dq, dk and dv together",
              library="scaled_dot_product_attention"
-                     f"{' (enable_gqa)' if hkv != h else ''}, backend "
-                     f"{backend}, backward under torch.autograd.grad: dq, dk "
-                     "and dv together",
+                     f"{' (enable_gqa)' if hkv != h and not cut else ''}"
+                     f"{' with an explicit boolean mask, k and v repeated' if cut else ''}"
+                     f", backend {backend}, backward under torch.autograd."
+                     "grad: dq, dk and dv together",
              library_agrees=library_ok,
-             timing="median of 21 groups of 20 back-to-back calls, CUDA "
-                    "events (plain: 11 groups of 5)")
+             timing=f"median of {groups} groups of {per_group} back-to-back "
+                    f"calls, CUDA events (plain: {plain_groups} of "
+                    f"{plain_per_group})")
     return rows
 
 
@@ -1890,6 +2169,11 @@ def phase_kernel_ssd() -> dict:
     # B and C strided views of xBC
     shapes = {arch: time_ssd(arch, shp, gen)
               for arch, shp in SSD_SERVE.items()}
+    # train_4k's 64 chunks
+    for name, shp in SSD_4K_SHAPES.items():
+        shapes[name] = time_ssd(name, shp, gen, token=False, groups=5,
+                                per_group=3, plain_groups=3,
+                                plain_per_group=1)
     main_shape = shapes["mamba2-1.3b"]
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -2015,49 +2299,13 @@ def phase_kernel_ssd_bwd() -> dict:
         raise AssertionError(f"the SSD backward disagrees with its plain "
                              f"version in {failures} of {cases} cases")
 
-    # the training shapes: one layer's backward of each model
-    shapes = {}
-    for arch, shp in SSD_TRAIN.items():
-        xb, a, bm, cm, _ = ssd_inputs(gen, **shp, dtype=torch.bfloat16,
-                                      real=True, strided=True)
-        dy = torch.randn(xb.shape, generator=gen,
-                         device="cuda").to(torch.bfloat16)
-        ok, err = compare_ssd_bwd(xb, a, bm, cm, None, dy, None, SSD_CHUNK)
-        if not ok:
-            raise AssertionError(f"{arch} training shape: backward error "
-                                 f"{err}")
-        kernel_ms = time_ms(lambda: SSD.ssd_scan_bwd(xb, a, bm, cm, dy,
-                                                     chunk=SSD_CHUNK),
-                            groups=11, per_group=5)
-        plain_ms = time_ms(lambda: ref.ssd_chunked_bwd_ref(
-            xb, a, bm, cm, SSD_CHUNK, None, dy, None), groups=5, per_group=3)
-        nbytes, flops = cost.ssd_bwd(**shp, chunk=SSD_CHUNK)
-        tb = nbytes / MEM_BYTES_PER_S * 1e3
-        to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
-        shapes[arch] = {"max_abs_err": err, "ms": kernel_ms,
-                        "plain_ms": plain_ms, "bound_ms": max(tb, to),
-                        "bound_by": "bytes" if tb >= to else "operations",
-                        "library_ms": None}
-        extra = {}
-        if arch == "mamba2-1.3b":
-            # the fp32 kernel (CUDA cores) on the same inputs in fp32: the
-            # card-vs-CPU checks' path, never a training path's
-            f32 = [v.float() for v in (xb, bm, cm, dy)]
-            extra["check_path_f32_ms"] = time_ms(
-                lambda: SSD.ssd_scan_bwd(f32[0], a, f32[1], f32[2], f32[3],
-                                         chunk=SSD_CHUNK),
-                groups=5, per_group=3)
-            del f32
-        emit("kernel_time", kernel="ssd_scan_bwd",
-             shape=dict(shp, arch=arch, chunk=SSD_CHUNK, dtype="bfloat16"),
-             bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
-             bound_fp32_ops_ms=flops / PEAK_FLOP_PER_S[torch.float32] * 1e3,
-             **shapes[arch], times_bound=kernel_ms / max(tb, to), **extra,
-             library="none: no PyTorch call computes the "
-             "SSD scan's backward", plain="ref.ssd_chunked_bwd_ref",
-             timing="median of 11 groups of 5 back-to-back calls, CUDA "
-                    "events (plain and the fp32 check path: 5 groups of 3)")
-        del xb, a, bm, cm, dy
+    # the training shapes: one layer's backward of each model; then
+    # train_4k's 64 chunks
+    shapes = {arch: time_ssd_bwd(arch, shp, gen, check_path=(
+        arch == "mamba2-1.3b")) for arch, shp in SSD_TRAIN.items()}
+    for name, shp in SSD_4K_SHAPES.items():
+        shapes[name] = time_ssd_bwd(name, shp, gen, groups=5, per_group=3,
+                                    plain_groups=3, plain_per_group=1)
     main_shape = shapes["mamba2-1.3b"]
     return {"name": "ssd_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
@@ -2066,6 +2314,57 @@ def phase_kernel_ssd_bwd() -> dict:
             **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
             "max_abs_err": max(worst.values()), "shapes": shapes}
+
+
+def time_ssd_bwd(name: str, shp: dict, gen, *, check_path: bool = False,
+                 groups: int = 11, per_group: int = 5, plain_groups: int = 5,
+                 plain_per_group: int = 3) -> dict:
+    """The bf16 SSD backward at one layer's training shape (real decay, B
+    and C strided views of xBC), held against ``ssd_chunked_bwd_ref`` and
+    launched twice for bit-equality, then timed beside its bound and the
+    plain version (no PyTorch call computes it); with ``check_path`` the
+    fp32 kernel (the card-vs-CPU checks' path) timed on the same inputs."""
+    xb, a, bm, cm, _ = ssd_inputs(gen, **shp, dtype=torch.bfloat16,
+                                  real=True, strided=True)
+    dy = torch.randn(xb.shape, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    ok, err = compare_ssd_bwd(xb, a, bm, cm, None, dy, None, SSD_CHUNK)
+    if not ok:
+        raise AssertionError(f"{name} training shape: backward error {err}")
+    kernel_ms = time_ms(lambda: SSD.ssd_scan_bwd(xb, a, bm, cm, dy,
+                                                 chunk=SSD_CHUNK),
+                        groups, per_group)
+    plain_ms = time_ms(lambda: ref.ssd_chunked_bwd_ref(
+        xb, a, bm, cm, SSD_CHUNK, None, dy, None), plain_groups,
+        plain_per_group, warmup=min(3, plain_groups))
+    nbytes, flops = cost.ssd_bwd(**shp, chunk=SSD_CHUNK)
+    tb = nbytes / MEM_BYTES_PER_S * 1e3
+    to = flops / PEAK_FLOP_PER_S[torch.bfloat16] * 1e3
+    row = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": max(tb, to),
+           "bound_by": "bytes" if tb >= to else "operations",
+           "library_ms": None}
+    extra = {}
+    if check_path:
+        # the fp32 kernel (CUDA cores) on the same inputs in fp32: the
+        # card-vs-CPU checks' path, never a training path's
+        f32 = [t.float() for t in (xb, bm, cm, dy)]
+        extra["check_path_f32_ms"] = time_ms(
+            lambda: SSD.ssd_scan_bwd(f32[0], a, f32[1], f32[2], f32[3],
+                                     chunk=SSD_CHUNK),
+            groups=5, per_group=3)
+        del f32
+    emit("kernel_time", kernel="ssd_scan_bwd",
+         shape=dict(shp, arch=name, chunk=SSD_CHUNK, dtype="bfloat16"),
+         bytes=nbytes, flops=flops, bound_bytes_ms=tb, bound_ops_ms=to,
+         bound_fp32_ops_ms=flops / PEAK_FLOP_PER_S[torch.float32] * 1e3,
+         **row, times_bound=kernel_ms / max(tb, to), **extra,
+         library="none: no PyTorch call computes the SSD scan's backward",
+         plain="ref.ssd_chunked_bwd_ref",
+         timing=f"median of {groups} groups of {per_group} back-to-back "
+                f"calls, CUDA events (plain: {plain_groups} of "
+                f"{plain_per_group}; the fp32 check path: 5 of 3)")
+    return row
 
 
 def pass_launches(cfg) -> tuple:
@@ -2953,14 +3252,18 @@ def check_backward_on_path(spec: dict = TRAIN,
         torch.cuda.synchronize()
     finally:
         FA.flash_attention_bwd, SSD.ssd_scan_bwd = kernel, ssd_kernel
-    failures, worst = 0, 0.0
+    failures, worst, excess = 0, 0.0, 0.0
     for (q, k, v, out, lse, do, causal, window), got in seen:
-        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
-                                           window)
+        want = plain_bwd(q, k, v, out, lse, do, causal, window)
         for g, w in zip(got, want):
             ok, err = within(g, w, GRAD_TOL[q.dtype])
             failures += not ok
             worst = max(worst, err)
+        if q.dtype == torch.bfloat16:
+            e = grad_excess(got, want)
+            excess = max(excess, e)
+            failures += rms_bound_applies(q, k) and e > GRAD_RMS_TOL
+        del want
     calls = len(seen)
     head_dims = sorted({q.shape[-1] for (q, *_), _ in seen})
     cross = sum(q.shape[2] != k.shape[2] for (q, k, *_), _ in seen)
@@ -2968,6 +3271,9 @@ def check_backward_on_path(spec: dict = TRAIN,
          calls=calls, calls_over_another_key_length=cross,
          head_dims=head_dims, failures=failures,
          max_abs_err=worst, tol=GRAD_TOL[torch.bfloat16],
+         batch=spec["batch"], seq=spec["seq"], rms_excess=excess,
+         rms_tol=(GRAD_RMS_TOL if spec["seq"] > GRAD_RMS_KEYS
+                  else "not applied at or below GRAD_RMS_KEYS keys"),
          ssd_calls=ssd["calls"], ssd_failures=ssd["failures"],
          ssd_max_abs_err=ssd["max_abs_err"])
     del trainer, seen
@@ -2990,7 +3296,7 @@ def check_backward_on_path(spec: dict = TRAIN,
 
 
 def train_vs_plain(spec: dict, strategy: str, kernel_losses: list = None,
-                   kernel_omegas: list = None) -> None:
+                   kernel_omegas: list = None, line: dict = None) -> None:
     """The first two (failure-free) steps again with the plain attention
     and SSD scan, against the same steps with the kernels (run here at
     ``spec``'s shape when not given)."""
@@ -3004,7 +3310,8 @@ def train_vs_plain(spec: dict, strategy: str, kernel_losses: list = None,
     omega_err = [float(((a - b).abs() / b.abs()).max())
                  for a, b in zip(kernel_omegas, plain_record["omegas"])]
     emit("train_vs_plain", arch=spec["arch"], strategy=strategy, steps=2,
-         batch=spec["batch"],
+         batch=spec["batch"], seq=spec["seq"],
+         layers=train_model_config(spec).num_layers, **(line or {}),
          loss_kernel=kernel_losses, loss_plain=plain_hist.loss,
          loss_rel_err=loss_err,
          omegas_kernel=[o.tolist() for o in kernel_omegas],
@@ -3270,8 +3577,10 @@ def phase_train_whisper() -> dict:
 def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
                       steps: int = FUSED_STEPS, schedule: dict = FUSED_SCHEDULE,
                       sizes: list = FUSED_SIZES, merges: int = 2,
-                      exact: bool = False, kept_cache=True) -> dict:
-    """``checkfree_plus`` at ``spec``'s full width in fused windows of 8
+                      exact: bool = False, kept_cache=True,
+                      strategy: str = "checkfree_plus",
+                      falling: bool = False) -> dict:
+    """``strategy`` at ``spec``'s full width in fused windows of 8
     (CUDA graphs replayed under ``set_sync_debug_mode("error")``) against
     the same run in eager steps; TRAIN's: the merge of stage 3 at wall 13
     cutting a window short and that of stage 2 at wall 25.  ``exact``: the
@@ -3280,14 +3589,16 @@ def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
     cache (then merges may allocate nothing) or must have emptied it; None:
     either, as the card's free memory decides (reported).  The aux column
     of the rings is reported beside the eager run's.
+    ``falling``: the fused run's last loss must lie below its first.
     Returns the launch counts of the fused run, with the graph's replays
     counted."""
     cfg = train_model_config(spec)
     tokens = spec["batch"] * spec["seq"]
+    halves = 2 if strategy == "checkfree_plus" else 1
     eager_hist, eager_launched, eager_record, eager_peak = train_run(
-        "checkfree_plus", steps, Forced(schedule), spec=spec)
+        strategy, steps, Forced(schedule), spec=spec)
     check_run(f"{phase} eager", eager_hist, eager_launched, steps=steps,
-              halves=2, merges=merges, schedule=schedule, spec=spec)
+              halves=halves, merges=merges, schedule=schedule, spec=spec)
 
     modes = []
     replay = torch.cuda.CUDAGraph.replay
@@ -3322,7 +3633,7 @@ def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
     torch.cuda.CUDAGraph.replay = recording
     try:
         hist, launched, record, peak = train_run(
-            "checkfree_plus", steps, Forced(schedule), spec=spec,
+            strategy, steps, Forced(schedule), spec=spec,
             setup=setup, window=FUSED_WINDOW)
     finally:
         torch.cuda.CUDAGraph.replay = replay
@@ -3341,8 +3652,8 @@ def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
     launched = {name: n + replayed.get(name, 0) - graph["captures"] *
                 graph["recorded_launches"].get(name, 0)
                 for name, n in counted.items()}
-    check_run(phase, hist, launched, steps=steps, halves=2, merges=merges,
-              schedule=schedule, spec=spec)
+    check_run(phase, hist, launched, steps=steps, halves=halves,
+              merges=merges, schedule=schedule, spec=spec)
     rows = np.concatenate(record["rings"])
     omegas = rows[:, OMEGAS:]
     grad_norm = rows[:, RECORD.index("grad_norm")]
@@ -3362,7 +3673,7 @@ def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
         and rows[:, RECORD.index("aux")].tolist() == eager_record["aux"])
     emit(phase, arch=cfg.name, layers=cfg.num_layers,
          stages=spec["stages"], params=cfg.param_count(), dtype=cfg.dtype,
-         masters="float32", strategy="checkfree_plus", batch=spec["batch"],
+         masters="float32", strategy=strategy, batch=spec["batch"],
          seq=spec["seq"], steps=steps, fuse_window=FUSED_WINDOW,
          schedule=schedule, window_sizes=window_sizes,
          dispatches=hist.dispatches, loss=hist.loss, loss_eager=eager_hist.loss,
@@ -3433,9 +3744,128 @@ def phase_train_fused(spec: dict = TRAIN, phase: str = "train_fused", *,
             set(modes) != {2}:
         problems.append(f"replays {graph['replays']} under sync debug modes "
                         f"{sorted(set(modes))} (2: error)")
+    if falling and not hist.loss[-1] < hist.loss[0]:
+        problems.append(f"the loss does not fall: {hist.loss}")
     if problems:
         raise AssertionError(f"{phase}: " + "; ".join(problems))
     return launched
+
+
+def plain_scores_gib(spec: dict) -> float:
+    """What the plain attention's autograd keeps in one pass of ``spec``:
+    two fp32 (B, Hq, S, S) tensors a layer (the masked scores and the
+    probabilities), GiB."""
+    cfg = train_model_config(spec)
+    return (2 * spec["batch"] * cfg.num_heads * spec["seq"] ** 2 * 4
+            * cfg.num_layers / 2 ** 30)
+
+
+def train_4k_main(card: str) -> dict:
+    """TRAIN_4K_MAIN through ``launch.train.main`` in-process, as a user
+    starts a run: its output captured; losses finite, the backward kernels
+    and Adam once a layer and step.  Returns its launches."""
+    cfg = get_config(TRAIN_4K["arch"])
+    steps = int(TRAIN_4K_MAIN[TRAIN_4K_MAIN.index("--steps") + 1])
+    out = io.StringIO()
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        hist = launch_train.main([*TRAIN_4K_MAIN, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = counts()
+    layers = cfg.num_layers
+    emit("train_4k", part="launch.train.main", argv=TRAIN_4K_MAIN,
+         loss=hist.loss, eval_loss=hist.eval_loss, failures=hist.failures,
+         launches=launched, wall_s=wall_s,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+         printed_lines=len(out.getvalue().splitlines()), nvidia_smi=card,
+         timing="wall_s: host clock around main, between two "
+                "synchronizes (its model build and set-up included)")
+    want = {"flash_attention_bwd_dq": layers * steps,
+            "flash_attention_bwd_dkv": layers * steps, "adam_sumsq": steps,
+            "adam_update": steps}
+    fwd = launched["flash_attention_fwd"]
+    if len(hist.loss) != steps or not all(math.isfinite(x)
+                                          for x in hist.loss) or \
+            any(launched[k] != n for k, n in want.items()) or \
+            fwd < layers * steps or fwd % layers or hist.failures:
+        raise AssertionError(f"train_4k through launch.train.main: losses "
+                             f"{hist.loss}, launches {launched}, failures "
+                             f"{hist.failures}")
+    return launched
+
+
+def phase_train_4k() -> dict:
+    """paper-llama-1.5b at full width and depth at 4,096 tokens (TRAIN_4K):
+    ``checkfree`` and ``checkfree_plus`` eagerly under train's schedules
+    (launches, failures, the step-2 merge against its plain version,
+    zeroed moments and the lr boost, finite gradients), each in fused
+    windows against the same steps eagerly (TRAIN_4K_FUSED, the loss
+    falling), once through ``launch.train.main``, the first two steps of
+    each strategy against the plain attention at TRAIN_4K_PLAIN_LAYERS,
+    and the backward kernels on the inputs of one full-depth
+    ``checkfree_plus`` step, held to GRAD_TOL and GRAD_RMS_TOL.  Returns
+    the launches of every counted run."""
+    spec, card = TRAIN_4K, smi()
+    cfg = train_model_config(spec)
+    tokens = spec["batch"] * spec["seq"]
+    total: dict = {}
+
+    def add(launched):
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+
+    for strategy, steps, schedule, merges, merge in (
+            ("checkfree", CHECKFREE_STEPS, CHECKFREE_SCHEDULE,
+             CHECKFREE_MERGES, (2, 2)),
+            ("checkfree_plus", PLUS_STEPS, PLUS_SCHEDULE, PLUS_MERGES,
+             (2, 3))):
+        hist, launched, record, peak = train_run(
+            strategy, steps, Forced(schedule), spec=spec, check_merge=merge)
+        check_run(f"train_4k {strategy}", hist, launched, steps=steps,
+                  halves=2 if strategy == "checkfree_plus" else 1,
+                  merges=merges, schedule=schedule, spec=spec)
+        check_finite_gradients("train_4k", record)
+        free = [i for i in range(steps) if i not in schedule]
+        step_ms = float(np.median([record["step_ms"][i] for i in free]))
+        emit("train_4k", part="eager", arch=cfg.name, layers=cfg.num_layers,
+             d_model=cfg.d_model, **model_shape(cfg), stages=spec["stages"],
+             params=cfg.param_count(), dtype=cfg.dtype, masters="float32",
+             strategy=strategy, batch=spec["batch"], seq=spec["seq"],
+             steps=steps, schedule=schedule, loss=hist.loss,
+             failures=hist.failures, recovery_errors=hist.recovery_errors,
+             launches=launched, merge_check=record["merge_check"],
+             step_ms=record["step_ms"], step_ms_median_failure_free=step_ms,
+             tokens_per_s=tokens / step_ms * 1e3,
+             grad_norm=record["grad_norm"],
+             recovery_ms=record["recovery_ms"],
+             merge_recovery_ms=[ms for _, st, ms in record["recovery_ms"]
+                                if st == 2][0],
+             peak_memory_gib=peak,
+             peak_reserved_gib=record["peak_reserved_gib"], nvidia_smi=card,
+             timing="host clock around Trainer.step ending in "
+                    "torch.cuda.synchronize(); median over the failure-free "
+                    f"steps {free}; recovery_ms: the strategy's handler, "
+                    "same clock")
+        add(launched)
+    for strategy, fused in TRAIN_4K_FUSED.items():
+        fused = dict(fused)
+        batch = fused.pop("batch", spec["batch"])
+        add(phase_train_fused(dict(spec, batch=batch), "train_4k",
+                              strategy=strategy, exact=False,
+                              kept_cache=None, falling=True, **fused))
+    add(train_4k_main(card))
+    plain = dict(spec, layers=TRAIN_4K_PLAIN_LAYERS)
+    for strategy in ("checkfree", "checkfree_plus"):
+        train_vs_plain(plain, strategy, line=dict(
+            layers_published=cfg.num_layers, cut="one layer a stage",
+            plain_scores_gib=plain_scores_gib(plain)))
+    check_backward_on_path(spec, "checkfree_plus")
+    return total
 
 
 @contextlib.contextmanager
@@ -4389,8 +4819,11 @@ def train_neighbor(spec: dict, work: str) -> dict:
 # a half on the host, one a microbatch here), so the losses are held as the
 # fused run's (FUSED_LOSS_TOL), the omegas as TRAIN_OMEGA_TOL, and the
 # recovery errors, squared distances between stages that differ by O(1)
-# elementwise, at 1e-3 relative
-SPMD = dict(TRAIN, microbatch=4, steps=12, window=4)
+# elementwise, at 1e-3 relative.  Cut to 12 of paper-llama-1.5b's 24
+# layers (two a rank) for train_4k's time: what the run checks (failures,
+# losses, omegas, recovery errors, the transfers a step, each rank's
+# launches) does not depend on the depth
+SPMD = dict(TRAIN, microbatch=4, steps=12, window=4, layers=12)
 SPMD_SCHEDULE = {5: [2], 9: [0]}
 SPMD_RECOVERY_TOL = 1e-3
 SPMD_RANK_TIMEOUT_S = 600.0
@@ -5260,18 +5693,122 @@ def remat_depth(arch: str, free: int) -> tuple:
                          f"{free / 1e9:.1f} GB")
 
 
+@contextlib.contextmanager
+def first_and_last_calls(mod, name: str, into: list):
+    """While inside, ``mod.<name>`` also keeps the arguments and outputs of
+    its first call and of its latest one (``into``: [first, last], each
+    (args, kwargs, outputs))."""
+    fn = getattr(mod, name)
+
+    def kept(*args, **kw):
+        got = fn(*args, **kw)
+        entry = (args, kw, got)
+        if not into:
+            into.extend([entry, entry])
+        into[1] = entry
+        return got
+
+    setattr(mod, name, kept)
+    try:
+        yield into
+    finally:
+        setattr(mod, name, fn)
+
+
+def remat_kernels_vs_plain(attn: list, ssd: list) -> dict:
+    """The first and last calls of one train_step's backward kernels held
+    against their plain versions on their own inputs: attention at
+    GRAD_TOL and, past GRAD_RMS_KEYS keys, GRAD_RMS_TOL; the SSD backward
+    at GRAD_TOL."""
+    out = {"attention_calls": 0, "attention_failures": 0,
+           "attention_max_abs_err": 0.0, "attention_rms_excess": 0.0,
+           "ssd_calls": 0, "ssd_failures": 0, "ssd_max_abs_err": 0.0}
+    for (q, k, v, o, lse, do), kw, got in attn:
+        want = plain_bwd(q, k, v, o, lse, do, kw["causal"], kw["window"])
+        bad = 0
+        for g, w in zip(got, want):
+            ok, err = within(g, w, GRAD_TOL[q.dtype])
+            bad += not ok
+            out["attention_max_abs_err"] = max(out["attention_max_abs_err"],
+                                               err)
+        excess = grad_excess(got, want)
+        key = ("attention_rms_excess" if rms_bound_applies(q, k)
+               else "attention_rms_excess_not_held")
+        out[key] = max(out.get(key, 0.0), excess)
+        bad += rms_bound_applies(q, k) and excess > GRAD_RMS_TOL
+        out["attention_calls"] += 1
+        out["attention_failures"] += bad > 0
+        del want
+    for (xb, a, bm, cm, dy), kw, got in ssd:
+        want = ref.ssd_chunked_bwd_ref(xb, a, bm, cm, kw["chunk"],
+                                       kw.get("init_state"), dy,
+                                       kw.get("dfinal"))
+        bad = 0
+        for g, w in zip(got[:4], want[:4]):
+            ok, err = within(g, w, GRAD_TOL[xb.dtype])
+            bad += not ok
+            out["ssd_max_abs_err"] = max(out["ssd_max_abs_err"], err)
+        out["ssd_calls"] += 1
+        out["ssd_failures"] += bad > 0
+        del want
+    return out
+
+
+def remat_routing(model, plan, params, state, data, total: dict) -> dict:
+    """An MoE model's routing in two kernel train_steps from the same
+    weights (lr 0: Adam moves its moments, never the weights), each
+    layer's forward and its recompute in the backward: every (topi, keep)
+    bit-equal to the first step's forward.  Adam's moments and count are
+    then zeroed again, as before the two steps."""
+    cfg = model.cfg
+    routes: list = [[], []]
+    route_fn = MOE.route
+    for into in routes:
+        MOE.route = recording_routes(route_fn, into)
+        try:
+            run = remat_step(model, plan, OptimizerConfig(lr=0.0), params,
+                             state, data, "nothing")
+        finally:
+            MOE.route = route_fn
+        del run["grads"]
+        for k, n in run["launches"].items():
+            total[k] = total.get(k, 0) + n
+    with torch.no_grad():
+        for t in (*state.m, *state.v, state.step):
+            t.zero_()
+    # the backward recomputes the layers from the last to the first
+    n = cfg.num_layers
+    first = routes[0][:n]
+    drift = {"step2_forward": routing_drift(first, routes[1][:n]),
+             "step1_recompute": routing_drift(first, routes[0][n:][::-1]),
+             "step2_recompute": routing_drift(first, routes[1][n:][::-1])}
+    out = {k: {x: d[x] for x in ("layers", "decisions", "differ")}
+           for k, d in drift.items()}
+    out["calls"] = [len(r) for r in routes]
+    return out
+
+
 def remat_full_depth(cfg, rec: dict, total: dict) -> None:
     """REMAT_STEPS dry-run train_steps on the card ("nothing"), held
-    against the estimate ``rec``."""
+    against the estimate ``rec``; one more step whose first and last
+    backward kernel calls are held against their plain versions; for MoE,
+    first ``remat_routing``."""
+    seq = REMAT_FULL_SEQ
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     model, params, state, data, plan = remat_inputs(cfg, REMAT_FULL_BATCH,
-                                                    REMAT_FULL_SEQ)
+                                                    seq)
     held = sum(t.untyped_storage().nbytes() for t in
                [*TR.leaves(params), *state.m, *state.v, state.step,
                 *data.values()])
     other = torch.cuda.memory_allocated() - before - held
-    ocfg = OptimizerConfig(warmup_steps=1, schedule="constant")
+    routing = (remat_routing(model, plan, params, state, data, total)
+               if cfg.arch_type == "moe" else None)
+    # the Trainer's default schedule (lr warmed up over 20 steps): at 4,096
+    # tokens a full lr of 3e-4 from the second step overshoots gemma-2b's
+    # first Adam steps from random weights (its loss rose from 12.10 to
+    # 13.36 at the third step on an NVIDIA H100 80GB HBM3, 700 W)
+    ocfg = OptimizerConfig(total_steps=REMAT_STEPS)
     losses, ms, launches, peaks = [], [], [], []
     for _ in range(REMAT_STEPS):
         run = remat_step(model, plan, ocfg, params, state, data, "nothing")
@@ -5288,16 +5825,27 @@ def remat_full_depth(cfg, rec: dict, total: dict) -> None:
     # the steps' own peaks, from a reset before each step to its end
     peak = max(peaks) - before - other
     reserved = torch.cuda.max_memory_reserved()
+    # one more step, its kernels' first and last calls kept and held
+    # against their plain versions on their own inputs
+    attn, ssd = [], []
+    with first_and_last_calls(FA, "flash_attention_bwd", attn), \
+            first_and_last_calls(SSD, "ssd_scan_bwd", ssd):
+        run = remat_step(model, plan, ocfg, params, state, data, "nothing")
+    del run["grads"]
+    for k, n in run["launches"].items():
+        total[k] = total.get(k, 0) + n
+    checked = remat_kernels_vs_plain(attn, ssd)
+    del attn, ssd
     est = rec["memory"]["peak_est_B"]
     step_ms = float(np.median(ms[1:]))
-    tokens = REMAT_FULL_BATCH * REMAT_FULL_SEQ
+    tokens = REMAT_FULL_BATCH * seq
     predicted = dict(rec["kernels"])
     emit("train_remat", part="full_depth", arch=cfg.name,
          layers=cfg.num_layers,
          layers_published=get_config(cfg.name).num_layers,
          cut=cfg.num_layers != get_config(cfg.name).num_layers,
          d_model=cfg.d_model, **model_shape(cfg), params=cfg.param_count(),
-         batch=REMAT_FULL_BATCH, seq=REMAT_FULL_SEQ, policy="nothing",
+         batch=REMAT_FULL_BATCH, seq=seq, policy="nothing",
          loss=losses, step_ms=ms, step_ms_median_after_first=step_ms,
          tokens_per_s=tokens / step_ms * 1e3, launches=launches,
          max_memory_allocated_gib=peak / 2**30,
@@ -5307,6 +5855,8 @@ def remat_full_depth(cfg, rec: dict, total: dict) -> None:
          estimate_flops=rec["cost"]["flops_per_dev"],
          flops_bound_ms=rec["roofline"]["compute_s"] * 1e3,
          bytes_bound_ms=rec["roofline"]["memory_s"] * 1e3,
+         kernels_vs_plain=checked, grad_tol=GRAD_TOL[torch.bfloat16],
+         grad_rms_tol=[GRAD_RMS_TOL, GRAD_RMS_KEYS], routing=routing,
          nvidia_smi=smi(),
          timing="host clock around the dry-run's train_step ending in "
                 "torch.cuda.synchronize(); median of the steps after the "
@@ -5318,11 +5868,23 @@ def remat_full_depth(cfg, rec: dict, total: dict) -> None:
         raise AssertionError(f"train_remat {cfg.name}: the estimate's peak "
                              f"{est / 2**30:.2f} GiB against "
                              f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    for n in launches:
+    for n in [*launches, run["launches"]]:
         got = {k: v for k, v in n.items() if v}
         if got != predicted:
             raise AssertionError(f"train_remat {cfg.name}: launches {got}, "
                                  f"the dry-run's {predicted}")
+    attention, ssd_layers = pass_launches(cfg)
+    if checked["attention_calls"] != 2 * (attention > 0) or \
+            checked["ssd_calls"] != 2 * (ssd_layers > 0) or \
+            checked["attention_failures"] or checked["ssd_failures"]:
+        raise AssertionError(f"train_remat {cfg.name}: the first and last "
+                             f"backward calls against plain: {checked}")
+    if routing is not None and any(
+            routing[k]["differ"] or routing[k]["layers"] != cfg.num_layers
+            for k in ("step2_forward", "step1_recompute",
+                      "step2_recompute")):
+        raise AssertionError(f"train_remat {cfg.name}: two kernel steps "
+                             f"routed apart: {routing}")
     del model, params, state, data
     gc.collect()
     torch.cuda.empty_cache()
@@ -5671,6 +6233,7 @@ def main() -> int:
     phase_train_model()
     trained = {"train": phase_train(),
                "train_fused": phase_train_fused(),
+               "train_4k": phase_train_4k(),
                "train_telemetry": phase_train_telemetry(),
                "train_elastic": phase_train_elastic(),
                "train_gemma": phase_train_checkfree(TRAIN_GEMMA,

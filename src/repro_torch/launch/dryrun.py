@@ -462,6 +462,7 @@ def _estimate(cfg: ModelConfig, plan: Dict[str, Any], mesh: SH.MeshSpec,
             p.requires_grad_(True)
         state = init_state(params)
         arg_b *= 3                      # fp32 masters, m and v
+        arg_b += state.step.element_size()  # Adam's count, replicated
         batch = batch_inputs(cfg, plan, b_dev)
         arg_b += sum(_bytes((gb, *t.shape[1:]), t.element_size(),
                             SH.batch_spec((gb, *t.shape[1:]), mesh), mesh)

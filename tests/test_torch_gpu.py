@@ -2394,3 +2394,114 @@ def test_granite_in_groups_of_4096_on_card_matches_cpu(monkeypatch):
     ref_rows = want.reshape(-1, cfg.vocab_size)[clean.reshape(-1)]
     err = float((got - ref_rows).abs().max())
     assert err <= 1e-3 * (1 + float(want.abs().max())), err
+
+
+# chip_smoke's bound for bf16 gradients past 2,048 keys: |g - w| within
+# 2**-7 |w| + GRAD_RMS_TOL x the rms of w's row (floored at GRAD_RMS_FLOOR
+# of the whole gradient's rms: dQ's first causal row is exactly 0)
+GRAD_RMS_TOL, GRAD_RMS_FLOOR = 2 ** -3, 2 ** -5
+
+
+def _grad_rms_excess(g, w):
+    g, w = g.float(), w.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(
+        GRAD_RMS_FLOOR * float(w.pow(2).mean().sqrt()))
+    return float((((g - w).abs() - 2 ** -7 * w.abs()) / rms).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,window", [(4096, 0), (4160, 4096)])
+def test_backward_past_2048_keys_matches_plain(dtype, s, window):
+    """dq, dk and dv at train_4k's 4,096 tokens, and at 4,160 with a
+    window of 4,096 that masks (B 1, 8 query heads on 2 kv heads of 128,
+    causal): against the plain backward one kv head's group at a time, at
+    the backward's tolerances and, in bf16, chip_smoke's per-row bound."""
+    q, k, v = qkv(47, 1, 8, 2, s, 128, dtype)
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(
+        5), device="cuda").to(dtype)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    before = (FA.launches_dq, FA.launches_dkv)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert (FA.launches_dq, FA.launches_dkv) == (before[0] + 1,
+                                                 before[1] + 1)
+    want = ref.flash_attention_bwd_groups_ref(q, k, v, out, lse, do, True,
+                                              window)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 3e-2}[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g.float()).all())
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= tol * (1 + w.float().abs())).all()), \
+            float(err.max())
+        if dtype == torch.bfloat16:
+            excess = _grad_rms_excess(g, w)
+            assert excess <= GRAD_RMS_TOL, excess
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_over_64_chunks_matches_plain(dtype):
+    """The SSD backward over T 4,096 (64 chunks of 64), B 1, 4 heads of P
+    64, N 128, mamba2's decay range: against ``ssd_chunked_bwd_ref``, two
+    launches bit-equal."""
+    g = torch.Generator("cuda").manual_seed(9)
+    b, t, h, p, n = 1, 4096, 4, 64, 128
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, t, h), generator=g, device="cuda") - 3.0)
+    a = dt * -torch.linspace(1.0, 16.0, h, device="cuda")
+    xb = (torch.randn((b, t, h, p), generator=g, device="cuda")
+          * dt[..., None]).to(dtype)
+    bm, cm = (torch.randn((b, t, 1, n), generator=g, device="cuda")
+              .to(dtype) for _ in range(2))
+    dy = torch.randn((b, t, h, p), generator=g, device="cuda").to(dtype)
+    got = SSD.ssd_scan_bwd(xb, a, bm, cm, dy, chunk=64)
+    again = SSD.ssd_scan_bwd(xb, a, bm, cm, dy, chunk=64)
+    want = ref.ssd_chunked_bwd_ref(xb, a, bm, cm, 64, None, dy, None)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 3e-2}[dtype]
+    for x, y, w in zip(got[:4], again[:4], want[:4]):
+        assert torch.equal(x, y) and x.dtype == w.dtype
+        err = (x.float() - w.float()).abs()
+        assert bool((err <= tol * (1 + w.float().abs())).all()), \
+            float(err.max())
+    assert got[4] is None
+
+
+@pytest.mark.gpu
+def test_paper_llama_at_4096_tokens_trains_on_card_as_on_cpu():
+    """paper-llama-1.5b at full width cut to 2 layers, fp32, two Adam
+    steps at 1 x 4,096 tokens on the card (the kernels) and on the CPU
+    (the plain versions) from the same parameters: losses and parameters
+    within 1e-3 * (1 + |w|) (chip_smoke's TRAIN_MODEL_TOL)."""
+    from repro_torch import tree as TR
+    from repro_torch.config import (OptimizerConfig, RecoveryConfig,
+                                    TrainConfig)
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.pipeline import make_batches
+
+    cfg = get_config("paper-llama-1.5b").replace(num_layers=2,
+                                                 dtype="float32")
+    tcfg = TrainConfig(global_batch=1, microbatch=1, seq_len=4096, steps=2,
+                       eval_every=2, fuse_window=1,
+                       optimizer=OptimizerConfig(total_steps=2),
+                       recovery=RecoveryConfig(strategy="checkfree",
+                                               num_stages=2))
+    params = Model(cfg, device="cpu", weights=False).init(
+        torch.Generator().manual_seed(0))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        before = FA.launches_dq
+        trainer = Trainer(Model(cfg, device=device, weights=False), tcfg)
+        state, hist = trainer.run(make_batches(cfg, batch=1, seq=4096),
+                                  params=TR.clone(params))
+        if device == "cuda":
+            assert FA.launches_dq - before == 2 * cfg.num_layers
+        runs[device] = (hist.loss, [t.detach().cpu() for t in
+                                    TR.leaves(state.params)])
+        del trainer, state
+    (card_loss, card_p), (cpu_loss, cpu_p) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-3, atol=1e-3)
+    for a, b in zip(card_p, cpu_p):
+        err = (a - b).abs()
+        assert bool((err <= 1e-3 * (1 + b.abs())).all()), float(err.max())
