@@ -35,8 +35,10 @@ result.  Phases:
              h2o-danube-3-4b's 32/8 group with its 4096 window at D 120;
              past 2,048 keys, from a generator of their own: S 4,096 at
              every head dim (32/8), gemma-2b's 8/1 x 256, granite's 24/8 x
-             64 and danube's 32/8 x 120 at S 4,160, where its window of
-             4,096 masks, the plain backward one kv head's group at a time
+             64, danube's 32/8 x 120 at S 4,160, where its window of
+             4,096 masks, and deepseek-coder-33b's 56/8 (a group of 7, also
+             swept at S 333 and 1,000 as 14/2 and 7/1) and internvl2-76b's
+             64/8 x 128, the plain backward one kv head's group at a time
              above PLAIN_ROWS_BYTES of scores, bf16 also held row by row
              to GRAD_RMS_TOL;
              timed at four training shapes, B 4 x 512: paper-llama-1.5b
@@ -126,34 +128,39 @@ result.  Phases:
              layers, 62.11 GiB of bf16 weights) the same way.
 5c. serve_long — the flash forward timed at qwen3-4b's prefill_32k layer
              (B 1, S 32,768, 32/8 x 128, causal), h2o-danube-3-4b's ring
-             prefill (B 8, S 8,160, a window of 4,096 that masks, D 120;
+             prefill (B 1, S 32,768, a window of 4,096 that masks, D 120;
              SDPA with an explicit boolean mask, its backend named),
-             gemma-2b's (B 1, S 32,768, 8/1 x 256) and
-             granite-moe-3b-a800m's (24/8 x 64), and the SSD scan at T
-             32,768 (512 chunks) at mamba2-1.3b's and zamba2-2.7b's widths,
-             each beside its bound, its plain version (over blocks of
-             query rows, or a batch row at a time) and the library call;
+             gemma-2b's (B 1, S 32,768, 8/1 x 256),
+             granite-moe-3b-a800m's (24/8 x 64) and deepseek-coder-33b's
+             ring prefill (B 1, S 8,192, 56/8 x 128), and the SSD scan at
+             T 32,768 (512 chunks) at mamba2-1.3b's and zamba2-2.7b's
+             widths, each beside its bound, its plain version (over blocks
+             of query rows, or a batch row at a time) and the library call;
              the attention also held to 2^-7·|w| + SERVE_RMS_TOL of the
              row's rms, which must refuse the plain output with one key
              tile of V read from the next (``planted_v_tiles``).  Then
              the dry-run's serving shapes served for real through
-             ``phase_serve`` (SERVE_LONG): qwen3-4b, gemma-2b and
-             zamba2-2.7b with a full cache (32,736 prompt tokens + 32 new:
-             prefill_32k and decode_32k), granite-moe-3b-a800m and
-             deepseek-moe-16b the same from 32,768 tokens (8 routing
-             groups of 4,096 a row), qwen3-4b and zamba2-2.7b from an
-             SWA-serving ring of 8,192 that wraps on the first decode step
-             (long_500k's dense and hybrid variants), h2o-danube-3-4b's
-             8,160 tokens into its native ring of 4,096, and mamba2-1.3b
-             at 32,768 tokens (native SSM state).  Each also against the
-             dry-run's --mesh 1x1 estimate of its prefill and decode plans
+             ``phase_serve`` (SERVE_LONG), consecutive runs of one model on
+             one build: qwen3-4b, gemma-2b and zamba2-2.7b with a full
+             cache (32,736 prompt tokens + 32 new: prefill_32k and
+             decode_32k), granite-moe-3b-a800m and deepseek-moe-16b the
+             same from 32,768 tokens (8 routing groups of 4,096 a row),
+             qwen3-4b, gemma-2b, granite-moe-3b-a800m, deepseek-moe-16b,
+             zamba2-2.7b and deepseek-coder-33b (all 62 layers, on
+             serve_deepseek_coder's build) from an SWA-serving ring of
+             8,192 that wraps on the first decode step (long_500k's dense
+             and hybrid variants), h2o-danube-3-4b's 32,768 tokens into
+             its native ring of 4,096, and mamba2-1.3b at 32,768 tokens
+             (native SSM state).  Each also against the dry-run's --mesh
+             1x1 estimate of its prefill and decode plans
              (``max_memory_allocated()`` of each step within
              REMAT_PEAK_TOL); mamba2-1.3b and zamba2-2.7b, where the
              bf16 prefills differ past the limit, against an fp32 prefill
              with the plain versions (ROADMAP queue 2, note c);
-             the MoE ones against ``moe_fp32_reference`` where the fp32
-             prefill's estimate fits the card (the row says why not
-             otherwise).
+             granite's ring against ``moe_fp32_reference`` (the other MoE
+             runs say why not).  Each ring's cache then decodes 16 tokens
+             from position 524,280, across 2^19 (long_500k's positions):
+             ms a token, logits finite, tokens in the vocabulary.
 6. train_model — the same 2-layer fp32 cut, two Adam steps of the Trainer on
              the card (kernels) and on the CPU (plain versions) from the same
              parameters: loss and parameters agree.
@@ -336,18 +343,20 @@ result.  Phases:
              flash forward twice a layer under "nothing", once under
              "dots").  Then the dry-run's estimate at ``--mesh 1x1`` (meta
              tensors) of paper-llama-1.5b at 4 layers, batch 8 x 512, and
-             of REMAT_FULL's seven models (qwen3-4b, h2o-danube-3-4b,
+             of REMAT_FULL's ten models (qwen3-4b, h2o-danube-3-4b,
              gemma-2b, mamba2-1.3b, zamba2-2.7b, granite-moe-3b-a800m,
-             whisper-large-v3) at full depth, train_4k's batch 1 x 4,096,
-             and three
-             train_steps of each on the card at the depth the estimate
-             says fits: finite gradients, a falling loss, the kernels'
+             whisper-large-v3 at full depth; deepseek-coder-33b,
+             deepseek-moe-16b and internvl2-76b at the largest depth whose
+             estimate fits, found by ``DR.deepest_fit`` from a few
+             estimates), train_4k's batch 1 x 4,096, and three
+             train_steps of each on the card at that depth: finite
+             gradients, a falling loss, the kernels'
              launches equal to the dry-run's kernel calls, the estimate's
              peak within REMAT_PEAK_TOL of ``max_memory_allocated()``; one
              more step whose first and last attention and SSD backward
              calls are held against their plain versions on their own
-             inputs (GRAD_TOL, GRAD_RMS_TOL); granite's routing in two
-             kernel steps from the same weights, forward and recompute,
+             inputs (GRAD_TOL, GRAD_RMS_TOL); the MoE models' routing in
+             two kernel steps from the same weights, forward and recompute,
              bit-equal; ms a step, tokens/s, peak allocated and reserved.
 10e. train_guarded — paper-llama-124m at full width and depth (12 layers,
              4 stages of 3, batch 8 x 512, bf16), ``checkfree`` in fused
@@ -376,13 +385,16 @@ The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
 import importlib.util
 import io
+import itertools
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -813,16 +825,29 @@ REMAT_TOL = 1e-5                                # x (1 + |remat-off value|)
 # fits), train_4k's batch 1 x 4,096, "nothing"; the estimate's peak within
 # REMAT_PEAK_TOL of max_memory_allocated(); a model fits where its
 # estimate, grown by REMAT_PEAK_TOL, fits the card's free memory.  Every
-# family the card holds at full depth (deepseek-moe-16b's 259.88 GiB and
-# internvl2-76b's 76 B parameters do not fit); whisper-large-v3's config
+# family at full depth, and the three that one card holds only cut in
+# depth (``remat_depth``: deepseek-coder-33b, 62 layers at ~7.9 GiB a
+# layer, and its GQA group of 7; deepseek-moe-16b, 259.88 GiB whole,
+# routing each row of 4,096 as one group; internvl2-76b, 80 layers at
+# ~12.8 GiB, 256 patches before 3,840 tokens); whisper-large-v3's config
 # extends its decoder's positions to 4,096 for train_4k, as JAX's does
 # (configs/whisper_large_v3.py:29)
 REMAT_FULL = ("qwen3-4b", "h2o-danube-3-4b", "gemma-2b", "mamba2-1.3b",
-              "zamba2-2.7b", "granite-moe-3b-a800m", "whisper-large-v3")
+              "zamba2-2.7b", "granite-moe-3b-a800m", "whisper-large-v3",
+              "deepseek-coder-33b", "deepseek-moe-16b", "internvl2-76b")
 REMAT_FULL_BATCH, REMAT_FULL_SEQ, REMAT_STEPS = 1, 4096, 3
 REMAT_ESTIMATE_CUT = dict(arch="paper-llama-1.5b", layers=4, batch=8,
                           seq=512)
 REMAT_PEAK_TOL = 0.10
+# a depth fits where its estimate, grown by REMAT_PEAK_TOL, and this much
+# room for the allocator's blocks fit the card's free memory: the estimate
+# counts allocated bytes, and at deepseek-coder-33b's 8 layers (70.54 GiB
+# estimated, 78.36 GiB free) the step failed to allocate a 4.10 GiB
+# stacked gradient beside 66.44 GiB allocated and 8.06 GiB reserved but
+# unallocated; at 7 layers (63.2 GiB) it ran, reserving 76.2 GiB of 77.03
+# free (an NVIDIA H100 80GB HBM3, 700 W).  4 GiB cut qwen3-4b to 35 of its
+# 36 layers at 77.03 GiB free (66.46 GiB estimated at 36, 73.1 grown)
+REMAT_FIT_SLACK_GIB = 3.0
 # train_guarded: examples/train_with_failures.py --full's model at full
 # width and depth, checkfree in windows of 8, stage 2 failing at step 16;
 # the whole Trainer.run under repro_torch.analysis.runtime.guarded(), and
@@ -864,45 +889,68 @@ PLAIN_BLOCK_BYTES = 2 ** 30
 # attention over 32,736 tokens is 8.8 TFLOP a layer and batch row,
 # 0.51-0.60 s on an H100 at batch 1, ~20 s over 36 layers.  The SWA-serving
 # prompts are the window, so the ring wraps on the first decode step
-# (long_500k's dense variant, and the hybrid's native-ssm+swa-shared-attn);
-# danube's 8,160 tokens wrap its native ring of 4,096 in the prefill.  The
-# MoE prompts are the dry-run's 32,768 (capacity 32,800 with the new
+# (long_500k's dense variant, batch 1 as the dry-run's, and the hybrid's
+# native-ssm+swa-shared-attn); danube's 32,768 tokens (the dry-run's
+# prefill_32k) wrap its native ring of 4,096 eight times in the prefill.
+# The MoE prompts are the dry-run's 32,768 (capacity 32,800 with the new
 # tokens): ``_group_size`` takes the largest power of two up to 4,096 that
 # divides the row, and 32,736 = 2^5 x 1,023 would route in groups of 32,
 # where 32,768 routes in 8 groups of 4,096 a row as the dry-run plans.
-# The batches of qwen3-4b's ring (4 until PR 31), danube's ring (8) and
-# mamba2-1.3b (4) halved for train_4k's time
+# Consecutive runs of one model share one build (``serve_on_one_build``).
+# The MoE fp32 reference runs where ``fp32_reference`` says (granite's
+# ring: its fp32 prefill at 32k took most of a 48.9 s run; deepseek-moe-
+# 16b's fp32 tree does not fit beside a 32k prefill).  qwen3-4b's ring and
+# mamba2-1.3b at batch 2, halved from 4 for train_4k's time
 SERVE_LONG = (
     dict(arch="qwen3-4b", shapes=("prefill_32k", "decode_32k"), batch=1,
          prompt=32736, new_tokens=32, window=0),
     dict(arch="qwen3-4b", shapes=("prefill_32k", "long_500k"), batch=2,
          prompt=8192, new_tokens=32, window=8192),
     dict(arch="h2o-danube-3-4b", shapes=("prefill_32k", "long_500k"),
-         batch=4, prompt=8160, new_tokens=32, window=4096),
+         batch=1, prompt=32768, new_tokens=32, window=4096),
     dict(arch="mamba2-1.3b", shapes=("prefill_32k", "decode_32k"), batch=2,
          prompt=32768, new_tokens=32, window=0),
     dict(arch="gemma-2b", shapes=("prefill_32k", "decode_32k"), batch=1,
          prompt=32736, new_tokens=32, window=0),
+    dict(arch="gemma-2b", shapes=("prefill_32k", "long_500k"), batch=1,
+         prompt=8192, new_tokens=32, window=8192),
     dict(arch="granite-moe-3b-a800m", shapes=("prefill_32k", "decode_32k"),
          batch=1, prompt=32768, new_tokens=32, window=0),
+    dict(arch="granite-moe-3b-a800m", shapes=("prefill_32k", "long_500k"),
+         batch=1, prompt=8192, new_tokens=32, window=8192,
+         fp32_reference=True),
     dict(arch="deepseek-moe-16b", shapes=("prefill_32k", "decode_32k"),
          batch=1, prompt=32768, new_tokens=32, window=0),
+    dict(arch="deepseek-moe-16b", shapes=("prefill_32k", "long_500k"),
+         batch=1, prompt=8192, new_tokens=32, window=8192),
     dict(arch="zamba2-2.7b", shapes=("prefill_32k", "decode_32k"), batch=1,
          prompt=32736, new_tokens=32, window=0),
     dict(arch="zamba2-2.7b", shapes=("prefill_32k", "long_500k"), batch=1,
          prompt=8192, new_tokens=32, window=8192),
 )
+# deepseek-coder-33b's long_500k ring (all 62 layers), served on the build
+# of serve_deepseek_coder; its 32k shapes wait (a full cache of 32,768
+# estimates 75.37 GiB, over the card with REMAT_PEAK_TOL)
+SERVE_LONG_CODER = dict(arch="deepseek-coder-33b",
+                        shapes=("prefill_32k", "long_500k"), batch=1,
+                        prompt=8192, new_tokens=32, window=8192)
+# each ring's cache then decodes LONG_DECODE_STEPS tokens from position
+# LONG_DECODE_POS, across 2^19 (long_500k's 524,288)
+LONG_DECODE_POS, LONG_DECODE_STEPS = 524_280, 16
 # the kernels timed at serve_long's shapes: qwen3-4b's prefill_32k layer
-# (causal, SDPA with enable_gqa as the yardstick), h2o-danube-3-4b's ring
-# prefill (a window of 4,096 that masks over 8,160 tokens), gemma-2b's MQA
-# at head dim 256 and granite-moe-3b-a800m's 24/8 x 64 over 32,768 tokens;
-# the SSD scan at mamba2-1.3b's and zamba2-2.7b's widths over 32,768 tokens
-# (512 chunks)
+# (causal, SDPA with enable_gqa as the yardstick), h2o-danube-3-4b's
+# prefill_32k into its ring (a window of 4,096 that masks over 32,768
+# tokens), gemma-2b's MQA at head dim 256 and
+# granite-moe-3b-a800m's 24/8 x 64 over 32,768 tokens, deepseek-coder-33b's
+# 56/8 x 128 over its ring prefill of 8,192; the SSD scan at mamba2-1.3b's
+# and zamba2-2.7b's widths over 32,768 tokens (512 chunks)
 LONG_ATTN_SHAPES = {
     "s32768": dict(b=1, h=32, hkv=8, s=32768, d=128, window=0),
-    "d120_s8160_w4096": dict(b=8, h=32, hkv=8, s=8160, d=120, window=4096),
+    "d120_s32768_w4096": dict(b=1, h=32, hkv=8, s=32768, d=120,
+                              window=4096),
     "d256_s32768": dict(b=1, h=8, hkv=1, s=32768, d=256, window=0),
     "d64_s32768": dict(b=1, h=24, hkv=8, s=32768, d=64, window=0),
+    "g7_s8192": dict(b=1, h=56, hkv=8, s=8192, d=128, window=0),
 }
 LONG_SSD_SHAPES = {
     "mamba2-1.3b T 32768": dict(b=4, t=32768, h=64, p=64, g=1, n=128),
@@ -917,13 +965,17 @@ LONG_SSD_SHAPES = {
 # the window first masks (keys after a query's 4,096th back are hidden)
 LONG_BWD_S = 4096
 LONG_BWD_WINDOW = (4160, 4096)
+# and at the groups that train first past 2,048 keys in train_remat:
+# deepseek-coder-33b's 56/8 (a group of 7) and internvl2-76b's 64/8, x 128
+LONG_BWD_GROUPS = ((56, 8, 128), (64, 8, 128))
 # the backward kernels timed at the layer shapes of a train_4k step, B 1 x
 # 4,096 (checkfree_plus's half of paper-llama-1.5b's batch of 2; one row of
 # the dry-run's remat runs): paper-llama-1.5b, qwen3-4b, gemma-2b,
 # h2o-danube-3-4b (its window of 4,096, which masks nothing at 4,096 and
-# does at 4,160), granite-moe-3b-a800m, zamba2-2.7b's shared attention, and
+# does at 4,160), granite-moe-3b-a800m, zamba2-2.7b's shared attention,
 # whisper-large-v3's decoder self-attention (causal) and cross-attention
-# (4,096 rows over its 1500 frames) at 4,096 tokens
+# (4,096 rows over its 1500 frames) at 4,096 tokens, deepseek-coder-33b's
+# 56/8 and internvl2-76b's 64/8 (its 256 patches and 3,840 tokens)
 TRAIN_4K_ATTN_SHAPES = {
     "llama_s4096": dict(b=1, h=16, hkv=16, s=4096, d=128, window=0),
     "qwen3_s4096": dict(b=1, h=32, hkv=8, s=4096, d=128, window=0),
@@ -936,6 +988,8 @@ TRAIN_4K_ATTN_SHAPES = {
     "whisper_dec_s4096": dict(b=1, h=20, hkv=20, s=4096, d=64, window=0),
     "whisper_cross_4096x1500": dict(b=1, h=20, hkv=20, s=4096, sk=1500, d=64,
                                     window=0, causal=False),
+    "deepseek_coder_s4096": dict(b=1, h=56, hkv=8, s=4096, d=128, window=0),
+    "internvl2_s4096": dict(b=1, h=64, hkv=8, s=4096, d=128, window=0),
 }
 # the SSD scan and its backward over 64 chunks (T 4,096), B 1, at
 # mamba2-1.3b's and zamba2-2.7b's widths
@@ -967,6 +1021,9 @@ TRAIN_4K_PLAIN_LAYERS = 6
 # seconds by phase name: the time from the line before to each line,
 # credited to the line's phase (printed before the result)
 SECONDS = {"_last": 0.0}
+# the --mesh 1x1 estimates made ahead (``estimates_ahead``): one_card_
+# estimate's arguments -> a future of the dry-run's record
+AHEAD: dict = {}
 
 
 def emit(phase: str, **kw) -> None:
@@ -1412,6 +1469,11 @@ def bwd_cases(dims=FIRST_HEAD_DIMS):
                 continue                  # in cross_cases, or another pass
             yield (dtype, shape["b"], shape["h"], shape["hkv"], shape["s"],
                    shape["d"], True, shape["window"])
+        # deepseek-coder-33b's group of 7 (56/8) at short lengths, before
+        # the long sweep runs it at 4,096: a ragged length, and a window
+        if 128 in dims:
+            yield dtype, 2, 14, 2, 333, 128, True, 0
+            yield dtype, 1, 7, 1, 1000, 128, True, 100
 
 
 def plain_bwd(q, k, v, out, lse, do, causal: bool, window: int) -> tuple:
@@ -1514,6 +1576,10 @@ def long_bwd_cases():
         yield dtype, 1, 8, 1, s, 256, True, 0
         yield (dtype, 1, *GRANITE_GROUP[:2], s, GRANITE_GROUP[2], True, 0)
         yield dtype, 1, 32, 8, sw, 120, True, w
+    # after the cases above, so that they keep their draws
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv, d in LONG_BWD_GROUPS:
+            yield dtype, 1, hq, hkv, s, d, True, 0
 
 
 def phase_kernel_bwd() -> list:
@@ -2450,9 +2516,9 @@ def serve_plans(cfg, spec: dict, capacity: int) -> tuple:
     if "shapes" not in spec:
         return ({"kind": "prefill", "capacity": capacity},
                 {"kind": "decode", "window": window}, {})
-    b, prompt = spec["batch"], spec["prompt"]
-    pshape, dshape = spec["shapes"]
-    dseq = prompt + spec["new_tokens"] if dshape == "decode_32k" else None
+    jobs = serve_estimates(spec)
+    _, pshape, b, prompt, _ = jobs["prefill"]
+    _, dshape, _, dseq, _ = jobs["decode"]
     pplan = DR.plan_for(cfg, DR.INPUT_SHAPES[pshape], batch=b, seq=prompt,
                         capacity=capacity)
     dplan = DR.plan_for(cfg, DR.INPUT_SHAPES[dshape], batch=b, seq=dseq)
@@ -2460,15 +2526,89 @@ def serve_plans(cfg, spec: dict, capacity: int) -> tuple:
             capacity, window):
         raise AssertionError(f"{cfg.name}: the plan's cache {dplan} is not "
                              f"generate's ({capacity}, {window})")
-    return pplan, dplan, {
-        "prefill": one_card_estimate(cfg, pshape, b, prompt, capacity),
-        "decode": one_card_estimate(cfg, dshape, b, dseq)}
+    return pplan, dplan, {k: one_card_estimate(*jobs[k])
+                          for k in ("prefill", "decode")}
 
 
-def phase_serve(spec: dict, phase: str) -> dict:
+def serve_estimates(spec: dict) -> dict:
+    """The --mesh 1x1 estimates that a serve spec naming the dry-run's
+    ``shapes`` asks for, as ``one_card_estimate``'s arguments (config,
+    shape, batch, sequence, capacity): its prefill and decode plans, and
+    where the spec takes the MoE fp32 reference, that prefill in fp32."""
+    cfg = train_model_config(spec)
+    b, prompt, new = spec["batch"], spec["prompt"], spec["new_tokens"]
+    capacity = spec.get("window", 0) or cfg.num_patches + prompt + new
+    pshape, dshape = spec["shapes"]
+    dseq = prompt + new if dshape == "decode_32k" else None
+    jobs = {"prefill": (cfg, pshape, b, prompt, capacity),
+            "decode": (cfg, dshape, b, dseq, None)}
+    if spec.get("fp32_reference"):
+        jobs["fp32_prefill"] = (cfg.replace(dtype="float32"), pshape, b,
+                                prompt, capacity)
+    return jobs
+
+
+def serve_build(cfg) -> dict:
+    """``cfg``'s model built on the card from seed 0, with what the build
+    took: the allocation before it, its seconds, its peak and
+    ``build_peak``'s check."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return {"model": model, "before": before,
+            "init_s": time.perf_counter() - t0,
+            "init_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "build": build_peak(model, torch.cuda.max_memory_allocated()
+                                - before)}
+
+
+def serve_on_one_build(runs: list) -> list:
+    """Each (spec, phase) of ``runs``, all of one model, through
+    ``phase_serve`` on one build of it; the results in order."""
+    shared = serve_build(train_model_config(runs[0][0]))
+    return [phase_serve(spec, phase, shared, keep=i + 1 < len(runs))
+            for i, (spec, phase) in enumerate(runs)]
+
+
+def decode_across_2_19(model, cache, nxt, window: int) -> dict:
+    """LONG_DECODE_STEPS greedy decode steps of a ring cache whose ``pos`` is
+    set to LONG_DECODE_POS first (long_500k's positions, across 2^19, as
+    tests/test_torch_long_context.py does): host ms a token, every logit
+    finite, every token in the vocabulary."""
+    cache["pos"].fill_(LONG_DECODE_POS)
+    finite_steps, toks = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LONG_DECODE_STEPS):
+        logits, cache = model.decode_step(cache, nxt, window=window)
+        nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        finite_steps.append(torch.isfinite(logits).all())
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / LONG_DECODE_STEPS
+    toks = torch.stack(toks, 1).cpu()
+    pos = cache["pos"].cpu()
+    return {"from_pos": LONG_DECODE_POS, "steps": LONG_DECODE_STEPS,
+            "to_pos": int(pos.min()),
+            "pos_equal": bool((pos == pos[0]).all()),
+            "decode_ms_per_token": ms,
+            "logits_finite": bool(torch.stack(finite_steps).all()),
+            "tokens_in_vocab": bool(((toks >= 0)
+                                     & (toks < model.cfg.vocab_size)).all()),
+            "tokens": toks[0].tolist()}
+
+
+def phase_serve(spec: dict, phase: str, shared: dict = None, *,
+                keep: bool = False) -> dict:
     """Serve ``spec["arch"]`` at full width and depth (``spec["layers"]``
     cuts it) through ``generate``, from a cache of the prompt and the new
-    tokens, or from a ring of ``spec["window"]`` slots.
+    tokens, or from a ring of ``spec["window"]`` slots.  ``shared``: a
+    ``serve_build`` of the model to serve (else one of its own), which
+    ``keep`` leaves for the next run.
 
     The kernels' prefill and one decode step run first, as the dry-run's
     step functions of the spec's plans (for a spec that names the dry-run's
@@ -2495,16 +2635,13 @@ def phase_serve(spec: dict, phase: str) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    model = Model(cfg, device="cuda",
-                  generator=torch.Generator("cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    build = build_peak(model, torch.cuda.max_memory_allocated() - before)
+    built_here = shared is None
+    shared = shared or serve_build(cfg)
+    if shared["model"].cfg != cfg:
+        raise AssertionError(f"{phase}: a build of {shared['model'].cfg.name}"
+                             f" for a run of {cfg.name}")
+    model, before, build = shared["model"], shared["before"], shared["build"]
+    init_s, init_peak_gib = shared["init_s"], shared["init_peak_gib"]
     raw = SyntheticLM(cfg.vocab_size, seed=7).sample(
         np.random.default_rng(0), b, prompt)
     batch = {k: torch.from_numpy(v).cuda()
@@ -2529,9 +2666,12 @@ def phase_serve(spec: dict, phase: str) -> dict:
     nxt = logits[:, -1].argmax(-1).to(torch.int32)
     logits = logits.cpu()                       # the kernels' prefill
     serve_step = DR.make_step_fn(model, dplan)
-    _, decode_step_ms, decode_peak = measured(
+    (step_logits, cache), decode_step_ms, decode_peak = measured(
         lambda: serve_step(params, cache, nxt), before + other + batch_b)
-    del cache, nxt
+    nxt = step_logits[:, -1].argmax(-1).to(torch.int32)
+    del step_logits
+    if not window:
+        del cache, nxt
     peaks = {"prefill": prefill_peak, "decode": decode_peak}
 
     # the counted run, through the entry point
@@ -2542,6 +2682,12 @@ def phase_serve(spec: dict, phase: str) -> dict:
     launched = counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     run_peak = torch.cuda.max_memory_allocated() - before - other
+    # a ring's cache goes on to long_500k's positions: the decode step's
+    # cache, its pos set past the prompt's
+    long_decode = {}
+    if window:
+        long_decode = decode_across_2_19(model, cache, nxt, window)
+        del cache, nxt
 
     moe_run = cfg.arch_type == "moe"
     moe = {}
@@ -2652,16 +2798,21 @@ def phase_serve(spec: dict, phase: str) -> dict:
                      == res.tokens[:, 0]).all())
     n_params = sum(p.numel() for p in model.parameters())
     del model, params
+    if not keep:
+        shared.pop("model")
     gc.collect()
     torch.cuda.empty_cache()
     if moe_run:
         # the fp32 reference needs the room: nothing of this run stays on
         # the card but the prompt (the routing records are on the host)
         why = None
-        if est:
-            need = one_card_estimate(
-                cfg.replace(dtype="float32"), spec["shapes"][0], b, prompt,
-                capacity)["memory"]["peak_est_B"]
+        if est and not spec.get("fp32_reference"):
+            why = "not this run's (SERVE_LONG names the run that takes it)"
+        elif keep:
+            why = "the build stays on the card for the next run"
+        elif est:
+            need = one_card_estimate(*serve_estimates(spec)[
+                "fp32_prefill"])["memory"]["peak_est_B"]
             free = torch.cuda.mem_get_info()[0]
             if need * (1 + REMAT_PEAK_TOL) + 4 * PLAIN_BLOCK_BYTES > free:
                 why = (f"the fp32 prefill's --mesh 1x1 estimate "
@@ -2705,6 +2856,8 @@ def phase_serve(spec: dict, phase: str) -> dict:
          launches=launched, path_launches=path_launches(cfg),
          first_tokens=res.tokens[0, :8].tolist(),
          first_token_is_prefill_argmax=first_ok,
+         build_shared=not built_here,
+         **({"decode_across_2_19": long_decode} if long_decode else {}),
          logits_vs_plain_max_abs_err=logits_err, logits_max_abs=logits_scale,
          logits_vs_plain_share=logits_err / logits_scale,
          logits_tol=SERVE_LOGITS_TOL, logits_gate=gate, **fp32,
@@ -2759,6 +2912,11 @@ def phase_serve(spec: dict, phase: str) -> dict:
     if res.tokens.shape != (b, new) or not (
             (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
         problems.append(f"bad generation {res.tokens.shape}")
+    if long_decode and not (
+            long_decode["logits_finite"] and long_decode["tokens_in_vocab"]
+            and long_decode["pos_equal"] and long_decode["to_pos"]
+            == LONG_DECODE_POS + LONG_DECODE_STEPS > 2 ** 19):
+        problems.append(f"decode across 2^19: {long_decode}")
     if not first_ok:
         problems.append("the first generated tokens are not the argmax of "
                         "the prefill logits")
@@ -4837,7 +4995,7 @@ def record_windows(trainer: Trainer, record: dict) -> None:
     """Each window's size, host ms from its dispatch (after a synchronize)
     to the end of its drain, and its ring, into ``record``; on the pipeline
     backend also the transport's host seconds by kind up to each drain."""
-    record.update(window_ms=[], rings=[], transfer_s=[])
+    record.update(window_ms=[], rings=[], transfer_s=[], dispatched_at=[])
     runner = trainer.window
     transport = getattr(trainer, "transport", None)
     dispatch, drain = runner.dispatch, runner.drain
@@ -4845,6 +5003,7 @@ def record_windows(trainer: Trainer, record: dict) -> None:
     def timed_dispatch(state, stacked, **kw):
         torch.cuda.synchronize()
         record["t0"] = time.perf_counter()
+        record["dispatched_at"].append(record["t0"])
         return dispatch(state, stacked, **kw)
 
     def timed_drain(pending):
@@ -4904,6 +5063,7 @@ def spmd_rank(rank: int, spec: dict) -> dict:
 def spmd_run(spec: dict, plain: dict) -> dict:
     """train_spmd's run on one rank, its plain-version calls counted into
     ``plain``."""
+    entered = time.perf_counter()
     cfg = train_model_config(spec)
     tcfg = dataclasses.replace(
         train_config("checkfree_plus", spec["steps"], stages=spec["stages"],
@@ -4937,7 +5097,18 @@ def spmd_run(spec: dict, plain: dict) -> dict:
     state, hist = trainer.run(batches)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    # the first window's parts, on the host's monotonic clock (one clock
+    # for every process): this process's start (its import of this
+    # module), entering the run's set-up, ``Trainer.run``, the first
+    # window's dispatch and its drain; the transport's host seconds by
+    # kind up to that drain
+    first = {"imported_at": LOADED, "entered_at": entered, "run_at": t0,
+             "dispatched_at": record["dispatched_at"][0],
+             "drained_at": (record["dispatched_at"][0]
+                            + record["window_ms"][0][1] / 1e3),
+             "transfer_s": record["transfer_s"][0]}
     return {"hist": hist, "launched": counts(), "plain": dict(plain),
+            "first_window": first,
             "rings": record["rings"], "window_ms": record["window_ms"],
             "transfer_ms_per_step": transfer_ms_per_step(record),
             "recovery_ms": record["recovery_ms"],
@@ -4950,13 +5121,45 @@ def spmd_run(spec: dict, plain: dict) -> dict:
             "effective_step": state.effective_step}
 
 
+def warm_up_rank(spec: dict) -> float:
+    """One forward and backward of ``spec``'s model cut to 2 layers at the
+    run's microbatch shape (a half of a microbatch, as CheckFree+ runs it),
+    which loads in this process what a step's kernels, cuBLAS and PyTorch
+    need; the seconds it took.  In the pipeline each rank's first step
+    paid for that while the ranks after it waited: the first window took
+    83.2 s, the activation waits growing by ~12 s a stage down the six
+    ranks and the gradient waits by ~12 s a stage back (an NVIDIA H100 80GB
+    HBM3, 700 W), where the ranks now pay it side by side.  Checks
+    nothing; launches are counted from the run's start."""
+    t0 = time.perf_counter()
+    cfg = train_model_config(spec).replace(num_layers=2)
+    model = Model(cfg, device="cuda", weights=False)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    leaves = TR.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    raw = next(make_batches(cfg, batch=spec["microbatch"] // 2,
+                            seq=spec["seq"], seed=0))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in raw.items()}
+    loss, _ = model.loss(params, batch)
+    torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    del model, params, leaves, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
 def spmd_ranks(rank: int, args: tuple) -> dict:
     """One rank of train_spmd and train_spmd_store (a spawned process):
-    train_spmd's run, then every run of train_spmd_store, so that the six
-    processes warm up once (a rank's first window took 66.7-70.3 s where
-    the next took 1.4-7.8 on an NVIDIA H100 80GB HBM3, 700 W)."""
+    ``warm_up_rank``, train_spmd's run, then every run of
+    train_spmd_store, so that the six processes warm up once (a rank's
+    first window took 66.7-70.3 s where the next took 1.4-7.8 on an NVIDIA
+    H100 80GB HBM3, 700 W)."""
     spec, runs = args
+    warm_s = warm_up_rank(spec)
     out = {"spmd": spmd_rank(rank, spec)}
+    out["spmd"]["warm_up_s"] = warm_s
     gc.collect()
     torch.cuda.empty_cache()
     empty_host_cache()
@@ -4988,7 +5191,7 @@ def phase_train_spmd() -> dict:
                 timeout_s=SPMD_RANK_TIMEOUT_S + SPMD_STORE_TIMEOUT_S)
         spawn_s = time.perf_counter() - t0
         totals = {"train_spmd": spmd_report(
-            host, [r["spmd"] for r in ranks], spawn_s)}
+            host, [r["spmd"] for r in ranks], spawn_s, t0)}
         totals.update(store_report(store, [r["store"] for r in ranks],
                                    spawn_s, spawn_mem))
         return totals
@@ -4998,7 +5201,28 @@ def phase_train_spmd() -> dict:
         empty_host_cache()
 
 
-def spmd_report(host: tuple, ranks: list, spawn_s: float) -> dict:
+def first_window_parts(ranks: list, spawned_at: float) -> dict:
+    """Seconds of each rank from the spawn to the first window's drain,
+    by part: the process's start up to its import of this module, the run's
+    set-up (model and Trainer), ``Trainer.run`` up to the first dispatch,
+    the first window, and in it the transport's host seconds by kind;
+    ``warm_up_rank``'s seconds (inside import_to_setup)."""
+    parts = {"spawn_to_import": ("imported_at", "spawned_at"),
+             "import_to_setup": ("entered_at", "imported_at"),
+             "setup": ("run_at", "entered_at"),
+             "run_to_dispatch": ("dispatched_at", "run_at"),
+             "first_window": ("drained_at", "dispatched_at")}
+    stamps = [dict(r["first_window"], spawned_at=spawned_at) for r in ranks]
+    out = {name: [s[end] - s[start] for s in stamps]
+           for name, (end, start) in parts.items()}
+    out["first_window_transfer_s"] = [r["first_window"]["transfer_s"]
+                                      for r in ranks]
+    out["warm_up"] = [r.get("warm_up_s") for r in ranks]
+    return out
+
+
+def spmd_report(host: tuple, ranks: list, spawn_s: float,
+                spawned_at: float) -> dict:
     """train_spmd's gates and line: the ranks' run against the host
     backend's (``host``: ``train_run``'s result).  Returns the launches of
     every rank, summed."""
@@ -5088,6 +5312,7 @@ def spmd_report(host: tuple, ranks: list, spawn_s: float) -> dict:
          merge_device_ms_rank2=ranks[2]["merge_ms"],
          recovery_ms_by_rank=[res["recovery_ms"] for res in ranks],
          run_s_by_rank=[res["run_s"] for res in ranks], spawn_s=spawn_s,
+         first_window_s_by_rank=first_window_parts(ranks, spawned_at),
          spawn="one spawn for train_spmd and train_spmd_store",
          nvidia_smi=smi(),
          timing="host clock from each window's dispatch (after a "
@@ -5119,10 +5344,6 @@ def spmd_report(host: tuple, ranks: list, spawn_s: float) -> dict:
 # name -> (strategy, steps, schedule, RecoveryConfig fields, walls whose
 # observed failure rate is SPMD_STORMY_RATE)
 SPMD_STORE_RUNS = {
-    # the edge stage 0 rolled back from step 5 to the save at 4 (wall 5;
-    # adaptive's rollback at wall 5 is of an inner stage)
-    "checkpoint": ("checkpoint", 6, {5: [0]},
-                   dict(checkpoint_every=4), ()),
     # stage 3 served by its neighbour's memory at wall 2; stages 1 and 2
     # together at wall 4: stage 1's replica lived on stage 2's host, so the
     # disk copy of step 3 serves it
@@ -5131,12 +5352,14 @@ SPMD_STORE_RUNS = {
     "tiered_ckpt": ("tiered_ckpt", 3, {2: [4]}, {}, ()),
     # checkfree merges stage 2 at wall 1; the observed rate on walls 3-5
     # switches to checkpoint (shadow-saving at 4 all along), which rolls
-    # the failure at wall 5 back from step 5 to 4; calm again at wall 6
-    "adaptive": ("adaptive", 7, {1: [2], 5: [3]},
+    # the failure of the edge stage 0 at wall 5 back from step 5 to 4;
+    # calm again at wall 6.  (The checkpoint strategy's own run, an edge
+    # stage rolled back from 5 to 4, went for the script's time: this run
+    # takes the same save and the same rollback through the strategy.)
+    "adaptive": ("adaptive", 7, {1: [2], 5: [0]},
                  dict(checkpoint_every=4), (3, 4, 5)),
 }
-SPMD_STORE_TRACES = {"checkpoint": [1, 2, 3, 4, 5, 5, 6],
-                     "neighbor": [1, 2, 3, 4, 5],
+SPMD_STORE_TRACES = {"neighbor": [1, 2, 3, 4, 5],
                      "tiered_ckpt": [1, 2, 3],
                      "adaptive": [1, 2, 3, 4, 5, 5, 6, 7]}
 SPMD_STORE_LOGS = {"neighbor": [(2, 3, 2, "mem"), (4, 1, 3, "disk"),
@@ -5155,16 +5378,16 @@ SPMD_STORMY_RATE = 0.5
 # check does not depend on the depth: failures, traces, restore logs,
 # switches), and later the runs' steps: each run ends at the first wall
 # that holds its last event's checks (neighbor 5, tiered_ckpt 3, the
-# gathered runs 2, the MoE run 3), and ``checkpoint`` rolls back the edge
-# stage only (an inner stage's rollback is ``adaptive``'s).  Beside the cut,
+# gathered runs 2, the MoE run 3), and the checkpoint strategy's save and
+# edge rollback run inside ``adaptive``'s.  Beside the cut,
 # cut_if_needed still checks that half the host's free memory and disk
 # hold the most saves of the whole state (fp32 masters and moments) that
 # the runs keep at once, one run at a time (each removes its files when it
 # ends): in memory, ``neighbor``'s and ``tiered_ckpt``'s tiers keep_hot = 2
 # snapshots of every stage while they take the next a stage at a time (3
-# bounds it); on disk, ``neighbor``'s save at step 3 (``checkpoint``
-# and ``adaptive`` save once, at 4; ``tiered_ckpt``'s disk
-# cadence, checkpoint_every 100, never fires)
+# bounds it); on disk, ``neighbor``'s save at step 3 (``adaptive`` saves
+# once, at 4; ``tiered_ckpt``'s disk cadence, checkpoint_every 100, never
+# fires)
 SPMD_STORE_LAYERS = 6
 SPMD_STORE_HELD = dict(ram=3, disk=2)
 # the gathered path (InMeshRecover.gathered: host math on the tower
@@ -5530,10 +5753,12 @@ def store_report(store: dict, ranks: list, spawn_s: float,
 def one_card_estimate(cfg, shape: str, batch: int, seq, capacity=None, *,
                       with_cost: bool = False) -> dict:
     """The dry-run's record of ``shape``'s plan at ``--mesh 1x1`` (meta
-    tensors; memory only unless ``with_cost``)."""
-    rec = DR.run_one(cfg.name, shape, mesh="1x1", cfg=cfg, batch=batch,
-                     seq=seq, capacity=capacity, with_cost=with_cost,
-                     verbose=False)
+    tensors; memory only unless ``with_cost``; a train shape under
+    REPRO_REMAT "nothing"): the one ``estimates_ahead`` made, else made
+    here."""
+    job = (cfg, shape, batch, seq, capacity, with_cost)
+    ahead = AHEAD.pop(job, None)
+    rec = ahead.result() if ahead is not None else estimate_job(job)
     if rec["status"] != "ok":
         raise AssertionError(f"the dry-run of {cfg.name} {shape} failed: "
                              f"{rec.get('traceback', rec)}")
@@ -5675,22 +5900,89 @@ def remat_on_off(spec: dict, total: dict) -> None:
 
 def remat_estimate(cfg, batch: int, seq: int) -> dict:
     """The dry-run's record at ``--mesh 1x1`` (meta tensors, "nothing")."""
-    os.environ["REPRO_REMAT"] = "nothing"
     return one_card_estimate(cfg, "train_4k", batch, seq, with_cost=True)
 
 
+def estimate_job(job: tuple) -> dict:
+    """``DR.run_one`` of one (config, shape, batch, sequence, capacity,
+    with_cost); a train shape under REPRO_REMAT "nothing", as train_remat
+    runs it.  Top level, so that a spawned process can run it."""
+    cfg, shape, batch, seq, capacity, with_cost = job
+    remat = os.environ.get("REPRO_REMAT")
+    os.environ["REPRO_REMAT"] = "nothing"
+    try:
+        return DR.run_one(cfg.name, shape, mesh="1x1", cfg=cfg, batch=batch,
+                          seq=seq, capacity=capacity, with_cost=with_cost,
+                          verbose=False)
+    finally:
+        if remat is None:
+            os.environ.pop("REPRO_REMAT", None)
+        else:
+            os.environ["REPRO_REMAT"] = remat
+
+
+def ahead_jobs() -> list:
+    """The estimates that serve_long and train_remat will ask for whatever
+    the card's free memory: each SERVE_LONG run's, and for each REMAT_FULL
+    model its depth-1 and depth-2 probes and its published depth."""
+    jobs = [(*job, False) for spec in (SERVE_LONG_CODER, *SERVE_LONG)
+            for job in serve_estimates(spec).values()]
+    cut = REMAT_ESTIMATE_CUT
+    jobs.append((get_config(cut["arch"]).replace(num_layers=cut["layers"]),
+                 "train_4k", cut["batch"], cut["seq"], None, True))
+    for arch in REMAT_FULL:
+        cfg = get_config(arch)
+        unit = cfg.attn_every if cfg.arch_type == "hybrid" else 1
+        for layers in (unit, 2 * unit, cfg.num_layers):
+            jobs.append((cfg.replace(num_layers=layers), "train_4k",
+                         REMAT_FULL_BATCH, REMAT_FULL_SEQ, None, True))
+    return jobs
+
+
+def quiet_worker() -> None:
+    torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def estimates_ahead():
+    """While inside, one spawned process makes ``ahead_jobs``' estimates
+    (meta tensors on the host's CPU, nothing on the card) while the card
+    runs the phases before them; ``one_card_estimate`` takes each from
+    AHEAD.  They took ~80 s of the script in line.  The process is stopped
+    on the way out."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=quiet_worker)
+    try:
+        for job in ahead_jobs():
+            AHEAD[job] = pool.submit(estimate_job, job)
+        yield
+    finally:
+        AHEAD.clear()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
 def remat_depth(arch: str, free: int) -> tuple:
-    """(config, its estimate): the published depth when its estimate, grown
-    by REMAT_PEAK_TOL, fits ``free`` bytes, else the largest depth that
-    does."""
+    """(config, its estimate, the depths estimated): the published depth
+    when its estimate, grown by REMAT_PEAK_TOL, and REMAT_FIT_SLACK_GIB fit
+    ``free`` bytes, else the largest depth that does, found by
+    ``DR.deepest_fit`` from a few estimates (a hybrid in whole segments of
+    ``attn_every`` layers, the only depths it builds at)."""
     cfg = get_config(arch)
-    for layers in range(cfg.num_layers, 0, -1):
-        cut = cfg.replace(num_layers=layers)
-        rec = remat_estimate(cut, REMAT_FULL_BATCH, REMAT_FULL_SEQ)
-        if rec["memory"]["peak_est_B"] * (1 + REMAT_PEAK_TOL) <= free:
-            return cut, rec
-    raise AssertionError(f"train_remat: no depth of {arch} fits "
-                         f"{free / 1e9:.1f} GB")
+    unit = cfg.attn_every if cfg.arch_type == "hybrid" else 1
+    recs = {}
+
+    def need(n: int) -> float:
+        recs[n * unit] = remat_estimate(cfg.replace(num_layers=n * unit),
+                                        REMAT_FULL_BATCH, REMAT_FULL_SEQ)
+        return (recs[n * unit]["memory"]["peak_est_B"] * (1 + REMAT_PEAK_TOL)
+                + REMAT_FIT_SLACK_GIB * 2**30)
+
+    layers = DR.deepest_fit(need, cfg.num_layers // unit, free) * unit
+    if not layers:
+        raise AssertionError(f"train_remat: no depth of {arch} fits "
+                             f"{free / 1e9:.1f} GB")
+    return cfg.replace(num_layers=layers), recs[layers], sorted(recs)
 
 
 @contextlib.contextmanager
@@ -5910,10 +6202,11 @@ def phase_train_remat() -> dict:
         torch.cuda.empty_cache()
         free = torch.cuda.mem_get_info()[0]
         for arch in REMAT_FULL:
-            cfg, rec = remat_depth(arch, free)
+            cfg, rec, tried = remat_depth(arch, free)
             emit("train_remat", part="estimate", arch=arch,
                  layers=cfg.num_layers,
                  layers_published=get_config(arch).num_layers,
+                 depths_estimated=tried,
                  fits_at_full_depth=(cfg.num_layers
                                      == get_config(arch).num_layers),
                  card_free_b=free, batch=REMAT_FULL_BATCH,
@@ -6164,10 +6457,11 @@ def phase_examples() -> dict:
     return launched
 
 
-def phase_serve_long() -> dict:
+def phase_serve_long(*earlier: dict) -> dict:
     """The flash forward and the SSD scan timed at the long shapes, then
-    every SERVE_LONG run through ``phase_serve``.  Returns the runs'
-    launches summed, the largest errors and the timed rows."""
+    every SERVE_LONG run through ``phase_serve``, consecutive runs of one
+    model on one build.  Returns the runs' launches summed (with those of
+    ``earlier`` serve_long runs), the largest errors and the timed rows."""
     gen = torch.Generator("cuda").manual_seed(29)
     rows = {name: time_fwd(shape, gen, groups=5, per_group=3,
                            plain_groups=1, plain_per_group=1)
@@ -6178,9 +6472,11 @@ def phase_serve_long() -> dict:
     del gen
     gc.collect()
     torch.cuda.empty_cache()
+    runs = list(earlier)
+    for _, group in itertools.groupby(SERVE_LONG, key=lambda s: s["arch"]):
+        runs += serve_on_one_build([(spec, "serve_long") for spec in group])
     total, attn_err, ssd_err = {}, 0.0, 0.0
-    for spec in SERVE_LONG:
-        got = phase_serve(spec, "serve_long")
+    for got in runs:
         for k, n in got["launches"].items():
             total[k] = total.get(k, 0) + n
         attn_err = max(attn_err, got["attn_err"])
@@ -6196,6 +6492,12 @@ def main() -> int:
         return 1
     card = phase_env()
     phase_build()
+    with estimates_ahead():
+        return run_phases(card)
+
+
+def run_phases(card: str) -> int:
+    """Every phase after the build, the kernels line and the result."""
     fwd = phase_kernel()
     dq, dkv = phase_kernel_bwd()
     merge = phase_kernel_merge()
@@ -6214,8 +6516,10 @@ def main() -> int:
     whisper = phase_serve(SERVE_WHISPER, "serve_whisper")
     vlm = phase_serve(SERVE_VLM, "serve_vlm")
     qwen3 = phase_serve(SERVE_QWEN3, "serve_qwen3")
-    coder = phase_serve(SERVE_DEEPSEEK_CODER, "serve_deepseek_coder")
-    long = phase_serve_long()
+    coder, coder_ring = serve_on_one_build(
+        [(SERVE_DEEPSEEK_CODER, "serve_deepseek_coder"),
+         (SERVE_LONG_CODER, "serve_long")])
+    long = phase_serve_long(coder_ring)
     fwd.update(long["fwd_rows"])
     ssd["shapes"].update(long["ssd_rows"])
     ssd["max_abs_err"] = max(ssd["max_abs_err"], ssm["ssd_err"],

@@ -1,8 +1,9 @@
-"""Synthetic token source for serving (numpy only).
+"""Token sources and the batch stream (numpy only).
 
-A copy of ``SyntheticLM`` and ``batch_for`` from ``repro.data.pipeline``: the
-same seed gives the same token stream in both packages, so a prompt drawn
-here is the prompt that ``repro.launch.serve`` would serve.
+A copy of ``SyntheticLM``, ``ByteCorpus`` and ``batch_for`` from
+``repro.data.pipeline``: the same seed gives the same token stream in both
+packages, so a prompt drawn here is the prompt that ``repro.launch.serve``
+would serve.
 ``make_batches`` is the same infinite batch stream, so both trainers see the
 same numpy batches.  :class:`WindowPrefetcher` is a copy of the JAX
 package's: the trainer takes batch ``effective_step`` (or the window from
@@ -56,6 +57,22 @@ class SyntheticLM:
             choice = rng.choice(self.branch, size=batch, p=self.probs)
             cur = self.succ[cur, choice]
         return out
+
+
+class ByteCorpus:
+    """Byte-level random crops from a text file (vocab 256)."""
+
+    def __init__(self, path: str):
+        with open(path, "rb") as f:
+            self.data = np.frombuffer(f.read(), np.uint8).astype(np.int32)
+        if not len(self.data):
+            raise ValueError(f"ByteCorpus: {path} is empty")
+
+    def sample(self, rng: np.random.Generator, batch: int, seq: int,
+               ) -> np.ndarray:
+        n = len(self.data) - seq - 1
+        starts = rng.integers(0, max(n, 1), size=batch)
+        return np.stack([self.data[s:s + seq + 1] for s in starts])
 
 
 def batch_for(cfg: ModelConfig, raw: np.ndarray,

@@ -430,6 +430,45 @@ def run_one(arch: str, shape_name: str, *, mesh: str = "16x16",
     return rec
 
 
+def deepest_fit(need: Callable[[int], float], published: int,
+                budget: float) -> int:
+    """The largest depth in 1..``published`` whose ``need(depth)`` (bytes:
+    an estimate, grown by whatever margin the caller wants) is at most
+    ``budget``, 0 where none is: what a walk down from ``published`` finds,
+    for a need that grows with depth, from a few estimates instead of one
+    a depth.  The estimates at depths 1 and 2 give a line (the estimate
+    grows linearly with depth: tests/test_torch_dryrun.py); where it
+    crosses the budget is the guess, and single steps from the guess find
+    the depth that fits with the next one not fitting (or the published
+    depth).  Each depth is estimated at most once."""
+    seen: Dict[int, float] = {}
+
+    def fits(depth: int) -> bool:
+        if depth not in seen:
+            seen[depth] = need(depth)
+        return seen[depth] <= budget
+
+    if published < 1:
+        raise ValueError(f"deepest_fit: published depth {published}")
+    if published == 1:
+        return int(fits(1))
+    fits(1)
+    fits(2)
+    slope = seen[2] - seen[1]
+    guess = (published if slope <= 0 else
+             1 + int((budget - seen[1]) // slope))
+    depth = min(max(guess, 1), published)
+    if fits(depth):
+        while depth < published and fits(depth + 1):
+            depth += 1
+        return depth
+    while depth > 1:
+        depth -= 1
+        if fits(depth):
+            return depth
+    return 0
+
+
 def _estimate(cfg: ModelConfig, plan: Dict[str, Any], mesh: SH.MeshSpec,
               with_cost: bool) -> Dict[str, Any]:
     kind = plan["kind"]

@@ -2274,16 +2274,19 @@ def test_layerwise_draw_holds_the_result_and_one_layer_on_the_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("window", [8, 7])
-def test_ring_decode_across_2_19_on_card_matches_cpu(window):
-    """qwen3-4b at full width cut to 2 layers, fp32, long_500k's dense
+@pytest.mark.parametrize("arch,window", [("qwen3-4b", 8), ("qwen3-4b", 7),
+                                         ("gemma-2b", 8),
+                                         ("granite-moe-3b-a800m", 8)])
+def test_ring_decode_across_2_19_on_card_matches_cpu(arch, window):
+    """qwen3-4b, gemma-2b (MQA at head dim 256) and granite-moe-3b-a800m
+    (routed) at full width cut to 2 layers, fp32, long_500k's dense
     variant: a ring of ``window`` slots filled by a prompt of the window,
     then ``pos`` set to 524,280 on both devices and 12 decode steps across
     2^19.  The RoPE frequencies are reckoned in float64 and rounded once
     (``layers.rope_freqs``), so both devices rotate by the same fp32
     angles.  Logits at chip_smoke's MODEL_TOL for full-width cuts (d 2560
     products summed in other orders), the rotated keys at 1e-4."""
-    cfg = get_config("qwen3-4b").replace(num_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(num_layers=2, dtype="float32")
     params = Model(cfg, device="cuda",
                    generator=torch.Generator("cuda").manual_seed(0)).params
     cpu = Model(cfg, _to_cpu(params), device="cpu")
@@ -2436,6 +2439,41 @@ def test_backward_past_2048_keys_matches_plain(dtype, s, window):
         assert bool((err <= tol * (1 + w.float().abs())).all()), \
             float(err.max())
         if dtype == torch.bfloat16:
+            excess = _grad_rms_excess(g, w)
+            assert excess <= GRAD_RMS_TOL, excess
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,window", [(2, 14, 2, 333, 0),
+                                               (1, 7, 1, 1000, 100),
+                                               (1, 56, 8, 4096, 0)])
+def test_backward_at_a_group_of_7_matches_plain(dtype, b, hq, hkv, s, window):
+    """deepseek-coder-33b's GQA group of 7 (56/8 x 128), whose seven query
+    heads dK and dV sum over: a ragged length, a window, and its train_4k
+    layer at 4,096 tokens; against the plain backward one kv head's group
+    at a time, at the backward's tolerances and, past 2,048 keys in bf16,
+    chip_smoke's per-row bound."""
+    q, k, v = qkv(53, b, hq, hkv, s, 128, dtype)
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(
+        7), device="cuda").to(dtype)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    before = (FA.launches_dq, FA.launches_dkv)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert (FA.launches_dq, FA.launches_dkv) == (before[0] + 1,
+                                                 before[1] + 1)
+    want = ref.flash_attention_bwd_groups_ref(q, k, v, out, lse, do, True,
+                                              window)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 3e-2}[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= tol * (1 + w.float().abs())).all()), \
+            float(err.max())
+        if dtype == torch.bfloat16 and s > 2048:
             excess = _grad_rms_excess(g, w)
             assert excess <= GRAD_RMS_TOL, excess
 

@@ -308,6 +308,8 @@ def test_plain_backward_with_a_masking_window_matches_jax_vjp():
     (1, 6, 1, 80, 80, 32, True, 33),       # MQA, a window
     (2, 4, 4, 70, 70, 16, True, 64),       # MHA, a window that masks
     (1, 6, 3, 37, 90, 16, False, 0),       # cross-attention
+    (1, 14, 2, 96, 96, 16, True, 0),       # deepseek-coder-33b's group of 7
+    (1, 7, 1, 70, 70, 16, True, 33),       # the same, MQA, a window
 ])
 def test_grouped_plain_backward_equals_the_whole(b, hq, hkv, sq, sk, d,
                                                  causal, window):
@@ -334,7 +336,8 @@ def nbytes(tensors) -> int:
 @pytest.mark.parametrize("arch", ["qwen3-4b", "h2o-danube-3-4b",
                                   "granite-moe-3b-a800m", "mamba2-1.3b",
                                   "zamba2-2.7b", "whisper-large-v3",
-                                  "internvl2-76b"])
+                                  "internvl2-76b", "deepseek-moe-16b",
+                                  "deepseek-coder-33b", "gemma-2b"])
 def test_train_4k_estimate_holds_the_bytes_of_the_real_state(arch):
     """fp32 masters, Adam's m, v and step count, and the batch (int32
     tokens and labels; frames and patches in the compute dtype), as
